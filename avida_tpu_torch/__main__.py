@@ -1,8 +1,9 @@
 """Command line: `python -m avida_tpu_torch [-u N] [-s SEED] [-d DIR]
 [-c CONFIG_DIR] [-set NAME VALUE ...] [--device cuda|cpu]`.
 
-Runs one world on the main path and writes its .dat files.  Systematics
-are not ported, so TPU_SYSTEMATICS defaults to 0 here unless -set.
+Runs one world and writes its .dat files, with the reference's defaults
+(systematics on: the per-update engine; -set TPU_SYSTEMATICS 0 takes the
+packed-resident engine).
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ def main(argv=None) -> int:
 
     from avida_tpu_torch.world import World
     overrides = list(args.overrides)
-    if not any(n == "TPU_SYSTEMATICS" for n, _ in overrides):
-        overrides.append(("TPU_SYSTEMATICS", "0"))
     if args.seed is not None:
         overrides.append(("RANDOM_SEED", str(args.seed)))
     w = World(config_dir=args.config_dir, overrides=overrides,

@@ -1,12 +1,19 @@
-"""Birth engine: the packed-native flush of pending offspring.
+"""Birth engine: the flush of pending offspring, in two layouts.
 
-Counterpart of the torus fast path of avida_tpu/ops/birth.py, run directly
-on the resident kernel planes (ops/packed_chunk.py): target selection and
-conflict resolution on cell-indexed vectors (9 static torus rolls, lowest
-parent index wins), divide mutations on the packed offspring plane, and
-the newborn scatter as roll-selects over the [rows, N] planes.  Same PRNG
-splits, draw shapes and order as the reference, so the flush is bit-exact
-against it (tests/test_torch_birth.py).
+Counterpart of the torus fast path of avida_tpu/ops/birth.py.  Target
+selection and conflict resolution run on cell-indexed vectors (9 static
+torus rolls, lowest parent index wins) for both:
+
+  flush_births_packed  on the resident kernel planes (ops/packed_chunk.py):
+                       divide mutations on the packed offspring plane, the
+                       newborn scatter as roll-selects over [rows, N]
+  flush_births         on the canonical PopulationState (the per-update
+                       engine, ops/update.py), which also appends every
+                       newborn to the systematics ring (nb_*)
+
+Same PRNG splits, draw shapes and order as the reference, so both flushes
+are bit-exact against it (tests/test_torch_birth.py,
+tests/test_torch_update.py).
 """
 
 from __future__ import annotations
@@ -402,6 +409,158 @@ def flush_births_packed(params, st, key, planes, update_no):
         energy_spent=torch.where(b, 0.0, st.energy_spent),
     )
     return (tape_t, off_t, gen_t, ivec, fvec), st
+
+
+# ---- the canonical flush (the per-update engine) ----
+
+# newborn fields written at the target cell with a constant (the
+# reference's const_updates, flush_births); birth_update and cur_bonus
+# are added per call
+_CONST_UPDATES = {
+    "regs": 0, "heads": 0, "stacks": 0, "sp": 0, "active_stack": 0,
+    "read_label": 0, "read_label_len": 0,
+    "mal_active": False, "alive": True, "sterile": False,
+    "input_ptr": 0, "input_buf": 0, "input_buf_n": 0, "output_buf": 0,
+    "cur_task_count": 0, "cur_reaction_count": 0,
+    "time_used": 0, "cpu_cycles": 0, "gestation_start": 0,
+    "child_copied_size": 0, "num_divides": 0,
+    "divide_pending": False, "off_start": 0, "off_len": 0,
+    "off_tape": 0, "off_copied_size": 0, "genotype_id": -1,
+    "insts_executed": 0, "budget_carry": 0,
+    "cost_wait": 0, "ft_paid_lo": 0, "ft_paid_hi": 0,
+    "energy_spent": 0.0,
+    "t_alive": False, "main_tid": 0, "t_ids": 0, "cur_thread": 0,
+    "t_regs": 0, "t_heads": 0, "t_stack": 0, "t_sp": 0,
+    "t_active_stack": 0, "t_rlabel": 0, "t_rlabel_len": 0,
+    "mating_type": -1,
+    "smt_aux": 0, "smt_aux_len": 0, "pmem": 0, "pmem_len": 0,
+    "parasite_active": False, "smt_stacks": 0, "smt_sp": 0, "gstack": 0,
+    "gsp": 0, "smt_head_pos": 0, "inject_pending": False,
+    "inj_mem": 0, "inj_len": 0,
+}
+
+
+def canonical_unsupported_reason(params) -> str | None:
+    """Why this package's canonical flush cannot run `params` (None = it
+    can): it ports the reference's torus fast path, asexual, without
+    demes, energy or population caps, on heads hardware."""
+    from avida_tpu_torch.models.heads import SEM_H_DIVIDE_SEX
+    if any(int(s) == SEM_H_DIVIDE_SEX for s in params.sem):
+        return "sexual birth (divide-sex recombination)"
+    if params.num_demes > 1:
+        return "demes"
+    if params.hw_type != 0:
+        return "non-heads hardware in the birth flush"
+    if params.energy_enabled:
+        return "the energy model in the birth flush"
+    if params.population_cap or params.pop_cap_eldest:
+        return "population caps"
+    if not local_torus_fast_path(params, sexual=False):
+        return ("birth placement off the torus fast path (geometry / "
+                "birth method)")
+    return None
+
+
+def _where_rows(mask, val, dst):
+    """dst with the rows under bool[N] `mask` replaced by `val` (a tensor
+    broadcastable to dst, or a scalar)."""
+    m = mask.reshape((mask.shape[0],) + (1,) * (dst.ndim - 1))
+    if not torch.is_tensor(val):
+        val = torch.tensor(val, dtype=dst.dtype, device=dst.device)
+    return torch.where(m, val.to(dst.dtype), dst)
+
+
+def flush_births(params, st, key, update_no):
+    """Place pending offspring on a canonical PopulationState (the
+    reference's flush_births with use_off_tape=True, torus fast path):
+    divide mutations, placement (lowest parent index wins), the newborn
+    scatter as roll-selects, and the append to the newborn ring
+    (nb_*) that host systematics drains.  Same PRNG splits and draw
+    shapes as the reference.  Every other branch raises."""
+    reason = canonical_unsupported_reason(params)
+    if reason is not None:
+        raise NotImplementedError(
+            f"birth flush: {reason} is not ported to avida_tpu_torch")
+    from avida_tpu_torch.core.state import make_cell_inputs
+    from avida_tpu_torch.ops.interpreter import extract_offspring, pack_tape
+    n, L = st.tape.shape
+    dev = st.tape.device
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    wx, wy = params.world_x, params.world_y
+    ks = prng.split(key, 4)
+    k_place, k_inputs, k_off = ks[0], ks[1], ks[2]
+    pending = st.divide_pending & st.alive
+
+    off_mem, off_len = extract_offspring(params, st, k_off)
+    fresh_inputs = make_cell_inputs(k_inputs, n)
+
+    pending, births, parent_idx, won, dir_idx = fast_torus_placement(
+        params, k_place, pending, st.alive, st.time_used, st.merit)
+    offs_all = _OFFS_2D + (((0, 0),) if params.allow_parent else ())
+
+    def by_parent(x):
+        out = torch.zeros_like(x)
+        for k, (dy, dx) in enumerate(offs_all):
+            out = _where_rows(dir_idx == k, _roll2d(x, dy, dx, wx, wy), out)
+        return out
+
+    cols = torch.arange(L, device=dev)[None, :]
+    same_site = (off_mem == st.genome) | (cols >= off_len[:, None])
+    is_breed_true = (off_len == st.genome_len) & same_site.all(dim=1)
+    if params.death_method == 2:
+        max_exec = params.age_limit * off_len
+    elif params.death_method == 1:
+        max_exec = torch.full_like(off_len, params.age_limit)
+    else:
+        max_exec = torch.full_like(off_len, 2**30)
+
+    parent_updates = {
+        "mem_len": off_len, "genome": off_mem, "genome_len": off_len,
+        "merit": st.merit, "last_task_count": st.last_task_count,
+        "gestation_time": st.gestation_time, "fitness": st.fitness,
+        "last_bonus": st.last_bonus, "last_merit_base": st.last_merit_base,
+        "executed_size": st.executed_size,
+        "copied_size": st.child_copied_size,
+        "generation": st.generation + (
+            0 if params.generation_inc_method == 1 else 1),
+        "max_executed": max_exec, "breed_true": is_breed_true,
+        "parent_id": rows,
+    }
+    new = {name: _where_rows(births, by_parent(src), getattr(st, name))
+           for name, src in parent_updates.items()}
+    new["tape"] = _where_rows(births, pack_tape(new["genome"]), st.tape)
+    consts = dict(_CONST_UPDATES, birth_update=int(update_no),
+                  cur_bonus=float(params.default_bonus))
+    for name, val in consts.items():
+        new[name] = _where_rows(births, val, getattr(st, name))
+    new["inputs"] = _where_rows(births, fresh_inputs, st.inputs)
+
+    cap = st.nb_genome.shape[0]
+    if cap > 0:
+        # append this flush's newborns to the ring; rows past the cap are
+        # dropped but still counted, so the host sees the overflow
+        rank = torch.cumsum(births.to(torch.int32), 0) - 1
+        slot = st.nb_count + rank
+        ok = births & (slot < cap)
+        idx = slot[ok].long()
+
+        def put(ring, vals):
+            ring = ring.clone()
+            ring[idx] = vals[ok].to(ring.dtype)
+            return ring
+
+        new.update(
+            nb_genome=put(st.nb_genome, new["genome"]),
+            nb_len=put(st.nb_len, new["genome_len"]),
+            nb_cell=put(st.nb_cell, rows),
+            nb_parent=put(st.nb_parent, parent_idx),
+            nb_update=put(st.nb_update, torch.full_like(rows, update_no)),
+            nb_count=(st.nb_count + births.sum()).to(torch.int32))
+
+    st = st.replace(**new)
+    # winners and dead parents resume; living losers retry next update
+    cleared = torch.where(won | ~st.alive, False, st.divide_pending)
+    return st.replace(divide_pending=cleared, off_sex=st.off_sex & cleared)
 
 
 def birth_death_masks(alive_before, st, update_no):

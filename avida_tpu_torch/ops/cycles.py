@@ -11,8 +11,9 @@ the kernel's plane layout (organisms on the last axis):
 
 This module keeps that layout byte for byte (pack_state / unpack_state and
 the codecs equal the reference's), the launch wrapper `cycles`, its
-hand-written CUDA kernel (csrc/cycles.cu) and the kernel's plain PyTorch
-version `cycles_reference`.
+hand-written CUDA kernel (csrc/cycles.cu), the kernel's plain PyTorch
+version `cycles_reference`, and `run_cycles`, the per-update engine's
+pack -> launch -> unpack over a lane-permuted canonical state.
 
 Kernel source note.  `cycles` replaces the Pallas kernel built by
 pallas_cycles._make_kernel (launched by _launch_packed / run_packed).  One
@@ -232,14 +233,21 @@ def words_to_flag(words, bit, L):
     return (f << bit).reshape(n, L).to(torch.uint8)
 
 
-def pack_state(params, st, granted):
-    """PopulationState -> (tape_t, off_t, ivec, fvec), identity lane order,
-    lanes padded to the block quantum (padded lanes are dead)."""
+def pack_state(params, st, granted, perm=None):
+    """PopulationState -> (tape_t, off_t, ivec, fvec), lanes padded to the
+    block quantum (padded lanes are dead).  perm (int32[N], lane ->
+    organism) packs organism perm[s] into kernel lane s (the budget-aware
+    lane permutation, ops/update.perm_phase); None = identity."""
     n, L0 = st.tape.shape
     R = params.num_reactions
     B, n_pad, L = dims(params, n, L0)
     NI, LW, IV_COPIED_BM, IV_DYN = layout(params, L)
     dev = st.tape.device
+    idx = None if perm is None else perm.long()
+
+    def rows(x):
+        """x with organism perm[s] in row s: a major-axis gather."""
+        return x if idx is None else x[idx]
 
     def padl(x):
         out = torch.zeros((n_pad,) + tuple(x.shape[1:]), dtype=x.dtype,
@@ -248,18 +256,18 @@ def pack_state(params, st, granted):
         return out
 
     tape_p = torch.zeros((n, L), dtype=torch.uint8, device=dev)
-    tape_p[:, :L0] = st.tape
+    tape_p[:, :L0] = rows(st.tape)
     opc_t = padl(pack_words(tape_p & 63, L)).T.contiguous()
     exec_w = flag_to_words(tape_p, 6, L)
     cop_w = flag_to_words(tape_p, 7, L)
     off_p = torch.zeros((n, L), dtype=torch.uint8, device=dev)
-    off_p[:, :L0] = st.off_tape
+    off_p[:, :L0] = rows(st.off_tape)
     off_t = padl(pack_words(off_p, L)).T.contiguous()
 
     ivec = torch.zeros((NI, n_pad), dtype=torch.int32, device=dev)
 
     def setrow(i, x):
-        ivec[i, :n] = x.to(torch.int32)
+        ivec[i, :n] = rows(x).to(torch.int32)
 
     setrow(IV_MEM_LEN, st.mem_len)
     setrow(IV_ACTIVE_STACK, st.active_stack)
@@ -316,16 +324,21 @@ def pack_state(params, st, granted):
     fvec = torch.zeros((NF, n_pad), dtype=torch.float32, device=dev)
     for i, x in enumerate((st.merit, st.cur_bonus, st.fitness,
                            st.last_bonus, st.last_merit_base)):
-        fvec[i, :n] = x
+        fvec[i, :n] = rows(x)
     return opc_t, off_t, ivec, fvec
 
 
-def unpack_state(params, st, packed, restore_ro=False):
+def unpack_state(params, st, packed, inv=None, restore_ro=False):
     """Kernel layout -> PopulationState, keeping the fields of `st` the
-    planes do not carry.  restore_ro=True also reads back the rows the
+    planes do not carry.  inv (int32[N], organism -> lane) undoes
+    pack_state's perm.  restore_ro=True also reads back the rows the
     kernel never writes but the packed birth flush does (genome_len,
-    copied_size, max_executed, inputs)."""
+    copied_size, max_executed, inputs); the per-update path keeps them
+    from `st`."""
     tape_o, off_o, ivec_o, fvec_o = packed
+    if inv is not None:
+        idx = inv.long()
+        tape_o, off_o, ivec_o, fvec_o = (t[:, idx] for t in packed)
     n, L0 = st.tape.shape
     R = params.num_reactions
     L = tape_o.shape[0] * 4
@@ -514,7 +527,11 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         return (w >> ((pos & 3) * 8)) & 0xFF
 
     def row(i):
-        return iv[i]
+        # a copy: the rows are rewritten in place later in the cycle, and
+        # a name bound here must keep the value of the cycle's start, as
+        # in the reference (a view here let the deferred-write reach see
+        # the advanced write head)
+        return iv[i].clone()
 
     # reach of the previous cycle's deferred tape writes (the reference's
     # pend_b), per lane
@@ -1132,3 +1149,41 @@ def cycles(params, planes, seeds, num_steps, B):
     if planes[0].device.type != "cpu":
         raise ValueError(f"no cycle kernel for device {planes[0].device}")
     return cycles_reference(params, planes, seeds, num_steps, B)
+
+
+def lane_perm_active(params, st) -> bool:
+    """Does the per-update engine pack by the persistent lane permutation?
+    Only with TPU_LANE_PERM > 0 and the packed chunk inactive: resident
+    planes are cell-ordered, and both engines must give each organism the
+    same kernel lane (hence the same random stream)."""
+    if int(params.lane_perm_k) <= 0:
+        return False
+    from avida_tpu_torch.ops import packed_chunk
+    return not packed_chunk.active(params, st)
+
+
+def lane_order(params, st):
+    """(perm, inv) that run_cycles packs and unpacks by: st.lane_perm /
+    lane_inv (refreshed by ops/update.perm_phase) when the permutation is
+    in use, else (None, None), the identity."""
+    if lane_perm_active(params, st):
+        return st.lane_perm, st.lane_inv
+    return None, None
+
+
+def launch(params, planes, key, num_steps, n):
+    """One launch over pack_state's (padded) planes of an n-cell world, in
+    place, with run_packed's per-block seeds of `key`."""
+    B, n_pad, _ = dims(params, n, params.max_memory)
+    return cycles(params, planes, block_seeds(key, n_pad, B), num_steps, B)
+
+
+def run_cycles(params, st, key, granted, num_steps):
+    """One update's cycles on a canonical PopulationState (the per-update
+    engine): pack in lane order, one launch, unpack.  The kernel's random
+    stream is keyed by the lane's offset inside its block, so the lane
+    permutation decides each organism's stream."""
+    perm, inv = lane_order(params, st)
+    planes = pack_state(params, st, granted, perm)
+    launch(params, planes, key, num_steps, st.tape.shape[0])
+    return unpack_state(params, st, planes, inv)

@@ -41,26 +41,45 @@ class PackedChunk:
 
 
 def ineligible_reason(params, nb_ring: bool = False) -> str | None:
-    """Why this configuration cannot run the packed-resident fused chunk
-    (None = it can); the reference's routing gates plus the instruction
-    semantics this package's cycle interpreter covers."""
+    """Why this configuration cannot keep state packed across a chunk
+    (None = it can): the reference's routing predicate, gate for gate and
+    in its words.  `nb_ring`: the state carries a non-empty newborn ring
+    (TPU_SYSTEMATICS=1).  An ineligible configuration runs the per-update
+    engine (ops/update.py)."""
+    from avida_tpu_torch.models.heads import SEM_H_DIVIDE_SEX
     if int(params.packed_chunk) == 0:
         return "TPU_PACKED_CHUNK=0"
-    reason = cycles.unsupported_reason(params)
-    if reason is not None:
-        return reason
+    if params.hw_type != 0 or params.max_cpu_threads > 1:
+        return "non-heads hardware or multi-threaded CPUs (XLA path)"
+    if any(int(s) == SEM_H_DIVIDE_SEX for s in params.sem):
+        return "divide-sex instruction set (recombination is canonical)"
     if not birth_ops.local_torus_fast_path(params, sexual=False):
         return ("birth placement off the torus fast path (geometry / "
                 "birth method / demes / population caps)")
     if params.point_mut_prob > 0 or params.divide_slip_prob > 0:
-        return "point or slip mutations"
+        return "point or slip mutations (per-site sweeps stay canonical)"
     if params.num_global_res or params.num_spatial_res \
             or params.num_deme_res:
-        return "resource pools"
+        return "resource pools (resource_phase reads canonical planes)"
     if params.fault_nan or params.fault_bitflip:
-        return "device-side fault injection"
-    if nb_ring or params.nb_cap:
-        return "systematics newborn ring (TPU_SYSTEMATICS=1)"
+        return "device-side fault injection armed (TPU_FAULT nan:/bitflip:)"
+    if nb_ring:
+        return ("systematics newborn ring in use (TPU_SYSTEMATICS=1; "
+                "newborn-record gathers stay canonical)")
+    return None
+
+
+def active(params, st=None) -> bool:
+    """May this configuration (and state) keep state packed across a
+    chunk?  The ring counts as in use when the state allocates one."""
+    return ineligible_reason(
+        params, st is not None and st.nb_genome.shape[0] > 0) is None
+
+
+def unported_reason(params) -> str | None:
+    """Why the packed route of an eligible configuration is not ported
+    (None = it is): only the fused row-space body with the 8-bit genome
+    plane is."""
     if int(params.packed_fused) == 0:
         return "TPU_PACKED_FUSED=0 (the row-space body is not ported)"
     if int(params.trace_cap):
@@ -70,12 +89,13 @@ def ineligible_reason(params, nb_ring: bool = False) -> str | None:
     return None
 
 
-def engine_report(params) -> dict:
+def engine_report(params, nb_ring: bool = False) -> dict:
     """Which engine this configuration routes to, in the reference's
-    vocabulary ({'engine', 'sub_path', 'packed_bits'})."""
-    reason = ineligible_reason(params)
+    vocabulary: {'engine': 'packed', 'sub_path', 'packed_bits'} or
+    {'engine': 'per-update', 'fallback_reason'}."""
+    reason = ineligible_reason(params, nb_ring)
     if reason is not None:
-        return {"engine": "unsupported", "fallback_reason": reason}
+        return {"engine": "per-update", "fallback_reason": reason}
     return {"engine": "packed", "sub_path": "fused", "packed_bits": 0}
 
 
@@ -128,12 +148,10 @@ def unpack_chunk(params, pc: PackedChunk):
 def launch(params, planes, key, cap):
     """One cycle-kernel launch over the resident planes (in place): pad
     lanes to the block quantum, run, slice back."""
-    tape_t, off_t, ivec, fvec = planes
-    n = tape_t.shape[1]
-    B, n_pad, _ = cycles.dims(params, n, params.max_memory)
-    seeds = cycles.block_seeds(key, n_pad, B)
+    n = planes[0].shape[1]
+    n_pad = cycles.dims(params, n, params.max_memory)[1]
     if n_pad == n:
-        return cycles.cycles(params, planes, seeds, cap, B)
+        return cycles.launch(params, planes, key, cap, n)
 
     def padl(x):
         out = torch.zeros((x.shape[0], n_pad), dtype=x.dtype,
@@ -141,7 +159,7 @@ def launch(params, planes, key, cap):
         out[:, :n] = x
         return out
 
-    out = cycles.cycles(params, tuple(padl(p) for p in planes), seeds, cap, B)
+    out = cycles.launch(params, tuple(padl(p) for p in planes), key, cap, n)
     for dst, src in zip(planes, out):
         dst.copy_(src[:, :n])
     return planes

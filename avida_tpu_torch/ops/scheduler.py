@@ -53,3 +53,29 @@ def compute_budgets_from(params, alive, merit, key):
         return torch.where(alive, k, 0)
 
     raise NotImplementedError(f"SLICING_METHOD {params.slicing_method}")
+
+
+def _f32_total(x):
+    """float32 total of a vector, exactly rounded (accumulated in
+    float64; equal to the reference's float32 reduction while the sum is
+    exact, as it is for integer budgets below 2**24)."""
+    return x.double().sum().to(torch.float32)
+
+
+def block_ceiling(granted, block: int):
+    """Lockstep lane-cycle ceiling of a granted vector under `block`-wide
+    blocking: sum over blocks of block * block max (float32)."""
+    n = granted.shape[0]
+    g = torch.zeros(n + (-n) % block, dtype=granted.dtype,
+                    device=granted.device)
+    g[:n] = granted                   # padded lanes grant 0 cycles
+    bmax = g.reshape(-1, block).max(dim=1).values.to(torch.float32)
+    return _f32_total(bmax * float(block))
+
+
+def block_utilization(granted, block: int):
+    """granted.sum() / block_ceiling: the fraction of lockstep lane-cycles
+    doing useful work (float32; ops/update.perm_phase's early-refresh
+    statistic)."""
+    ceil = block_ceiling(granted, block)
+    return _f32_total(granted.to(torch.float32)) / ceil.clamp(min=1.0)

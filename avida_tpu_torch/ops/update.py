@@ -1,16 +1,27 @@
 """The update loop and its per-update statistics.
 
-Counterpart of avida_tpu/ops/update.py for the packed-resident main path:
-`update_scan` runs a chunk of updates on the resident planes
-(ops/packed_chunk.py) as a Python loop, each update keyed
-fold_in(run_key, update_no) exactly as the reference's lax.scan is, so a
-trajectory does not depend on how the driver chunks the run.
+Counterpart of avida_tpu/ops/update.py.  `update_scan` runs a chunk of
+updates as a Python loop, each update keyed fold_in(run_key, update_no)
+exactly as the reference's lax.scan is, so a trajectory does not depend on
+how the driver chunks the run.  It picks one of two bodies, as the
+reference does:
+
+  packed     the population stays in the kernel's plane layout for the
+             whole chunk (ops/packed_chunk.py)
+  per-update `update_step` on the canonical PopulationState: resources ->
+             schedule -> lane permutation -> run_cycles (pack, kernel,
+             unpack) -> bank -> birth flush (+ point mutations); the
+             engine behind systematics (TPU_SYSTEMATICS=1), whose newborn
+             ring the canonical flush fills
 """
 
 from __future__ import annotations
 
 import torch
 
+from avida_tpu_torch.ops import birth as birth_ops
+from avida_tpu_torch.ops import cycles
+from avida_tpu_torch.ops import scheduler
 from avida_tpu_torch.utils import prng
 
 
@@ -40,6 +51,25 @@ def f32_sum(x):
     return x.double().sum().to(torch.float32)
 
 
+def xla_f32_sum(x):
+    """float32 total of a short vector in the order XLA's CPU reduction
+    takes (measured against jnp.sum up to 128 elements): sequential
+    within blocks of 32, then sequential over the block sums.  Elementwise
+    float32 adds only, so it rounds the same on every device."""
+    n = x.shape[0]
+    nb = max(-(-n // 32), 1)
+    blk = torch.zeros(nb * 32, dtype=torch.float32, device=x.device)
+    blk[:n] = x
+    blk = blk.reshape(nb, 32)
+    acc = blk[:, 0]
+    for j in range(1, 32):
+        acc = acc + blk[:, j]
+    total = acc[0]
+    for b in range(1, nb):
+        total = total + acc[b]
+    return total
+
+
 def light_stats_vals(alive, gestation_time, generation, birth_update,
                      update_no):
     """(ave_gest, ave_gen, n_alive, births) over bare vectors."""
@@ -64,14 +94,154 @@ def update_stats_from(vals, alive_before):
     return births, deaths, dt, ave_gen, n_alive
 
 
+def light_stats(params, st, update_no):
+    """(ave_gest, ave_gen, n_alive, births) of a canonical state."""
+    return light_stats_vals(st.alive, st.gestation_time, st.generation,
+                            st.birth_update, update_no)
+
+
+def update_stats(params, st, alive_before, update_no):
+    """(births, deaths, dt, ave_gen, n_alive) of a canonical state."""
+    return update_stats_from(light_stats(params, st, update_no),
+                             alive_before)
+
+
+# ---- the per-update engine's phases, in update_step's order ----
+
+_RESOURCES_UNPORTED = "resource pools (ROADMAP.md Queue 1 item 12)"
+
+
+def _has_resource_pools(params) -> bool:
+    return bool(params.num_global_res or params.num_spatial_res
+                or params.num_deme_res or any(params.sres_grad_height))
+
+
+def per_update_unported_reason(params) -> str | None:
+    """Why the per-update engine cannot run `params` in this package
+    (None = it can).  The cycle kernel's own gaps are
+    cycles.unsupported_reason."""
+    if _has_resource_pools(params):
+        return _RESOURCES_UNPORTED
+    return birth_ops.canonical_unsupported_reason(params)
+
+
+def resource_phase(params, st, key, update_no):
+    """Resource dynamics: the identity for a world without resource
+    pools, the only kind this package runs."""
+    if _has_resource_pools(params):
+        raise NotImplementedError(
+            f"resource_phase: {_RESOURCES_UNPORTED} are not ported to "
+            f"avida_tpu_torch")
+    return st
+
+
+def schedule_phase(params, st, k_budget):
+    """Merit-proportional budgets plus carry and burst cap: returns
+    (budgets, granted, max_k)."""
+    budgets = scheduler.compute_budgets_from(params, st.alive, st.merit,
+                                             k_budget)
+    return schedule_grant(params, budgets, st.budget_carry)
+
+
+def perm_phase(params, st, granted, update_no):
+    """Refresh the persistent lane permutation (st.lane_perm / lane_inv)
+    that run_cycles packs by.  K = TPU_LANE_PERM: K == 1 sorts by this
+    update's granted budgets every update; K > 1 sorts by merit on
+    update_no % K == 0, or earlier when the current permutation's block
+    utilization falls under TPU_LANE_PERM_MIN_UTIL.  The sort is stable
+    (budgets tie massively, and the order decides each organism's
+    kernel lane, hence its random stream).  No host sync."""
+    if not cycles.lane_perm_active(params, st):
+        return st
+    K = int(params.lane_perm_k)
+    n = granted.shape[0]
+    key_vec = granted if K == 1 else torch.where(st.alive, st.merit, -1.0)
+    p = torch.argsort(key_vec, stable=True).to(torch.int32)
+    inv = torch.empty_like(p)
+    inv[p.long()] = torch.arange(n, dtype=torch.int32, device=p.device)
+    if K > 1:
+        block = cycles.dims(params, n, params.max_memory)[0]
+        util = scheduler.block_utilization(granted[st.lane_perm.long()],
+                                           block)
+        refresh = (util < float(params.lane_perm_min_util)) \
+            | bool(update_no % K == 0)
+        p = torch.where(refresh, p, st.lane_perm)
+        inv = torch.where(refresh, inv, st.lane_inv)
+    return st.replace(lane_perm=p, lane_inv=inv)
+
+
+def interpret_phase(params, st, k_steps, granted, cap):
+    """The update's cycles: one kernel launch through run_cycles."""
+    return cycles.run_cycles(params, st, k_steps, granted, int(cap))
+
+
+def bank_phase(params, st, budgets, executed0):
+    """Bank unexecuted budget.  Returns (st, executed this update)."""
+    executed_this = st.insts_executed - executed0
+    carry = torch.clamp(budgets - executed_this, 0,
+                        100 * params.ave_time_slice)
+    st = st.replace(budget_carry=torch.where(st.alive, carry, 0).to(
+        torch.int32))
+    return st, executed_this.sum().to(torch.int32)
+
+
+def point_mutation_sweep(params, st, key):
+    """Per-site point mutations once per update (Avida2Driver.cc:146-155
+    -> cHardwareBase::PointMutate cc:1087); flag bits are kept."""
+    from avida_tpu_torch.ops.interpreter import random_inst
+    n, L = st.tape.shape
+    u = prng.uniform(key, (n, L))
+    r = random_inst(params, prng.fold_in(key, 1), (n, L)).to(torch.uint8)
+    in_genome = torch.arange(L, device=st.tape.device)[None, :] \
+        < st.mem_len[:, None]
+    hit = (u < torch.tensor(params.point_mut_prob, dtype=torch.float32)) \
+        & in_genome & st.alive[:, None]
+    mutated = (st.tape & 0xC0) | r
+    return st.replace(tape=torch.where(hit, mutated, st.tape))
+
+
+def birth_phase(params, st, k_birth, k_steps, update_no):
+    """The canonical birth flush, then the point-mutation sweep."""
+    st = birth_ops.flush_births(params, st, k_birth, update_no)
+    if params.point_mut_prob > 0:
+        st = point_mutation_sweep(params, st,
+                                  prng.fold_in(k_steps, 0x7FFFFFFF))
+    return st
+
+
+def update_step(params, st, key, update_no):
+    """One update of the per-update engine.  Returns (st',
+    executed_this_update)."""
+    ks = prng.split(key, 3)
+    k_budget, k_steps, k_birth = ks[0], ks[1], ks[2]
+    st = resource_phase(params, st, key, update_no)
+    budgets, granted, _ = schedule_phase(params, st, k_budget)
+    st = perm_phase(params, st, granted, update_no)
+    executed0 = st.insts_executed
+    st = interpret_phase(params, st, k_steps, granted, static_cap(params))
+    st, executed = bank_phase(params, st, budgets, executed0)
+    st = birth_phase(params, st, k_birth, k_steps, update_no)
+    return st, executed
+
+
 def update_scan(params, st, chunk, run_key, u0):
-    """Run `chunk` consecutive updates from update u0 on the packed-
-    resident planes: pack once, update, unpack once.  Returns the new
-    state and per-update vectors (executed, births, deaths, dt, ave_gen,
-    n_alive), each of length `chunk`, on the state's device."""
+    """Run `chunk` consecutive updates from update u0.  The packed body
+    (pack once, update, unpack once) when the configuration qualifies,
+    else update_step per update.  Returns the new state and per-update
+    vectors (executed, births, deaths, dt, ave_gen, n_alive), each of
+    length `chunk`, on the state's device."""
     from avida_tpu_torch.ops import packed_chunk
-    pc = packed_chunk.pack_chunk(params, st)
     outs = []
+    if not packed_chunk.active(params, st):
+        for i in range(chunk):
+            k = prng.fold_in(run_key, u0 + i)
+            alive_before = st.alive.sum().to(torch.int32)
+            st, executed = update_step(params, st, k, u0 + i)
+            outs.append((executed,) + update_stats(params, st, alive_before,
+                                                   u0 + i))
+        return st, tuple(torch.stack([o[j] for o in outs])
+                         for j in range(6))
+    pc = packed_chunk.pack_chunk(params, st)
     for i in range(chunk):
         k = prng.fold_in(run_key, u0 + i)
         alive_before = packed_chunk.alive_rows(pc.ivec).sum().to(torch.int32)

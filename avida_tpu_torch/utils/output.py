@@ -3,7 +3,8 @@
 Reproduces the reference's data-file format (Avida::Output::File,
 avida-core/source/output/File.cc:102-212: `#` header with numbered column
 descriptions, then space-separated rows) for the standard print actions
-(PrintAverageData / PrintCountData / PrintTasksData / PrintTimeData, from the
+(PrintAverageData / PrintCountData / PrintTasksData / PrintTimeData /
+PrintDominantData, from the
 244-action print library, avida-core/source/actions/PrintActions.cc); the
 counterpart of avida_tpu/utils/output.py.
 """
@@ -87,3 +88,18 @@ def open_time_dat(data_dir: str, append: bool = False) -> DatFile:
     return DatFile(
         os.path.join(data_dir, "time.dat"), "Avida time data",
         ["update", "avida time", "average generation", "num_executed?"], append=append)
+
+
+def open_dominant_dat(data_dir: str, append: bool = False) -> DatFile:
+    return DatFile(
+        os.path.join(data_dir, "dominant.dat"), "Avida Dominant Data",
+        ["Update", "Average Merit of the Dominant Genotype",
+         "Average Gestation Time of the Dominant Genotype",
+         "Average Fitness of the Dominant Genotype",
+         "Repro Rate?", "Size of Dominant Genotype",
+         "Copied Size of Dominant Genotype",
+         "Executed Size of Dominant Genotype", "Abundance of Dominant Genotype",
+         "Number of Births", "Number of Dominant Breed True?",
+         "Dominant Gene Depth", "Dominant Breed In?",
+         "Max Fitness?", "Genotype ID of Dominant Genotype",
+         "Name of the Dominant Genotype"], append=append)

@@ -1,12 +1,15 @@
 """World: the host-side composition root and update driver.
 
 Counterpart of avida_tpu/world.py for the main path: one solo world of
-heads-CPU organisms, the packed-resident update engine (ops/update.py),
-the standard events (Inject, InjectAll, Exit, PrintAverageData,
-PrintCountData, PrintTasksData, PrintTimeData) and their .dat files.
-Anything outside that path (systematics, checkpoints, telemetry, other
-birth methods, resources, ...) raises NotImplementedError naming the
-feature instead of running something else.
+heads-CPU organisms, run by the packed-resident engine or, when the
+reference would not take it (systematics on, its default), the per-update
+engine (ops/update.py); the live phylogeny (systematics/) fed from the
+device's newborn ring through the reference's deferred drain; the standard
+events (Inject, InjectAll, Exit, PrintAverageData, PrintCountData,
+PrintTasksData, PrintTimeData, PrintDominantData) and their .dat files.
+Anything outside that path (checkpoints, telemetry, other birth methods,
+resources, ...) raises NotImplementedError naming the feature instead of
+running something else.
 
 Runs on `cuda` unless the caller passes device="cpu"; with neither a GPU
 nor an explicit device it raises.
@@ -28,8 +31,10 @@ from avida_tpu_torch.config.events import parse_event_line
 from avida_tpu_torch.config.schema import _parse_scalar
 from avida_tpu_torch.core.state import (init_population, make_cell_inputs,
                                         make_world_params, seed_organism)
-from avida_tpu_torch.ops import packed_chunk
-from avida_tpu_torch.ops.update import f32_sum, summarize, update_scan
+from avida_tpu_torch.ops import cycles, packed_chunk
+from avida_tpu_torch.ops import update as update_ops
+from avida_tpu_torch.ops.update import summarize, update_scan
+from avida_tpu_torch.systematics import GenotypeArbiter
 from avida_tpu_torch.utils import output as output_mod
 from avida_tpu_torch.utils import prng
 
@@ -44,7 +49,7 @@ _DEFAULT_ANCESTOR_NAMES = (
 # config switches whose features this package does not run yet:
 # (name, the reference's default, values that keep the feature off)
 _OFF_SWITCHES = (
-    ("TPU_SYSTEMATICS", 1, (0,)), ("TPU_TELEMETRY", 0, (0,)),
+    ("TPU_TELEMETRY", 0, (0,)),
     ("TPU_TRACE", 0, (0,)), ("TPU_METRICS", 0, (0,)),
     ("TPU_PROFILE", 0, (0,)), ("TPU_ANALYTICS", 0, (0,)),
     ("TPU_STATE_DIGEST", 0, (0,)), ("TPU_SCRUB_EVERY", 0, (0,)),
@@ -163,11 +168,7 @@ class World:
             self._check_action(ev.action)
 
         self.params = make_world_params(cfg, self.instset, self.environment)
-        reason = packed_chunk.ineligible_reason(self.params)
-        if reason is not None:
-            raise NotImplementedError(
-                f"{reason}: not ported to avida_tpu_torch yet (it runs the "
-                f"packed-resident engine only)")
+        self._check_engine()
 
         seed = (cfg.RANDOM_SEED if cfg.RANDOM_SEED >= 0
                 else int.from_bytes(os.urandom(4), "little"))
@@ -191,11 +192,36 @@ class World:
         self._events_done_for = None
         self._gen_next = {}
         self._summary_cache_update = None
+        self._nb_pending = None      # deferred newborn-drain snapshot
+        self._last_drain_update = 0
+        # live phylogeny (ref Systematics::GenotypeArbiter)
+        self.systematics = (GenotypeArbiter(self.params.num_cells)
+                            if cfg.get("TPU_SYSTEMATICS", 1) else None)
+
+    def _check_engine(self):
+        """Route as the reference does (packed_chunk.ineligible_reason)
+        and refuse, by name, what the chosen engine does not port."""
+        p = self.params
+        reason = cycles.unsupported_reason(p)
+        if reason is None:
+            fallback = packed_chunk.ineligible_reason(p, p.nb_cap > 0)
+            if fallback is None:
+                reason = packed_chunk.unported_reason(p)
+                engine = "the packed engine"
+            else:
+                reason = update_ops.per_update_unported_reason(p)
+                engine = f"the per-update engine, taken for {fallback}"
+            if reason is not None:
+                reason = f"{reason} (in {engine})"
+        if reason is not None:
+            raise NotImplementedError(
+                f"{reason}: not ported to avida_tpu_torch yet")
 
     # ---- event actions ----
 
     _ACTIONS = ("Inject", "InjectAll", "Exit", "PrintAverageData",
-                "PrintCountData", "PrintTasksData", "PrintTimeData")
+                "PrintCountData", "PrintTasksData", "PrintTimeData",
+                "PrintDominantData")
 
     def _check_action(self, action):
         if action not in self._ACTIONS:
@@ -234,6 +260,8 @@ class World:
         else:
             self.state = seed_organism(self.params, self.state, genome, k,
                                        cell)
+        if self.systematics is not None:
+            self.systematics.classify_seed(cell, genome, update=self.update)
 
     def _action_Inject(self, args):
         self.inject(self._resolve_org_path(args[0]) if args else None)
@@ -242,7 +270,11 @@ class World:
         """An organism in every cell (ref cActionInjectAll)."""
         genome = self._resolve_org_path(args[0]) if args else None
         if self.state is None:
+            # bootstrap state only: the blanket reseed below covers cell 0,
+            # so this inject is not classified (no double record)
+            sysm, self.systematics = self.systematics, None
             self.inject(genome, cell=0)
+            self.systematics = sysm
         g = genome if genome is not None else default_ancestor(self.instset)
         n, L = self.params.num_cells, self.params.max_memory
         glen = len(g)
@@ -250,6 +282,8 @@ class World:
         gm[:glen] = g
         k = self._split_key()
         self.state = self._clone_all(gm, glen, k)
+        if self.systematics is not None:
+            self.systematics.classify_seed_all(g, update=self.update)
 
     def _clone_all(self, gm, glen, key):
         """InjectClone / SetupClone on every cell (the reference's
@@ -312,13 +346,16 @@ class World:
         s = self._summary()
         f = self._file("average", output_mod.open_average_dat)
         n = max(int(s["num_organisms"]), 1)
+        sysm = self.systematics
+        abundance = (n / max(sysm.num_genotypes, 1)) if sysm else 0.0
+        depth = sysm.average_depth() if sysm else 0.0
         births = int(s["births_this_update"])
         f.write_row([
             self.update, float(s["ave_merit"]), float(s["ave_gestation"]),
             float(s["ave_fitness"]), float(s["ave_repro_rate"]),
             float(s["ave_genome_len"]), float(s["ave_copied_size"]),
-            float(s["ave_executed_size"]), 0.0,
-            births / n, int(s["num_breed_true"]) / n, 0.0,
+            float(s["ave_executed_size"]), abundance,
+            births / n, int(s["num_breed_true"]) / n, depth,
             float(s["ave_generation"]), 0.0, 0,
             births / n])
 
@@ -329,11 +366,53 @@ class World:
         insts_this_update = total - self._insts_prev_total
         self._insts_prev_total = total
         n = int(s["num_organisms"])
+        sysm = self.systematics
+        num_gt = sysm.num_genotypes if sysm else 0
+        num_thr = sysm.num_threshold if sysm else 0
         births = int(s["births_this_update"])
         breed_true = int(s["num_breed_true"])
-        f.write_row([self.update, insts_this_update, n, 0, 0,
+        f.write_row([self.update, insts_this_update, n, num_gt, num_thr,
                      0, 0, 0, births, int(self._deaths_this), breed_true,
                      breed_true, int(s["num_no_birth"]), n, 0, 0])
+
+    def _action_PrintDominantData(self, args):
+        """dominant.dat: the most abundant live genotype with reductions
+        over its living cells (ref PrintDominantData,
+        actions/PrintActions.cc)."""
+        if self.systematics is None:
+            return
+        g = self.systematics.dominant()
+        if g is None:
+            return
+        f = self._file("dominant", output_mod.open_dominant_dat)
+        st = self.state
+
+        def col(name):
+            return getattr(st, name).cpu().numpy()
+
+        member = (self.systematics.cell_gid == g.gid) & col("alive")
+        cells = np.nonzero(member)[0]
+        if cells.size:
+            merit = float(col("merit")[cells].mean())
+            gest = float(col("gestation_time")[cells].mean())
+            fit = float(col("fitness")[cells].mean())
+            copied = float(col("copied_size")[cells].mean())
+            execd = float(col("executed_size")[cells].mean())
+            max_fit = float(col("fitness")[cells].max())
+            births = int((col("birth_update")[cells]
+                          == self.update - 1).sum())
+            breed_true = int(col("breed_true")[cells].sum())
+        else:
+            merit = gest = fit = copied = execd = max_fit = 0.0
+            births = breed_true = 0
+        # reference names are "<size>-<base26>" (e.g. 100-aaaaa)
+        name = f"{g.length}-" + "".join(
+            chr(ord("a") + (g.gid // 26**k) % 26) for k in range(4, -1, -1))
+        f.write_row([
+            self.update, merit, gest, fit,
+            (1.0 / gest if gest else 0.0), g.length, copied, execd,
+            g.num_units, births, breed_true, g.depth, 0, max_fit, g.gid,
+            name])
 
     def _action_PrintTasksData(self, args):
         s = self._summary()
@@ -380,23 +459,33 @@ class World:
     # ---- the update loop (Avida2Driver::Run equivalent) ----
 
     def _scan_updates(self, k: int):
-        """Run k updates through the packed-resident engine; returns the
-        per-update executed-instruction vector (device tensor)."""
+        """Run k updates through the routed engine (ops/update.update_scan);
+        returns the per-update executed-instruction vector (device
+        tensor)."""
         if self.state is None:
             raise RuntimeError("no population injected")
         self.state, (executed, births, deaths, dts, ave_gens, n_alive) = \
             update_scan(self.params, self.state, k, self._run_key,
                         self.update)
         # avida time advances by 1/ave_gestation per update
-        self._avida_time = self._avida_time + f32_sum(dts)
+        self._avida_time = self._avida_time + update_ops.xla_f32_sum(dts)
         self._last_ave_gen = ave_gens[-1]
         self._deaths_this = deaths[-1]
         self._total_births = self._total_births + births.sum()
         return executed
 
     def run_updates(self, k: int):
+        """k updates as one stretch; advances self.update by k."""
         executed = self._scan_updates(k)
         self.update += k
+        return executed
+
+    def run_update(self):
+        """ONE update plus the synchronous systematics feed (does not
+        advance self.update; the caller does)."""
+        executed = self._scan_updates(1)
+        if self.systematics is not None:
+            self._feed_systematics()
         return executed
 
     def _chunkable(self) -> bool:
@@ -405,11 +494,12 @@ class World:
 
     def _plan_stretch(self, max_updates, max_stretch: int) -> int:
         """Length of the next event-free stretch: power-of-two buckets up
-        to 128 updates (and TPU_MAX_STRETCH), the reference's planner."""
+        to 128 updates (8 with systematics on, bounding the newborn drain;
+        and TPU_MAX_STRETCH), the reference's planner."""
         due = self._next_event_due()
         if max_updates is not None:
             due = min(due, max_updates)
-        cap_stretch = 128.0
+        cap_stretch = 128.0 if self.systematics is None else 8.0
         if max_stretch > 0:
             cap_stretch = min(cap_stretch, float(max_stretch))
         gap = int(max(1.0, min(due - self.update, cap_stretch)))
@@ -429,6 +519,118 @@ class World:
                     nxt = min(nxt, cand)
         return nxt
 
+    # ---- the systematics drain (the reference's deferred pipeline) ----
+
+    _NB_SNAP_FIELDS = ("nb_count", "nb_genome", "nb_len", "nb_cell",
+                       "nb_parent", "nb_update", "alive", "birth_update",
+                       "genome", "genome_len", "parent_id")
+
+    def _snapshot_newborns(self, copy: bool = True):
+        """Everything the drain reads (the newborn ring and the arrays the
+        overflow fallback scans), with the live ring counter zeroed.
+        copy=True takes device-side copies, which the host ingests one
+        stretch later, after the next stretch has been dispatched;
+        copy=False hands over the live tensors for a drain right now."""
+        st = self.state
+        snap = {name: (getattr(st, name).clone() if copy
+                       else getattr(st, name))
+                for name in self._NB_SNAP_FIELDS}
+        snap["update_at"] = self.update
+        snap["win_start"] = self._last_drain_update
+        self._last_drain_update = self.update
+        self.state = st.replace(nb_count=torch.zeros_like(st.nb_count))
+        return snap
+
+    def _flush_newborn_drain(self):
+        """Ingest any deferred snapshot now (a host sync point): at event
+        boundaries, before a single-update step, before pruning and at
+        run exit, so the phylogeny is current and drains stay in update
+        order."""
+        snap, self._nb_pending = self._nb_pending, None
+        if snap is not None:
+            self._feed_systematics(snap)
+
+    def _events_fire_now(self) -> bool:
+        """Does any event fire at the current update?  (Generation and
+        births triggers count as always due.)"""
+        for ev in self.events:
+            if ev.trigger == "update":
+                if ev.fires_at(self.update):
+                    return True
+            elif ev.trigger == "immediate":
+                if self.update == 0:
+                    return True
+            else:
+                return True
+        return False
+
+    def _feed_systematics(self, snap=None):
+        """Drain the newborn ring into the host phylogeny, one group per
+        update in update order.  When more births arrived than the ring
+        holds, the dropped tail is recovered from a state scan of the
+        window (newborns overwritten later and dead are lost) with a
+        warning.  snap: a deferred snapshot; None reads the live state."""
+        if snap is None:
+            snap = self._snapshot_newborns(copy=False)
+
+        def host(x):
+            return x.cpu().numpy()
+
+        count = int(snap["nb_count"])
+        cap = snap["nb_genome"].shape[0]
+        alive = host(snap["alive"])
+        overflow = count > cap
+        if overflow:
+            print(f"[avida_tpu_torch] warning: newborn buffer overflow "
+                  f"({count} > {cap}); recovering surviving births from a "
+                  f"state scan (overwritten-then-dead newborns are lost "
+                  f"this window)", file=sys.stderr)
+            count = cap
+        if not count:
+            self.systematics.process(
+                snap["update_at"], alive, np.zeros(0, np.int64),
+                np.zeros((0, self.params.max_memory), np.int8),
+                np.zeros(0, np.int32), np.zeros(0, np.int32))
+            return
+        genomes = host(snap["nb_genome"][:count])
+        lens = host(snap["nb_len"][:count])
+        cells = host(snap["nb_cell"][:count])
+        parents = host(snap["nb_parent"][:count])
+        updates = host(snap["nb_update"][:count])
+        if overflow:
+            # births inside the window that the ring dropped still hold
+            # their cell unless overwritten: recover them from the state
+            bu = host(snap["birth_update"])
+            in_window = alive & (bu >= max(snap["win_start"], 0))
+            recorded = set(zip(cells.tolist(), updates.tolist()))
+            extra = np.asarray([c for c in np.nonzero(in_window)[0]
+                                if (int(c), int(bu[c])) not in recorded],
+                               np.int64)
+            if extra.size:
+                idx = torch.from_numpy(extra).to(snap["genome"].device)
+                genomes = np.concatenate(
+                    [genomes, host(snap["genome"][idx])])
+                lens = np.concatenate(
+                    [lens, host(snap["genome_len"][idx])])
+                cells = np.concatenate([cells, extra])
+                parents = np.concatenate(
+                    [parents, host(snap["parent_id"])[extra]])
+                updates = np.concatenate([updates, bu[extra]])
+                order = np.argsort(updates, kind="stable")
+                genomes, lens, cells, parents, updates = (
+                    genomes[order], lens[order], cells[order],
+                    parents[order], updates[order])
+                count += extra.size
+        # one group per update; deaths resolve against the end-of-window
+        # occupancy for every group
+        start = 0
+        for i in range(1, count + 1):
+            if i == count or updates[i] != updates[start]:
+                self.systematics.process(
+                    int(updates[start]), alive, cells[start:i],
+                    genomes[start:i], lens[start:i], parents[start:i])
+                start = i
+
     def run(self, max_updates: int | None = None) -> int:
         """Run until Exit or `max_updates`; returns the instructions
         executed by this call."""
@@ -443,14 +645,34 @@ class World:
             while not self._exit:
                 if max_updates is not None and self.update >= max_updates:
                     break
+                if self._nb_pending is not None and self._events_fire_now():
+                    # the phylogeny must be current before a Print reads it
+                    self._flush_newborn_drain()
                 self.process_events()
                 if self._exit:
                     break
                 stretch = (self._plan_stretch(max_updates, max_stretch)
                            if can_chunk else 1)
-                self._pending_exec.append(self.run_updates(stretch))
+                if stretch > 1:
+                    self._pending_exec.append(self.run_updates(stretch))
+                    if self.systematics is not None:
+                        # snapshot this stretch's newborns (device copies),
+                        # then ingest the previous stretch's snapshot
+                        # while this one's work is queued on the device
+                        prev, self._nb_pending = (self._nb_pending,
+                                                  self._snapshot_newborns())
+                        if prev is not None:
+                            self._feed_systematics(prev)
+                else:
+                    self._flush_newborn_drain()
+                    self._pending_exec.append(self.run_update())
+                    self.update += 1
                 if len(self._pending_exec) >= 256:
                     self._flush_exec()
+                if self.systematics is not None and self.update % 100 == 0:
+                    self._flush_newborn_drain()
+                    self.systematics.prune_extinct(keep_ancestry=True)
+            self._flush_newborn_drain()
         finally:
             for f in self._files.values():
                 try:
@@ -468,4 +690,7 @@ class World:
         return int(self.state.alive.sum())
 
     def engine_report(self) -> dict:
-        return packed_chunk.engine_report(self.params)
+        """Which engine runs this world and why, in the reference's
+        vocabulary (packed_chunk.engine_report)."""
+        return packed_chunk.engine_report(self.params,
+                                          self.params.nb_cap > 0)

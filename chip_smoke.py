@@ -2,13 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the cycle kernel from avida_tpu_torch/csrc, holds it bit for bit
-against its plain PyTorch version on full-width planes, drives the main
-path (World.run on a 320x320 world seeded everywhere with the default
-ancestor, packed-resident engine) and checks that every update launched
-the kernel.  Each phase prints one JSON line; the last line is
-{"ok": true, "device": {...}}.  Any failure exits non-zero before that
-line.  Needs a CUDA device: without one it exits 2 and prints no result.
+Builds the cycle kernel from avida_tpu_torch/csrc, then drives two paths
+of World.run on a 320x320 world seeded everywhere with the default
+ancestor, and checks that every update of each launched the kernel:
+
+  main_path     TPU_SYSTEMATICS=0: the packed-resident engine
+  default_path  the reference's default, systematics on: the per-update
+                engine (lane-permuted run_cycles, canonical birth flush,
+                newborn ring, host phylogeny drain)
+
+On each path's evolved state it holds the kernel bit for bit against its
+plain PyTorch version and times the path's own phase functions; small
+worlds run on the card and on the CPU must end identical.  Each phase
+prints one JSON line; the last line is {"ok": true, "device": {...}}.
+Any failure exits non-zero before that line.  Needs a CUDA device:
+without one it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -57,7 +65,8 @@ def make_world(side, data_dir, device, events, extra=None, config_dir=None):
     from avida_tpu_torch import convert
     from avida_tpu_torch.world import World
     vals = dict(WORLD_X=side, WORLD_Y=side, RANDOM_SEED=11,
-                TPU_SYSTEMATICS=0, **(extra or {}))
+                TPU_SYSTEMATICS=0)
+    vals.update(extra or {})
     if config_dir is None:
         w = World(cfg=convert.config_from_dict(vals), data_dir=data_dir,
                   device=device)
@@ -111,23 +120,40 @@ def reseed_mixed(w):
 
 
 CROSS_CASES = (
-    # (name, side, updates, extra config, custom environment, mixed programs)
-    ("default", 8, 24, {}, False, False),
+    # (name, side, updates, extra config, custom environment, mixed
+    # programs, print every n updates (0 = no .dat files))
+    ("default", 8, 24, {}, False, False, 0),
     ("mixed", 12, 16, dict(BASE_MERIT_METHOD=5, DIVIDE_METHOD=0,
                            GENERATION_INC_METHOD=0, REQUIRE_ALLOCATE=0,
-                           COPY_MUT_PROB=0.05), True, True),
-    ("capped", 8, 24, dict(TPU_MAX_STEPS_PER_UPDATE=25), False, True),
+                           COPY_MUT_PROB=0.05), True, True, 0),
+    ("capped", 8, 24, dict(TPU_MAX_STEPS_PER_UPDATE=25), False, True, 0),
+    ("systematics", 8, 16, dict(TPU_SYSTEMATICS=1), False, False, 4),
 )
+PRINTS = ("PrintAverageData", "PrintCountData", "PrintTasksData",
+          "PrintTimeData", "PrintDominantData")
+
+
+def dat_bodies(data_dir):
+    """{file: lines} of a run's .dat files, without the header's date."""
+    out = {}
+    for f in sorted(os.listdir(data_dir)):
+        if f.endswith(".dat"):
+            with open(os.path.join(data_dir, f)) as fh:
+                lines = fh.read().splitlines()
+            out[f] = lines[:1] + lines[2:]
+    return out
 
 
 def phase_cross_device(tmp, devices=("cuda", "cpu")):
     """Small worlds run on the card and on the CPU (the plain versions)
-    must end in identical states: the whole update path, kernel included,
-    against its plain PyTorch counterpart, over default, mixed-program and
-    capped configurations."""
+    must end in identical states (and, where they print, identical .dat
+    bytes): the whole update path, kernel included, against its plain
+    PyTorch counterpart, over default, mixed-program and capped
+    configurations of the packed engine and a systematics world of the
+    per-update engine."""
     from avida_tpu_torch import convert
     results = []
-    for name, side, updates, extra, custom_env, mixed in CROSS_CASES:
+    for name, side, updates, extra, custom_env, mixed, every in CROSS_CASES:
         cdir = None
         if custom_env:
             cdir = os.path.join(tmp, f"cfg_{name}")
@@ -136,27 +162,35 @@ def phase_cross_device(tmp, devices=("cuda", "cpu")):
                 f.write("INST_SET -\n")
             with open(os.path.join(cdir, "environment.cfg"), "w") as f:
                 f.write(ENV_TEXT)
-        states = []
+        states, dats, engines = [], [], set()
+        events = ["u begin InjectAll"] + (
+            [f"u 0:{every}:end {a}" for a in PRINTS] if every else [])
         for dev in devices:
-            w = make_world(side, os.path.join(tmp, f"x_{name}_{dev}"), dev,
-                           ["u begin InjectAll"], extra, cdir)
+            ddir = os.path.join(tmp, f"x_{name}_{dev}")
+            w = make_world(side, ddir, dev, events, extra, cdir)
             w.process_events()
             if mixed:
                 reseed_mixed(w)
             w.run(max_updates=updates)
             _sync(dev)
             states.append(convert.state_to_arrays(w.state))
+            dats.append(dat_bodies(ddir) if every else {})
+            engines.add(w.engine_report()["engine"])
         sa, sb = states
         bad = [k for k in sa if sa[k] is not None
                and sa[k].tobytes() != sb[k].tobytes()]
+        bad += [f for f in set(dats[0]) | set(dats[1])
+                if dats[0].get(f) != dats[1].get(f)]
         births = int((sb["birth_update"] >= 0).sum())
         tasks = int((sb["task_exe_total"] > 0).any(axis=0).sum())
-        if bad or births == 0:
-            raise AssertionError(f"{name}: cuda vs cpu fields differ {bad} "
-                                 f"(births {births})")
+        if bad or births == 0 or (every and "dominant.dat" not in dats[0]):
+            raise AssertionError(f"{name}: cuda vs cpu differ in {bad} "
+                                 f"(births {births}, files "
+                                 f"{sorted(dats[0])})")
         results.append({"case": name, "world": f"{side}x{side}",
-                        "updates": updates, "births": births,
-                        "tasks_seen": tasks})
+                        "updates": updates, "engine": sorted(engines),
+                        "births": births, "tasks_seen": tasks,
+                        "dat_files_equal": sorted(dats[0])})
     return {"phase": "cross_device", "fields_equal": True, "cases": results}
 
 
@@ -245,14 +279,7 @@ def phase_kernel(w, n_launch=3, time_it=True):
         cycles.cycles_reference(p, plain, seeds, cap, B)
         _sync(pc.tape_t.device)
         times.append(time.perf_counter() - t0)
-        for a, b in zip(kern, plain):
-            worst = max(worst, float((a.double() - b.double()).abs().max()))
-            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                diff = (a.view(torch.int32) != b.view(torch.int32))
-                raise AssertionError(
-                    f"kernel != plain at launch {i}: {int(diff.sum())} "
-                    f"words differ, rows "
-                    f"{sorted(set(diff.nonzero()[:, 0].tolist()))[:10]}")
+        worst = max(worst, compare_planes(kern, plain, f"launch {i}"))
         for dst, src in zip(planes(), kern):
             dst.copy_(src[:, :n])
         pc, _ = packed_chunk.bank_phase(p, pc, budgets, executed0)
@@ -287,6 +314,22 @@ def phase_kernel(w, n_launch=3, time_it=True):
     res.update(kernel_bound(base, work, seeds))
     res["ms"] = cuda_ms(one, 10) - cuda_ms(copy_only, 10)
     return res
+
+
+def compare_planes(kern, plain, where):
+    """max |kernel - plain| over the four planes; raises unless every word
+    is equal."""
+    import torch
+    worst = 0.0
+    for name, a, b in zip(("tape_t", "off_t", "ivec", "fvec"), kern, plain):
+        worst = max(worst, float((a.double() - b.double()).abs().max()))
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            diff = (a.view(torch.int32) != b.view(torch.int32))
+            raise AssertionError(
+                f"kernel != plain at {where}: {int(diff.sum())} words of "
+                f"{name} differ, (row, lane) "
+                f"{diff.nonzero()[:10].tolist()}")
+    return worst
 
 
 def kernel_bound(inp, out, seeds):
@@ -346,7 +389,199 @@ def phase_breakdown(w, updates=5):
             "pack_ms": acc["pack"], "unpack_ms": acc["unpack"]}
 
 
+def phase_default_path(side, updates, data_dir, device="cuda"):
+    """The reference's default experiment (TPU_SYSTEMATICS=1): World.run
+    through the per-update engine, one kernel launch per update, the host
+    phylogeny fed from the newborn ring, dominant.dat written."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    every = max(updates // 3, 1)
+    ev = ["u begin InjectAll"] + [f"u 0:{every}:end {a}" for a in PRINTS]
+    w = make_world(side, data_dir, device, ev, {"TPU_SYSTEMATICS": 1})
+    host = time_host_drain(w)
+    _sync(device)
+    cycles.reset_launches()
+    t0 = time.perf_counter()
+    insts = w.run(max_updates=updates)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = cycles.LAUNCHES
+    del w._feed_systematics, w.systematics.process      # the timers
+    rep = w.engine_report()
+    dats = dat_bodies(data_dir)
+    rows = {f: [ln.split() for ln in v
+                if ln.strip() and not ln.startswith("#")]
+            for f, v in dats.items()}
+    n_rows = updates // every + (updates % every > 0)
+    merit = torch.where(w.state.alive, w.state.merit, 0.0)
+    want = updates if torch.device(device).type == "cuda" else 0
+    ok = (launches == want and w.update == updates
+          and rep["engine"] == "per-update"
+          and "TPU_SYSTEMATICS=1" in rep["fallback_reason"]
+          and w.num_organisms > 0 and bool(torch.isfinite(merit).all())
+          and sorted(rows) == sorted(f"{a[5:-4].lower()}.dat"
+                                     for a in PRINTS)
+          and all(len(r) == n_rows for r in rows.values())
+          and int(rows["count.dat"][-1][3]) > 0      # genotypes column
+          and w.systematics.num_genotypes > 1
+          and all(math.isfinite(float(x)) for r in rows["average.dat"]
+                  for x in r))
+    res = {"phase": "default_path", "world": f"{side}x{side}",
+           "engine_report": rep, "updates": w.update,
+           "kernel_launches": launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / updates, "wall_s": wall,
+           "live_organisms": w.num_organisms,
+           "births_total": int(w._total_births),
+           "host_drain_s": host["drain_s"], "host_arbiter_s": host["arbiter_s"],
+           "newborns_drained": host["newborns"],
+           "genotypes": w.systematics.num_genotypes,
+           "genotypes_total": len(w.systematics.genotypes),
+           "dominant_row": rows["dominant.dat"][-1],
+           "dat_files": sorted(rows)}
+    if not ok:
+        raise AssertionError(f"default path check failed: {res}")
+    return w, res
+
+
+def time_host_drain(w):
+    """Accumulate, over the run, the host time of the world's newborn
+    drain (World._feed_systematics: the ring's copy to the host, which
+    waits for the device work queued before it, and the phylogeny
+    update) and of the arbiter's own share (GenotypeArbiter.process,
+    pure host work).  Wraps the bound methods; changes nothing else."""
+    acc = {"drain_s": 0.0, "arbiter_s": 0.0, "newborns": 0}
+    feed, process = w._feed_systematics, w.systematics.process
+
+    def timed_feed(snap=None):
+        t0 = time.perf_counter()
+        feed(snap)
+        acc["drain_s"] += time.perf_counter() - t0
+
+    def timed_process(update, alive, cells, *rest):
+        t0 = time.perf_counter()
+        process(update, alive, cells, *rest)
+        acc["arbiter_s"] += time.perf_counter() - t0
+        acc["newborns"] += len(cells)
+
+    w._feed_systematics = timed_feed
+    w.systematics.process = timed_process
+    return acc
+
+
+def phase_default_kernel(w):
+    """One per-update launch at the default path's evolved state, on the
+    planes run_cycles builds there (lane-permuted by perm_phase), held
+    against the plain version; then its CUDA-event time and bound."""
+    import torch
+    from avida_tpu_torch.ops import cycles, update
+    from avida_tpu_torch.utils import prng
+    p, st, u = w.params, w.state, w.update
+    n = st.tape.shape[0]
+    B, n_pad, _ = cycles.dims(p, n, p.max_memory)
+    cap = update.static_cap(p)
+    ks = prng.split(prng.fold_in(w._run_key, u), 3)
+    _, granted, _ = update.schedule_phase(p, st, ks[0])
+    st = update.perm_phase(p, st, granted, u)
+    perm, inv = cycles.lane_order(p, st)
+    if perm is None or bool((perm == torch.arange(
+            n, dtype=perm.dtype, device=perm.device)).all()):
+        raise AssertionError("default path: no lane permutation in use")
+    base = cycles.pack_state(p, st, granted, perm)
+    seeds = cycles.block_seeds(ks[1], n_pad, B)
+    kern = tuple(t.clone() for t in base)
+    plain = tuple(t.clone() for t in base)
+    cycles.launch(p, kern, ks[1], cap, n)
+    _sync(st.device)
+    t0 = time.perf_counter()
+    cycles.cycles_reference(p, plain, seeds, cap, B)
+    _sync(st.device)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    worst = compare_planes(kern, plain, "the default path's launch")
+    res = {"path": "default_path", "max_abs_err": worst, "match": True,
+           "lanes_permuted": True, "plain_ms": plain_ms}
+    res.update(kernel_bound(base, kern, seeds))
+    res["ms"] = kernel_ms(p, base, seeds, cap, B)
+    # the same organisms and budgets in cell order: what the permutation
+    # buys the kernel
+    res["ms_identity_lanes"] = kernel_ms(
+        p, cycles.pack_state(p, st, granted), seeds, cap, B)
+    return res
+
+
+def kernel_ms(p, base, seeds, cap, B):
+    """CUDA-event time of one launch on copies of `base` (the copy's own
+    time subtracted); the seeds are drawn beforehand, as the wrapper's
+    caller does."""
+    from avida_tpu_torch.ops import cycles
+    work = tuple(t.clone() for t in base)
+
+    def one():
+        for dst, src in zip(work, base):
+            dst.copy_(src)
+        cycles.cycles(p, work, seeds, cap, B)
+
+    def copy_only():
+        for dst, src in zip(work, base):
+            dst.copy_(src)
+
+    return cuda_ms(one, 10) - cuda_ms(copy_only, 10)
+
+
+def phase_default_breakdown(w, run, updates=3):
+    """Per-phase device-synchronised wall time of the per-update engine's
+    update (update_step's own phase functions, in its order, with
+    run_cycles split into its pack / launch / unpack), on a copy of the
+    default path's state; beside it the host systematics drain per
+    update, measured over the default path's run (`run`, its result;
+    births come in waves, so a few updates would not show it)."""
+    import torch
+    from avida_tpu_torch.ops import cycles, update
+    from avida_tpu_torch.utils import prng
+    p, st = w.params, w.state
+    n = st.tape.shape[0]
+    cap = update.static_cap(p)
+    names = ("schedule", "perm", "pack", "kernel", "unpack", "bank",
+             "flush", "stats")
+    acc = dict.fromkeys(names, 0.0)
+
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        acc[name] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    st = st.replace(nb_count=torch.zeros_like(st.nb_count))
+    for i in range(updates):
+        u = w.update + i
+        ks = prng.split(prng.fold_in(w._run_key, u), 3)
+        alive_before = st.alive.sum().to(torch.int32)
+        st = update.resource_phase(p, st, prng.fold_in(w._run_key, u), u)
+        budgets, granted, _ = timed("schedule", update.schedule_phase, p, st,
+                                    ks[0])
+        st = timed("perm", update.perm_phase, p, st, granted, u)
+        executed0 = st.insts_executed
+        perm, inv = cycles.lane_order(p, st)
+        planes = timed("pack", cycles.pack_state, p, st, granted, perm)
+        timed("kernel", cycles.launch, p, planes, ks[1], cap, n)
+        st = timed("unpack", cycles.unpack_state, p, st, planes, inv)
+        st, _ = timed("bank", update.bank_phase, p, st, budgets, executed0)
+        st = timed("flush", update.birth_phase, p, st, ks[2], ks[1], u)
+        timed("stats", update.update_stats, p, st, alive_before, u)
+    per = {k: v / updates for k, v in acc.items()}
+    n_run = run["updates"]
+    return {"phase": "default_breakdown", "updates": updates,
+            "ms_per_update": per, "ms_per_update_total": sum(per.values()),
+            "run_host_drain_ms_per_update": 1e3 * run["host_drain_s"] / n_run,
+            "run_host_arbiter_ms_per_update":
+                1e3 * run["host_arbiter_s"] / n_run,
+            "run_newborns_drained": run["newborns_drained"]}
+
+
 SIDE, UPDATES = 320, 50        # the main path's full-width world
+DEFAULT_UPDATES = 30           # the default path's depth
 
 
 def main() -> int:
@@ -371,7 +606,26 @@ def main() -> int:
         emit(main_res)
         kern = phase_kernel(w)
         emit(phase_breakdown(w))
-    kern["launches"] = main_res["kernel_launches"]
+        del w
+        wd, def_res = phase_default_path(SIDE, DEFAULT_UPDATES,
+                                         os.path.join(tmp, "default"))
+        emit(def_res)
+        dkern = phase_default_kernel(wd)
+        emit(phase_default_breakdown(wd, def_res))
+    per_path = [
+        {"path": "main_path", "launches": main_res["kernel_launches"],
+         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
+         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
+         "bytes_read": kern["bytes_read"],
+         "bytes_written": kern["bytes_written"]},
+        dict(dkern, launches=def_res["kernel_launches"])]
+    emit({"phase": "kernel_paths", "nvidia_smi": smi, "paths": per_path})
+    # the kernels line: launches over both paths, the worst error of
+    # both, times and bound at this slice's path (the default one)
+    kern.update(launches=sum(q["launches"] for q in per_path),
+                max_abs_err=max(q["max_abs_err"] for q in per_path),
+                **{k: dkern[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by")})
     emit({"phase": "kernels", "nvidia_smi": smi, "kernels": [kern]})
     print(smi, flush=True)
     emit({"kernels": [{k: kern[k] for k in (

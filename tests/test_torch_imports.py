@@ -26,7 +26,9 @@ bad = sorted(m for m in sys.modules
              or m == "avida_tpu" or m.startswith("avida_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 15, names
+assert len(names) >= 17, names
+assert {"avida_tpu_torch.systematics",
+        "avida_tpu_torch.systematics.genotypes"} <= set(names), names
 """
 
 
@@ -52,11 +54,11 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("overrides,needle", [
-    ({"TPU_SYSTEMATICS": 1}, "TPU_SYSTEMATICS"),
+    ({"TPU_SYSTEMATICS": 1, "POPULATION_CAP": 10}, "per-update engine"),
     ({"BIRTH_METHOD": 4}, "torus fast path"),
     ({"WORLD_GEOMETRY": 1}, "torus fast path"),
     ({"TPU_USE_PALLAS": 2}, "TPU_USE_PALLAS"),
-    ({"POINT_MUT_PROB": 0.01}, "point or slip"),
+    ({"POINT_MUT_PROB": 0.01, "WORLD_GEOMETRY": 1}, "per-update engine"),
     ({"TPU_PACKED_BITS": 1}, "TPU_PACKED_BITS"),
     ({"TPU_TRACE": 1}, "TPU_TRACE"),
     ({"REVERT_FATAL": 0.5}, "REVERT_FATAL"),
@@ -67,6 +69,22 @@ def test_out_of_slice_configs_raise(overrides, needle):
     from avida_tpu_torch.world import World
     with pytest.raises(NotImplementedError, match=needle):
         World(cfg=_cfg(**overrides), device="cpu")
+
+
+@pytest.mark.parametrize("overrides,reason", [
+    ({"TPU_SYSTEMATICS": 1}, "systematics newborn ring"),
+    ({"POINT_MUT_PROB": 0.01}, "point or slip"),
+])
+def test_per_update_configs_route_and_report(overrides, reason):
+    """Systematics (the reference's default) and point mutations run the
+    per-update engine, and engine_report says so in the reference's
+    words; with neither, the packed engine."""
+    from avida_tpu_torch.world import World
+    rep = World(cfg=_cfg(**overrides), device="cpu").engine_report()
+    assert rep["engine"] == "per-update"
+    assert reason in rep["fallback_reason"]
+    assert World(cfg=_cfg(), device="cpu").engine_report() == {
+        "engine": "packed", "sub_path": "fused", "packed_bits": 0}
 
 
 def test_unported_event_action_raises():
