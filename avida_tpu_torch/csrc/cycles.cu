@@ -42,6 +42,7 @@ constexpr int IV_MEM_LEN = 0, IV_ACTIVE_STACK = 1, IV_READ_LABEL_LEN = 2,
               IV_HEADS = 26, IV_SP = 30, IV_INPUT_BUF = 32, IV_INPUTS = 35,
               IV_READ_LABEL = 38, IV_STACKS = 48, IV_PW_POS = 68,
               IV_PW_VAL = 69, IV_PZ_START = 70, IV_PZ_END = 71,
+              IV_COST_WAIT = 72, IV_FT_LO = 73, IV_FT_HI = 74,
               IV_OFF_SEX = 75, IV_EXEC_BM = 76;
 constexpr int FV_MERIT = 0, FV_CUR_BONUS = 1, FV_FITNESS = 2,
               FV_LAST_BONUS = 3, FV_LAST_MERIT_BASE = 4;
@@ -54,24 +55,32 @@ constexpr int SEM_IF_N_EQU = 3, SEM_IF_LESS = 4, SEM_IF_LABEL = 5,
               SEM_INC = 12, SEM_DEC = 13, SEM_PUSH = 14, SEM_POP = 15,
               SEM_SWAP_STK = 16, SEM_SWAP = 17, SEM_ADD = 18, SEM_SUB = 19,
               SEM_NAND = 20, SEM_H_COPY = 21, SEM_H_ALLOC = 22,
-              SEM_H_DIVIDE = 23, SEM_IO = 24, SEM_H_SEARCH = 25;
+              SEM_H_DIVIDE = 23, SEM_IO = 24, SEM_H_SEARCH = 25,
+              SEM_H_DIVIDE_SEX = 26;
 constexpr int HEAD_IP = 0, HEAD_READ = 1, HEAD_WRITE = 2, HEAD_FLOW = 3;
 constexpr int MAX_LABEL = 10;
 constexpr int MAX_LW = 32;      // tape height <= 1024
 constexpr int MAX_R = 32;       // reactions
 constexpr int TAB_INSTS = 64;   // table slots per opcode table
 constexpr int RX = 16;          // table ints per reaction
+// opcode tables, TAB_INSTS slots each, in this order
+constexpr int T_META = 0, T_COST = 1, T_FT_COST = 2, T_ADDL = 3,
+              T_PROB_FAIL = 4, T_MUT_CDF = 5, T_IS_NOP = 6, T_NOP_MOD = 7,
+              T_REACTIONS = 8;
 
 struct Params {
   int n_pad, LP, LW, L0, ni, R, iv_copied, iv_dyn, num_steps;
   int require_alloc, merit_method, inherit_merit, gen_inc, divide_method;
   int min_genome_len, copy_mut_on;
+  int has_costs, has_prob_fail, has_addl, weighted_mut;
   float copy_mut_prob, size_range, min_exe_lines, min_copied_lines;
   float default_bonus, const_merit;
 };
 
-// table layout (built by the wrapper): [0, 64) opcode metadata
-// sem | mod_kind << 8 | default_op << 16; then RX ints per reaction:
+// table layout (built by the wrapper): 8 opcode tables of TAB_INSTS ints
+// -- metadata sem | mod_kind << 8 | default_op << 16, cost, ft_cost,
+// addl_time_cost, prob_fail (float32 bits), the cumulative mutation
+// weights (float32 bits), is_nop, nop_mod -- then RX ints per reaction:
 // min_tc, max_tc, type, value (float bits; pow stores 2**value), req mask,
 // noreq mask, 8 words of the 256-bit logic-id mask.
 
@@ -133,6 +142,13 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
               const int32_t* __restrict__ seeds,
               const int32_t* __restrict__ tab, Params P) {
   const int N = P.n_pad;
+  // nop decode table: the nop's register for a nop opcode, -1 otherwise
+  __shared__ int s_nop[TAB_INSTS];
+  if (threadIdx.x < TAB_INSTS) {
+    const int k = threadIdx.x;
+    s_nop[k] = (k < P.ni && tab[T_IS_NOP * TAB_INSTS + k])
+                   ? tab[T_NOP_MOD * TAB_INSTS + k] : -1;
+  }
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned tlane = threadIdx.x;
   const unsigned seed = (unsigned)seeds[blockIdx.x];
@@ -170,6 +186,8 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
   int flags = IV(IV_FLAGS), gsize = IV(IV_GENOME_LEN);
   int max_exec = IV(IV_MAX_EXEC), copied_sz = IV(IV_COPIED_SIZE);
   int off_sex = IV(IV_OFF_SEX), pw_val = IV(IV_PW_VAL);
+  int cost_wait = IV(IV_COST_WAIT);
+  unsigned ft_lo = (unsigned)IV(IV_FT_LO), ft_hi = (unsigned)IV(IV_FT_HI);
   int regs[3], heads[4], sp[2], ibuf[3], inputs[3], rlabel[MAX_LABEL];
   int stacks[20];
   unsigned ebm[MAX_LW], cbm[MAX_LW];
@@ -210,9 +228,35 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
     const int ip = heads[HEAD_IP], rp = heads[HEAD_READ];
     const int wp = heads[HEAD_WRITE];
     const int cur_op = op_at(ip);
-    const int meta = tab[cur_op];
-    const int sem = meta & 0xFF, mod = (meta >> 8) & 0xFF;
+    const int meta = tab[T_META * TAB_INSTS + cur_op];
     const int defop = (meta >> 16) & 0xFF;
+
+    // cost engine: a cost-c instruction waits c - 1 cycles and executes
+    // on the last; ft_cost is a one-time surcharge per opcode
+    bool eff = true;
+    if (P.has_costs) {
+      const unsigned ft_bit = cur_op < 32 ? (ft_lo >> cur_op) & 1u
+                                          : (ft_hi >> (cur_op - 32)) & 1u;
+      const int total = max(tab[T_COST * TAB_INSTS + cur_op], 1)
+                        + (ft_bit ? 0 : tab[T_FT_COST * TAB_INSTS + cur_op]);
+      eff = cost_wait == 1 || (cost_wait == 0 && total <= 1);
+      cost_wait = cost_wait > 0 ? cost_wait - 1 : (total > 1 ? total - 1 : 0);
+      if (eff && !ft_bit) {
+        if (cur_op < 32) ft_lo |= 1u << cur_op;
+        else ft_hi |= 1u << (cur_op - 32);
+      }
+    }
+    // execution failure: costs paid, flagged executed, the IP advances;
+    // the effect and the modifier's consumption are suppressed
+    bool failed = false;
+    if (P.has_prob_fail && eff) {
+      const float u = (float)hash24(seed, s, 2, tlane) * (1.0f / 16777216.0f);
+      failed = u < __int_as_float(tab[T_PROB_FAIL * TAB_INSTS + cur_op]);
+    }
+    const int sem = eff && !failed ? (meta & 0xFF) : -1;
+    // the modifier keys off execution, not eff (a waiting cycle flags its
+    // modifier nop executed too)
+    const int mod = failed ? 0 : (meta >> 8) & 0xFF;
     const int next_pos = adjust1(ip + 1, mlen);
     auto window = [&](int k) -> int {
       int p = ip + 1 + k;
@@ -224,14 +268,14 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
     int operand = defop, consumed = 0, label_len = 0;
     int lbl_c[MAX_LABEL];
     if (mod == MOD_REG || mod == MOD_HEAD) {
-      int nx = window(0);
-      has_mod = nx < 3;
-      if (has_mod) { operand = nx; consumed = 1; }
+      const int nm = s_nop[window(0)];
+      has_mod = nm >= 0;
+      if (has_mod) { operand = nm; consumed = 1; }
     } else if (mod == MOD_LABEL) {
       for (int k = 0; k < MAX_LABEL; ++k) {
         if (k + 1 > mlen - 1) break;
-        int v = window(k);
-        if (v >= 3) break;
+        const int v = s_nop[window(k)];
+        if (v < 0) break;
         lbl_c[k] = v >= 2 ? v - 2 : v + 1;
         label_len = k + 1;
       }
@@ -312,11 +356,25 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         copy_m = true;
         if (P.copy_mut_on) {
           float u = (float)hash24(seed, s, 0, tlane) * (1.0f / 16777216.0f);
-          if (u < P.copy_mut_prob)
-            written = (int)(hash24(seed, s, 1, tlane) % (unsigned)P.ni);
+          if (u < P.copy_mut_prob) {
+            const unsigned r = hash24(seed, s, 1, tlane);
+            if (P.weighted_mut) {
+              // inverse CDF over the float32 cumulative weights
+              const float ui = (float)r * (1.0f / 16777216.0f);
+              const int32_t* cdf = tab + T_MUT_CDF * TAB_INSTS;
+              written = 0;
+              for (int k = 0; k < P.ni - 1; ++k)
+                written += ui >= __int_as_float(cdf[k]);
+            } else {
+              written = (int)(r % (unsigned)P.ni);
+            }
+          }
         }
-        if (read_inst < 3) {
-          if (rl_len < MAX_LABEL) { rlabel[rl_len] = read_inst; rl_len++; }
+        if (s_nop[read_inst] >= 0) {
+          if (rl_len < MAX_LABEL) {
+            rlabel[rl_len] = s_nop[read_inst];
+            rl_len++;
+          }
         } else {
           rl_len = 0;
         }
@@ -344,8 +402,11 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         if (label_len > 0) {
           for (int q = 0; q + label_len <= mlen; ++q) {
             bool m = true;
-            for (int k = 0; k < label_len && m; ++k)
-              m = min(byte_at(q + k), 3) == lbl_c[k];
+            for (int k = 0; k < label_len && m; ++k) {
+              const int byte = byte_at(q + k);
+              const int c = byte < TAB_INSTS ? s_nop[byte] : -1;
+              m = (c < 0 ? 3 : c) == lbl_c[k];
+            }
             if (m) { head = q + label_len - 1; break; }
           }
         }
@@ -354,7 +415,8 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         new_heads[HEAD_FLOW] = adjust1(head + 1, mlen);
         break;
       }
-      case SEM_H_DIVIDE: {
+      case SEM_H_DIVIDE:
+      case SEM_H_DIVIDE_SEX: {
         const int parent_size = rp;
         const int child_end = wp == 0 ? mlen : wp;
         const int child_size = child_end - parent_size;
@@ -379,7 +441,7 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         div_m = true;
         off_start = rp;
         off_len = child_size;
-        off_sex = 0;
+        off_sex = sem == SEM_H_DIVIDE_SEX;
         float merit_base;
         const int least = min(min(gsize, copied_sz), exec_count);
         switch (P.merit_method) {
@@ -422,7 +484,7 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
           for (int d = 0; d < R; ++d)
             if (IV(P.iv_dyn + R + d) != 0) had |= 1u << d;
           for (int r = 0; r < R; ++r) {
-            const int32_t* rt = tab + TAB_INSTS + r * RX;
+            const int32_t* rt = tab + T_REACTIONS * TAB_INSTS + r * RX;
             if (!((rt[6 + (lid >> 5)] >> (lid & 31)) & 1)) continue;
             done |= 1u << r;
             const int tc = IV(P.iv_dyn + r);
@@ -437,7 +499,7 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
             IV(P.iv_dyn + 3 * R + r) += 1;
             if (!((paid >> r) & 1u)) continue;
             IV(P.iv_dyn + R + r) += 1;
-            const int32_t* rt = tab + TAB_INSTS + r * RX;
+            const int32_t* rt = tab + T_REACTIONS * TAB_INSTS + r * RX;
             const float v = __int_as_float(rt[3]);
             if (rt[2] == 2) bonus = __fmul_rn(bonus, v);
             else if (rt[2] == 1) { if (v != 0.0f) bonus = __fmul_rn(bonus, v); }
@@ -461,9 +523,9 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
     if (div_m) ip_new = 0;
     else ip_new = skip ? adjust1(adjust1(ip + consumed + 2, mlen), mlen)
                        : ip_new;
-    new_heads[HEAD_IP] = ip_new;
+    new_heads[HEAD_IP] = eff ? ip_new : ip;
     for (int k = 0; k < 4; ++k) heads[k] = new_heads[k];
-    ebm[ip >> 5] |= 1u << (ip & 31);
+    if (eff) ebm[ip >> 5] |= 1u << (ip & 31);
     if (has_mod || label_len > 0) ebm[next_pos >> 5] |= 1u << (next_pos & 31);
     if (copy_m) {
       cbm[wp >> 5] |= 1u << (wp & 31);
@@ -492,6 +554,7 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
       active_stack = 0;
       rl_len = 0;
       flags &= ~FLAG_MAL;
+      if (P.has_costs) { cost_wait = 0; ft_lo = ft_hi = 0; }
       for (int w = 0; w < P.LW; ++w) ebm[w] = cbm[w] = 0;
       for (int r = 0; r < P.R; ++r) {
         IV(P.iv_dyn + 2 * P.R + r) = IV(P.iv_dyn + r);
@@ -505,6 +568,8 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
 
     // time and death
     time_used += 1;
+    // addl_time_cost is charged on eff, failures included
+    if (P.has_addl && eff) time_used += tab[T_ADDL * TAB_INSTS + cur_op];
     cpu_cycles += 1;
     insts += 1;
     if (div_m) {
@@ -551,6 +616,8 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
   IV(IV_OFF_START) = off_start; IV(IV_OFF_LEN) = off_len;
   IV(IV_OFF_COPIED) = off_copied; IV(IV_INSTS_EXEC) = insts;
   IV(IV_FLAGS) = flags; IV(IV_OFF_SEX) = off_sex;
+  IV(IV_COST_WAIT) = cost_wait;
+  IV(IV_FT_LO) = (int)ft_lo; IV(IV_FT_HI) = (int)ft_hi;
   for (int k = 0; k < 3; ++k) {
     IV(IV_REGS + k) = regs[k];
     IV(IV_INPUT_BUF + k) = ibuf[k];
@@ -601,6 +668,8 @@ extern "C" int avida_cycles_launch(void* tape, void* off, void* ivec,
   P.require_alloc = pi[9]; P.merit_method = pi[10];
   P.inherit_merit = pi[11]; P.gen_inc = pi[12]; P.divide_method = pi[13];
   P.min_genome_len = pi[14]; P.copy_mut_on = pi[15];
+  P.has_costs = pi[16]; P.has_prob_fail = pi[17]; P.has_addl = pi[18];
+  P.weighted_mut = pi[19];
   P.copy_mut_prob = pf[0]; P.size_range = pf[1]; P.min_exe_lines = pf[2];
   P.min_copied_lines = pf[3]; P.default_bonus = pf[4];
   P.const_merit = pf[5];

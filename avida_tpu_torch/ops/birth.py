@@ -1,19 +1,24 @@
 """Birth engine: the flush of pending offspring, in two layouts.
 
-Counterpart of the torus fast path of avida_tpu/ops/birth.py.  Target
-selection and conflict resolution run on cell-indexed vectors (9 static
-torus rolls, lowest parent index wins) for both:
+Counterpart of avida_tpu/ops/birth.py.
 
-  flush_births_packed  on the resident kernel planes (ops/packed_chunk.py):
+  flush_births_packed  on the resident kernel planes (ops/packed_chunk.py),
+                       the torus fast path only: target selection and
+                       conflict resolution on cell-indexed vectors (9
+                       static torus rolls, lowest parent index wins),
                        divide mutations on the packed offspring plane, the
                        newborn scatter as roll-selects over [rows, N]
   flush_births         on the canonical PopulationState (the per-update
-                       engine, ops/update.py), which also appends every
+                       engine, ops/update.py): the torus fast path or the
+                       general placement through the neighbor table
+                       (grid or torus, BIRTH_METHOD 0-10), the birth
+                       chamber of divide-sex sets, and the append of every
                        newborn to the systematics ring (nb_*)
 
 Same PRNG splits, draw shapes and order as the reference, so both flushes
 are bit-exact against it (tests/test_torch_birth.py,
-tests/test_torch_update.py).
+tests/test_torch_update.py, tests/test_torch_placement.py,
+tests/test_torch_sex.py).
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from avida_tpu_torch.models.heads import MAX_LABEL_SIZE
+from avida_tpu_torch.models.heads import MAX_LABEL_SIZE, SEM_H_DIVIDE_SEX
 from avida_tpu_torch.utils import prng
 
 _M32 = 0xFFFFFFFF
@@ -440,13 +445,16 @@ _CONST_UPDATES = {
 }
 
 
+def has_divide_sex(params) -> bool:
+    """Does the instruction set contain divide-sex?"""
+    return any(int(s) == SEM_H_DIVIDE_SEX for s in params.sem)
+
+
 def canonical_unsupported_reason(params) -> str | None:
     """Why this package's canonical flush cannot run `params` (None = it
-    can): it ports the reference's torus fast path, asexual, without
-    demes, energy or population caps, on heads hardware."""
-    from avida_tpu_torch.models.heads import SEM_H_DIVIDE_SEX
-    if any(int(s) == SEM_H_DIVIDE_SEX for s in params.sem):
-        return "sexual birth (divide-sex recombination)"
+    can): heads hardware on a grid or torus, BIRTH_METHOD 0-10, asexual
+    or divide-sex without mating types; no demes, energy or population
+    caps."""
     if params.num_demes > 1:
         return "demes"
     if params.hw_type != 0:
@@ -455,9 +463,15 @@ def canonical_unsupported_reason(params) -> str | None:
         return "the energy model in the birth flush"
     if params.population_cap or params.pop_cap_eldest:
         return "population caps"
-    if not local_torus_fast_path(params, sexual=False):
-        return ("birth placement off the torus fast path (geometry / "
-                "birth method)")
+    if params.mating_types and has_divide_sex(params):
+        return "MATING_TYPES pairing in the birth chamber"
+    if params.geometry not in (1, 2):
+        return (f"WORLD_GEOMETRY {params.geometry} (only grid 1 and torus "
+                f"2 are ported)")
+    if params.birth_method == 11:
+        return "BIRTH_METHOD 11 (dispersal draws poisson)"
+    if not 0 <= params.birth_method <= 11:
+        return f"BIRTH_METHOD {params.birth_method}"
     return None
 
 
@@ -470,96 +484,443 @@ def _where_rows(mask, val, dst):
     return torch.where(m, val.to(dst.dtype), dst)
 
 
-def flush_births(params, st, key, update_no):
-    """Place pending offspring on a canonical PopulationState (the
-    reference's flush_births with use_off_tape=True, torus fast path):
-    divide mutations, placement (lowest parent index wins), the newborn
-    scatter as roll-selects, and the append to the newborn ring
-    (nb_*) that host systematics drains.  Same PRNG splits and draw
-    shapes as the reference.  Every other branch raises."""
-    reason = canonical_unsupported_reason(params)
-    if reason is not None:
+def _f32t(x, device):
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+# ---- the birth chamber (sexual reproduction) ----
+
+def recombine_sexual(params, st, key, off_mem, off_len, pending):
+    """Birth-chamber pairing and one-region crossover (the reference's
+    recombine_sexual without mating types; cBirthChamber::SubmitOffspring
+    cc:443, DoBasicRecombination cc:290, RegionSwap cc:178).  Every sexual
+    offspring pending at flush time -- the waiting store entry first,
+    then cells in index order -- pairs with its neighbour in that order
+    (rank r mates rank r ^ 1); the odd one out moves into the
+    single-entry store and its parent resumes.  The row paired with the
+    store is a dual parent: it also carries the store-flank child.
+
+    Returns (off_mem, off_len, child_merit, placeable_pending, dual,
+    dual_mem, dual_len, dual_merit, store), store = (bc_mem, bc_len,
+    bc_merit, bc_valid, bc_type)."""
+    from avida_tpu_torch.ops.interpreter import roll_right
+    if params.mating_types:
         raise NotImplementedError(
-            f"birth flush: {reason} is not ported to avida_tpu_torch")
-    from avida_tpu_torch.core.state import make_cell_inputs
-    from avida_tpu_torch.ops.interpreter import extract_offspring, pack_tape
-    n, L = st.tape.shape
-    dev = st.tape.device
+            "birth chamber: MATING_TYPES pairing is not ported to "
+            "avida_tpu_torch")
+    n, L = off_mem.shape
+    dev = off_mem.device
     rows = torch.arange(n, dtype=torch.int32, device=dev)
-    wx, wy = params.world_x, params.world_y
-    ks = prng.split(key, 4)
-    k_place, k_inputs, k_off = ks[0], ks[1], ks[2]
-    pending = st.divide_pending & st.alive
+    sexp = pending & st.off_sex
+    has_store = st.bc_valid
+    hs = has_store.to(torch.int32)
 
-    off_mem, off_len = extract_offspring(params, st, k_off)
-    fresh_inputs = make_cell_inputs(k_inputs, n)
+    # rank sexual rows by cell index, shifted by 1 when the store entry is
+    # occupied (the store is rank 0); rank r mates rank r ^ 1
+    rank = torch.cumsum(sexp.to(torch.int32), 0).to(torch.int32) - 1 + hs
+    total = sexp.sum().to(torch.int32) + hs
+    mate_rank = rank ^ 1
+    paired = sexp & (mate_rank < total)
+    store_paired = paired & (mate_rank == 0) & has_store
+    keep = sexp & (rank < n)
+    rank_to_row = torch.zeros(n, dtype=torch.int32, device=dev)
+    rank_to_row[rank[keep].long()] = rows[keep]
+    mate_row = rank_to_row[mate_rank.clamp(0, n - 1).long()].long()
 
-    pending, births, parent_idx, won, dir_idx = fast_torus_placement(
-        params, k_place, pending, st.alive, st.time_used, st.merit)
-    offs_all = _OFFS_2D + (((0, 0),) if params.allow_parent else ())
+    mate_mem = torch.where(store_paired[:, None], st.bc_mem[None, :],
+                           off_mem[mate_row])
+    mate_len = torch.where(store_paired, st.bc_len, torch.where(
+        paired, off_len[mate_row], 1)).clamp(min=1)
+    mate_merit = torch.where(store_paired, st.bc_merit, st.merit[mate_row])
+    own_len = off_len.clamp(min=1)
 
-    def by_parent(x):
-        out = torch.zeros_like(x)
-        for k, (dy, dx) in enumerate(offs_all):
-            out = _where_rows(dir_idx == k, _roll2d(x, dy, dx, wx, wy), out)
-        return out
+    # per-pair draws: both members read the pair representative's values
+    # (the store-paired row is its own representative)
+    ks = prng.split(key, 3)
+    pair_lo = torch.where(store_paired, rows,
+                          torch.minimum(rows, mate_row.to(torch.int32))).long()
+    u_rec = prng.uniform(ks[0], (n,))[pair_lo]
+    f0 = prng.uniform(ks[1], (n,))[pair_lo]
+    f1 = prng.uniform(ks[2], (n,))[pair_lo]
+    if params.module_num > 0:
+        # crossover points snap to module boundaries
+        # (DoModularContRecombination, cBirthChamber.cc:316-330)
+        M = _f32t(float(params.module_num), dev)
+        f0 = torch.floor(f0 * M) / M
+        f1 = torch.floor(f1 * M) / M
+    start_frac = torch.minimum(f0, f1)
+    end_frac = torch.maximum(f0, f1)
+    cut_frac = end_frac - start_frac
 
+    def at(frac, length):
+        return (frac * length.to(torch.float32)).to(torch.int32)
+
+    s0, e0 = at(start_frac, own_len), at(end_frac, own_len)
+    s1, e1 = at(start_frac, mate_len), at(end_frac, mate_len)
+    size0, size1 = e0 - s0, e1 - s1
+    new_len = off_len - size0 + size1
+    new_len_mate = mate_len - size1 + size0
+    # RegionSwap refuses illegal offspring on either side (cc:193-196)
+    mg = params.min_genome_len
+    legal = ((new_len >= mg) & (new_len <= L)
+             & (new_len_mate >= mg) & (new_len_mate <= L))
+    do_rec = paired & (u_rec < _f32t(params.recombination_prob, dev)) \
+        & legal
+
+    # own-flank child = own[:s0] ++ mate[s1:e1] ++ own[e0:]
     cols = torch.arange(L, device=dev)[None, :]
+    zero = torch.zeros((), dtype=off_mem.dtype, device=dev)
+    child = torch.where(cols < s0[:, None], off_mem, torch.where(
+        cols < (s0 + size1)[:, None], roll_right(mate_mem, s0 - s1, L),
+        roll_right(off_mem, s0 + size1 - e0, L)))
+    child = torch.where(cols < new_len[:, None], child, zero)
+    # store-flank child (meaningful on the dual row only) =
+    # mate[:s1] ++ own[s0:e0] ++ mate[e1:]
+    child2 = torch.where(cols < s1[:, None], mate_mem, torch.where(
+        cols < (s1 + size0)[:, None], roll_right(off_mem, s1 - s0, L),
+        roll_right(mate_mem, s1 + size0 - e1, L)))
+    child2 = torch.where(cols < new_len_mate[:, None], child2, zero)
+    dual = store_paired
+    dual_mem = torch.where(do_rec[:, None], child2, mate_mem)
+    dual_len = torch.where(do_rec, new_len_mate, mate_len)
+
+    # merit mix (DoBasicRecombination): own*stay + mate*cut.  The
+    # reference's compiled CPU program (the jitted update) fuses the
+    # product that holds the row's own merit into the add, in both mixes
+    # (tests/test_torch_sex.py runs it jitted)
+    stay = 1.0 - cut_frac
+    child_merit = torch.where(do_rec, prng.fma_f32(
+        st.merit, stay, mate_merit * cut_frac), st.merit)
+    dual_merit = torch.where(do_rec, prng.fma_f32(
+        st.merit, cut_frac, mate_merit * stay), mate_merit)
+    off_mem = torch.where(do_rec[:, None], child, off_mem)
+    off_len = torch.where(do_rec, new_len, off_len)
+
+    # the odd one out moves into the store and its parent resumes
+    unpaired = sexp & ~paired
+    leftover = unpaired & (torch.cumsum(unpaired.to(torch.int32), 0) == 1)
+    dropped = unpaired & ~leftover
+    # the occupant keeps its slot unless a pairing consumed it this flush
+    slot_free = ~has_store | store_paired.any()
+    dropped = dropped | (leftover & ~slot_free)
+    leftover = leftover & slot_free
+    any_left = leftover.any()
+    new_bc_mem = torch.where(
+        any_left, torch.where(leftover[:, None], off_mem.to(torch.int32),
+                              0).sum(dim=0, dtype=torch.int32).to(
+            torch.int8), st.bc_mem)
+    new_bc_len = torch.where(
+        any_left, torch.where(leftover, off_len, 0).sum().to(torch.int32),
+        st.bc_len)
+    new_bc_merit = torch.where(
+        any_left, torch.where(leftover, st.merit, 0.0).sum(),
+        st.bc_merit)
+    new_bc_valid = torch.where(any_left, True,
+                               has_store & ~store_paired.any())
+    placeable = pending & ~leftover & ~dropped
+    new_bc_type = torch.where(any_left, -1, st.bc_type)
+    store = (new_bc_mem, new_bc_len, new_bc_merit, new_bc_valid, new_bc_type)
+    return (off_mem, off_len, child_merit, placeable,
+            dual, dual_mem, dual_len, dual_merit, store)
+
+
+# ---- placement off the torus fast path ----
+
+_NEIGHBORS = {}        # (world_x, world_y, geometry, device) -> [N, 8]
+
+
+def neighbors_on(params, device) -> torch.Tensor:
+    """The static neighbor table on `device` (built once per shape)."""
+    k = (params.world_x, params.world_y, params.geometry, str(device))
+    if k not in _NEIGHBORS:
+        _NEIGHBORS[k] = torch.from_numpy(neighbor_table(
+            params.world_x, params.world_y, params.geometry)).to(device)
+    return _NEIGHBORS[k]
+
+
+def general_placement(params, k_place, pending, alive, time_used, merit):
+    """Target selection and conflict resolution through the neighbor
+    table (the reference's general branch, PositionOffspring cc:5185,
+    BIRTH_METHOD 0-10): candidate cells with padding, the empty-first
+    lexicographic pick, the method's target, then the lowest pending
+    parent index claims each cell (a scatter-min).  Returns (pending,
+    births, parent_idx, won, cand, u, choice, occupied); the last four
+    feed the sexual second birth."""
+    n = alive.shape[0]
+    dev = alive.device
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    rl = rows.long()
+    bm = params.birth_method
+    neighbors = neighbors_on(params, dev)
+    cand = neighbors.to(torch.int32)
+    pad = cand < 0             # padding slots never win
+    cand = torch.where(pad, rows[:, None], cand)
+    if params.allow_parent and bm in (0, 1, 2, 3):
+        cand = torch.cat([cand, rows[:, None]], dim=1)
+        pad = torch.cat([pad, torch.zeros((n, 1), dtype=torch.bool,
+                                          device=dev)], dim=1)
+    ncand = cand.shape[1]
+    cl = cand.long()
+    occupied = alive[cl]
+    u = prng.uniform(k_place, (n, ncand))
+    real = ~pad
+    empty_cand = real & ~occupied
+    has_empty = empty_cand.any(dim=1)
+    empty_pick = torch.argmax(torch.where(empty_cand, u, -1.0), dim=1)
+    neg_inf = _f32t(float("-inf"), dev)
+
+    def pick_empty_first(occ_score):
+        occ_pick = torch.argmax(torch.where(real, occ_score, neg_inf), dim=1)
+        return torch.where(has_empty, empty_pick, occ_pick)
+
+    if bm == 0 and params.prefer_empty:
+        choice = pick_empty_first(u)
+    elif bm == 1:              # AGE: the oldest neighbor, empty first
+        occ_age = torch.where(occupied, time_used[cl], 0)
+        choice = pick_empty_first(occ_age.to(torch.float32) + u)
+    elif bm == 2:              # MERIT: the lowest-merit neighbor
+        occ_merit = torch.where(occupied, merit[cl], 0.0)
+        choice = pick_empty_first(-occ_merit.to(torch.float32) + u)
+    elif bm == 3:              # EMPTY: only empty neighbors qualify
+        choice = empty_pick
+    else:
+        choice = torch.argmax(torch.where(real, u, -1.0), dim=1)
+    target = cand[rl, choice]
+    if bm == 3:
+        pending = pending & ~occupied.all(dim=1)
+    elif bm == 4:              # FULL_SOUP_RANDOM
+        target = prng.randint(prng.fold_in(k_place, 4), (n,), 0, n)
+    elif bm == 5:              # FULL_SOUP_ELDEST: the globally oldest
+        age = torch.where(alive, time_used, 2**30)
+        target = torch.argmax(age).to(torch.int32).expand(n)
+    elif bm == 6:              # DEME_RANDOM (one deme: the world)
+        cpd = params.num_cells // max(params.num_demes, 1)
+        r = prng.randint(prng.fold_in(k_place, 6), (n,), 0, cpd)
+        target = (rows // cpd) * cpd + r
+    elif bm == 7:              # PARENT_FACING: heads hardware faces
+        #                        connection 0
+        target = torch.where(neighbors[:, 0] < 0, rows,
+                             neighbors[:, 0].to(torch.int32))
+    elif bm == 8:              # NEXT_CELL
+        target = (rows + 1) % n
+    elif bm == 9:              # FULL_SOUP_ENERGY_USED (time used, energy
+        #                        off): empty cells first, random tiebreak
+        used9 = time_used.to(torch.float32)
+        u9 = prng.uniform(prng.fold_in(k_place, 9), (n,))
+        dead_pick = torch.argmax(torch.where(alive, -1.0, u9))
+        live_pick = torch.argmax(torch.where(alive, used9 + u9, neg_inf))
+        target = torch.where((~alive).any(), dead_pick, live_pick).to(
+            torch.int32).expand(n)
+    elif bm == 10:             # NEIGHBORHOOD_ENERGY_USED
+        used10 = time_used.to(torch.float32)
+        choice10 = pick_empty_first(
+            torch.where(occupied, used10[cl], 0.0) + u)
+        target = cand[rl, choice10]
+
+    BIG = 2**30
+    claim = torch.full((n,), BIG, dtype=torch.int32, device=dev)
+    claim = claim.scatter_reduce(
+        0, torch.where(pending, target, rows).long(),
+        torch.where(pending, rows, BIG), "amin", include_self=True)
+    births = claim < BIG
+    parent_idx = claim.clamp(0, n - 1)
+    won = pending & (claim[target.long()] == rows)
+    return pending, births, parent_idx, won, cand, u, choice, occupied
+
+
+# ---- the canonical flush (the per-update engine) ----
+
+def newborn_fields(params, st, births, by_parent, off_mem, off_len,
+                   child_merit, fresh_inputs, update_no):
+    """The fields of every cell receiving a newborn: gathered from its
+    parent where they depend on it, constants elsewhere (the reference's
+    parent_updates / const_updates).  Returns {field: tensor}."""
+    from avida_tpu_torch.ops.interpreter import pack_tape
+    cols = torch.arange(st.tape.shape[1], device=births.device)[None, :]
     same_site = (off_mem == st.genome) | (cols >= off_len[:, None])
     is_breed_true = (off_len == st.genome_len) & same_site.all(dim=1)
-    if params.death_method == 2:
-        max_exec = params.age_limit * off_len
-    elif params.death_method == 1:
-        max_exec = torch.full_like(off_len, params.age_limit)
-    else:
-        max_exec = torch.full_like(off_len, 2**30)
+    parent_updates = _parent_fields(params, st, off_mem, off_len,
+                                    child_merit, is_breed_true)
+    new = {name: _where_rows(births, by_parent(src), getattr(st, name))
+           for name, src in parent_updates.items()}
+    new["tape"] = _where_rows(births, pack_tape(new["genome"]), st.tape)
+    _const_fields(params, new, st, births, fresh_inputs, update_no)
+    return new
 
-    parent_updates = {
-        "mem_len": off_len, "genome": off_mem, "genome_len": off_len,
-        "merit": st.merit, "last_task_count": st.last_task_count,
+
+def _parent_fields(params, st, mem, length, merit, breed_true):
+    """{field: per-parent-row value} of a newborn whose parent is that
+    row and whose genome is (mem, length)."""
+    if params.death_method == 2:
+        max_exec = params.age_limit * length
+    elif params.death_method == 1:
+        max_exec = torch.full_like(length, params.age_limit)
+    else:
+        max_exec = torch.full_like(length, 2**30)
+    return {
+        "mem_len": length, "genome": mem, "genome_len": length,
+        "merit": merit, "last_task_count": st.last_task_count,
         "gestation_time": st.gestation_time, "fitness": st.fitness,
         "last_bonus": st.last_bonus, "last_merit_base": st.last_merit_base,
         "executed_size": st.executed_size,
         "copied_size": st.child_copied_size,
         "generation": st.generation + (
             0 if params.generation_inc_method == 1 else 1),
-        "max_executed": max_exec, "breed_true": is_breed_true,
-        "parent_id": rows,
+        "max_executed": max_exec, "breed_true": breed_true,
+        "parent_id": torch.arange(length.shape[0], dtype=torch.int32,
+                                  device=length.device),
     }
-    new = {name: _where_rows(births, by_parent(src), getattr(st, name))
-           for name, src in parent_updates.items()}
-    new["tape"] = _where_rows(births, pack_tape(new["genome"]), st.tape)
+
+
+def _const_fields(params, new, st, mask, fresh_inputs, update_no):
+    """Write the newborn constants and fresh inputs under `mask` into
+    `new` (fields not yet in `new` start from `st`)."""
     consts = dict(_CONST_UPDATES, birth_update=int(update_no),
                   cur_bonus=float(params.default_bonus))
     for name, val in consts.items():
-        new[name] = _where_rows(births, val, getattr(st, name))
-    new["inputs"] = _where_rows(births, fresh_inputs, st.inputs)
+        new[name] = _where_rows(mask, val, new.get(name, getattr(st, name)))
+    new["inputs"] = _where_rows(mask, fresh_inputs,
+                                new.get("inputs", st.inputs))
 
+
+def dual_births(params, st, new, births, won, placement, dual, dual_mem,
+                dual_len, dual_merit, fresh_inputs, update_no):
+    """The second child of the store-paired dual row: placed at another
+    of its parent's candidate cells, avoiding every cell claimed this
+    flush (at most one dual row exists).  Merged into `new` under the
+    b2 mask with no host sync (the reference gates the same writes on
+    a lax.cond).  Returns b2, the cells that receive it."""
+    from avida_tpu_torch.ops.interpreter import pack_tape
+    cand, u, choice, occupied = placement
+    n, ncand = cand.shape
+    dev = cand.device
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    claimed2 = births[cand.long()]
+    slot = torch.arange(ncand, device=dev)[None, :]
+    score2 = (u - torch.where(claimed2, 100.0, 0.0)
+              - torch.where(slot == choice[:, None], 200.0, 0.0))
+    if params.prefer_empty:
+        score2 = score2 + torch.where(~occupied, 10.0, 0.0)
+    choice2 = torch.argmax(score2, dim=1)
+    target2 = cand[rows.long(), choice2].long()
+    dual_born = dual & won & ~births[target2]
+    b2 = torch.zeros(n, dtype=torch.bool, device=dev)
+    p2 = torch.zeros(n, dtype=torch.int32, device=dev)
+    b2[target2[dual_born]] = True
+    p2[target2[dual_born]] = rows[dual_born]
+    p2l = p2.long()
+    parent2 = _parent_fields(params, st, dual_mem, dual_len, dual_merit,
+                             torch.zeros(n, dtype=torch.bool, device=dev))
+    for name, src in parent2.items():
+        new[name] = _where_rows(b2, src[p2l], new[name])
+    new["tape"] = _where_rows(b2, pack_tape(new["genome"]), new["tape"])
+    _const_fields(params, new, st, b2, fresh_inputs, update_no)
+    return b2
+
+
+def ring_append(st, new, births, parent_idx, update_no):
+    """Append this flush's newborns to the ring (nb_*) in `new`; rows
+    past the capacity are dropped but still counted, so the host sees
+    the overflow."""
     cap = st.nb_genome.shape[0]
-    if cap > 0:
-        # append this flush's newborns to the ring; rows past the cap are
-        # dropped but still counted, so the host sees the overflow
-        rank = torch.cumsum(births.to(torch.int32), 0) - 1
-        slot = st.nb_count + rank
-        ok = births & (slot < cap)
-        idx = slot[ok].long()
+    if cap == 0:
+        return
+    n = births.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=births.device)
+    rank = torch.cumsum(births.to(torch.int32), 0) - 1
+    slot = st.nb_count + rank
+    ok = births & (slot < cap)
+    idx = slot[ok].long()
 
-        def put(ring, vals):
-            ring = ring.clone()
-            ring[idx] = vals[ok].to(ring.dtype)
-            return ring
+    def put(ring, vals):
+        ring = ring.clone()
+        ring[idx] = vals[ok].to(ring.dtype)
+        return ring
 
-        new.update(
-            nb_genome=put(st.nb_genome, new["genome"]),
-            nb_len=put(st.nb_len, new["genome_len"]),
-            nb_cell=put(st.nb_cell, rows),
-            nb_parent=put(st.nb_parent, parent_idx),
-            nb_update=put(st.nb_update, torch.full_like(rows, update_no)),
-            nb_count=(st.nb_count + births.sum()).to(torch.int32))
+    new.update(
+        nb_genome=put(st.nb_genome, new["genome"]),
+        nb_len=put(st.nb_len, new["genome_len"]),
+        nb_cell=put(st.nb_cell, rows),
+        nb_parent=put(st.nb_parent, parent_idx),
+        nb_update=put(st.nb_update, torch.full_like(rows, update_no)),
+        nb_count=(st.nb_count + births.sum()).to(torch.int32))
 
+
+def flush_births(params, st, key, update_no):
+    """Place pending offspring on a canonical PopulationState (the
+    reference's flush_births with use_off_tape=True): divide mutations,
+    the birth chamber when the set has divide-sex, placement (the torus
+    fast path's rolls, or the neighbor table's scatter-min), the newborn
+    fields, the dual second birth, and the append to the newborn ring
+    that host systematics drains.  Same PRNG splits and draw shapes as
+    the reference.  What it does not port raises by name."""
+    reason = canonical_unsupported_reason(params)
+    if reason is not None:
+        raise NotImplementedError(
+            f"birth flush: {reason} is not ported to avida_tpu_torch")
+    from avida_tpu_torch.core.state import make_cell_inputs
+    from avida_tpu_torch.ops import interpreter
+    n = st.tape.shape[0]
+    ks = prng.split(key, 4)
+    k_place, k_inputs, k_off, k_sex = ks[0], ks[1], ks[2], ks[3]
+    pending = st.divide_pending & st.alive
+
+    off_mem, off_len = interpreter.extract_offspring(params, st, k_off)
+    fresh_inputs = make_cell_inputs(k_inputs, n)
+
+    sexual = has_divide_sex(params)
+    child_merit = st.merit
+    if sexual:
+        (off_mem, off_len, child_merit, pending, dual, dual_mem, dual_len,
+         dual_merit, store) = recombine_sexual(params, st, k_sex, off_mem,
+                                               off_len, pending)
+        leftover = (st.divide_pending & st.alive) & ~pending
+
+    if local_torus_fast_path(params, sexual):
+        pending, births, parent_idx, won, dir_idx = fast_torus_placement(
+            params, k_place, pending, st.alive, st.time_used, st.merit)
+        wx, wy = params.world_x, params.world_y
+        offs_all = _OFFS_2D + (((0, 0),) if params.allow_parent else ())
+
+        def by_parent(x):
+            out = torch.zeros_like(x)
+            for k, (dy, dx) in enumerate(offs_all):
+                out = _where_rows(dir_idx == k, _roll2d(x, dy, dx, wx, wy),
+                                  out)
+            return out
+    else:
+        (pending, births, parent_idx, won, *placement) = general_placement(
+            params, k_place, pending, st.alive, st.time_used, st.merit)
+        pl = parent_idx.long()
+
+        def by_parent(x):
+            return x[pl]
+
+    new = newborn_fields(params, st, births, by_parent, off_mem, off_len,
+                         child_merit, fresh_inputs, update_no)
+    if sexual:
+        b2 = dual_births(params, st, new, births, won, placement, dual,
+                         dual_mem, dual_len, dual_merit, fresh_inputs,
+                         update_no)
+        births = births | b2
+    ring_append(st, new, births, parent_idx, update_no)
     st = st.replace(**new)
-    # winners and dead parents resume; living losers retry next update
-    cleared = torch.where(won | ~st.alive, False, st.divide_pending)
+    resumes = won | ~st.alive
+    if sexual:
+        # transactional store: when the dual row's store child found no
+        # cell, the waiting entry is not consumed -- unless a new
+        # leftover already took the single slot
+        bc_mem, bc_len, bc_merit, bc_valid, bc_type = store
+        restore = dual.any() & ~b2.any() & ~bc_valid
+        st = st.replace(
+            bc_mem=torch.where(restore, st.bc_mem, bc_mem),
+            bc_len=torch.where(restore, st.bc_len, bc_len),
+            bc_merit=torch.where(restore, st.bc_merit, bc_merit),
+            bc_valid=bc_valid | restore, bc_type=bc_type)
+        resumes = resumes | leftover
+    # winners, dead parents and parents whose offspring went into the
+    # store resume; living losers retry next update
+    cleared = torch.where(resumes, False, st.divide_pending)
     return st.replace(divide_pending=cleared, off_sex=st.off_sex & cleared)
 
 

@@ -110,13 +110,15 @@ CHUNK = 64
 
 
 def unsupported_reason(params) -> str | None:
-    """Why this package's cycle interpreter cannot run `params` exactly
-    (None = it can).  Beyond the reference's own eligibility it covers
-    only the main-path instruction semantics: opcodes 0-2 are nop-A/B/C,
-    uniform mutation draws, no instruction costs or execution failure,
-    no divide-sex."""
-    if params.hw_type != 0 or params.max_cpu_threads > 1:
-        return "non-heads hardware or MAX_CPU_THREADS > 1"
+    """Why the cycle interpreter cannot run `params` (None = it can): the
+    reference's kernel gate, gate for gate -- heads hardware
+    (update.use_pallas_path) and pallas_cycles.eligible."""
+    if params.hw_type != 0:
+        return "non-heads hardware"
+    if params.max_cpu_threads > 1:
+        return "MAX_CPU_THREADS > 1"
+    if any(int(s) > SEM_H_DIVIDE_SEX for s in params.sem):
+        return "thread or mating-type instructions"
     if params.energy_enabled:
         return "the energy model"
     if any(pi >= 0 for pi in params.proc_product_idx):
@@ -125,24 +127,25 @@ def unsupported_reason(params) -> str | None:
         return "math-family tasks"
     if any(r >= 0 for r in params.proc_res_idx):
         return "resource-bound reactions"
-    n = params.num_insts
-    if not (all(bool(params.is_nop[k]) == (k < 3) for k in range(n))
-            and tuple(int(x) for x in params.nop_mod[:3]) == (0, 1, 2)):
-        return "an instruction set whose nops are not opcodes 0-2"
-    if any(int(s) > SEM_H_DIVIDE_SEX for s in params.sem):
-        return "thread or mating-type instructions"
-    if any(int(s) == SEM_H_DIVIDE_SEX for s in params.sem):
-        return "divide-sex"
-    if params.inst_cost or params.inst_ft_cost:
-        return "instruction costs"
-    if params.inst_prob_fail:
-        return "instruction execution failure (prob_fail)"
-    if params.inst_addl_time_cost:
-        return "addl_time_cost"
-    if params.mut_cdf and not all(
-            abs(params.mut_cdf[k] - (k + 1) / n) < 1e-12 for k in range(n)):
-        return "redundancy-weighted mutation draws"
     return None
+
+
+def has_costs(params) -> bool:
+    """Does the instruction set carry costs or first-time costs (the
+    kernel's cost engine)?"""
+    return bool(params.inst_cost) or bool(params.inst_ft_cost)
+
+
+def uniform_mutation(params) -> bool:
+    """Are random-instruction draws uniform (every redundancy equal)?"""
+    n = params.num_insts
+    return not params.mut_cdf or all(
+        abs(params.mut_cdf[k] - (k + 1) / n) < 1e-12 for k in range(n))
+
+
+def _f32_bits(x) -> int:
+    """The int32 bit pattern of float32(x)."""
+    return int(torch.tensor(float(x), dtype=torch.float32).view(torch.int32))
 
 
 def check_supported(params):
@@ -504,9 +507,32 @@ def cycles_reference(params, planes, seeds, num_steps, B):
     ni = params.num_insts
     dev = tape_t.device
     i64 = torch.int64
-    sem_tab = torch.tensor(params.sem, dtype=i64, device=dev)
-    mod_tab = torch.tensor(params.mod_kind, dtype=i64, device=dev)
-    def_tab = torch.tensor(params.default_op, dtype=i64, device=dev)
+
+    def itab(vals):
+        return torch.tensor([int(v) for v in vals], dtype=i64, device=dev)
+
+    sem_tab = itab(params.sem)
+    mod_tab = itab(params.mod_kind)
+    def_tab = itab(params.default_op)
+    nop_tab = torch.tensor([bool(x) for x in params.is_nop], device=dev)
+    nmod_tab = itab(params.nop_mod)
+    # 2-bit complement code of every tape byte for h-search: the nop's
+    # register for a nop opcode, 3 for anything else
+    code_tab = torch.full((256,), 3, dtype=i64, device=dev)
+    code_tab[:ni] = torch.where(nop_tab, nmod_tab, 3)
+    costs = has_costs(params)
+    if costs:
+        cost_tab = itab(params.inst_cost or (0,) * ni)
+        ftc_tab = itab(params.inst_ft_cost or (0,) * ni)
+    if params.inst_prob_fail:
+        pf_tab = torch.tensor(params.inst_prob_fail, dtype=torch.float32,
+                              device=dev)
+    if params.inst_addl_time_cost:
+        addl_tab = itab(params.inst_addl_time_cost)
+    weighted = not uniform_mutation(params)
+    if weighted:
+        cdf_tab = torch.tensor(params.mut_cdf[:ni - 1], dtype=torch.float32,
+                               device=dev)
     lane = torch.arange(N, dtype=i64, device=dev)
     seed_lane = (_u32(seeds).repeat_interleave(B) + (lane % B)) & _M32
     lw_rows = torch.arange(LW, dtype=i64, device=dev)[:, None]
@@ -572,14 +598,46 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         ip_exec_already = ((ebm.gather(0, (ip >> 5)[None])[0]
                             >> (ip & 31)) & 1) != 0
 
-        sem = torch.where(exec_m, sem_tab[cur_op], -1)
-        mod_kind = torch.where(exec_m, mod_tab[cur_op], MOD_NONE)
+        # cost engine (pallas_cycles.py:617-652): a cost-c instruction
+        # waits c - 1 cycles and executes on the last; ft_cost is a
+        # one-time surcharge per opcode
+        if costs:
+            ft_lo, ft_hi = row(IV_FT_LO), row(IV_FT_HI)
+            ft_bit = torch.where(cur_op < 32,
+                                 (ft_lo >> cur_op.clamp(0, 31)) & 1,
+                                 (ft_hi >> (cur_op - 32).clamp(0, 31)) & 1)
+            total_cost = cost_tab[cur_op].clamp(min=1) + torch.where(
+                ft_bit == 0, ftc_tab[cur_op], 0)
+            cw = row(IV_COST_WAIT)
+            eff_exec = exec_m & ((cw == 1) | ((cw == 0) & (total_cost <= 1)))
+            cost_wait = torch.where(exec_m, torch.where(
+                cw > 0, cw - 1, torch.where(total_cost > 1, total_cost - 1,
+                                            0)), cw)
+            pay_ft = eff_exec & (ft_bit == 0)
+            one = torch.ones_like(cur_op)
+            ft_lo = torch.where(pay_ft & (cur_op < 32), _wrap32(
+                ft_lo | (one << cur_op.clamp(0, 31))), ft_lo)
+            ft_hi = torch.where(pay_ft & (cur_op >= 32), _wrap32(
+                ft_hi | (one << (cur_op - 32).clamp(0, 31))), ft_hi)
+        else:
+            eff_exec = exec_m
+        # execution failure (:654-662): costs paid, effect suppressed
+        if params.inst_prob_fail:
+            u_fail = _hash24(seed_lane, s, 2).to(torch.float32) \
+                * (1.0 / (1 << 24))
+            failed = eff_exec & (u_fail < pf_tab[cur_op])
+        else:
+            failed = torch.zeros_like(exec_m)
+
+        sem = torch.where(eff_exec & ~failed, sem_tab[cur_op], -1)
+        # the modifier keys off exec_m, not eff_exec (:664-669)
+        mod_kind = torch.where(exec_m & ~failed, mod_tab[cur_op], MOD_NONE)
         default_operand = def_tab[cur_op]
 
         next_op = lab[0].clamp(0, ni - 1)
         wants_mod = (mod_kind == MOD_REG) | (mod_kind == MOD_HEAD)
-        has_mod = wants_mod & (next_op < 3)
-        operand = torch.where(has_mod, next_op, default_operand)
+        has_mod = wants_mod & nop_tab[next_op]
+        operand = torch.where(has_mod, nmod_tab[next_op], default_operand)
         consumed = has_mod.to(i64)
         next_pos = _adjust1(ip + 1, mlen)
 
@@ -589,9 +647,9 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         lab_vals = []
         for k in range(MAX_LABEL_SIZE):
             v = lab[k].clamp(0, ni - 1)
-            run = run * ((v < 3) & ((k + 1) <= (mlen - 1))).to(i64)
+            run = run * (nop_tab[v] & ((k + 1) <= (mlen - 1))).to(i64)
             label_len = label_len + run
-            lab_vals.append(v)
+            lab_vals.append(nmod_tab[v])
         label_len = torch.where(has_label, label_len, 0)
         consumed = torch.where(has_label, label_len, consumed)
         lbl_c = [torch.where(v >= 2, v - 2, v + 1) for v in lab_vals]
@@ -610,7 +668,14 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         if params.copy_mut_prob > 0:
             u_copy = _hash24(seed_lane, s, 0).to(torch.float32) \
                 * (1.0 / (1 << 24))
-            rand_inst = _hash24(seed_lane, s, 1) % ni
+            r_bits = _hash24(seed_lane, s, 1)
+            if weighted:
+                # inverse CDF over the float32-rounded cumulative weights
+                u_inst = r_bits.to(torch.float32) * (1.0 / (1 << 24))
+                rand_inst = (u_inst[None] >= cdf_tab[:, None]).sum(
+                    dim=0).to(i64)
+            else:
+                rand_inst = r_bits % ni
         else:
             u_copy = torch.ones(N, dtype=torch.float32, device=dev)
             rand_inst = torch.zeros_like(ip)
@@ -642,7 +707,7 @@ def cycles_reference(params, planes, seeds, num_steps, B):
             tb = tw.to(torch.int32).T.contiguous().view(torch.uint8)
             codes = torch.full((L + MAX_LABEL_SIZE, N), 3, dtype=i64,
                                device=dev)
-            codes[:L] = tb.T.to(i64).clamp(max=3)
+            codes[:L] = code_tab[tb.T.to(i64)]
             q = torch.arange(L, dtype=i64, device=dev)[:, None]
             match = (q + label_len[None] <= mlen[None]) & searching[None]
             for k in range(MAX_LABEL_SIZE):
@@ -689,16 +754,17 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         read_inst = s_rp.clamp(0, ni - 1)
         do_mut = copy_m & (u_copy < copy_p)
         written = torch.where(do_mut, rand_inst, read_inst)
-        ri_isnop = read_inst < 3
+        ri_isnop = nop_tab[read_inst]
         can_append = ri_isnop & copy_m & (rl_len < MAX_LABEL_SIZE)
         rl_rows = torch.arange(MAX_LABEL_SIZE, dtype=i64, device=dev)[:, None]
         read_label = torch.where((rl_rows == rl_len) & can_append,
-                                 read_inst, read_label)
+                                 nmod_tab[read_inst], read_label)
         read_label_len = torch.where(~ri_isnop & copy_m, 0, torch.where(
             can_append, rl_len + 1, rl_len))
 
         # h-divide
-        div_m0 = is_op(SEM_H_DIVIDE)
+        div_sex = is_op(SEM_H_DIVIDE_SEX)
+        div_m0 = is_op(SEM_H_DIVIDE) | div_sex
         gsize = row(IV_GENOME_LEN)
         fsize = gsize.to(torch.float32)
         min_sz = torch.clamp((fsize / osr).to(i64), min=params.min_genome_len)
@@ -722,7 +788,7 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         div_m = div_m0 & viable
         off_start = torch.where(div_m, rp, row(IV_OFF_START))
         off_len = torch.where(div_m, child_size, row(IV_OFF_LEN))
-        off_sex = torch.where(div_m, 0, row(IV_OFF_SEX))
+        off_sex = torch.where(div_m, div_sex.to(i64), row(IV_OFF_SEX))
 
         # IO + tasks
         io_m = is_op(SEM_IO)
@@ -829,7 +895,7 @@ def cycles_reference(params, planes, seeds, num_steps, B):
                              _adjust1(jmp_pos + 1, mlen), ip_seq)
         ip_new = torch.where(mov_m & (hsel0 == HEAD_IP), flow0, ip_new)
         ip_new = torch.where(div_m, 0, ip_new)
-        heads_new[HEAD_IP] = torch.where(exec_m, ip_new, ip)
+        heads_new[HEAD_IP] = torch.where(eff_exec, ip_new, ip)
 
         mem_len = torch.where(div_m, rp, mem_len)
         heads_new = torch.where(div_m, 0, heads_new)
@@ -842,7 +908,7 @@ def cycles_reference(params, planes, seeds, num_steps, B):
 
         # site-flag bitplanes
         nop_exec = has_mod | (has_label & (label_len > 0))
-        ebm = ebm | torch.where((lw_rows == (ip >> 5)) & exec_m,
+        ebm = ebm | torch.where((lw_rows == (ip >> 5)) & eff_exec,
                                 1 << (ip & 31), 0)
         ebm = ebm | torch.where((lw_rows == (next_pos >> 5)) & nop_exec,
                                 1 << (next_pos & 31), 0)
@@ -887,6 +953,10 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         gen_inc = div_m.to(i64) if params.generation_inc_method == 1 else 0
 
         time_used = time_used0 + exec_m.to(i64)
+        if params.inst_addl_time_cost:
+            # charged on eff_exec, failures included (:1225-1230)
+            time_used = time_used + torch.where(eff_exec, addl_tab[cur_op],
+                                                0)
         cpu_cycles = row(IV_CPU_CYCLES) + exec_m.to(i64)
         if params.divide_method != 0:
             time_used = torch.where(div_m, 0, time_used)
@@ -932,6 +1002,11 @@ def cycles_reference(params, planes, seeds, num_steps, B):
                                         row(IV_OFF_COPIED))
         iv[IV_OFF_SEX] = off_sex
         iv[IV_INSTS_EXEC] = row(IV_INSTS_EXEC) + exec_m.to(i64)
+        if costs:
+            # the parent's cost engine restarts at divide
+            iv[IV_COST_WAIT] = torch.where(div_m, 0, cost_wait)
+            iv[IV_FT_LO] = torch.where(div_m, 0, ft_lo)
+            iv[IV_FT_HI] = torch.where(div_m, 0, ft_hi)
         iv[IV_FLAGS] = (torch.where(new_mal, FLAG_MAL, 0)
                         | torch.where(alive, FLAG_ALIVE, 0)
                         | torch.where(divide_pending, FLAG_DIVPEND, 0)
@@ -1065,19 +1140,41 @@ def kernel_tables(params, device) -> torch.Tensor:
     return tab
 
 
+# opcode tables of the launch table, 64 slots each, in csrc/cycles.cu's
+# order (T_META ... T_NOP_MOD), then 16 ints per reaction
+TAB_INSTS = 64
+(T_META, T_COST, T_FT_COST, T_ADDL, T_PROB_FAIL, T_MUT_CDF, T_IS_NOP,
+ T_NOP_MOD, T_REACTIONS) = range(9)
+
+
 def _build_tables(params) -> torch.Tensor:
-    """Opcode metadata, then 16 ints per reaction (see csrc/cycles.cu)."""
+    """The opcode tables, then 16 ints per reaction (see csrc/cycles.cu).
+    prob_fail and the cumulative mutation weights are float32 bit
+    patterns: the reference compares its draws against them in float32."""
     import struct
     R = params.num_reactions
-    t = [0] * (64 + 16 * R)
-    for k in range(params.num_insts):
-        t[k] = (int(params.sem[k]) | (int(params.mod_kind[k]) << 8)
-                | (int(params.default_op[k]) << 16))
+    ni = params.num_insts
+    t = [0] * (T_REACTIONS * TAB_INSTS + 16 * R)
+
+    def put(table, vals):
+        for k, v in enumerate(vals):
+            t[table * TAB_INSTS + k] = int(v)
+
+    put(T_META, ((int(params.sem[k]) | (int(params.mod_kind[k]) << 8)
+                  | (int(params.default_op[k]) << 16)) for k in range(ni)))
+    put(T_COST, params.inst_cost)
+    put(T_FT_COST, params.inst_ft_cost)
+    put(T_ADDL, params.inst_addl_time_cost)
+    put(T_PROB_FAIL, (_f32_bits(x) for x in params.inst_prob_fail))
+    if not uniform_mutation(params):
+        put(T_MUT_CDF, (_f32_bits(x) for x in params.mut_cdf[:ni - 1]))
+    put(T_IS_NOP, (bool(x) for x in params.is_nop))
+    put(T_NOP_MOD, params.nop_mod)
     for r in range(R):
         v = float(params.proc_value[r])
         typ = int(params.proc_type[r])
         f = torch.tensor(2.0 ** v if typ == 2 else v, dtype=torch.float32)
-        base = 64 + 16 * r
+        base = T_REACTIONS * TAB_INSTS + 16 * r
         t[base + 0] = max(min(int(params.min_task_count[r]), 2**31 - 1), 0)
         t[base + 1] = min(int(params.max_task_count[r]), 2**31 - 1)
         t[base + 2] = typ
@@ -1109,18 +1206,22 @@ def _launch_cuda(params, planes, seeds, num_steps, B):
                              f"{tuple(t.shape)} on {t.device}, expected "
                              f"contiguous {dt} {shape} on {dev}")
     if LW > 32 or params.num_reactions > 32 or B > 512 or B % 32 \
-            or n_pad % B:
+            or B < TAB_INSTS or n_pad % B or params.num_insts > TAB_INSTS:
         raise ValueError("cycle kernel limits: tape <= 1024, <= 32 "
-                         "reactions, block width a multiple of 32 <= 512")
+                         "reactions, <= 64 instructions, block width a "
+                         "multiple of 32 in [64, 512]")
     tab = kernel_tables(params, dev)
-    pi = (ctypes.c_int32 * 16)(
+    pi = (ctypes.c_int32 * 20)(
         n_pad, LP, LW, params.max_memory, params.num_insts,
         params.num_reactions, IV_COPIED_BM, IV_DYN,
         min(int(num_steps), 2**31 - 1), int(params.require_allocate),
         int(params.base_merit_method), int(params.inherit_merit),
         1 if params.generation_inc_method == 1 else 0,
         int(params.divide_method), int(params.min_genome_len),
-        int(params.copy_mut_prob > 0))
+        int(params.copy_mut_prob > 0), int(has_costs(params)),
+        int(bool(params.inst_prob_fail)),
+        int(bool(params.inst_addl_time_cost)),
+        int(not uniform_mutation(params)))
     pf = (ctypes.c_float * 6)(
         params.copy_mut_prob, params.offspring_size_range,
         params.min_exe_lines, params.min_copied_lines, params.default_bonus,

@@ -46,12 +46,11 @@ def ineligible_reason(params, nb_ring: bool = False) -> str | None:
     in its words.  `nb_ring`: the state carries a non-empty newborn ring
     (TPU_SYSTEMATICS=1).  An ineligible configuration runs the per-update
     engine (ops/update.py)."""
-    from avida_tpu_torch.models.heads import SEM_H_DIVIDE_SEX
     if int(params.packed_chunk) == 0:
         return "TPU_PACKED_CHUNK=0"
     if params.hw_type != 0 or params.max_cpu_threads > 1:
         return "non-heads hardware or multi-threaded CPUs (XLA path)"
-    if any(int(s) == SEM_H_DIVIDE_SEX for s in params.sem):
+    if birth_ops.has_divide_sex(params):
         return "divide-sex instruction set (recombination is canonical)"
     if not birth_ops.local_torus_fast_path(params, sexual=False):
         return ("birth placement off the torus fast path (geometry / "

@@ -22,10 +22,9 @@ def compute_budgets_from(params, alive, merit, key):
         return torch.where(alive, params.ave_time_slice, 0).to(torch.int32)
 
     merit = torch.where(alive, merit.clamp(min=0.0), 0.0)
-    # the total of the merit vector, exactly rounded (the reference's float32
-    # reduction agrees whenever the sum is exact, as it is for merits that
-    # are integers scaled by powers of two)
-    total = merit.double().sum().to(f32)
+    # the reference's float32 total, in XLA's summation order (merits of
+    # recombinant offspring are not integers, so the order shows)
+    total = prng.xla_f32_sum(merit)
     p = torch.where(total > 0, merit / total.clamp(min=1e-30), 0.0)
 
     if params.slicing_method == 1:

@@ -45,31 +45,6 @@ def schedule_grant(params, budgets, budget_carry):
     return budgets, granted, max_k
 
 
-def f32_sum(x):
-    """float32 total of a vector, exactly rounded (accumulated in
-    float64)."""
-    return x.double().sum().to(torch.float32)
-
-
-def xla_f32_sum(x):
-    """float32 total of a short vector in the order XLA's CPU reduction
-    takes (measured against jnp.sum up to 128 elements): sequential
-    within blocks of 32, then sequential over the block sums.  Elementwise
-    float32 adds only, so it rounds the same on every device."""
-    n = x.shape[0]
-    nb = max(-(-n // 32), 1)
-    blk = torch.zeros(nb * 32, dtype=torch.float32, device=x.device)
-    blk[:n] = x
-    blk = blk.reshape(nb, 32)
-    acc = blk[:, 0]
-    for j in range(1, 32):
-        acc = acc + blk[:, j]
-    total = acc[0]
-    for b in range(1, nb):
-        total = total + acc[b]
-    return total
-
-
 def light_stats_vals(alive, gestation_time, generation, birth_update,
                      update_no):
     """(ave_gest, ave_gen, n_alive, births) over bare vectors."""
@@ -261,7 +236,8 @@ def summarize(params, st, update_no=-1):
     denom = n_alive.clamp(min=1).to(torch.float32)
 
     def avg(x):
-        return f32_sum(torch.where(alive, x.to(torch.float32), 0.0)) / denom
+        return prng.xla_f32_sum(
+            torch.where(alive, x.to(torch.float32), 0.0)) / denom
 
     gest = torch.where(alive, st.gestation_time, 0)
     has_gest = alive & (st.gestation_time > 0)
@@ -275,7 +251,7 @@ def summarize(params, st, update_no=-1):
         "ave_fitness": avg(st.fitness),
         "ave_gestation": torch.where(has_gest, gest, 0).sum().to(
             torch.int32).to(torch.float32) / gest_denom,
-        "ave_repro_rate": f32_sum(repro) / gest_denom,
+        "ave_repro_rate": prng.xla_f32_sum(repro) / gest_denom,
         "ave_genome_len": avg(st.genome_len),
         "ave_copied_size": avg(st.copied_size),
         "ave_executed_size": avg(st.executed_size),

@@ -134,6 +134,30 @@ def fma_f32(a, b, c):
             + torch.as_tensor(c, device=a.device).double()).float()
 
 
+def xla_f32_sum(x):
+    """float32 total of a vector in the order of XLA's CPU backend (the
+    reference's `x.sum()` in a compiled program).  Its tree-reduction pass
+    cuts a reduction over more than 32 values into windows of 32 -- the
+    vector zero-padded to a multiple of 32, the smaller half of the
+    padding in front -- sums each window in order, and repeats on the
+    window sums; 32 or fewer values are summed in order.  Float32 adds
+    only, so it rounds the same on every device."""
+    x = torch.as_tensor(x).to(torch.float32)
+    while x.shape[0] > 32:
+        pad = -x.shape[0] % 32
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = _sum_rows_in_order(x.reshape(-1, 32).T)
+    return _sum_rows_in_order(x)
+
+
+def _sum_rows_in_order(rows):
+    """0 + rows[0] + rows[1] + ... in float32."""
+    total = rows.new_zeros(rows.shape[1:])
+    for r in rows:
+        total = total + r
+    return total
+
+
 def sqrt_f32(x):
     """Correctly rounded float32 square root (torch's vectorised CPU
     kernel is not; the float64 root rounds to the right float32)."""

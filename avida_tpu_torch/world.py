@@ -24,8 +24,9 @@ import numpy as np
 import torch
 
 from avida_tpu_torch.config import (AvidaConfig, default_instset,
-                                    load_avida_cfg, load_environment,
-                                    load_events, load_instset, load_organism)
+                                    heads_sex_instset, load_avida_cfg,
+                                    load_environment, load_events,
+                                    load_instset, load_organism)
 from avida_tpu_torch.config.environment import default_logic9_environment
 from avida_tpu_torch.config.events import parse_event_line
 from avida_tpu_torch.config.schema import _parse_scalar
@@ -84,13 +85,19 @@ _FALSE_FIELDS = ("mal_active", "breed_true", "divide_pending", "off_sex",
 
 def default_ancestor(instset) -> np.ndarray:
     name_to_op = {n: i for i, n in enumerate(instset.inst_names)}
-    missing = [n for n in _DEFAULT_ANCESTOR_NAMES if n not in name_to_op]
+    if "h-divide" not in name_to_op and "divide-sex" in name_to_op:
+        # the sexual ancestor: the same replicator with divide-sex
+        # (ref support/config/default-heads-sex.org)
+        names = ["divide-sex" if n == "h-divide" else n
+                 for n in _DEFAULT_ANCESTOR_NAMES]
+    else:
+        names = _DEFAULT_ANCESTOR_NAMES
+    missing = [n for n in names if n not in name_to_op]
     if missing:
         raise ValueError(
             f"instruction set {instset.name!r} has no built-in default "
             f"ancestor (lacks {missing[:4]}); inject an explicit genome")
-    return np.asarray([name_to_op[n] for n in _DEFAULT_ANCESTOR_NAMES],
-                      np.int8)
+    return np.asarray([name_to_op[n] for n in names], np.int8)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -137,11 +144,13 @@ class World:
         if config_dir and cfg.INST_SET not in ("-", ""):
             self.instset = load_instset(os.path.join(config_dir,
                                                      cfg.INST_SET))
-        elif any(t in cfg.INST_SET for t in ("smt", "pred", "experimental",
-                                              "sex")):
+        elif any(t in cfg.INST_SET for t in ("smt", "pred", "experimental")):
             raise NotImplementedError(
-                f"INST_SET {cfg.INST_SET!r}: only the heads instruction set "
-                f"is ported to avida_tpu_torch")
+                f"INST_SET {cfg.INST_SET!r}: only the heads instruction "
+                f"sets (heads_default, heads_sex) are ported to "
+                f"avida_tpu_torch")
+        elif "sex" in cfg.INST_SET:
+            self.instset = heads_sex_instset()
         else:
             self.instset = default_instset()
 
@@ -468,7 +477,7 @@ class World:
             update_scan(self.params, self.state, k, self._run_key,
                         self.update)
         # avida time advances by 1/ave_gestation per update
-        self._avida_time = self._avida_time + update_ops.xla_f32_sum(dts)
+        self._avida_time = self._avida_time + prng.xla_f32_sum(dts)
         self._last_ave_gen = ave_gens[-1]
         self._deaths_this = deaths[-1]
         self._total_births = self._total_births + births.sum()

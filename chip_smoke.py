@@ -2,14 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the cycle kernel from avida_tpu_torch/csrc, then drives two paths
-of World.run on a 320x320 world seeded everywhere with the default
-ancestor, and checks that every update of each launched the kernel:
+Builds the cycle kernel from avida_tpu_torch/csrc, then drives four
+paths of World.run on a 320x320 world seeded everywhere with the
+instruction set's ancestor, and checks that every update of each
+launched the kernel:
 
   main_path     TPU_SYSTEMATICS=0: the packed-resident engine
   default_path  the reference's default, systematics on: the per-update
                 engine (lane-permuted run_cycles, canonical birth flush,
                 newborn ring, host phylogeny drain)
+  sex_path      INST_SET heads_sex (BASELINE config 3), systematics on:
+                the per-update engine with divide-sex, the birth chamber
+                and the placement through the neighbor table
+  costs_kernel  an instruction-set file with costs, first-time costs,
+                prob_fail, addl_time_cost, unequal redundancies and the
+                nops off opcodes 0-2, on the packed engine
 
 On each path's evolved state it holds the kernel bit for bit against its
 plain PyTorch version and times the path's own phase functions; small
@@ -119,6 +126,37 @@ def reseed_mixed(w):
     w.state = st
 
 
+# the heads opcodes with nop-A/B/C moved off 0-2 and every cost column
+# of the instruction-set file in use
+COSTS_INSTSET = """INSTSET heads_costs:hw_type=0
+INST if-n-equ:cost=2
+INST if-less
+INST nop-B:redundancy=2
+INST if-label:prob_fail=0.05
+INST mov-head
+INST jmp-head:ft_cost=3
+INST get-head
+INST set-flow
+INST nop-C
+INST shift-r
+INST shift-l:prob_fail=0.1
+INST inc:addl_time_cost=2
+INST dec
+INST push:cost=3
+INST pop:ft_cost=2
+INST swap-stk
+INST swap
+INST nop-A:redundancy=3
+INST add
+INST sub
+INST nand:cost=2:ft_cost=4
+INST h-copy:redundancy=4:addl_time_cost=1
+INST h-alloc:ft_cost=5
+INST h-divide:cost=2:addl_time_cost=3
+INST IO:prob_fail=0.02:cost=2
+INST h-search:redundancy=0.5
+"""
+
 CROSS_CASES = (
     # (name, side, updates, extra config, custom environment, mixed
     # programs, print every n updates (0 = no .dat files))
@@ -128,7 +166,16 @@ CROSS_CASES = (
                            COPY_MUT_PROB=0.05), True, True, 0),
     ("capped", 8, 24, dict(TPU_MAX_STEPS_PER_UPDATE=25), False, True, 0),
     ("systematics", 8, 16, dict(TPU_SYSTEMATICS=1), False, False, 4),
+    ("sex", 8, 32, dict(TPU_SYSTEMATICS=1, INST_SET="heads_sex"), False,
+     False, 4),
+    ("costs", 8, 24, dict(COPY_MUT_PROB=0.02), False, True, 0),
+    ("soup", 8, 24, dict(BIRTH_METHOD=4, WORLD_GEOMETRY=1), False, False,
+     0),
 )
+# the engine each case must take, and words of its reason
+CROSS_ENGINES = {"systematics": ("per-update", "TPU_SYSTEMATICS=1"),
+                 "sex": ("per-update", "divide-sex"),
+                 "soup": ("per-update", "off the torus fast path")}
 PRINTS = ("PrintAverageData", "PrintCountData", "PrintTasksData",
           "PrintTimeData", "PrintDominantData")
 
@@ -144,38 +191,61 @@ def dat_bodies(data_dir):
     return out
 
 
+def write_config_dir(cdir, env=False, instset=None):
+    """A config directory: avida.cfg naming the instruction-set file (or
+    the built-in set), and the custom environment when asked for."""
+    os.makedirs(cdir)
+    with open(os.path.join(cdir, "avida.cfg"), "w") as f:
+        f.write("INST_SET instset.cfg\n" if instset else "INST_SET -\n")
+    if instset:
+        with open(os.path.join(cdir, "instset.cfg"), "w") as f:
+            f.write(instset)
+    if env:
+        with open(os.path.join(cdir, "environment.cfg"), "w") as f:
+            f.write(ENV_TEXT)
+    return cdir
+
+
 def phase_cross_device(tmp, devices=("cuda", "cpu")):
     """Small worlds run on the card and on the CPU (the plain versions)
     must end in identical states (and, where they print, identical .dat
     bytes): the whole update path, kernel included, against its plain
-    PyTorch counterpart, over default, mixed-program and capped
-    configurations of the packed engine and a systematics world of the
-    per-update engine."""
+    PyTorch counterpart, over default, mixed-program, capped and costs
+    configurations of the packed engine and the systematics, heads-sex
+    and soup (BIRTH_METHOD 4 on a grid) worlds of the per-update engine.
+    Each world runs in stretches of 4 updates; the sexual one must hold
+    a waiting birth-chamber entry at some stretch boundary."""
     from avida_tpu_torch import convert
     results = []
     for name, side, updates, extra, custom_env, mixed, every in CROSS_CASES:
         cdir = None
-        if custom_env:
-            cdir = os.path.join(tmp, f"cfg_{name}")
-            os.makedirs(cdir)
-            with open(os.path.join(cdir, "avida.cfg"), "w") as f:
-                f.write("INST_SET -\n")
-            with open(os.path.join(cdir, "environment.cfg"), "w") as f:
-                f.write(ENV_TEXT)
-        states, dats, engines = [], [], set()
+        if custom_env or name == "costs":
+            cdir = write_config_dir(
+                os.path.join(tmp, f"cfg_{name}"), env=custom_env,
+                instset=COSTS_INSTSET if name == "costs" else None)
+        states, dats, engines, stored = [], [], set(), []
         events = ["u begin InjectAll"] + (
             [f"u 0:{every}:end {a}" for a in PRINTS] if every else [])
+        want = CROSS_ENGINES.get(name, ("packed", ""))
         for dev in devices:
             ddir = os.path.join(tmp, f"x_{name}_{dev}")
             w = make_world(side, ddir, dev, events, extra, cdir)
             w.process_events()
             if mixed:
                 reseed_mixed(w)
-            w.run(max_updates=updates)
+            n_stored = 0
+            for u in range(4, updates + 1, 4):
+                w.run(max_updates=u)
+                n_stored += int(w.state.bc_valid)
             _sync(dev)
             states.append(convert.state_to_arrays(w.state))
             dats.append(dat_bodies(ddir) if every else {})
-            engines.add(w.engine_report()["engine"])
+            rep = w.engine_report()
+            engines.add(rep["engine"])
+            stored.append(n_stored)
+            if rep["engine"] != want[0] \
+                    or want[1] not in rep.get("fallback_reason", ""):
+                raise AssertionError(f"{name}: engine {rep}, want {want}")
         sa, sb = states
         bad = [k for k in sa if sa[k] is not None
                and sa[k].tobytes() != sb[k].tobytes()]
@@ -183,14 +253,19 @@ def phase_cross_device(tmp, devices=("cuda", "cpu")):
                 if dats[0].get(f) != dats[1].get(f)]
         births = int((sb["birth_update"] >= 0).sum())
         tasks = int((sb["task_exe_total"] > 0).any(axis=0).sum())
-        if bad or births == 0 or (every and "dominant.dat" not in dats[0]):
+        if bad or births == 0 or (every and "dominant.dat" not in dats[0]) \
+                or (name == "sex" and stored[0] == 0):
             raise AssertionError(f"{name}: cuda vs cpu differ in {bad} "
                                  f"(births {births}, files "
-                                 f"{sorted(dats[0])})")
-        results.append({"case": name, "world": f"{side}x{side}",
-                        "updates": updates, "engine": sorted(engines),
-                        "births": births, "tasks_seen": tasks,
-                        "dat_files_equal": sorted(dats[0])})
+                                 f"{sorted(dats[0])}, boundaries with a "
+                                 f"stored entry {stored})")
+        res = {"case": name, "world": f"{side}x{side}",
+               "updates": updates, "engine": sorted(engines),
+               "births": births, "tasks_seen": tasks,
+               "dat_files_equal": sorted(dats[0])}
+        if name == "sex":
+            res["boundaries_with_stored_entry"] = stored[0]
+        results.append(res)
     return {"phase": "cross_device", "fields_equal": True, "cases": results}
 
 
@@ -389,15 +464,20 @@ def phase_breakdown(w, updates=5):
             "pack_ms": acc["pack"], "unpack_ms": acc["unpack"]}
 
 
-def phase_default_path(side, updates, data_dir, device="cuda"):
+def phase_default_path(side, updates, data_dir, device="cuda",
+                       name="default_path", extra=None,
+                       reason="TPU_SYSTEMATICS=1"):
     """The reference's default experiment (TPU_SYSTEMATICS=1): World.run
     through the per-update engine, one kernel launch per update, the host
-    phylogeny fed from the newborn ring, dominant.dat written."""
+    phylogeny fed from the newborn ring, dominant.dat written.  With
+    `extra` = {"INST_SET": "heads_sex"} the same for the sexual world
+    (sex_path), whose engine reason names divide-sex."""
     import torch
     from avida_tpu_torch.ops import cycles
     every = max(updates // 3, 1)
     ev = ["u begin InjectAll"] + [f"u 0:{every}:end {a}" for a in PRINTS]
-    w = make_world(side, data_dir, device, ev, {"TPU_SYSTEMATICS": 1})
+    w = make_world(side, data_dir, device, ev,
+                   dict({"TPU_SYSTEMATICS": 1}, **(extra or {})))
     host = time_host_drain(w)
     _sync(device)
     cycles.reset_launches()
@@ -417,7 +497,7 @@ def phase_default_path(side, updates, data_dir, device="cuda"):
     want = updates if torch.device(device).type == "cuda" else 0
     ok = (launches == want and w.update == updates
           and rep["engine"] == "per-update"
-          and "TPU_SYSTEMATICS=1" in rep["fallback_reason"]
+          and reason in rep["fallback_reason"]
           and w.num_organisms > 0 and bool(torch.isfinite(merit).all())
           and sorted(rows) == sorted(f"{a[5:-4].lower()}.dat"
                                      for a in PRINTS)
@@ -426,8 +506,9 @@ def phase_default_path(side, updates, data_dir, device="cuda"):
           and w.systematics.num_genotypes > 1
           and all(math.isfinite(float(x)) for r in rows["average.dat"]
                   for x in r))
-    res = {"phase": "default_path", "world": f"{side}x{side}",
-           "engine_report": rep, "updates": w.update,
+    res = {"phase": name, "world": f"{side}x{side}",
+           "inst_set": w.instset.name, "engine_report": rep,
+           "updates": w.update,
            "kernel_launches": launches, "insts": insts,
            "org_inst_per_s": insts / wall,
            "ms_per_update": 1e3 * wall / updates, "wall_s": wall,
@@ -440,7 +521,7 @@ def phase_default_path(side, updates, data_dir, device="cuda"):
            "dominant_row": rows["dominant.dat"][-1],
            "dat_files": sorted(rows)}
     if not ok:
-        raise AssertionError(f"default path check failed: {res}")
+        raise AssertionError(f"{name} check failed: {res}")
     return w, res
 
 
@@ -469,8 +550,8 @@ def time_host_drain(w):
     return acc
 
 
-def phase_default_kernel(w):
-    """One per-update launch at the default path's evolved state, on the
+def phase_default_kernel(w, name="default_path"):
+    """One per-update launch at a per-update path's evolved state, on the
     planes run_cycles builds there (lane-permuted by perm_phase), held
     against the plain version; then its CUDA-event time and bound."""
     import torch
@@ -486,7 +567,7 @@ def phase_default_kernel(w):
     perm, inv = cycles.lane_order(p, st)
     if perm is None or bool((perm == torch.arange(
             n, dtype=perm.dtype, device=perm.device)).all()):
-        raise AssertionError("default path: no lane permutation in use")
+        raise AssertionError(f"{name}: no lane permutation in use")
     base = cycles.pack_state(p, st, granted, perm)
     seeds = cycles.block_seeds(ks[1], n_pad, B)
     kern = tuple(t.clone() for t in base)
@@ -497,8 +578,8 @@ def phase_default_kernel(w):
     cycles.cycles_reference(p, plain, seeds, cap, B)
     _sync(st.device)
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    worst = compare_planes(kern, plain, "the default path's launch")
-    res = {"path": "default_path", "max_abs_err": worst, "match": True,
+    worst = compare_planes(kern, plain, f"the {name} launch")
+    res = {"path": name, "max_abs_err": worst, "match": True,
            "lanes_permuted": True, "plain_ms": plain_ms}
     res.update(kernel_bound(base, kern, seeds))
     res["ms"] = kernel_ms(p, base, seeds, cap, B)
@@ -528,13 +609,60 @@ def kernel_ms(p, base, seeds, cap, B):
     return cuda_ms(one, 10) - cuda_ms(copy_only, 10)
 
 
-def phase_default_breakdown(w, run, updates=3):
+# the helpers flush_births is composed of, timed inside the flush:
+# (module, function name)
+FLUSH_HELPERS = (("interpreter", "extract_offspring"),
+                 ("birth", "recombine_sexual"),
+                 ("birth", "fast_torus_placement"),
+                 ("birth", "general_placement"),
+                 ("birth", "newborn_fields"),
+                 ("birth", "dual_births"),
+                 ("birth", "ring_append"))
+
+
+class timed_helpers:
+    """Within the block, every FLUSH_HELPERS function is replaced by a
+    device-synchronised timer around the original (the flush looks them
+    up at call time), accumulating ms into `acc`."""
+
+    def __init__(self, acc):
+        from avida_tpu_torch.ops import birth, interpreter
+        self.acc = acc
+        self.mods = {"birth": birth, "interpreter": interpreter}
+        self.saved = []
+
+    def __enter__(self):
+        import torch
+        for mod_name, fn_name in FLUSH_HELPERS:
+            mod = self.mods[mod_name]
+            orig = getattr(mod, fn_name)
+
+            def wrapper(*a, _orig=orig, _name=fn_name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(*a, **kw)
+                torch.cuda.synchronize()
+                self.acc[_name] = self.acc.get(_name, 0.0) \
+                    + 1e3 * (time.perf_counter() - t0)
+                return out
+
+            self.saved.append((mod, fn_name, orig))
+            setattr(mod, fn_name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, orig in self.saved:
+            setattr(mod, fn_name, orig)
+
+
+def phase_default_breakdown(w, run, updates=3, name="default_breakdown"):
     """Per-phase device-synchronised wall time of the per-update engine's
     update (update_step's own phase functions, in its order, with
-    run_cycles split into its pack / launch / unpack), on a copy of the
-    default path's state; beside it the host systematics drain per
-    update, measured over the default path's run (`run`, its result;
-    births come in waves, so a few updates would not show it)."""
+    run_cycles split into its pack / launch / unpack, and the flush split
+    into the helpers it is composed of), on a copy of the path's state;
+    beside it the host systematics drain per update, measured over the
+    path's run (`run`, its result; births come in waves, so a few
+    updates would not show it)."""
     import torch
     from avida_tpu_torch.ops import cycles, update
     from avida_tpu_torch.utils import prng
@@ -544,11 +672,16 @@ def phase_default_breakdown(w, run, updates=3):
     names = ("schedule", "perm", "pack", "kernel", "unpack", "bank",
              "flush", "stats")
     acc = dict.fromkeys(names, 0.0)
+    split = {}
 
     def timed(name, fn, *args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fn(*args)
+        if name == "flush":
+            with timed_helpers(split):
+                out = fn(*args)
+        else:
+            out = fn(*args)
         torch.cuda.synchronize()
         acc[name] += 1e3 * (time.perf_counter() - t0)
         return out
@@ -571,17 +704,62 @@ def phase_default_breakdown(w, run, updates=3):
         st = timed("flush", update.birth_phase, p, st, ks[2], ks[1], u)
         timed("stats", update.update_stats, p, st, alive_before, u)
     per = {k: v / updates for k, v in acc.items()}
+    flush_split = {k: v / updates for k, v in split.items()}
+    flush_split["rest"] = per["flush"] - sum(flush_split.values())
     n_run = run["updates"]
-    return {"phase": "default_breakdown", "updates": updates,
+    return {"phase": name, "updates": updates,
             "ms_per_update": per, "ms_per_update_total": sum(per.values()),
+            "flush_ms_per_update": flush_split,
             "run_host_drain_ms_per_update": 1e3 * run["host_drain_s"] / n_run,
             "run_host_arbiter_ms_per_update":
                 1e3 * run["host_arbiter_s"] / n_run,
             "run_newborns_drained": run["newborns_drained"]}
 
 
+def phase_costs_kernel(side, updates, tmp, device="cuda"):
+    """The costs instruction set (COSTS_INSTSET: costs, first-time
+    costs, prob_fail, addl_time_cost, unequal redundancies, nops off
+    opcodes 0-2) at full width on the packed engine, one launch per
+    update; then one launch at the evolved state held against the plain
+    version, its CUDA-event time and byte bound."""
+    from avida_tpu_torch.ops import cycles
+    cdir = write_config_dir(os.path.join(tmp, "cfg_costs_kernel"),
+                            instset=COSTS_INSTSET)
+    w = make_world(side, os.path.join(tmp, "costs"), device,
+                   ["u begin InjectAll"], None, cdir)
+    _sync(device)
+    cycles.reset_launches()
+    t0 = time.perf_counter()
+    insts = w.run(max_updates=updates)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = cycles.LAUNCHES
+    rep = w.engine_report()
+    p = w.params
+    want = updates if w.device.type == "cuda" else 0
+    ok = (launches == want and rep["engine"] == "packed"
+          and w.num_organisms > 0 and bool(p.inst_cost)
+          and bool(p.inst_ft_cost) and bool(p.inst_prob_fail)
+          and bool(p.inst_addl_time_cost)
+          and not cycles.uniform_mutation(p) and not p.is_nop[0]
+          and bool((w.state.ft_paid_lo != 0).any()))
+    kern = phase_kernel(w, n_launch=1)
+    res = {"path": "costs_kernel", "world": f"{side}x{side}",
+           "engine_report": rep, "updates": w.update, "launches": launches,
+           "insts": insts, "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / updates,
+           "live_organisms": w.num_organisms}
+    res.update({k: kern[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "bytes_read",
+                                     "bytes_written")})
+    if not ok:
+        raise AssertionError(f"costs_kernel check failed: {res}")
+    return res
+
+
 SIDE, UPDATES = 320, 50        # the main path's full-width world
-DEFAULT_UPDATES = 30           # the default path's depth
+DEFAULT_UPDATES = 30           # the default and sexual paths' depth
+COSTS_UPDATES = 10             # the costs world's depth
 
 
 def main() -> int:
@@ -612,20 +790,36 @@ def main() -> int:
         emit(def_res)
         dkern = phase_default_kernel(wd)
         emit(phase_default_breakdown(wd, def_res))
+        del wd
+        ws, sex_res = phase_default_path(
+            SIDE, DEFAULT_UPDATES, os.path.join(tmp, "sex"),
+            name="sex_path", extra={"INST_SET": "heads_sex"},
+            reason="divide-sex")
+        emit(sex_res)
+        skern = phase_default_kernel(ws, name="sex_path")
+        emit(phase_default_breakdown(ws, sex_res, name="sex_breakdown"))
+        del ws
+        ckern = phase_costs_kernel(SIDE, COSTS_UPDATES, tmp)
+        emit(dict(ckern, phase="costs_kernel"))
     per_path = [
         {"path": "main_path", "launches": main_res["kernel_launches"],
          "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
          "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
          "bytes_read": kern["bytes_read"],
          "bytes_written": kern["bytes_written"]},
-        dict(dkern, launches=def_res["kernel_launches"])]
+        dict(dkern, launches=def_res["kernel_launches"]),
+        dict(skern, launches=sex_res["kernel_launches"]),
+        {k: ckern[k] for k in ("path", "launches", "max_abs_err", "ms",
+                               "plain_ms", "bound_ms", "bytes_read",
+                               "bytes_written")}]
     emit({"phase": "kernel_paths", "nvidia_smi": smi, "paths": per_path})
-    # the kernels line: launches over both paths, the worst error of
-    # both, times and bound at this slice's path (the default one)
+    # the kernels line: launches over every path, the worst error of
+    # all, times and bound at this slice's path (the sexual one)
     kern.update(launches=sum(q["launches"] for q in per_path),
                 max_abs_err=max(q["max_abs_err"] for q in per_path),
-                **{k: dkern[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by")})
+                **{k: skern[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "bytes_read",
+                                         "bytes_written")})
     emit({"phase": "kernels", "nvidia_smi": smi, "kernels": [kern]})
     print(smi, flush=True)
     emit({"kernels": [{k: kern[k] for k in (

@@ -55,14 +55,15 @@ def _cfg(**kw):
 
 @pytest.mark.parametrize("overrides,needle", [
     ({"TPU_SYSTEMATICS": 1, "POPULATION_CAP": 10}, "per-update engine"),
-    ({"BIRTH_METHOD": 4}, "torus fast path"),
-    ({"WORLD_GEOMETRY": 1}, "torus fast path"),
+    ({"BIRTH_METHOD": 11}, "BIRTH_METHOD 11"),
+    ({"WORLD_GEOMETRY": 3}, "WORLD_GEOMETRY 3"),
     ({"TPU_USE_PALLAS": 2}, "TPU_USE_PALLAS"),
-    ({"POINT_MUT_PROB": 0.01, "WORLD_GEOMETRY": 1}, "per-update engine"),
+    ({"POINT_MUT_PROB": 0.01, "WORLD_GEOMETRY": 4}, "per-update engine"),
     ({"TPU_PACKED_BITS": 1}, "TPU_PACKED_BITS"),
     ({"TPU_TRACE": 1}, "TPU_TRACE"),
     ({"REVERT_FATAL": 0.5}, "REVERT_FATAL"),
-    ({"INST_SET": "instset-heads-sex.cfg"}, "INST_SET"),
+    ({"INST_SET": "instset-smt.cfg"}, "INST_SET"),
+    ({"INST_SET": "heads_sex", "MATING_TYPES": 1}, "MATING_TYPES"),
     ({"TPU_KERNEL_SHARDS": 4}, "TPU_KERNEL_SHARDS"),
 ])
 def test_out_of_slice_configs_raise(overrides, needle):
@@ -74,11 +75,15 @@ def test_out_of_slice_configs_raise(overrides, needle):
 @pytest.mark.parametrize("overrides,reason", [
     ({"TPU_SYSTEMATICS": 1}, "systematics newborn ring"),
     ({"POINT_MUT_PROB": 0.01}, "point or slip"),
+    ({"INST_SET": "heads_sex"}, "divide-sex instruction set"),
+    ({"BIRTH_METHOD": 4, "WORLD_GEOMETRY": 1}, "off the torus fast path"),
+    ({"BIRTH_METHOD": 7}, "off the torus fast path"),
 ])
 def test_per_update_configs_route_and_report(overrides, reason):
-    """Systematics (the reference's default) and point mutations run the
-    per-update engine, and engine_report says so in the reference's
-    words; with neither, the packed engine."""
+    """Systematics (the reference's default), point mutations, divide-sex
+    and placement off the torus fast path run the per-update engine, and
+    engine_report says so in the reference's words; with none of them,
+    the packed engine."""
     from avida_tpu_torch.world import World
     rep = World(cfg=_cfg(**overrides), device="cpu").engine_report()
     assert rep["engine"] == "per-update"

@@ -230,7 +230,7 @@ def test_avida_time_sum_order(k):
     """The per-stretch avida-time increment sums its float32 vector in
     the reference's order (time.dat's column), not exactly rounded."""
     import jax.numpy as jnp
-    from avida_tpu_torch.ops.update import xla_f32_sum
+    from avida_tpu_torch.utils.prng import xla_f32_sum
     rng = np.random.default_rng(k)
     for _ in range(50):
         x = (rng.random(k) * 0.02).astype(np.float32)

@@ -271,9 +271,9 @@ def test_flush_births_equals_reference(pending, variant, ring):
 
 
 def test_flush_refuses_unported_branches():
-    """Every branch off the torus fast path raises by name."""
-    for extra, word in ((dict(WORLD_GEOMETRY=1), "torus"),
-                        (dict(BIRTH_METHOD=4), "torus"),
+    """Every branch the canonical flush does not port raises by name."""
+    for extra, word in ((dict(WORLD_GEOMETRY=4), "WORLD_GEOMETRY 4"),
+                        (dict(BIRTH_METHOD=11), "BIRTH_METHOD 11"),
                         (dict(POPULATION_CAP=10), "population caps")):
         _, tp = _params(dict(VALS, **extra))
         st = tstate.init_population(tp, np.arange(40, dtype=np.int8) % 26,
