@@ -2,7 +2,9 @@
 
 Everything crosses as numpy arrays keyed by field name, so neither
 package imports the other: a caller holding a reference state turns it
-into `{name: np.asarray(leaf)}` and hands the dict over.
+into `{name: np.asarray(leaf)}` and hands the dict over.  A batched state
+(a multi-world batch, every leaf with a leading world axis) crosses the
+same way.
 """
 
 from __future__ import annotations
@@ -33,10 +35,22 @@ def state_from_arrays(arrays: dict, device="cpu") -> PopulationState:
 
 
 def state_to_arrays(st: PopulationState) -> dict:
-    """PopulationState -> {field: np.ndarray} (None for disabled leaves)."""
+    """PopulationState -> {field: np.ndarray} (None for disabled leaves);
+    a batched state keeps its leading world axis."""
     return {name: (None if getattr(st, name) is None
                    else getattr(st, name).detach().cpu().numpy())
             for name in state_field_names()}
+
+
+def batched_state_from_arrays(arrays: dict, device="cpu") -> PopulationState:
+    """A reference batched state ({field: np.ndarray}, every leaf with a
+    leading world axis) -> the port's batched state (core/state.py
+    stack_states' layout) on `device`."""
+    sizes = {np.shape(a)[0] for a in arrays.values() if a is not None}
+    if len(sizes) != 1 or 0 in sizes:
+        raise ValueError(f"batched state: leading world axes {sorted(sizes)}"
+                         f", expected one size >= 1")
+    return state_from_arrays(arrays, device)
 
 
 def key_from_data(data, device="cpu") -> torch.Tensor:
@@ -44,6 +58,13 @@ def key_from_data(data, device="cpu") -> torch.Tensor:
     d = np.asarray(data, dtype=np.uint32).reshape(2)
     return torch.tensor([int(d[0]), int(d[1])], dtype=torch.int64,
                         device=device)
+
+
+def keys_from_data(data, device="cpu") -> torch.Tensor:
+    """Stacked reference keys' raw words (uint32[W, 2]) -> int64[W, 2],
+    the run keys of a batch."""
+    d = np.asarray(data, dtype=np.uint32).reshape(-1, 2)
+    return torch.from_numpy(d.astype(np.int64)).to(device)
 
 
 def config_from_dict(values: dict) -> AvidaConfig:

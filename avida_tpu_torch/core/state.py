@@ -574,6 +574,30 @@ def state_field_names() -> tuple:
     return tuple(f.name for f in dataclasses.fields(PopulationState))
 
 
+# ---- batched states: W worlds stacked on a leading axis of every leaf ----
+
+def stack_states(states) -> PopulationState:
+    """W same-shaped states -> one batched state (a new leading world axis
+    on every leaf; disabled leaves stay None)."""
+    first = states[0]
+    return PopulationState(**{
+        name: (None if getattr(first, name) is None
+               else torch.stack([getattr(s, name) for s in states]))
+        for name in state_field_names()})
+
+
+def world_state(bst: PopulationState, w: int) -> PopulationState:
+    """World w of a batched state, as views of its leaves."""
+    return PopulationState(**{
+        name: (None if getattr(bst, name) is None else getattr(bst, name)[w])
+        for name in state_field_names()})
+
+
+def unstack_states(bst: PopulationState) -> list:
+    """A batched state -> its W worlds (views)."""
+    return [world_state(bst, w) for w in range(bst.alive.shape[0])]
+
+
 def _max_executed(params, glen):
     if params.death_method == 2:
         return params.age_limit * glen

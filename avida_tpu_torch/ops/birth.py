@@ -7,7 +7,9 @@ Counterpart of avida_tpu/ops/birth.py.
                        conflict resolution on cell-indexed vectors (9
                        static torus rolls, lowest parent index wins),
                        divide mutations on the packed offspring plane, the
-                       newborn scatter as roll-selects over [rows, N]
+                       newborn scatter as roll-selects over [rows, N];
+                       flush_births_packed_worlds runs it world by world
+                       on a stacked batch
   flush_births         on the canonical PopulationState (the per-update
                        engine, ops/update.py): the torus fast path or the
                        general placement through the neighbor table
@@ -414,6 +416,26 @@ def flush_births_packed(params, st, key, planes, update_no):
         energy_spent=torch.where(b, 0.0, st.energy_spent),
     )
     return (tape_t, off_t, gen_t, ivec, fvec), st
+
+
+def flush_births_packed_worlds(params, sts, keys, planes, update_no):
+    """The world-blocked packed flush of a stacked batch (the reference's
+    flush_births_packed_worlds, birth.py:1448).  `planes` carry lanes
+    split [rows, W, N]; `sts`, `keys` and `update_no` hold one entry per
+    world.  Each world is flushed alone on its own [rows, N] slice, so
+    every torus roll and newborn scatter stays inside that world (a birth
+    at a world's last lane never touches the next world) and each world
+    consumes its own key and stamps its own update number.  Returns
+    (planes', sts')."""
+    outs, new_sts = [], []
+    for w, st in enumerate(sts):
+        pl, st = flush_births_packed(params, st, keys[w],
+                                     tuple(p[:, w] for p in planes),
+                                     update_no[w])
+        outs.append(pl)
+        new_sts.append(st)
+    return (tuple(torch.stack([o[j] for o in outs], dim=1)
+                  for j in range(len(planes))), new_sts)
 
 
 # ---- the canonical flush (the per-update engine) ----

@@ -419,6 +419,20 @@ def block_seeds(key, n_pad, B):
     return kernel_seed(key).expand(n_pad // B).contiguous()
 
 
+def world_seed_bases(k_steps):
+    """int32[W] seed bases of a stacked launch (pallas_cycles.py:1684):
+    world w's base is the kernel_seed its solo launch draws from its own
+    k_steps key, which makes the stacked launch equal, world by world, to
+    the W solo launches.  `k_steps` is a sequence of W keys."""
+    return torch.cat([kernel_seed(k) for k in k_steps])
+
+
+def stacked_block_seeds(world_seeds, n_w, B):
+    """Per-block seeds of a stacked launch: run_packed_stacked's interpret
+    schedule, where every block of world w carries world w's base."""
+    return world_seeds.repeat_interleave(n_w // B)
+
+
 # ---- the plain PyTorch version ----
 
 _M32 = 0xFFFFFFFF
@@ -565,6 +579,54 @@ def cycles_reference(params, planes, seeds, num_steps, B):
 
     def block_max(x):
         return x.reshape(-1, B).max(dim=1).values.repeat_interleave(B)
+
+    def io_tasks(io_m, in_ptr, value_in, ibuf, ibuf_n, cur_bonus, val):
+        """IO with logic-id tasks and reaction rewards (pallas_cycles.py
+        :973-1064) for the lanes in io_m."""
+        i0 = torch.where(ibuf_n > 0, ibuf[0], 0)
+        i1 = torch.where(ibuf_n > 1, ibuf[1], 0)
+        i2 = torch.where(ibuf_n > 2, ibuf[2], 0)
+        lid = _logic_id(i0, i1, i2, ibuf_n, val)
+        lid_ok = (lid >= 0) & io_m
+        lidc = lid.clamp(0, 255)
+        new_bonus = cur_bonus.clone()
+        add_sum = torch.zeros(N, dtype=torch.float32, device=dev)
+        performed_l, rewarded_l = [], []
+        for r in range(R):
+            tc = row(IV_DYN + r)
+            performed = logic_mask[r][lidc] & lid_ok
+            in_window = ((tc >= int(params.min_task_count[r]))
+                         & (tc < int(params.max_task_count[r])))
+            req_ok = torch.ones_like(performed)
+            for d in range(R):
+                if params.req_reaction_mask[r][d]:
+                    req_ok = req_ok & (row(IV_DYN + R + d) != 0)
+                if params.noreq_reaction_mask[r][d]:
+                    req_ok = req_ok & (row(IV_DYN + R + d) == 0)
+            rewarded = performed & in_window & req_ok
+            v = float(params.proc_value[r])
+            t = int(params.proc_type[r])
+            if t == 2:
+                new_bonus = torch.where(rewarded, new_bonus * float(
+                    torch.tensor(2.0 ** v, dtype=torch.float32)), new_bonus)
+            elif t == 1:
+                if v != 0.0:
+                    new_bonus = torch.where(rewarded, new_bonus * float(
+                        torch.tensor(v, dtype=torch.float32)), new_bonus)
+            else:
+                add_sum = add_sum + torch.where(
+                    rewarded, torch.tensor(v, dtype=torch.float32), 0.0)
+            performed_l.append(performed.to(i64))
+            rewarded_l.append(rewarded.to(i64))
+        new_bonus = new_bonus + add_sum
+        return (performed_l, rewarded_l,
+                torch.where(io_m, in_ptr + 1, in_ptr),
+                torch.where(io_m, value_in, ibuf[0]),
+                torch.where(io_m, ibuf[0], ibuf[1]),
+                torch.where(io_m, ibuf[1], ibuf[2]),
+                torch.where(io_m, (ibuf_n + 1).clamp(max=3), ibuf_n),
+                torch.where(io_m, val, row(IV_OUTPUT_BUF)),
+                torch.where(io_m, new_bonus, cur_bonus))
 
     for s in range(int(trips.max()) if N else 0):
         looping = s < trips
@@ -769,11 +831,15 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         fsize = gsize.to(torch.float32)
         min_sz = torch.clamp((fsize / osr).to(i64), min=params.min_genome_len)
         max_sz = torch.clamp((fsize * osr).to(i64), max=L0)
-        below_p = _range_mask(lw_rows, torch.zeros_like(ip), parent_size)
-        child_z = _range_mask(lw_rows, parent_size, child_end)
-        exec_count = _popcount(ebm & below_p).sum(dim=0) + torch.where(
-            div_m0 & ~ip_exec_already & (ip < parent_size), 1, 0)
-        copied_count = _popcount(cbm & child_z).sum(dim=0)
+        if bool(div_m0.any()):
+            below_p = _range_mask(lw_rows, torch.zeros_like(ip), parent_size)
+            child_z = _range_mask(lw_rows, parent_size, child_end)
+            exec_count = _popcount(ebm & below_p).sum(dim=0) + torch.where(
+                div_m0 & ~ip_exec_already & (ip < parent_size), 1, 0)
+            copied_count = _popcount(cbm & child_z).sum(dim=0)
+        else:
+            # read only under div_m, which no lane has this cycle
+            exec_count = copied_count = torch.zeros_like(ip)
         sterile = (flags & FLAG_STERILE) != 0
         mel = torch.tensor(params.min_exe_lines, dtype=torch.float32)
         mcl = torch.tensor(params.min_copied_lines, dtype=torch.float32)
@@ -799,50 +865,16 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         ibuf = [row(IV_INPUT_BUF + k) for k in range(3)]
         ibuf_n = row(IV_INPUT_BUF_N)
         cur_bonus = fv[FV_CUR_BONUS].clone()
-        i0 = torch.where(ibuf_n > 0, ibuf[0], 0)
-        i1 = torch.where(ibuf_n > 1, ibuf[1], 0)
-        i2 = torch.where(ibuf_n > 2, ibuf[2], 0)
-        lid = _logic_id(i0, i1, i2, ibuf_n, val)
-        lid_ok = (lid >= 0) & io_m
-        lidc = lid.clamp(0, 255)
-        new_bonus = cur_bonus.clone()
-        add_sum = torch.zeros(N, dtype=torch.float32, device=dev)
-        performed_l, rewarded_l = [], []
-        for r in range(R):
-            tc = row(IV_DYN + r)
-            performed = logic_mask[r][lidc] & lid_ok
-            in_window = ((tc >= int(params.min_task_count[r]))
-                         & (tc < int(params.max_task_count[r])))
-            req_ok = torch.ones_like(performed)
-            for d in range(R):
-                if params.req_reaction_mask[r][d]:
-                    req_ok = req_ok & (row(IV_DYN + R + d) != 0)
-                if params.noreq_reaction_mask[r][d]:
-                    req_ok = req_ok & (row(IV_DYN + R + d) == 0)
-            rewarded = performed & in_window & req_ok
-            v = float(params.proc_value[r])
-            t = int(params.proc_type[r])
-            if t == 2:
-                new_bonus = torch.where(rewarded, new_bonus * float(
-                    torch.tensor(2.0 ** v, dtype=torch.float32)), new_bonus)
-            elif t == 1:
-                if v != 0.0:
-                    new_bonus = torch.where(rewarded, new_bonus * float(
-                        torch.tensor(v, dtype=torch.float32)), new_bonus)
-            else:
-                add_sum = add_sum + torch.where(
-                    rewarded, torch.tensor(v, dtype=torch.float32), 0.0)
-            performed_l.append(performed.to(i64))
-            rewarded_l.append(rewarded.to(i64))
-        new_bonus = new_bonus + add_sum
-
-        input_ptr = torch.where(io_m, in_ptr + 1, in_ptr)
-        ibuf0 = torch.where(io_m, value_in, ibuf[0])
-        ibuf1 = torch.where(io_m, ibuf[0], ibuf[1])
-        ibuf2 = torch.where(io_m, ibuf[1], ibuf[2])
-        input_buf_n = torch.where(io_m, (ibuf_n + 1).clamp(max=3), ibuf_n)
-        output_buf = torch.where(io_m, val, row(IV_OUTPUT_BUF))
-        cur_bonus = torch.where(io_m, new_bonus, cur_bonus)
+        if not bool(io_m.any()):
+            # no lane does IO this cycle: nothing below changes
+            performed_l = rewarded_l = [torch.zeros_like(ip)] * R
+            input_ptr, input_buf_n = in_ptr, ibuf_n
+            ibuf0, ibuf1, ibuf2 = ibuf
+            output_buf = row(IV_OUTPUT_BUF)
+        else:
+            (performed_l, rewarded_l, input_ptr, ibuf0, ibuf1, ibuf2,
+             input_buf_n, output_buf, cur_bonus) = io_tasks(
+                io_m, in_ptr, value_in, ibuf, ibuf_n, cur_bonus, val)
 
         # register writes
         res = val
@@ -976,9 +1008,11 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         w_new = (w_old & ~(0xFF << sh) & _M32) | (written << sh)
         tw.scatter_(0, (wp >> 2)[None],
                     torch.where(copy_m, w_new, w_old)[None])
-        zmask = (_bytemask((new_len_alloc[None] - word_rows * 4).clamp(0, 4))
-                 & ~_bytemask((old_len[None] - word_rows * 4).clamp(0, 4)))
-        tw = torch.where(alloc_m[None], tw & ~zmask & _M32, tw)
+        if bool(alloc_m.any()):
+            zmask = (_bytemask((new_len_alloc[None] - word_rows * 4).clamp(
+                0, 4)) & ~_bytemask((old_len[None] - word_rows * 4).clamp(
+                    0, 4)))
+            tw = torch.where(alloc_m[None], tw & ~zmask & _M32, tw)
 
         # write back
         iv[IV_MEM_LEN] = mem_len
@@ -1072,11 +1106,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _lib = None
 _lib_lock = threading.Lock()
 LAUNCHES = 0           # kernel launches since import (see reset_launches)
+STACKED_LAUNCHES = 0   # of them, stacked multi-world launches
 
 
 def reset_launches():
-    global LAUNCHES
+    global LAUNCHES, STACKED_LAUNCHES
     LAUNCHES = 0
+    STACKED_LAUNCHES = 0
 
 
 def _nvcc():
@@ -1250,6 +1286,37 @@ def cycles(params, planes, seeds, num_steps, B):
     if planes[0].device.type != "cpu":
         raise ValueError(f"no cycle kernel for device {planes[0].device}")
     return cycles_reference(params, planes, seeds, num_steps, B)
+
+
+def run_packed_stacked(params, planes, world_seeds, num_steps, B):
+    """ONE launch over W worlds' planes stacked world-major on the lane
+    axis (replaces pallas_cycles.run_packed_stacked, :1729), in place.
+
+    World w owns lanes [w * n_w, (w + 1) * n_w), n_w a multiple of the
+    block width B, so no block straddles two worlds; block b of world w
+    carries world w's seed (the interpret schedule), and the kernel's
+    hash keys on the lane's offset inside its block, so each world's
+    slice computes exactly its solo launch.  The kernel is csrc/cycles.cu
+    unchanged: it takes one seed per block and indexes planes with 64-bit
+    offsets, so W * n_pad lanes need nothing new.  Bound as the solo
+    launch: the planes read once, the changed words written once; a pad
+    lane (granted nothing) reads one tape word, its pending-write
+    value."""
+    global STACKED_LAUNCHES
+    lanes = planes[0].shape[1]
+    W = world_seeds.shape[0]
+    if W < 1 or lanes % W or (lanes // W) % B:
+        raise ValueError(f"stacked launch: {lanes} lanes do not split into "
+                         f"{W} worlds of whole {B}-lane blocks")
+    if int(params.kernel_shards) > 1:
+        raise NotImplementedError(
+            f"TPU_KERNEL_SHARDS={params.kernel_shards}: the per-card split "
+            f"of a launch (K2 with S > 1) is not ported to avida_tpu_torch")
+    seeds = stacked_block_seeds(world_seeds, lanes // W, B)
+    out = cycles(params, planes, seeds, num_steps, B)
+    if planes[0].device.type == "cuda":
+        STACKED_LAUNCHES += 1
+    return out
 
 
 def lane_perm_active(params, st) -> bool:

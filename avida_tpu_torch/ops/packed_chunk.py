@@ -12,6 +12,13 @@ The canonical state rides along as a carrier (`PackedChunk.st`): its
 time, generation) are stale mid-chunk; the columns unpack cannot rebuild
 (birth_update, parent_id, genotype_id, breed_true, budget_carry, ...)
 stay fresh, maintained by the flush.
+
+A batch of W static-equal worlds (parallel/multiworld.py) stays resident
+the same way in `PackedWorlds`: every plane grows a world axis in the
+middle ([rows, W, N]), the update's one kernel launch runs over the
+planes flattened world-major onto the lanes (cycles.run_packed_stacked),
+and the cheap phases and the flush run world by world -- a loop over the
+members is this package's vmap.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from dataclasses import dataclass
 
 import torch
 
+from avida_tpu_torch.core.state import (stack_states, unstack_states,
+                                        world_state)
 from avida_tpu_torch.ops import birth as birth_ops
 from avida_tpu_torch.ops import cycles
 from avida_tpu_torch.utils import prng
@@ -73,6 +82,12 @@ def active(params, st=None) -> bool:
     chunk?  The ring counts as in use when the state allocates one."""
     return ineligible_reason(
         params, st is not None and st.nb_genome.shape[0] > 0) is None
+
+
+def batch_active(params, bst) -> bool:
+    """`active` for a batched state: the gates are per configuration, so
+    world 0 answers for the whole static-equal batch."""
+    return active(params, world_state(bst, 0))
 
 
 def unported_reason(params) -> str | None:
@@ -218,3 +233,136 @@ def update_step_packed(params, pc: PackedChunk, key, update_no):
     pc, executed_this = bank_phase(params, pc, budgets, executed0)
     pc = flush_phase(params, pc, ks[2], update_no)
     return pc, executed_this.sum().to(torch.int32)
+
+
+# ---- stacked multi-world residency (packed_chunk.py:428-562) ----
+
+_PLANES = ("tape_t", "off_t", "gen_t", "ivec", "fvec")
+
+
+@dataclass(frozen=True)
+class PackedWorlds:
+    """Resident state of W worlds: each world's canonical carrier (as
+    PackedChunk.st) and the five planes with lanes split [rows, W, N]."""
+    sts: tuple               # W PopulationState carriers
+    tape_t: torch.Tensor     # int32[LP, W, N]
+    off_t: torch.Tensor      # int32[LP, W, N]
+    gen_t: torch.Tensor      # int32[LP, W, N]
+    ivec: torch.Tensor       # int32[NI, W, N]
+    fvec: torch.Tensor       # f32[NF, W, N]
+
+    def replace(self, **kw) -> "PackedWorlds":
+        return dataclasses.replace(self, **kw)
+
+    def world(self, w: int) -> PackedChunk:
+        """World w as a PackedChunk over views of the stacked planes."""
+        return PackedChunk(st=self.sts[w], **{
+            name: getattr(self, name)[:, w] for name in _PLANES})
+
+
+def pack_worlds(params, bst) -> PackedWorlds:
+    """Batched canonical state -> stacked resident planes (once per
+    chunk): pack_chunk per world, the world axis behind the row axis."""
+    pcs = [pack_chunk(params, st) for st in unstack_states(bst)]
+    return PackedWorlds(sts=tuple(pc.st for pc in pcs), **{
+        name: torch.stack([getattr(pc, name) for pc in pcs], dim=1)
+        for name in _PLANES})
+
+
+def unpack_worlds(params, pw: PackedWorlds):
+    """Stacked resident planes -> batched canonical state (the inverse of
+    pack_worlds)."""
+    return stack_states([unpack_chunk(params, pw.world(w))
+                         for w in range(len(pw.sts))])
+
+
+def pad_worlds(planes, n_pad):
+    """W worlds' planes ([rows, W, n]) padded each with fresh zero lanes
+    to n_pad (as the reference pads at every launch) and flattened
+    world-major onto the lane axis: a tuple of [rows, W * n_pad]."""
+    out = []
+    for x in planes:
+        rows, W, n = x.shape
+        buf = torch.zeros((rows, W, n_pad), dtype=x.dtype, device=x.device)
+        buf[:, :, :n] = x
+        out.append(buf.view(rows, W * n_pad))
+    return tuple(out)
+
+
+def launch_worlds(params, planes, world_seeds, cap):
+    """One stacked launch over W worlds' resident planes ([rows, W, N],
+    in place): pad_worlds, launched once, sliced back."""
+    _, W, n = planes[0].shape
+    B, n_pad, _ = cycles.dims(params, n, params.max_memory)
+    flat = pad_worlds(planes, n_pad)
+    cycles.run_packed_stacked(params, flat, world_seeds, cap, B)
+    for x, buf in zip(planes, flat):
+        x.copy_(buf.view(x.shape[0], W, n_pad)[:, :, :n])
+    return planes
+
+
+def stats_rows_worlds(pw: PackedWorlds, alive_before, update_no):
+    """stats_rows per world: (births, deaths, dt, ave_gen, n_alive), each
+    a [W] vector; `alive_before` is [W], `update_no` W ints."""
+    cols = [stats_rows(pw.world(w), alive_before[w], update_no[w])
+            for w in range(len(pw.sts))]
+    return tuple(torch.stack([c[j] for c in cols]) for j in range(5))
+
+
+# ---- the batched update body's phases, in update_step_packed_worlds'
+# order; keys and update numbers are per-world sequences ----
+
+def schedule_phase_worlds(params, pw: PackedWorlds, k_budget):
+    """Each world's budgets and grant row (in place).  Returns (budgets
+    per world, executed0[W, N], trips[W]): trips is each world's own trip
+    count max_k, what its solo launch runs."""
+    budgets, trips = [], []
+    for w, st in enumerate(pw.sts):
+        b, granted, max_k = schedule_rows(params, pw.ivec[:, w],
+                                          pw.fvec[:, w], st.budget_carry,
+                                          k_budget[w])
+        pw.ivec[cycles.IV_GRANTED, w] = granted
+        budgets.append(b)
+        trips.append(max_k.to(torch.int32))
+    return (budgets, pw.ivec[cycles.IV_INSTS_EXEC].clone(),
+            torch.stack(trips))
+
+
+def kernel_phase_worlds(params, pw: PackedWorlds, k_steps):
+    """The update's one stacked launch, seeded per world (in place)."""
+    from avida_tpu_torch.ops import update
+    launch_worlds(params, (pw.tape_t, pw.off_t, pw.ivec, pw.fvec),
+                  cycles.world_seed_bases(k_steps), update.static_cap(params))
+
+
+def bank_phase_worlds(params, pw: PackedWorlds, budgets, executed0):
+    """bank_rows per world.  Returns (pw', executed[W])."""
+    sts, executed = [], []
+    for w, st in enumerate(pw.sts):
+        st, ex = bank_rows(params, st, pw.ivec[:, w], budgets[w],
+                           executed0[w])
+        sts.append(st)
+        executed.append(ex.sum().to(torch.int32))
+    return pw.replace(sts=tuple(sts)), torch.stack(executed)
+
+
+def flush_phase_worlds(params, pw: PackedWorlds, k_birth, update_no):
+    """The world-blocked packed birth flush.  Returns pw'."""
+    planes, sts = birth_ops.flush_births_packed_worlds(
+        params, pw.sts, k_birth, tuple(getattr(pw, n) for n in _PLANES),
+        update_no)
+    return pw.replace(sts=tuple(sts), **dict(zip(_PLANES, planes)))
+
+
+def update_step_packed_worlds(params, pw: PackedWorlds, keys, update_no):
+    """One update of W worlds on stacked planes (update_step_packed phase
+    for phase, one launch for the batch), each world consuming its own
+    key's splits and stamping its own update number.  Returns (pw',
+    executed[W], trips[W])."""
+    ks = [prng.split(k, 3) for k in keys]
+    budgets, executed0, trips = schedule_phase_worlds(
+        params, pw, [k[0] for k in ks])
+    kernel_phase_worlds(params, pw, [k[1] for k in ks])
+    pw, executed = bank_phase_worlds(params, pw, budgets, executed0)
+    pw = flush_phase_worlds(params, pw, [k[2] for k in ks], update_no)
+    return pw, executed, trips

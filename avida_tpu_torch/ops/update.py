@@ -13,12 +13,16 @@ reference does:
              unpack) -> bank -> birth flush (+ point mutations); the
              engine behind systematics (TPU_SYSTEMATICS=1), whose newborn
              ring the canonical flush fills
+
+`update_scan_batched` is the same for W stacked worlds, with one kernel
+launch per update for the whole batch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from avida_tpu_torch.core.state import stack_states, unstack_states
 from avida_tpu_torch.ops import birth as birth_ops
 from avida_tpu_torch.ops import cycles
 from avida_tpu_torch.ops import scheduler
@@ -225,6 +229,139 @@ def update_scan(params, st, chunk, run_key, u0):
             pc, alive_before, u0 + i))
     cols = tuple(torch.stack([o[j] for o in outs]) for j in range(6))
     return packed_chunk.unpack_chunk(params, pc), cols
+
+
+# ---- the multi-world batched update (parallel/multiworld.py) ----
+#
+# W static-equal worlds advance together.  The cheap phases (schedule,
+# lane permutation, bank, birth flush, stats) run world by world on each
+# world's own slice, keys and update number -- a loop over the members is
+# this package's vmap -- and the update's cycles run as ONE stacked
+# kernel launch over all worlds' planes (cycles.run_packed_stacked), so
+# each world's blocks stop at their own budgets.  World w of a batch is
+# its solo run with its own seed, bit for bit.
+
+_XLA_FOLD_UNPORTED = ("the XLA fold engine (update._mw_fold_cycles_xla, "
+                      "TPU_USE_PALLAS=2; ROADMAP.md Queue 1 item 10)")
+
+
+def mw_pre_phase(params, st, key, update_no):
+    """One world's pre-cycle phases, exactly update_step's prologue: key
+    split, resources, schedule, lane permutation.  Returns (st, (budgets,
+    granted, max_k, k_steps, k_birth))."""
+    ks = prng.split(key, 3)
+    st = resource_phase(params, st, key, update_no)
+    budgets, granted, max_k = schedule_phase(params, st, ks[0])
+    st = perm_phase(params, st, granted, update_no)
+    return st, (budgets, granted, max_k, ks[1], ks[2])
+
+
+def mw_pack(params, sts, granted):
+    """Each world packed in its own lane order with its own grant row,
+    the W planes concatenated world-major on the lane axis: the stacked
+    launch's planes ([rows, W * n_pad])."""
+    quads = [cycles.pack_state(params, st, g, cycles.lane_order(params,
+                                                                st)[0])
+             for st, g in zip(sts, granted)]
+    return tuple(torch.cat([q[j] for q in quads], dim=1) for j in range(4))
+
+
+def mw_unpack(params, sts, flat):
+    """Each world unpacked from its own slice of the stacked planes with
+    its own inverse lane order.  Returns the W new states."""
+    n_pad = flat[0].shape[1] // len(sts)
+    return [cycles.unpack_state(
+        params, st, tuple(p[:, w * n_pad:(w + 1) * n_pad] for p in flat),
+        cycles.lane_order(params, st)[1]) for w, st in enumerate(sts)]
+
+
+def mw_stack_kernel_cycles(params, sts, k_steps, granted, cap):
+    """The update's cycles for W worlds in one launch: mw_pack, one
+    stacked launch seeded per world, mw_unpack."""
+    if int(params.use_pallas) == 2:
+        raise NotImplementedError(
+            f"{_XLA_FOLD_UNPORTED} is not ported to avida_tpu_torch")
+    flat = mw_pack(params, sts, granted)
+    B = cycles.dims(params, sts[0].tape.shape[0], params.max_memory)[0]
+    cycles.run_packed_stacked(params, flat, cycles.world_seed_bases(k_steps),
+                              cap, B)
+    return mw_unpack(params, sts, flat)
+
+
+def batched_update_step(params, sts, keys, update_no):
+    """One update of W worlds (update_step's phase order, the cycles as
+    one stacked launch); `sts`, `keys` and `update_no` hold one entry per
+    world.  Returns (sts', executed[W], trips[W]), trips being each
+    world's own trip count max_k."""
+    pre = [mw_pre_phase(params, st, k, u)
+           for st, k, u in zip(sts, keys, update_no)]
+    sts = [p[0] for p in pre]
+    budgets, granted, max_k, k_steps, k_birth = zip(*[p[1] for p in pre])
+    executed0 = [st.insts_executed for st in sts]
+    sts = mw_stack_kernel_cycles(params, sts, k_steps, granted,
+                                 static_cap(params))
+    out, executed = [], []
+    for w, st in enumerate(sts):
+        st, ex = bank_phase(params, st, budgets[w], executed0[w])
+        out.append(birth_phase(params, st, k_birth[w], k_steps[w],
+                               update_no[w]))
+        executed.append(ex)
+    trips = torch.stack([m.to(torch.int32) for m in max_k])
+    return out, torch.stack(executed), trips
+
+
+def world_updates(u0, W: int) -> list:
+    """A scalar update number (an aligned batch) or W of them (one per
+    world) -> W Python ints."""
+    if isinstance(u0, int) or torch.as_tensor(u0).dim() == 0:
+        return [int(u0)] * W
+    u = [int(x) for x in u0]
+    if len(u) != W:
+        raise ValueError(f"{len(u)} update numbers for {W} worlds")
+    return u
+
+
+def update_scan_batched(params, bst, chunk, run_keys, u0):
+    """Run `chunk` updates of W stacked worlds (the engine behind
+    parallel/multiworld.multiworld_scan).  `bst` is a batched state
+    (core/state.stack_states), `run_keys` the [W, 2] stacked run keys, u0
+    a scalar update number or a [W] vector of them; each world's update
+    keys are fold_in(run_key_w, own update).  Routing mirrors update_scan:
+    the stacked packed-resident chunk (pack once, one stacked launch per
+    update, unpack once) when the configuration qualifies, else
+    batched_update_step per update.  Returns (bst', outs): update_scan's
+    six per-update vectors plus trips, each [W, chunk]."""
+    from avida_tpu_torch.ops import packed_chunk
+    W = bst.alive.shape[0]
+    u0 = world_updates(u0, W)
+    outs = []
+    if packed_chunk.batch_active(params, bst):
+        pw = packed_chunk.pack_worlds(params, bst)
+        for i in range(chunk):
+            un = [u + i for u in u0]
+            keys = [prng.fold_in(run_keys[w], un[w]) for w in range(W)]
+            alive_before = packed_chunk.alive_rows(pw.ivec).sum(dim=1).to(
+                torch.int32)
+            pw, executed, trips = packed_chunk.update_step_packed_worlds(
+                params, pw, keys, un)
+            outs.append((executed,) + packed_chunk.stats_rows_worlds(
+                pw, alive_before, un) + (trips,))
+        bst = packed_chunk.unpack_worlds(params, pw)
+    else:
+        sts = unstack_states(bst)
+        for i in range(chunk):
+            un = [u + i for u in u0]
+            keys = [prng.fold_in(run_keys[w], un[w]) for w in range(W)]
+            alive_before = [st.alive.sum().to(torch.int32) for st in sts]
+            sts, executed, trips = batched_update_step(params, sts, keys, un)
+            cols = [update_stats(params, st, ab, u)
+                    for st, ab, u in zip(sts, alive_before, un)]
+            outs.append((executed,) + tuple(
+                torch.stack([c[j] for c in cols]) for j in range(5))
+                + (trips,))
+        bst = stack_states(sts)
+    return bst, tuple(torch.stack([o[j] for o in outs], dim=1)
+                      for j in range(7))
 
 
 def summarize(params, st, update_no=-1):

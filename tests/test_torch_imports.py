@@ -28,7 +28,23 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 17, names
 assert {"avida_tpu_torch.systematics",
-        "avida_tpu_torch.systematics.genotypes"} <= set(names), names
+        "avida_tpu_torch.systematics.genotypes",
+        "avida_tpu_torch.parallel",
+        "avida_tpu_torch.parallel.multiworld"} <= set(names), names
+"""
+
+# the --worlds path end to end (a 4x4 batch of two worlds, one update)
+_WORLDS_CLI = r"""
+import sys
+from avida_tpu_torch.__main__ import main
+rc = main(["--worlds", "1,2", "-u", "1", "-set", "WORLD_X", "4",
+           "-set", "WORLD_Y", "4", "--device", "cpu", "-d", sys.argv[1]])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "avida_tpu" or m.startswith("avida_tpu."))
+assert rc == 0, rc
+assert "avida_tpu_torch.parallel.multiworld" in sys.modules
+assert not bad, bad
 """
 
 
@@ -36,6 +52,15 @@ def test_port_imports_no_jax_and_no_reference():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_worlds_cli_imports_no_jax_and_no_reference(tmp_path):
+    res = subprocess.run([sys.executable, "-c", _WORLDS_CLI,
+                          str(tmp_path / "data")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert '"worlds": 2' in res.stdout
+    assert sorted(os.listdir(tmp_path / "data")) == ["w000", "w001"]
 
 
 def test_world_without_device_raises_without_cuda():
