@@ -1,33 +1,77 @@
 // The cycle interpreter for Hopper: every CPU cycle of one update in one
-// launch, one thread per organism.
+// launch, one thread per organism, each organism's tape and dynamically
+// indexed state staged in shared memory.
 //
 // Replaces the Pallas kernel of avida_tpu/ops/pallas_cycles.py
-// (_make_kernel, launched by _launch_packed / run_packed) and computes the
-// same function on the same plane layout (see avida_tpu_torch/ops/cycles.py
-// for the layout and the plain PyTorch version this kernel is held to).
+// (_make_kernel and its inner kernel, :382 / :415, launched by
+// _launch_packed, run_packed and run_packed_stacked) and computes, bit for
+// bit, the function of csrc/cycles_simple.cu, the first port, on the same
+// planes (see avida_tpu_torch/ops/cycles.py for the layout and the plain
+// PyTorch version both kernels are held to).  No path launches the first
+// port; chip_smoke.py times it beside this kernel.
 //
-// Design.  A thread loads its organism's scalars (registers, heads, stacks,
-// read label, site-flag bitplanes, phenotype) into registers and local
-// arrays once, runs its cycles, and writes them back once.  The tape is
-// read and written in device memory at the organism's own head positions;
-// tape writes are applied immediately (the TPU kernel deferred them one
-// cycle only to merge its whole-tape passes).  The block of B threads is
-// the reference's B-lane block: its trip count is the block's largest
-// granted budget (rounded up to even, the reference runs two cycles per
-// trip), and the random stream is the reference's interpret-mode counter
-// hash over (block seed, cycle, tag, thread index).
+// What bounds it.  A launch must read tape_t, ivec and fvec's phenotype
+// rows once and write the words it changes: about 0.03 ms at 320x320
+// (L = 384) at 3.35 TB/s.  The work is per-organism integer control flow,
+// tens of cycles an organism, each a chain of dependent table and tape
+// reads ending in a switch that diverges across a warp: read latency and
+// divergence set the time, not bytes.  Staging costs a fixed share: the
+// whole tile is read (about 0.03 ms of device memory time a 320x320
+// launch) where an organism touches a few rows an update, which a young
+// population running its ancestor in lockstep does not hide (PERF.md,
+// section 6).  There is no matrix product in an integer interpreter, so
+// tensor cores and wgmma have no role here.
 //
-// What bounds it: at 320x320 (L=384) a launch must read tape_t, ivec and
-// the phenotype rows of fvec (~97 MB, ~0.03 ms at 3.35 TB/s) and write
-// only the words it changes (scalar rows of live lanes, tape bytes at
-// copy and allocate, off_t of dividing lanes); chip_smoke.py counts those
-// per run.  The work is per-organism integer control flow (tens of cycles
-// per update) with scattered tape reads, which sets the real time.  Built
-// with -fmad=false: merit and fitness are float32 products that must
-// round exactly as the reference's do.
+// Design, against what held the first port back:
+// 1. A CTA takes C lanes (a template argument: 32, 64 or 128), a divisor
+//    of the reference's B-lane block, chosen by the wrapper
+//    (ops/cycles.py::cta_lanes) so that two CTAs share an SM wherever the
+//    tile allows; the first port ran one 512-thread block an SM, 1.5
+//    waves at 320x320.  The B/C CTAs of one reference block form a
+//    thread block cluster.  The block's two maxima -- the grant that sets
+//    the trip count and the bound of the pending-write value row -- are
+//    reduced after the cycle loop: each CTA pushes its (trips, bound)
+//    pair into every CTA's shared memory (distributed shared memory) and
+//    arrives on the split cluster barrier, writes its results back, and
+//    waits only then.  The loop itself needs no block-wide value (a
+//    lane's cycle count follows from its own grant).  The random stream
+//    hashes the lane's offset inside its reference block, as the
+//    reference's interpret mode does.
+// 2. The CTA's [LP, C] tile of tape_t is staged in shared memory with one
+//    cp.async.bulk per row (C contiguous int32) counted on an mbarrier;
+//    the stacks and reaction counters come on a second mbarrier, waited
+//    for where an instruction first touches them.  Word w of lane t sits
+//    at tile[w * C + t], in bank t mod 32 for any w, so a tape read at
+//    any head position is one conflict-free shared access instead of a
+//    device memory sector per thread.  The written rows go back with
+//    coalesced stores, one 32-bit store per lane and row (tape rows
+//    tracked in groups, ivec rows by kind).
+// 3. h-search is a shift-and matcher: one pass over the tape with a
+//    bitmask of label_len bits, four positions per 32-bit shared read,
+//    instead of a rescan of the label at every start position.
+// 4. The site-flag bitplanes, the stacks, the read label and the reaction
+//    counters (ivec rows 38-67 and IV_EXEC_BM..iv_dyn + 4R) are rows of
+//    the same tile, loaded with it and written back once; registers, heads
+//    and the label under decode are scalars selected without local arrays
+//    (ptxas reports no stack frame).
+// 5. The opcode and reaction tables and the nop decode (1,088 ints) come
+//    into shared memory with the tile, as one more bulk copy.
+// 6. Running a CTA's organisms in order of their grant was measured on
+//    the six paths of chip_smoke.py and dropped: the tile column must stay
+//    the organism's own, so sorted threads' columns collide in banks, and
+//    the ranking costs a pass over the CTA; it was slower on five paths
+//    and within 1% on the sixth (PERF.md, section 6).  Thread t runs
+//    lane t.
+//
+// Built with -fmad=false: merit and fitness are float32 products that
+// must round exactly as the reference's do.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
-#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -63,10 +107,27 @@ constexpr int MAX_LW = 32;      // tape height <= 1024
 constexpr int MAX_R = 32;       // reactions
 constexpr int TAB_INSTS = 64;   // table slots per opcode table
 constexpr int RX = 16;          // table ints per reaction
-// opcode tables, TAB_INSTS slots each, in this order
+// opcode tables, TAB_INSTS slots each, in this order (csrc/cycles_simple.cu
+// documents the layout); tables 6 and 7, is_nop and nop_mod, reach this
+// kernel folded into the nop decode below
 constexpr int T_META = 0, T_COST = 1, T_FT_COST = 2, T_ADDL = 3,
-              T_PROB_FAIL = 4, T_MUT_CDF = 5, T_IS_NOP = 6, T_NOP_MOD = 7,
-              T_REACTIONS = 8;
+              T_PROB_FAIL = 4, T_MUT_CDF = 5, T_REACTIONS = 8;
+constexpr int TAB_INTS = T_REACTIONS * TAB_INSTS + RX * MAX_R;
+// after the reaction tables, the nop decode: a nop's register, -1 for
+// any other opcode; the whole table is one bulk copy
+constexpr int T_NOP_DECODE = TAB_INTS;
+constexpr uint32_t TAB_BYTES = 4 * (TAB_INTS + TAB_INSTS);
+// shared memory: the tile's rows, then the tables with the nop decode,
+// 8 ints of reductions and mbarriers, and the cluster's 8 slots
+constexpr int MAX_C = 128;         // lanes per CTA
+constexpr int MAX_CLUSTER = 8;     // the portable cluster size
+constexpr int LBL_ROWS = 30;       // ivec rows 38-67: read label, stacks
+static_assert(IV_STACKS == IV_READ_LABEL + MAX_LABEL
+              && IV_PW_POS == IV_STACKS + 20, "rows 38-67 are one range");
+// the staged ivec row groups, as bits of a written-groups mask (the
+// site-flag bitplanes are always written back)
+constexpr unsigned I_LABEL = 1, I_STACK = 2, I_DYN = 4;
+constexpr int FIXED_INTS = TAB_INTS + TAB_INSTS + 24;
 
 struct Params {
   int n_pad, LP, LW, L0, ni, R, iv_copied, iv_dyn, num_steps;
@@ -75,14 +136,9 @@ struct Params {
   int has_costs, has_prob_fail, has_addl, weighted_mut;
   float copy_mut_prob, size_range, min_exe_lines, min_copied_lines;
   float default_bonus, const_merit;
+  int C, K, rows, gshift;   // CTA lanes, cluster CTAs, tile rows, log2
+                            // tape rows per dirty-mask bit
 };
-
-// table layout (built by the wrapper): 8 opcode tables of TAB_INSTS ints
-// -- metadata sem | mod_kind << 8 | default_op << 16, cost, ft_cost,
-// addl_time_cost, prob_fail (float32 bits), the cumulative mutation
-// weights (float32 bits), is_nop, nop_mod -- then RX ints per reaction:
-// min_tc, max_tc, type, value (float bits; pow stores 2**value), req mask,
-// noreq mask, 8 words of the 256-bit logic-id mask.
 
 __device__ __forceinline__ unsigned hash24(unsigned seed, int s, int tag,
                                            unsigned lane) {
@@ -119,6 +175,7 @@ __device__ __forceinline__ int logic_id(unsigned i0, unsigned i1,
                                         unsigned out) {
   int lo[8];
   bool ok = true;
+#pragma unroll
   for (int c = 0; c < 8; ++c) {
     unsigned m = ((c & 1) ? i0 : ~i0) & ((c & 2) ? i1 : ~i1)
                  & ((c & 4) ? i2 : ~i2);
@@ -129,51 +186,174 @@ __device__ __forceinline__ int logic_id(unsigned i0, unsigned i1,
   if (n_in < 1) lo[1] = lo[0];
   if (n_in < 2) lo[2] = lo[0];
   if (n_in < 2) lo[3] = lo[1];
-  if (n_in < 3)
+  if (n_in < 3) {
+#pragma unroll
     for (int c = 0; c < 4; ++c) lo[4 + c] = lo[c];
+  }
   int logic = 0;
+#pragma unroll
   for (int c = 0; c < 8; ++c) logic |= lo[c] << c;
   return ok ? logic : -1;
 }
 
-__global__ void __launch_bounds__(512)
+// r[i] of three registers without a local array
+__device__ __forceinline__ int sel3(int a, int b, int c, int i) {
+  return i == 0 ? a : (i == 1 ? b : (i == 2 ? c : 0));
+}
+
+__device__ __forceinline__ void set3(int& a, int& b, int& c, int i, int v) {
+  if (i == 0) a = v;
+  else if (i == 1) b = v;
+  else if (i == 2) c = v;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(phase) : "memory");
+  } while (!done);
+}
+
+// one bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into this CTA's shared memory, counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the cluster barrier, split: arrive (without or with release of this
+// thread's writes) and wait (acquiring every other thread's)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the reference block's trip count for largest grant g: g capped by
+// num_steps, rounded up to even (two cycles a trip), 0 when nothing runs
+__device__ __forceinline__ long long trip_count(int g, int num_steps) {
+  const long long b = min((long long)g, (long long)num_steps);
+  return b > 0 ? (b + 1) / 2 * 2 : 0;
+}
+
+// the largest value of v over the CTA, into *slot (initially 0)
+__device__ __forceinline__ void cta_max(int v, int* slot) {
+  v = __reduce_max_sync(~0u, v);
+  if ((threadIdx.x & 31) == 0) atomicMax(slot, v);
+}
+
+// C, the CTA's lanes, is a template argument: every tile address is then
+// a shift and an add
+template <int C>
+__global__ void __launch_bounds__(MAX_C)
 cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
               int32_t* __restrict__ ivec, float* __restrict__ fvec,
               const int32_t* __restrict__ seeds,
               const int32_t* __restrict__ tab, Params P) {
-  const int N = P.n_pad;
-  // nop decode table: the nop's register for a nop opcode, -1 otherwise
-  __shared__ int s_nop[TAB_INSTS];
-  if (threadIdx.x < TAB_INSTS) {
-    const int k = threadIdx.x;
-    s_nop[k] = (k < P.ni && tab[T_IS_NOP * TAB_INSTS + k])
-                   ? tab[T_NOP_MOD * TAB_INSTS + k] : -1;
-  }
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned tlane = threadIdx.x;
-  const unsigned seed = (unsigned)seeds[blockIdx.x];
+  extern __shared__ __align__(16) int32_t smem[];
+  const size_t N = (size_t)P.n_pad;
+  const int R = P.R, LW = P.LW;
+  int32_t* tile = smem;
+  int* s_tab = smem + P.rows * C;
+  const int* s_nop = s_tab + T_NOP_DECODE;
+  // [0] the CTA's largest grant, [1] its pending-write bound, [2] tape row
+  // groups written, [3] ivec row groups written (I_LABEL, I_STACK, I_DYN);
+  // then two mbarriers -- the rows every cycle reads (tape, read label,
+  // site flags) with the tables, and the late rows, the stacks and
+  // reaction counters, which only some instructions touch -- then one
+  // (trips, bound) slot per CTA of the cluster
+  int* s_red = s_tab + TAB_INTS + TAB_INSTS;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_red + 4);
+  uint64_t* bar_late = reinterpret_cast<uint64_t*>(s_red + 6);
+  unsigned long long* s_slot =
+      reinterpret_cast<unsigned long long*>(s_red + 8);
+  // tile rows: tape words, then ivec rows 38-67, then IV_EXEC_BM onwards
+  const int R_LBL = P.LP, R_STK = P.LP + MAX_LABEL;
+  const int R_EBM = P.LP + LBL_ROWS, R_CBM = R_EBM + LW, R_DYN = R_CBM + LW;
+  const int t = threadIdx.x;
+  const size_t c0 = (size_t)blockIdx.x * C;
+  const unsigned rank = blockIdx.x % P.K;          // the CTA in its cluster
+  const unsigned seed = (unsigned)seeds[blockIdx.x / P.K];
   const int L = P.LP * 4;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  if (t == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar_late, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    s_red[0] = s_red[1] = s_red[2] = s_red[3] = 0;
+  }
+  __syncthreads();
+  // the cluster barrier's first phase: this CTA has started (waited on
+  // before any CTA writes into another's shared memory)
+  cluster_arrive_relaxed();
+  // ---- stage the tile and the tables: one bulk copy per row, counted on
+  // the mbarrier of its kind
+  auto row_src = [&](int r) -> const int32_t* {
+    return (r < R_LBL ? tape + (size_t)r * N
+            : r < R_EBM ? ivec + (size_t)(IV_READ_LABEL + r - R_LBL) * N
+                        : ivec + (size_t)(IV_EXEC_BM + r - R_EBM) * N) + c0;
+  };
+  if (t < 32) {
+    const int late_rows = 2 * MAX_LABEL + 4 * R;   // stacks, counters
+    if (t == 0) {
+      mbar_expect_tx(bar, (uint32_t)((P.rows - late_rows) * C * 4
+                                     + TAB_BYTES));
+      mbar_expect_tx(bar_late, (uint32_t)(late_rows * C * 4));
+    }
+    __syncwarp();
+    for (int r = t; r < P.rows; r += 32) {
+      const bool late = (r >= R_STK && r < R_EBM) || r >= R_DYN;
+      bulk_load(tile + r * C, row_src(r), (uint32_t)(C * 4),
+                late ? bar_late : bar);
+    }
+    if (t == 0) bulk_load(s_tab, tab, TAB_BYTES, bar);
+  }
+  const int o = t;                 // the organism of this thread
+  const size_t lane = c0 + o;
+  const unsigned tlane = rank * C + o;
 #define IV(r) ivec[(size_t)(r) * N + lane]
 #define FV(r) fvec[(size_t)(r) * N + lane]
+#define T(r) tile[(r) * C + o]
 
-  // ---- block trip count: the block's largest grant, two cycles a trip
-  __shared__ int s_max[32];
-  int granted = IV(IV_GRANTED);
-  int g = granted;
-  for (int o = 16; o > 0; o >>= 1) g = max(g, __shfl_xor_sync(~0u, g, o));
-  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = g;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int v = threadIdx.x < (blockDim.x >> 5) ? s_max[threadIdx.x] : 0;
-    for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(~0u, v, o));
-    if (threadIdx.x == 0) s_max[0] = v;
-  }
-  __syncthreads();
-  long long bmax = min((long long)s_max[0], (long long)P.num_steps);
-  long long trips = bmax > 0 ? (bmax + 1) / 2 * 2 : 0;
-  int nexec = (int)min((long long)granted, trips);
-
-  // ---- per-organism state into registers / local arrays
+  // the organism's cycles: its grant, capped by the reference block's
+  // trip count, which is its largest grant capped by num_steps and
+  // rounded up to even (the reference runs two cycles a trip); a grant
+  // above the cap meets the block's trip count, a grant below it never
+  // does, so the block's maximum is not needed here
+  const int granted = IV(IV_GRANTED);
+  const int nexec = granted <= P.num_steps
+      ? granted : (int)min((long long)granted,
+                           ((long long)P.num_steps + 1) / 2 * 2);
   int mem_len = IV(IV_MEM_LEN), active_stack = IV(IV_ACTIVE_STACK);
   int rl_len = IV(IV_READ_LABEL_LEN), in_ptr = IV(IV_INPUT_PTR);
   int ibuf_n = IV(IV_INPUT_BUF_N), out_buf = IV(IV_OUTPUT_BUF);
@@ -188,47 +368,51 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
   int off_sex = IV(IV_OFF_SEX), pw_val = IV(IV_PW_VAL);
   int cost_wait = IV(IV_COST_WAIT);
   unsigned ft_lo = (unsigned)IV(IV_FT_LO), ft_hi = (unsigned)IV(IV_FT_HI);
-  int regs[3], heads[4], sp[2], ibuf[3], inputs[3], rlabel[MAX_LABEL];
-  int stacks[20];
-  unsigned ebm[MAX_LW], cbm[MAX_LW];
-  for (int k = 0; k < 3; ++k) {
-    regs[k] = IV(IV_REGS + k);
-    ibuf[k] = IV(IV_INPUT_BUF + k);
-    inputs[k] = IV(IV_INPUTS + k);
-  }
-  for (int k = 0; k < 4; ++k) heads[k] = IV(IV_HEADS + k);
-  sp[0] = IV(IV_SP);
-  sp[1] = IV(IV_SP + 1);
-  for (int k = 0; k < MAX_LABEL; ++k) rlabel[k] = IV(IV_READ_LABEL + k);
-  for (int k = 0; k < 20; ++k) stacks[k] = IV(IV_STACKS + k);
-  for (int w = 0; w < P.LW; ++w) {
-    ebm[w] = (unsigned)IV(IV_EXEC_BM + w);
-    cbm[w] = (unsigned)IV(P.iv_copied + w);
-  }
+  int r0 = IV(IV_REGS), r1 = IV(IV_REGS + 1), r2 = IV(IV_REGS + 2);
+  int h_ip = IV(IV_HEADS + HEAD_IP), h_rd = IV(IV_HEADS + HEAD_READ);
+  int h_wr = IV(IV_HEADS + HEAD_WRITE), h_fl = IV(IV_HEADS + HEAD_FLOW);
+  int sp0 = IV(IV_SP), sp1 = IV(IV_SP + 1);
+  int ib0 = IV(IV_INPUT_BUF), ib1 = IV(IV_INPUT_BUF + 1);
+  int ib2 = IV(IV_INPUT_BUF + 2);
+  const int in0 = IV(IV_INPUTS), in1 = IV(IV_INPUTS + 1);
+  const int in2 = IV(IV_INPUTS + 2);
   float merit = FV(FV_MERIT), cur_bonus = FV(FV_CUR_BONUS);
   float fitness = FV(FV_FITNESS), last_bonus = FV(FV_LAST_BONUS);
   float last_mb = FV(FV_LAST_MERIT_BASE);
 
+  uint8_t* const tb = reinterpret_cast<uint8_t*>(tile);
   auto byte_at = [&](int pos) -> int {
-    unsigned w = (unsigned)tape[(size_t)(pos >> 2) * N + lane];
-    return (int)((w >> ((pos & 3) * 8)) & 0xFFu);
+    return tb[4 * ((pos >> 2) * C + o) + (pos & 3)];
   };
   auto op_at = [&](int pos) -> int {
     return min(byte_at(pos) & 63, P.ni - 1);
   };
 
-  // need_last / pend_prev feed the reference's row-tile bound of the
-  // block's final cycle (see the pending-write value row below)
-  int last_exec = -1, written = 0, need_last = 1, pend_prev = 0;
+  mbar_wait(bar, 0);
+  // the late rows: waited for where an instruction first touches them
+  bool late_in = false;
+  auto need_late = [&]() {
+    if (!late_in) {
+      mbar_wait(bar_late, 0);
+      late_in = true;
+    }
+  };
+
+  // the memory length and the reach of the tape writes of the lane's
+  // last two cycles feed the reference's row-tile bound of the block's
+  // final cycle (see the pending-write value row below)
+  int last_exec = -1, written = 0, mlen_last = 1, pend_cur = 0,
+      pend_before = 0;
+  unsigned dirty = 0;             // tape row groups this lane wrote
+  unsigned idirty = 0;            // staged ivec row groups it wrote
   for (int s = 0; s < nexec; ++s) {
     if (!(flags & FLAG_ALIVE) || (flags & FLAG_DIVPEND)) break;
     last_exec = s;
     const int mlen = max(mem_len, 1);
-    if (s == trips - 1) need_last = mlen;
-    const int ip = heads[HEAD_IP], rp = heads[HEAD_READ];
-    const int wp = heads[HEAD_WRITE];
+    mlen_last = mlen;
+    const int ip = h_ip, rp = h_rd, wp = h_wr;
     const int cur_op = op_at(ip);
-    const int meta = tab[T_META * TAB_INSTS + cur_op];
+    const int meta = s_tab[T_META * TAB_INSTS + cur_op];
     const int defop = (meta >> 16) & 0xFF;
 
     // cost engine: a cost-c instruction waits c - 1 cycles and executes
@@ -237,8 +421,8 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
     if (P.has_costs) {
       const unsigned ft_bit = cur_op < 32 ? (ft_lo >> cur_op) & 1u
                                           : (ft_hi >> (cur_op - 32)) & 1u;
-      const int total = max(tab[T_COST * TAB_INSTS + cur_op], 1)
-                        + (ft_bit ? 0 : tab[T_FT_COST * TAB_INSTS + cur_op]);
+      const int total = max(s_tab[T_COST * TAB_INSTS + cur_op], 1)
+                        + (ft_bit ? 0 : s_tab[T_FT_COST * TAB_INSTS + cur_op]);
       eff = cost_wait == 1 || (cost_wait == 0 && total <= 1);
       cost_wait = cost_wait > 0 ? cost_wait - 1 : (total > 1 ? total - 1 : 0);
       if (eff && !ft_bit) {
@@ -251,7 +435,7 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
     bool failed = false;
     if (P.has_prob_fail && eff) {
       const float u = (float)hash24(seed, s, 2, tlane) * (1.0f / 16777216.0f);
-      failed = u < __int_as_float(tab[T_PROB_FAIL * TAB_INSTS + cur_op]);
+      failed = u < __int_as_float(s_tab[T_PROB_FAIL * TAB_INSTS + cur_op]);
     }
     const int sem = eff && !failed ? (meta & 0xFF) : -1;
     // the modifier keys off execution, not eff (a waiting cycle flags its
@@ -263,10 +447,13 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
       return op_at(p >= mlen ? p - mlen : p);
     };
 
-    // operand (nop modifier) and label
+    // operand (nop modifier) and label: label nop k's complement code in
+    // bits 2k..2k+1 of lbl, and the shift-and masks of h-search, bit k of
+    // 16-bit field c set where the label's k-th code is c
     bool has_mod = false;
     int operand = defop, consumed = 0, label_len = 0;
-    int lbl_c[MAX_LABEL];
+    unsigned lbl = 0;
+    unsigned long long cmask = 0;
     if (mod == MOD_REG || mod == MOD_HEAD) {
       const int nm = s_nop[window(0)];
       has_mod = nm >= 0;
@@ -276,26 +463,30 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         if (k + 1 > mlen - 1) break;
         const int v = s_nop[window(k)];
         if (v < 0) break;
-        lbl_c[k] = v >= 2 ? v - 2 : v + 1;
+        const int c = v >= 2 ? v - 2 : v + 1;
+        lbl |= (unsigned)c << (2 * k);
+        cmask |= 1ull << (16 * c + k);
         label_len = k + 1;
       }
       consumed = label_len;
     }
-    const int val = operand < 3 ? regs[operand] : 0;
+    const int val = sel3(r0, r1, r2, operand);
     const int nr = operand + 1;
     const int next_reg = nr >= 3 ? nr - 3 : nr;
-    const int val2 = next_reg < 3 ? regs[next_reg] : 0;
-    const int bx = regs[1], cx = regs[2];
-    const bool ipx = (ebm[ip >> 5] >> (ip & 31)) & 1u;
+    const int val2 = sel3(r0, r1, r2, next_reg);
+    const int bx = r1, cx = r2;
     const int hsel0 = mod == MOD_HEAD ? operand : HEAD_IP;
+    const int head_sel = hsel0 == HEAD_IP ? h_ip : hsel0 == HEAD_READ ? h_rd
+                         : hsel0 == HEAD_WRITE ? h_wr : h_fl;
     const int eff_head_pos = hsel0 == HEAD_IP ? adjust1(ip + consumed, mlen)
-                                              : heads[hsel0];
+                                              : head_sel;
     const int old_len = mlen;
-    const int flow0 = heads[HEAD_FLOW];
+    const int flow0 = h_fl;
 
     int skip = 0, pz_e = 0;
     bool copy_m = false, alloc_m = false, div_m = false;
-    int new_heads[4] = {heads[0], heads[1], heads[2], heads[3]};
+    int set_head = -1, set_head_pos = 0;   // head hsel0's new position
+    int nh_rd = h_rd, nh_wr = h_wr, nh_fl = h_fl;
     int ip_new = adjust1(adjust1(ip + consumed + 1, mlen), mlen);
     const int read_inst = op_at(rp);
     written = read_inst;
@@ -305,52 +496,60 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
       case SEM_IF_LESS: skip = val >= val2; break;
       case SEM_IF_LABEL: {
         bool m = rl_len == label_len;
-        for (int k = 0; k < label_len; ++k) m = m && rlabel[k] == lbl_c[k];
+        for (int k = 0; k < label_len; ++k)
+          m = m && T(R_LBL + k) == (int)((lbl >> (2 * k)) & 3u);
         skip = !m;
         break;
       }
       case SEM_MOV_HEAD:
-        new_heads[hsel0] = flow0;
+        set_head = hsel0;
+        set_head_pos = flow0;
         if (hsel0 == HEAD_IP) ip_new = flow0;
         break;
       case SEM_JMP_HEAD: {
         int jp = adjust(wrap_add(eff_head_pos, cx), mlen);
-        new_heads[hsel0] = jp;
+        set_head = hsel0;
+        set_head_pos = jp;
         if (hsel0 == HEAD_IP) ip_new = adjust1(jp + 1, mlen);
         break;
       }
-      case SEM_GET_HEAD: regs[2] = eff_head_pos; break;
-      case SEM_SET_FLOW: new_heads[HEAD_FLOW] = adjust(val, mlen); break;
-      case SEM_SHIFT_R: if (operand < 3) regs[operand] = val >> 1; break;
+      case SEM_GET_HEAD: r2 = eff_head_pos; break;
+      case SEM_SET_FLOW: nh_fl = adjust(val, mlen); break;
+      case SEM_SHIFT_R: set3(r0, r1, r2, operand, val >> 1); break;
       case SEM_SHIFT_L:
-        if (operand < 3) regs[operand] = (int)((unsigned)val << 1);
+        set3(r0, r1, r2, operand, (int)((unsigned)val << 1));
         break;
-      case SEM_INC: if (operand < 3) regs[operand] = wrap_add(val, 1); break;
-      case SEM_DEC: if (operand < 3) regs[operand] = wrap_add(val, -1); break;
-      case SEM_ADD: if (operand < 3) regs[operand] = wrap_add(bx, cx); break;
+      case SEM_INC: set3(r0, r1, r2, operand, wrap_add(val, 1)); break;
+      case SEM_DEC: set3(r0, r1, r2, operand, wrap_add(val, -1)); break;
+      case SEM_ADD: set3(r0, r1, r2, operand, wrap_add(bx, cx)); break;
       case SEM_SUB:
-        if (operand < 3) regs[operand] = (int)((unsigned)bx - (unsigned)cx);
+        set3(r0, r1, r2, operand, (int)((unsigned)bx - (unsigned)cx));
         break;
-      case SEM_NAND: if (operand < 3) regs[operand] = ~(bx & cx); break;
+      case SEM_NAND: set3(r0, r1, r2, operand, ~(bx & cx)); break;
       case SEM_PUSH: {
-        int spa = sp[active_stack != 0];
+        need_late();
+        int spa = active_stack != 0 ? sp1 : sp0;
         int sp_push = spa == 0 ? 9 : spa - 1;
-        stacks[active_stack * 10 + sp_push] = val;
-        sp[active_stack != 0] = sp_push;
+        T(R_STK + active_stack * 10 + sp_push) = val;
+        idirty |= I_STACK;
+        if (active_stack != 0) sp1 = sp_push; else sp0 = sp_push;
         break;
       }
       case SEM_POP: {
-        int spa = sp[active_stack != 0];
-        int slot = active_stack * 10 + spa;
-        if (operand < 3) regs[operand] = stacks[slot];
-        stacks[slot] = 0;
-        sp[active_stack != 0] = spa == 9 ? 0 : spa + 1;
+        need_late();
+        int spa = active_stack != 0 ? sp1 : sp0;
+        int slot = R_STK + active_stack * 10 + spa;
+        set3(r0, r1, r2, operand, T(slot));
+        T(slot) = 0;
+        idirty |= I_STACK;
+        const int sp_new = spa == 9 ? 0 : spa + 1;
+        if (active_stack != 0) sp1 = sp_new; else sp0 = sp_new;
         break;
       }
       case SEM_SWAP_STK: active_stack = 1 - active_stack; break;
       case SEM_SWAP:
-        if (operand < 3) regs[operand] = val2;
-        regs[next_reg] = val;
+        set3(r0, r1, r2, operand, val2);
+        set3(r0, r1, r2, next_reg, val);
         break;
       case SEM_H_COPY: {
         copy_m = true;
@@ -361,7 +560,7 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
             if (P.weighted_mut) {
               // inverse CDF over the float32 cumulative weights
               const float ui = (float)r * (1.0f / 16777216.0f);
-              const int32_t* cdf = tab + T_MUT_CDF * TAB_INSTS;
+              const int* cdf = s_tab + T_MUT_CDF * TAB_INSTS;
               written = 0;
               for (int k = 0; k < P.ni - 1; ++k)
                 written += ui >= __int_as_float(cdf[k]);
@@ -370,16 +569,18 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
             }
           }
         }
-        if (s_nop[read_inst] >= 0) {
+        const int rn = s_nop[read_inst];
+        if (rn >= 0) {
           if (rl_len < MAX_LABEL) {
-            rlabel[rl_len] = s_nop[read_inst];
+            T(R_LBL + rl_len) = rn;
             rl_len++;
+            idirty |= I_LABEL;
           }
         } else {
           rl_len = 0;
         }
-        new_heads[HEAD_READ] = adjust1(rp + 1, mlen);
-        new_heads[HEAD_WRITE] = adjust1(wp + 1, mlen);
+        nh_rd = adjust1(rp + 1, mlen);
+        nh_wr = adjust1(wp + 1, mlen);
         break;
       }
       case SEM_H_ALLOC: {
@@ -391,28 +592,41 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
           alloc_m = true;
           pz_e = old_len + size;
           mem_len = pz_e;
-          regs[0] = old_len;
+          r0 = old_len;
           flags |= FLAG_MAL;
         }
         break;
       }
       case SEM_H_SEARCH: {
+        // shift-and: bit k of D is set at position p where the label's
+        // first k + 1 codes spell the tape's codes ending at p; the first
+        // p with bit label_len - 1 set ends the first match (a nop's code
+        // is its register, any other byte's 3, which no label code is)
         int head = adjust1(ip + label_len, mlen);
         const int ip_after = head;
         if (label_len > 0) {
-          for (int q = 0; q + label_len <= mlen; ++q) {
-            bool m = true;
-            for (int k = 0; k < label_len && m; ++k) {
-              const int byte = byte_at(q + k);
-              const int c = byte < TAB_INSTS ? s_nop[byte] : -1;
-              m = (c < 0 ? 3 : c) == lbl_c[k];
+          const unsigned hit = 1u << (label_len - 1);
+          unsigned D = 0;
+          bool found = false;
+          for (int w = 0; 4 * w < mlen && !found; ++w) {
+            const unsigned word = (unsigned)T(w);
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              const int p = 4 * w + b;
+              const unsigned byte = (word >> (8 * b)) & 0xFFu;
+              const int c = byte < TAB_INSTS ? (s_nop[byte] & 3) : 3;
+              D = ((D << 1) | 1u)
+                  & (unsigned)(cmask >> (16 * c)) & 0xFFFFu;
+              if (p < mlen && (D & hit) && !found) {
+                head = p;
+                found = true;
+              }
             }
-            if (m) { head = q + label_len - 1; break; }
           }
         }
-        regs[1] = head - ip_after;
-        regs[2] = label_len;
-        new_heads[HEAD_FLOW] = adjust1(head + 1, mlen);
+        r1 = head - ip_after;
+        r2 = label_len;
+        nh_fl = adjust1(head + 1, mlen);
         break;
       }
       case SEM_H_DIVIDE:
@@ -421,10 +635,13 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         const int child_end = wp == 0 ? mlen : wp;
         const int child_size = child_end - parent_size;
         int exec_count = 0, copied_count = 0;
-        for (int w = 0; w < P.LW; ++w) {
-          exec_count += __popc(ebm[w] & range_mask(w, 0, parent_size));
-          copied_count += __popc(cbm[w] & range_mask(w, parent_size,
-                                                     child_end));
+        const bool ipx = (T(R_EBM + (ip >> 5)) >> (ip & 31)) & 1u;
+#pragma unroll 1
+        for (int w = 0; w < LW; ++w) {
+          exec_count += __popc((unsigned)T(R_EBM + w)
+                               & range_mask(w, 0, parent_size));
+          copied_count += __popc((unsigned)T(R_CBM + w)
+                                 & range_mask(w, parent_size, child_end));
         }
         if (!ipx && ip < parent_size) exec_count += 1;
         const float fsize = (float)gsize;
@@ -469,37 +686,37 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         break;
       }
       case SEM_IO: {
-        const int ptr_mod = in_ptr % 3;
-        const int value_in = inputs[ptr_mod];
-        const int i0 = ibuf_n > 0 ? ibuf[0] : 0;
-        const int i1 = ibuf_n > 1 ? ibuf[1] : 0;
-        const int i2 = ibuf_n > 2 ? ibuf[2] : 0;
+        const int value_in = sel3(in0, in1, in2, in_ptr % 3);
+        const int i0 = ibuf_n > 0 ? ib0 : 0;
+        const int i1 = ibuf_n > 1 ? ib1 : 0;
+        const int i2 = ibuf_n > 2 ? ib2 : 0;
         const int lid = logic_id(i0, i1, i2, ibuf_n, (unsigned)val);
         float bonus = cur_bonus, add_sum = 0.0f;
         if (lid >= 0) {
           // every requisite reads the counters as they stood at the
           // start of the cycle, so decide all reactions before counting
-          const int R = P.R;
+          need_late();
           unsigned done = 0, paid = 0, had = 0;
           for (int d = 0; d < R; ++d)
-            if (IV(P.iv_dyn + R + d) != 0) had |= 1u << d;
+            if (T(R_DYN + R + d) != 0) had |= 1u << d;
           for (int r = 0; r < R; ++r) {
-            const int32_t* rt = tab + T_REACTIONS * TAB_INSTS + r * RX;
+            const int* rt = s_tab + T_REACTIONS * TAB_INSTS + r * RX;
             if (!((rt[6 + (lid >> 5)] >> (lid & 31)) & 1)) continue;
             done |= 1u << r;
-            const int tc = IV(P.iv_dyn + r);
+            const int tc = T(R_DYN + r);
             if (tc >= rt[0] && tc < rt[1]
                 && ((unsigned)rt[4] & ~had) == 0
                 && ((unsigned)rt[5] & had) == 0)
               paid |= 1u << r;
           }
+          if (done) idirty |= I_DYN;
           for (int r = 0; r < R; ++r) {
             if (!((done >> r) & 1u)) continue;
-            IV(P.iv_dyn + r) += 1;
-            IV(P.iv_dyn + 3 * R + r) += 1;
+            T(R_DYN + r) += 1;
+            T(R_DYN + 3 * R + r) += 1;
             if (!((paid >> r) & 1u)) continue;
-            IV(P.iv_dyn + R + r) += 1;
-            const int32_t* rt = tab + T_REACTIONS * TAB_INSTS + r * RX;
+            T(R_DYN + R + r) += 1;
+            const int* rt = s_tab + T_REACTIONS * TAB_INSTS + r * RX;
             const float v = __int_as_float(rt[3]);
             if (rt[2] == 2) bonus = __fmul_rn(bonus, v);
             else if (rt[2] == 1) { if (v != 0.0f) bonus = __fmul_rn(bonus, v); }
@@ -508,68 +725,85 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         }
         cur_bonus = __fadd_rn(bonus, add_sum);
         in_ptr += 1;
-        ibuf[2] = ibuf[1];
-        ibuf[1] = ibuf[0];
-        ibuf[0] = value_in;
+        ib2 = ib1;
+        ib1 = ib0;
+        ib0 = value_in;
         ibuf_n = min(ibuf_n + 1, 3);
         out_buf = val;
-        if (operand < 3) regs[operand] = value_in;
+        set3(r0, r1, r2, operand, value_in);
         break;
       }
       default: break;
     }
 
-    // IP, site flags, tape
+    // IP, heads, site flags, tape
     if (div_m) ip_new = 0;
     else ip_new = skip ? adjust1(adjust1(ip + consumed + 2, mlen), mlen)
                        : ip_new;
-    new_heads[HEAD_IP] = eff ? ip_new : ip;
-    for (int k = 0; k < 4; ++k) heads[k] = new_heads[k];
-    if (eff) ebm[ip >> 5] |= 1u << (ip & 31);
-    if (has_mod || label_len > 0) ebm[next_pos >> 5] |= 1u << (next_pos & 31);
+    h_rd = nh_rd;
+    h_wr = nh_wr;
+    h_fl = nh_fl;
+    if (set_head == HEAD_READ) h_rd = set_head_pos;
+    else if (set_head == HEAD_WRITE) h_wr = set_head_pos;
+    else if (set_head == HEAD_FLOW) h_fl = set_head_pos;
+    h_ip = eff ? ip_new : ip;
+    if (eff) T(R_EBM + (ip >> 5)) |= 1u << (ip & 31);
+    if (has_mod || label_len > 0)
+      T(R_EBM + (next_pos >> 5)) |= 1u << (next_pos & 31);
     if (copy_m) {
-      cbm[wp >> 5] |= 1u << (wp & 31);
-      int32_t* wa = tape + (size_t)(wp >> 2) * N + lane;
-      const int sh = (wp & 3) * 8;
-      *wa = (int32_t)(((unsigned)*wa & ~(0xFFu << sh))
-                      | ((unsigned)written << sh));
+      T(R_CBM + (wp >> 5)) |= 1u << (wp & 31);
+      tb[4 * ((wp >> 2) * C + o) + (wp & 3)] = (uint8_t)written;
+      dirty |= 1u << ((wp >> 2) >> P.gshift);
     }
     if (alloc_m) {
-      for (int w = 0; w < P.LW; ++w) {
+#pragma unroll 1
+      for (int w = old_len >> 5; w <= (pz_e - 1) >> 5; ++w) {
         const unsigned m = range_mask(w, old_len, pz_e);
-        ebm[w] &= ~m;
-        cbm[w] &= ~m;
+        T(R_EBM + w) &= ~m;
+        T(R_CBM + w) &= ~m;
       }
-      for (int p = old_len; p < pz_e; ++p) {
-        int32_t* wa = tape + (size_t)(p >> 2) * N + lane;
-        *wa = (int32_t)((unsigned)*wa & ~(0xFFu << ((p & 3) * 8)));
+      const int w_lo = old_len >> 2, w_hi = (pz_e - 1) >> 2;
+#pragma unroll 1
+      for (int w = w_lo; w <= w_hi; ++w) {
+        const int lo = max(old_len - 4 * w, 0), hi = min(pz_e - 4 * w, 4);
+        const unsigned keep = (lo > 0 ? 0xFFFFFFFFu >> (32 - 8 * lo) : 0u)
+                              | (hi < 4 ? 0xFFFFFFFFu << (8 * hi) : 0u);
+        T(w) &= keep;
       }
+      dirty |= (0xFFFFFFFFu >> (31 - (w_hi >> P.gshift)))
+               & (0xFFFFFFFFu << (w_lo >> P.gshift));
     }
     if (div_m) {
+      need_late();
       mem_len = rp;
-      for (int k = 0; k < 4; ++k) heads[k] = 0;
-      for (int k = 0; k < 3; ++k) regs[k] = 0;
-      for (int k = 0; k < 20; ++k) stacks[k] = 0;
-      sp[0] = sp[1] = 0;
+      h_ip = h_rd = h_wr = h_fl = 0;
+      r0 = r1 = r2 = 0;
+#pragma unroll 1
+      for (int k = 0; k < 20; ++k) T(R_STK + k) = 0;
+      sp0 = sp1 = 0;
       active_stack = 0;
       rl_len = 0;
       flags &= ~FLAG_MAL;
       if (P.has_costs) { cost_wait = 0; ft_lo = ft_hi = 0; }
-      for (int w = 0; w < P.LW; ++w) ebm[w] = cbm[w] = 0;
-      for (int r = 0; r < P.R; ++r) {
-        IV(P.iv_dyn + 2 * P.R + r) = IV(P.iv_dyn + r);
-        IV(P.iv_dyn + r) = 0;
-        IV(P.iv_dyn + P.R + r) = 0;
+#pragma unroll 1
+      for (int w = 0; w < LW; ++w) T(R_EBM + w) = T(R_CBM + w) = 0;
+#pragma unroll 1
+      for (int r = 0; r < R; ++r) {
+        T(R_DYN + 2 * R + r) = T(R_DYN + r);
+        T(R_DYN + r) = 0;
+        T(R_DYN + R + r) = 0;
       }
       flags |= FLAG_DIVPEND | FLAG_NEWDIV;
+      idirty |= I_STACK | I_DYN;
     }
 
-    if (s == trips - 2) pend_prev = max(copy_m ? wp + 1 : 0, pz_e);
+    pend_before = pend_cur;
+    pend_cur = max(copy_m ? wp + 1 : 0, pz_e);
 
     // time and death
     time_used += 1;
     // addl_time_cost is charged on eff, failures included
-    if (P.has_addl && eff) time_used += tab[T_ADDL * TAB_INSTS + cur_op];
+    if (P.has_addl && eff) time_used += s_tab[T_ADDL * TAB_INSTS + cur_op];
     cpu_cycles += 1;
     insts += 1;
     if (div_m) {
@@ -584,28 +818,32 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
   // lane idle in that cycle read its READ-head word through the
   // reference's row-tile traversal, which covers only the 16-row tiles
   // below the live extent of that cycle's executing lanes and pending
-  // writes (pallas_cycles.py:536-586); outside it the word reads 0.
-  const bool ran_last = last_exec == trips - 1;
-  int bound = max(ran_last ? need_last : 1, pend_prev);
-  for (int o = 16; o > 0; o >>= 1)
-    bound = max(bound, __shfl_xor_sync(~0u, bound, o));
+  // writes (pallas_cycles.py:536-586); outside it the word reads 0.  Both
+  // the block's trip count and that extent are reduced over the cluster:
+  // each CTA computes them as if it were the block ((trips, bound) under
+  // its own largest grant), and the block's pair is the largest pair
+  // (a CTA whose trip count is below the block's has no lane in the
+  // block's last two cycles, so its bound does not count).
+  mbar_wait(bar_late, 0);   // every bulk copy has landed before write-back
+  cta_max(granted, &s_red[0]);
   __syncthreads();
-  if ((threadIdx.x & 31) == 0) s_max[threadIdx.x >> 5] = bound;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int v = threadIdx.x < (blockDim.x >> 5) ? s_max[threadIdx.x] : 0;
-    for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(~0u, v, o));
-    if (threadIdx.x == 0) s_max[0] = v;
+  const long long trips_cta = trip_count(s_red[0], P.num_steps);
+  cta_max(last_exec == trips_cta - 1 ? max(mlen_last, pend_before)
+          : last_exec == trips_cta - 2 ? max(1, pend_cur) : 1, &s_red[1]);
+  dirty = __reduce_or_sync(~0u, dirty);
+  idirty = __reduce_or_sync(~0u, idirty);
+  if ((t & 31) == 0) {
+    atomicOr(reinterpret_cast<unsigned*>(&s_red[2]), dirty);
+    atomicOr(reinterpret_cast<unsigned*>(&s_red[3]), idirty);
   }
   __syncthreads();
-  const int bound_w = (s_max[0] + 3) >> 2;
-  if (trips > 0) {
-    const int rp = heads[HEAD_READ];
-    pw_val = ran_last ? written
-                      : ((rp >> 2) / 16 * 16 < bound_w ? op_at(rp) : 0);
-  }
+  cluster_wait();     // every CTA of the cluster has started
+  if (t < P.K)        // push this CTA's pair into every CTA's slot
+    *cluster.map_shared_rank(&s_slot[rank], t) =
+        ((unsigned long long)trips_cta << 32) | (unsigned)s_red[1];
+  cluster_arrive();   // released: read after the matching wait below
 
-  // ---- write back once
+  // ---- write back once: the scalars of the organism
   IV(IV_MEM_LEN) = mem_len; IV(IV_ACTIVE_STACK) = active_stack;
   IV(IV_READ_LABEL_LEN) = rl_len; IV(IV_INPUT_PTR) = in_ptr;
   IV(IV_INPUT_BUF_N) = ibuf_n; IV(IV_OUTPUT_BUF) = out_buf;
@@ -618,29 +856,22 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
   IV(IV_FLAGS) = flags; IV(IV_OFF_SEX) = off_sex;
   IV(IV_COST_WAIT) = cost_wait;
   IV(IV_FT_LO) = (int)ft_lo; IV(IV_FT_HI) = (int)ft_hi;
-  for (int k = 0; k < 3; ++k) {
-    IV(IV_REGS + k) = regs[k];
-    IV(IV_INPUT_BUF + k) = ibuf[k];
-  }
-  for (int k = 0; k < 4; ++k) IV(IV_HEADS + k) = heads[k];
-  IV(IV_SP) = sp[0];
-  IV(IV_SP + 1) = sp[1];
-  for (int k = 0; k < MAX_LABEL; ++k) IV(IV_READ_LABEL + k) = rlabel[k];
-  for (int k = 0; k < 20; ++k) IV(IV_STACKS + k) = stacks[k];
-  for (int w = 0; w < P.LW; ++w) {
-    IV(IV_EXEC_BM + w) = (int)ebm[w];
-    IV(P.iv_copied + w) = (int)cbm[w];
-  }
+  IV(IV_REGS) = r0; IV(IV_REGS + 1) = r1; IV(IV_REGS + 2) = r2;
+  IV(IV_INPUT_BUF) = ib0; IV(IV_INPUT_BUF + 1) = ib1;
+  IV(IV_INPUT_BUF + 2) = ib2;
+  IV(IV_HEADS + HEAD_IP) = h_ip; IV(IV_HEADS + HEAD_READ) = h_rd;
+  IV(IV_HEADS + HEAD_WRITE) = h_wr; IV(IV_HEADS + HEAD_FLOW) = h_fl;
+  IV(IV_SP) = sp0; IV(IV_SP + 1) = sp1;
   IV(IV_PW_POS) = -1;
-  IV(IV_PW_VAL) = pw_val;
   IV(IV_PZ_START) = 0;
   IV(IV_PZ_END) = 0;
   FV(FV_MERIT) = merit; FV(FV_CUR_BONUS) = cur_bonus;
   FV(FV_FITNESS) = fitness; FV(FV_LAST_BONUS) = last_bonus;
   FV(FV_LAST_MERIT_BASE) = last_mb;
 
-  // ---- offspring extraction for a lane that divided in this launch
+  // ---- offspring extraction for an organism that divided in this launch
   if (flags & FLAG_NEWDIV) {
+#pragma unroll 1
     for (int w = 0; w < P.LP; ++w) {
       unsigned word = 0;
       for (int b = 0; b < 4; ++b) {
@@ -653,10 +884,43 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
   }
 #undef IV
 #undef FV
+#undef T
+
+  // ---- the tile's rows, coalesced: the tape row groups and ivec row
+  // groups some lane of the CTA wrote, and the site-flag bitplanes
+  const unsigned dmask = (unsigned)s_red[2], imask = (unsigned)s_red[3];
+#pragma unroll 1
+  for (int w = 0; w < P.LP; ++w)
+    if ((dmask >> (w >> P.gshift)) & 1u)
+      tape[(size_t)w * N + c0 + t] = tile[w * C + t];
+#pragma unroll 1
+  for (int r = R_LBL; r < P.rows; ++r) {
+    const unsigned group = r < R_STK ? I_LABEL : r < R_EBM ? I_STACK
+                           : r < R_DYN ? 0u : I_DYN;
+    if (group && !(imask & group)) continue;
+    const size_t row = r < R_EBM ? (size_t)(IV_READ_LABEL + r - R_LBL)
+                                 : (size_t)(IV_EXEC_BM + r - R_EBM);
+    ivec[row * N + c0 + t] = tile[r * C + t];
+  }
+
+  // ---- the block's pair, once every CTA of the cluster has pushed its own
+  cluster_wait();
+  unsigned long long pair = 0;
+  for (int r = 0; r < P.K; ++r) pair = max(pair, s_slot[r]);
+  const long long trips = (long long)(pair >> 32);
+  const int bound_w = ((int)(pair & 0xFFFFFFFFu) + 3) >> 2;
+  if (trips > 0) {
+    pw_val = last_exec == trips - 1
+        ? written
+        : ((h_rd >> 2) / 16 * 16 < bound_w ? op_at(h_rd) : 0);
+  }
+  ivec[(size_t)IV_PW_VAL * N + lane] = pw_val;
 }
 
 }  // namespace
 
+// pi holds the 20 ints of csrc/cycles_simple.cu's interface, then the
+// CTA width C (ops/cycles.py::cta_lanes); `block` is the reference's B
 extern "C" int avida_cycles_launch(void* tape, void* off, void* ivec,
                                    void* fvec, const void* seeds,
                                    const void* tab, const int32_t* pi,
@@ -673,11 +937,40 @@ extern "C" int avida_cycles_launch(void* tape, void* off, void* ivec,
   P.copy_mut_prob = pf[0]; P.size_range = pf[1]; P.min_exe_lines = pf[2];
   P.min_copied_lines = pf[3]; P.default_bonus = pf[4];
   P.const_merit = pf[5];
-  if (P.LW > MAX_LW || P.R > MAX_R || block > 512 || block % 32
-      || P.n_pad % block)
+  P.C = pi[20];
+  if ((P.C != 32 && P.C != 64 && P.C != MAX_C) || block % P.C
+      || block / P.C > MAX_CLUSTER || P.n_pad % block || P.LW > MAX_LW
+      || P.R > MAX_R || P.iv_copied != IV_EXEC_BM + P.LW
+      || P.iv_dyn != IV_EXEC_BM + 2 * P.LW)
     return -1;
-  cycles_kernel<<<P.n_pad / block, block, 0, (cudaStream_t)stream>>>(
-      (int32_t*)tape, (int32_t*)off, (int32_t*)ivec, (float*)fvec,
-      (const int32_t*)seeds, (const int32_t*)tab, P);
+  P.K = block / P.C;
+  P.rows = P.LP + LBL_ROWS + 2 * P.LW + 4 * P.R;
+  P.gshift = 0;
+  while ((P.LP - 1) >> P.gshift >= 32) ++P.gshift;
+  const size_t smem =
+      4 * ((size_t)P.rows * P.C + FIXED_INTS);
+  void (*kern)(int32_t*, int32_t*, int32_t*, float*, const int32_t*,
+               const int32_t*, Params) =
+      P.C == 128 ? cycles_kernel<128>
+                 : P.C == 64 ? cycles_kernel<64> : cycles_kernel<32>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P.n_pad / P.C);
+  cfg.blockDim = dim3(P.C);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P.K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, (int32_t*)tape,
+                           (int32_t*)off, (int32_t*)ivec, (float*)fvec,
+                           (const int32_t*)seeds, (const int32_t*)tab, P);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

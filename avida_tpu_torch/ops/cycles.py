@@ -11,9 +11,12 @@ the kernel's plane layout (organisms on the last axis):
 
 This module keeps that layout byte for byte (pack_state / unpack_state and
 the codecs equal the reference's), the launch wrapper `cycles`, its
-hand-written CUDA kernel (csrc/cycles.cu), the kernel's plain PyTorch
-version `cycles_reference`, and `run_cycles`, the per-update engine's
-pack -> launch -> unpack over a lane-permuted canonical state.
+hand-written CUDA kernel for Hopper (csrc/cycles.cu), the kernel's plain
+PyTorch version `cycles_reference`, and `run_cycles`, the per-update
+engine's pack -> launch -> unpack over a lane-permuted canonical state.
+The first port of the kernel (csrc/cycles_simple.cu, `cycles_simple`) is
+built into the same library as the yardstick chip_smoke.py times beside
+it; no path launches it.
 
 Kernel source note.  `cycles` replaces the Pallas kernel built by
 pallas_cycles._make_kernel (launched by _launch_packed / run_packed).  One
@@ -21,12 +24,14 @@ launch must read tape_t, ivec and the phenotype rows of fvec (~97 MB at
 320x320, L=384, ~0.03 ms on an H100) and write only the words it changes
 (counted per run by chip_smoke.py); its real cost is the per-lane cycle
 loop, which is integer work with data-dependent control flow and
-per-lane tape indexing.  The CUDA design: one thread per organism, its
-scalars held in registers and local arrays for the whole launch and
-written back once, the tape read and written at the lane's own head
-positions.  The TPU's masked-sum traversals, row-tile skipping, label
-window and select chains (workarounds for missing per-lane gathers) are
-not carried over; the results stay bit-identical.
+per-lane tape indexing.  The Hopper design (csrc/cycles.cu's note): one
+thread per organism; a CTA of `cta_lanes` lanes stages its tape tile,
+site flags, stacks, read label and reaction counters in shared memory
+with bulk copies; the CTAs of one reference block form a cluster that
+reduces the block's maxima; h-search is a shift-and matcher.  The TPU's
+masked-sum traversals, row-tile skipping, label window and select chains
+(workarounds for missing per-lane gathers) are not carried over; the
+results stay bit-identical.
 
 Random stream: the reference's interpret-mode counter hash of (block
 seed, cycle, tag, lane offset inside the B-lane block), with every block
@@ -504,6 +509,22 @@ def _wrap32(x):
     return torch.where(x >= 2**31, x - 2**32, x)
 
 
+def label_search(codes, lbl_c, label_len, mlen):
+    """h-search's scan of start positions: int64[N], each lane's first
+    position q with q + label_len <= mlen whose tape codes spell the
+    label (L where none does).  codes is int64[L + MAX_LABEL_SIZE, N], a
+    nop byte's register or 3 for any other byte and past the tape; lbl_c
+    holds the label's MAX_LABEL_SIZE complement codes (int64[N] each),
+    of which the first label_len count."""
+    L = codes.shape[0] - MAX_LABEL_SIZE
+    q = torch.arange(L, dtype=torch.int64, device=codes.device)[:, None]
+    match = q + label_len[None] <= mlen[None]
+    for k in range(MAX_LABEL_SIZE):
+        match = match & ((k >= label_len[None])
+                         | (codes[k:k + L] == lbl_c[k][None]))
+    return torch.where(match, q, L).min(dim=0).values
+
+
 def cycles_reference(params, planes, seeds, num_steps, B):
     """Plain lockstep version of the cycle kernel, in place on the four
     planes (returned).  `seeds` is int32[n_pad // B], one seed per B-lane
@@ -770,13 +791,8 @@ def cycles_reference(params, planes, seeds, num_steps, B):
             codes = torch.full((L + MAX_LABEL_SIZE, N), 3, dtype=i64,
                                device=dev)
             codes[:L] = code_tab[tb.T.to(i64)]
-            q = torch.arange(L, dtype=i64, device=dev)[:, None]
-            match = (q + label_len[None] <= mlen[None]) & searching[None]
-            for k in range(MAX_LABEL_SIZE):
-                match = match & ((k >= label_len[None])
-                                 | (codes[k:k + L] == lbl_c[k][None]))
-            first = torch.where(match, q, L).min(dim=0).values
-            q_found = torch.where(searching, first, q_found)
+            q_found = torch.where(searching, label_search(
+                codes, lbl_c, label_len, mlen), q_found)
         found = q_found < L
         ip_after_label = _adjust1(ip + label_len, mlen)
         search_head = torch.where(found, q_found + label_len - 1,
@@ -1095,14 +1111,18 @@ def cycles_reference(params, planes, seeds, num_steps, B):
     return planes
 
 
-# ---- the CUDA kernel: build, tables, launch ----
+# ---- the CUDA kernels: build, resources, tables, launch ----
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                    "cycles.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+# the Hopper kernel, and the first port kept as its yardstick; both are
+# built into one library
+SOURCES = tuple(os.path.join(_CSRC, f) for f in ("cycles.cu",
+                                                  "cycles_simple.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                          "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 _lib = None
 _lib_lock = threading.Lock()
 LAUNCHES = 0           # kernel launches since import (see reset_launches)
@@ -1121,29 +1141,103 @@ def _nvcc():
     import shutil
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the cycle kernel is built from "
-                           "csrc/cycles.cu at first use on a CUDA machine")
+        raise RuntimeError("nvcc not found: the cycle kernels are built from "
+                           "csrc/*.cu at first use on a CUDA machine")
     return found
 
 
-def build() -> str:
-    """Compile csrc/cycles.cu into _build/ (once per source version) and
-    return the library path."""
+def source_digest() -> str:
+    """Digest of both kernel sources and the compiler flags: names the
+    library, so a change to either source rebuilds it."""
     import hashlib
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:12]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return h.hexdigest()[:12]
+
+
+def build() -> str:
+    """Compile both sources into _build/ (once per source version: one nvcc
+    per source, started together, then one link) and return the library
+    path.  ptxas's resource report is kept beside it (see resources)."""
+    digest = source_digest()
     path = os.path.join(BUILD_DIR, f"libcycles-{digest}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{digest}.{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in SOURCES]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for s, o in zip(SOURCES, objs)]
+    outs = [p.communicate() for p in procs]
+    report = "".join(err + out for out, err in outs)
+    bad = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"nvcc failed on {bad}:\n{report}")
     tmp = f"{path}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
+    res = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
                          capture_output=True, text=True)
+    for o in objs:
+        os.remove(o)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
+    with open(path[:-3] + ".ptxas.txt", "w") as f:
+        f.write(report)
     os.replace(tmp, path)
     return path
+
+
+def parse_ptxas(text: str) -> dict:
+    """{kernel: {registers, stack_bytes, spill_store_bytes,
+    spill_load_bytes, static_smem_bytes}} from `nvcc -Xptxas -v` output,
+    for the entry functions cycles_kernel<C> (one per CTA width) and
+    cycles_simple_kernel."""
+    import re
+    out, entry, props = {}, None, None
+
+    def short(mangled):
+        m = re.search(r"cycles_simple_kernel|cycles_kernel(?:ILi(\d+)E)?",
+                      mangled)
+        if m is None:
+            return None
+        return f"cycles_kernel<{m.group(1)}>" if m.group(1) else m.group(0)
+
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = short(m.group(1))
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = short(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props is not None:
+            out.setdefault(props, {}).update(
+                stack_bytes=int(m.group(1)),
+                spill_store_bytes=int(m.group(2)),
+                spill_load_bytes=int(m.group(3)))
+            props = None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(entry, {}).update(
+                registers=int(m.group(1)),
+                static_smem_bytes=int(sm.group(1)) if sm else 0)
+            entry = None
+    return out
+
+
+def resources() -> dict:
+    """The built kernels' resources as ptxas reported them (build first)."""
+    with open(build()[:-3] + ".ptxas.txt") as f:
+        return parse_ptxas(f.read())
 
 
 def _load():
@@ -1151,12 +1245,55 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            fn = lib.avida_cycles_launch
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int,
-                                                   ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            for fn in (lib.avida_cycles_launch,
+                       lib.avida_cycles_launch_simple):
+                fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int,
+                                                       ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+# ---- the Hopper kernel's launch geometry ----
+
+MAX_CTA = 128            # lanes (threads) of a CTA
+MAX_CLUSTER = 8          # CTAs of a cluster: the portable cluster size
+SMEM_PER_CTA = 232_448   # the most shared memory a CTA may use (227 KB)
+SMEM_PER_SM = 233_472    # an SM's shared memory (228 KB) ...
+SMEM_CTA_RESERVED = 1_024  # ... of which each resident CTA reserves 1 KB
+TILE_ROWS_IVEC = 30      # ivec rows 38-67: the read label and the stacks
+# the launch table (_build_tables: 1,088 ints), the reductions and the
+# two mbarriers (8) and the cluster's slots (16)
+FIXED_SMEM_INTS = 8 * 64 + 16 * 32 + 64 + 8 + 16
+
+
+def tile_rows(L, R):
+    """Lane-wide int32 rows the Hopper kernel stages in shared memory: the
+    tape words, the read label and stacks, both site-flag bitplanes and
+    the 4R reaction counters."""
+    return L // 4 + TILE_ROWS_IVEC + 2 * (L // 32) + 4 * R
+
+
+def cta_smem_bytes(L, R, C):
+    """Dynamic shared memory of one C-lane CTA (csrc/cycles.cu's layout:
+    the tile, the launch table, the reductions and the cluster's slots)."""
+    return 4 * (tile_rows(L, R) * C + FIXED_SMEM_INTS)
+
+
+def cta_lanes(L, R, B) -> int:
+    """The CTA width C of the Hopper kernel for tape height L, R reactions
+    and the reference's block B: the widest power of two C <= 128 that
+    divides B in at most 8 CTAs (one cluster) and lets two CTAs share an
+    SM; failing that, the widest one CTA can hold."""
+    cands = [c for c in (128, 64, 32) if c <= B and B // c <= MAX_CLUSTER]
+    for c in cands:
+        if 2 * (cta_smem_bytes(L, R, c) + SMEM_CTA_RESERVED) <= SMEM_PER_SM:
+            return c
+    for c in cands:
+        if cta_smem_bytes(L, R, c) <= SMEM_PER_CTA:
+            return c
+    raise ValueError(f"no CTA width fits tape height {L}, {R} reactions "
+                     f"and block {B} in shared memory")
 
 
 _TABLES = {}           # (id(params), device) -> (params, table on device)
@@ -1177,20 +1314,23 @@ def kernel_tables(params, device) -> torch.Tensor:
 
 
 # opcode tables of the launch table, 64 slots each, in csrc/cycles.cu's
-# order (T_META ... T_NOP_MOD), then 16 ints per reaction
+# order (T_META ... T_NOP_MOD), then 16 ints per reaction for up to 32
+# reactions, then the nop decode (64 slots)
 TAB_INSTS = 64
 (T_META, T_COST, T_FT_COST, T_ADDL, T_PROB_FAIL, T_MUT_CDF, T_IS_NOP,
  T_NOP_MOD, T_REACTIONS) = range(9)
+T_NOP_DECODE = T_REACTIONS * TAB_INSTS + 16 * 32
 
 
 def _build_tables(params) -> torch.Tensor:
-    """The opcode tables, then 16 ints per reaction (see csrc/cycles.cu).
+    """The opcode tables, then 16 ints per reaction, then the nop decode
+    (a nop's register, -1 for any other opcode slot); see csrc/cycles.cu.
     prob_fail and the cumulative mutation weights are float32 bit
     patterns: the reference compares its draws against them in float32."""
     import struct
     R = params.num_reactions
     ni = params.num_insts
-    t = [0] * (T_REACTIONS * TAB_INSTS + 16 * R)
+    t = [0] * (T_NOP_DECODE + TAB_INSTS)
 
     def put(table, vals):
         for k, v in enumerate(vals):
@@ -1223,13 +1363,20 @@ def _build_tables(params) -> torch.Tensor:
             word = sum(1 << b for b in range(32)
                        if params.task_logic_mask[r][w * 32 + b])
             t[base + 6 + w] = word - (1 << 32) if word >= 2**31 else word
+    for k in range(TAB_INSTS):
+        t[T_NOP_DECODE + k] = (int(params.nop_mod[k])
+                               if k < ni and params.is_nop[k] else -1)
     return torch.tensor(t, dtype=torch.int32)
 
 
-def _launch_cuda(params, planes, seeds, num_steps, B):
+def _launch_cuda(params, planes, seeds, num_steps, B, simple=False):
+    """Launch the Hopper kernel (csrc/cycles.cu) on the planes, or with
+    simple=True the first port (csrc/cycles_simple.cu), which only
+    chip_smoke.py's timing and checks launch."""
     tape_t, off_t, ivec, fvec = planes
     LP, n_pad = tape_t.shape
     NI, LW, IV_COPIED_BM, IV_DYN = layout(params, LP * 4)
+    R = params.num_reactions
     dev = tape_t.device
     for t, dt, shape in ((tape_t, torch.int32, (LP, n_pad)),
                          (off_t, torch.int32, (LP, n_pad)),
@@ -1241,15 +1388,18 @@ def _launch_cuda(params, planes, seeds, num_steps, B):
             raise ValueError(f"cycle kernel operand: got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}, expected "
                              f"contiguous {dt} {shape} on {dev}")
-    if LW > 32 or params.num_reactions > 32 or B > 512 or B % 32 \
+    if LW > 32 or R > 32 or B > 512 or B % 32 \
             or B < TAB_INSTS or n_pad % B or params.num_insts > TAB_INSTS:
         raise ValueError("cycle kernel limits: tape <= 1024, <= 32 "
                          "reactions, <= 64 instructions, block width a "
                          "multiple of 32 in [64, 512]")
+    if tape_t.data_ptr() % 16 or ivec.data_ptr() % 16:
+        raise ValueError("cycle kernel: tape_t and ivec must start on a "
+                         "16-byte boundary (rows are bulk-copied)")
     tab = kernel_tables(params, dev)
-    pi = (ctypes.c_int32 * 20)(
+    pi = (ctypes.c_int32 * 21)(
         n_pad, LP, LW, params.max_memory, params.num_insts,
-        params.num_reactions, IV_COPIED_BM, IV_DYN,
+        R, IV_COPIED_BM, IV_DYN,
         min(int(num_steps), 2**31 - 1), int(params.require_allocate),
         int(params.base_merit_method), int(params.inherit_merit),
         1 if params.generation_inc_method == 1 else 0,
@@ -1257,25 +1407,38 @@ def _launch_cuda(params, planes, seeds, num_steps, B):
         int(params.copy_mut_prob > 0), int(has_costs(params)),
         int(bool(params.inst_prob_fail)),
         int(bool(params.inst_addl_time_cost)),
-        int(not uniform_mutation(params)))
+        int(not uniform_mutation(params)),
+        cta_lanes(LP * 4, R, B))
     pf = (ctypes.c_float * 6)(
         params.copy_mut_prob, params.offspring_size_range,
         params.min_exe_lines, params.min_copied_lines, params.default_bonus,
         float(params.base_const_merit))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _load().avida_cycles_launch(
-        tape_t.data_ptr(), off_t.data_ptr(), ivec.data_ptr(),
-        fvec.data_ptr(), seeds.data_ptr(), tab.data_ptr(), pi, pf, B,
-        stream)
+    lib = _load()
+    fn = lib.avida_cycles_launch_simple if simple else lib.avida_cycles_launch
+    rc = fn(tape_t.data_ptr(), off_t.data_ptr(), ivec.data_ptr(),
+            fvec.data_ptr(), seeds.data_ptr(), tab.data_ptr(), pi, pf, B,
+            stream)
     if rc != 0:
         raise RuntimeError(f"cycle kernel launch failed (CUDA error {rc})")
+
+
+def cycles_simple(params, planes, seeds, num_steps, B):
+    """The first port (csrc/cycles_simple.cu) on CUDA planes, in place:
+    the Hopper kernel's yardstick, launched only by chip_smoke.py and the
+    card's tests, never by a path, and counted nowhere."""
+    if planes[0].device.type != "cuda":
+        raise ValueError("cycles_simple launches the CUDA kernel only")
+    check_supported(params)
+    _launch_cuda(params, planes, seeds, num_steps, B, simple=True)
+    return planes
 
 
 def cycles(params, planes, seeds, num_steps, B):
     """Run one update's cycles over the planes, in place; returns them.
 
-    CUDA tensors launch the kernel (csrc/cycles.cu) or raise; CPU tensors
-    take the plain version.  `seeds` holds one int32 seed per B-lane block
+    CUDA tensors launch the Hopper kernel (csrc/cycles.cu) or raise; CPU
+    tensors take the plain version.  `seeds` holds one int32 seed per B-lane block
     (block_seeds); `num_steps` is the static per-update step cap."""
     global LAUNCHES
     check_supported(params)
@@ -1296,9 +1459,9 @@ def run_packed_stacked(params, planes, world_seeds, num_steps, B):
     block width B, so no block straddles two worlds; block b of world w
     carries world w's seed (the interpret schedule), and the kernel's
     hash keys on the lane's offset inside its block, so each world's
-    slice computes exactly its solo launch.  The kernel is csrc/cycles.cu
-    unchanged: it takes one seed per block and indexes planes with 64-bit
-    offsets, so W * n_pad lanes need nothing new.  Bound as the solo
+    slice computes exactly its solo launch.  The kernel takes one seed per
+    block, forms each block's cluster inside one world, and indexes planes
+    with 64-bit offsets, so W * n_pad lanes need nothing new.  Bound as the solo
     launch: the planes read once, the changed words written once; a pad
     lane (granted nothing) reads one tape word, its pending-write
     value."""

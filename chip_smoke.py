@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the cycle kernel from avida_tpu_torch/csrc, then drives four
-paths of World.run on a 320x320 world seeded everywhere with the
-instruction set's ancestor, and two paths of MultiWorld.run on a batch
-of 16 stock 60x60 worlds with their own seeds, and checks that every
-update of each launched the kernel once:
+Builds the cycle kernels from avida_tpu_torch/csrc (the Hopper kernel,
+cycles.cu, and the first port it replaced, cycles_simple.cu, kept as its
+yardstick), reports their registers, stack, spills and shared memory,
+then drives four paths of World.run on a 320x320 world seeded
+everywhere with the instruction set's ancestor, and two paths of
+MultiWorld.run on a batch of 16 stock 60x60 worlds with their own seeds,
+and checks that every update of each launched the Hopper kernel once:
 
   main_path     TPU_SYSTEMATICS=0: the packed-resident engine
   default_path  the reference's default, systematics on: the per-update
@@ -23,14 +25,17 @@ update of each launched the kernel once:
   multiworld_packed  the batch with TPU_SYSTEMATICS=0: the stacked
                 packed-resident engine
 
-On each path's evolved state it holds the kernel bit for bit against its
-plain PyTorch version and times the path's own phase functions; a batch's
-stacked launch is also held, world by world, against the solo launches,
-and two batch members against their solo runs; small worlds and a small
-batch run on the card and on the CPU must end identical.  Each phase
-prints one JSON line; the last line is {"ok": true, "device": {...}}.
-Any failure exits non-zero before that line.  Needs a CUDA device:
-without one it exits 2 and prints no result.
+On each path's evolved state it holds both kernels bit for bit against
+the plain PyTorch version, times them on the same planes in turns (first
+port, Hopper, Hopper, first port) and times the path's own phase
+functions; a batch's stacked launch is also held, world by world,
+against the solo launches, and two batch members against their solo
+runs; small worlds and a small batch run on the card and on the CPU
+must end identical; the geometry phase holds both kernels to the plain
+version at the launch shapes the paths do not reach (B = 128, 256, and
+L = 1024).  Each phase prints one JSON line; the last line is
+{"ok": true, "device": {...}}.  Any failure exits non-zero before that
+line.  Needs a CUDA device: without one it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -326,9 +331,10 @@ def phase_main(side, updates, data_dir, device="cuda"):
 
 
 def phase_kernel(w, n_launch=3, time_it=True):
-    """Hold the kernel against the plain version on full-width planes from
-    the main path's evolved state, over consecutive launches.  Between
-    launches the state advances through the main path's own phases."""
+    """Hold the Hopper kernel and the first port against the plain version
+    on full-width planes from the main path's evolved state, over
+    consecutive launches.  Between launches the state advances through the
+    main path's own phases."""
     import torch
     from avida_tpu_torch.ops import cycles, packed_chunk, update
     from avida_tpu_torch.utils import prng
@@ -353,15 +359,11 @@ def phase_kernel(w, n_launch=3, time_it=True):
         ks = prng.split(prng.fold_in(w._run_key, u + i), 3)
         budgets, executed0 = packed_chunk.schedule_phase(p, pc, ks[0])
         seeds = cycles.block_seeds(ks[1], n_pad, B)
-        kern = tuple(padded(t) for t in planes())
-        plain = tuple(padded(t) for t in planes())
-        cycles.cycles(p, kern, seeds, cap, B)
-        _sync(pc.tape_t.device)
-        t0 = time.perf_counter()
-        cycles.cycles_reference(p, plain, seeds, cap, B)
-        _sync(pc.tape_t.device)
-        times.append(time.perf_counter() - t0)
-        worst = max(worst, compare_planes(kern, plain, f"launch {i}"))
+        kern, err, plain_ms = hold_both(
+            p, tuple(padded(t) for t in planes()), seeds, cap, B,
+            f"launch {i}")
+        worst = max(worst, err)
+        times.append(plain_ms)
         for dst, src in zip(planes(), kern):
             dst.copy_(src[:, :n])
         pc, _ = packed_chunk.bank_phase(p, pc, budgets, executed0)
@@ -371,7 +373,7 @@ def phase_kernel(w, n_launch=3, time_it=True):
            "source": "avida_tpu_torch/csrc/cycles.cu",
            "replaces": "avida_tpu/ops/pallas_cycles.py:382",
            "launches": None, "max_abs_err": worst, "match": True,
-           "checked_launches": n_launch, "plain_ms": 1e3 * min(times),
+           "checked_launches": n_launch, "plain_ms": min(times),
            "library_ms": None}
     if not time_it:
         return res
@@ -382,20 +384,65 @@ def phase_kernel(w, n_launch=3, time_it=True):
     seeds = cycles.block_seeds(ks[1], n_pad, B)
     base = tuple(padded(t) for t in planes())
     work = tuple(t.clone() for t in base)
+    cycles.cycles(p, work, seeds, cap, B)
+    res.update(kernel_bound(base, work, seeds))
+    res.update(paired_ms(p, base, seeds, cap, B))
+    res["reached"] = res["bound_ms"] / res["ms"]
+    return res
 
-    def one():
-        for dst, src in zip(work, base):
-            dst.copy_(src)
-        cycles.cycles(p, work, seeds, cap, B)
+
+def hold_both(p, base, seeds, cap, B, where, launch=None):
+    """The Hopper kernel (`launch(work)`, by default one `cycles.cycles`)
+    and the first port, each on a copy of `base`, held word for word
+    against the plain version on a third copy: (the Hopper kernel's
+    planes, max_abs_err, the plain version's host-clocked ms)."""
+    from avida_tpu_torch.ops import cycles
+    kern = tuple(t.clone() for t in base)
+    simple = tuple(t.clone() for t in base)
+    plain = tuple(t.clone() for t in base)
+    if launch is None:
+        cycles.cycles(p, kern, seeds, cap, B)
+    else:
+        launch(kern)
+    cycles.cycles_simple(p, simple, seeds, cap, B)
+    _sync(base[0].device)
+    t0 = time.perf_counter()
+    cycles.cycles_reference(p, plain, seeds, cap, B)
+    _sync(base[0].device)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    worst = compare_planes(kern, plain, where)
+    compare_planes(simple, plain, f"{where} (first port)")
+    return kern, worst, plain_ms
+
+
+def paired_ms(p, base, seeds, cap, B, launch=None):
+    """CUDA-event ms of one launch of the Hopper kernel (`launch(work)`, by
+    default one `cycles.cycles`) and of the first port on copies of
+    `base`, taken in turns -- first port, Hopper, Hopper, first port --
+    each turn the mean of 10 launches less the copy's own time:
+    {"ms", "simple_ms", "turns_ms"}."""
+    from avida_tpu_torch.ops import cycles
+    new = launch or (lambda work: cycles.cycles(p, work, seeds, cap, B))
+
+    def simple(work):
+        cycles.cycles_simple(p, work, seeds, cap, B)
+
+    work = tuple(t.clone() for t in base)
 
     def copy_only():
         for dst, src in zip(work, base):
             dst.copy_(src)
 
-    one()
-    res.update(kernel_bound(base, work, seeds))
-    res["ms"] = cuda_ms(one, 10) - cuda_ms(copy_only, 10)
-    return res
+    def timed(fn):
+        def one():
+            copy_only()
+            fn(work)
+        return one
+
+    copy = cuda_ms(copy_only, 10)
+    turns = [cuda_ms(timed(f), 10) - copy for f in (simple, new, new, simple)]
+    return {"ms": (turns[1] + turns[2]) / 2,
+            "simple_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns}
 
 
 def compare_planes(kern, plain, where):
@@ -563,8 +610,9 @@ def time_host_drain(w):
 
 def phase_default_kernel(w, name="default_path"):
     """One per-update launch at a per-update path's evolved state, on the
-    planes run_cycles builds there (lane-permuted by perm_phase), held
-    against the plain version; then its CUDA-event time and bound."""
+    planes run_cycles builds there (lane-permuted by perm_phase): the
+    Hopper kernel and the first port held against the plain version; then
+    both kernels' CUDA-event times, in turns, and the bound."""
     import torch
     from avida_tpu_torch.ops import cycles, update
     from avida_tpu_torch.utils import prng
@@ -581,23 +629,18 @@ def phase_default_kernel(w, name="default_path"):
         raise AssertionError(f"{name}: no lane permutation in use")
     base = cycles.pack_state(p, st, granted, perm)
     seeds = cycles.block_seeds(ks[1], n_pad, B)
-    kern = tuple(t.clone() for t in base)
-    plain = tuple(t.clone() for t in base)
-    cycles.launch(p, kern, ks[1], cap, n)
-    _sync(st.device)
-    t0 = time.perf_counter()
-    cycles.cycles_reference(p, plain, seeds, cap, B)
-    _sync(st.device)
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    worst = compare_planes(kern, plain, f"the {name} launch")
+    kern, worst, plain_ms = hold_both(p, base, seeds, cap, B,
+                                      f"the {name} launch")
     res = {"path": name, "max_abs_err": worst, "match": True,
            "lanes_permuted": True, "plain_ms": plain_ms}
     res.update(kernel_bound(base, kern, seeds))
-    res["ms"] = kernel_ms(p, base, seeds, cap, B)
+    res.update(paired_ms(p, base, seeds, cap, B))
+    res["reached"] = res["bound_ms"] / res["ms"]
     # the same organisms and budgets in cell order: what the permutation
-    # buys the kernel
-    res["ms_identity_lanes"] = kernel_ms(
-        p, cycles.pack_state(p, st, granted), seeds, cap, B)
+    # buys each kernel
+    ident = paired_ms(p, cycles.pack_state(p, st, granted), seeds, cap, B)
+    res["ms_identity_lanes"] = ident["ms"]
+    res["simple_ms_identity_lanes"] = ident["simple_ms"]
     return res
 
 
@@ -766,12 +809,53 @@ def phase_costs_kernel(side, updates, tmp, device="cuda"):
            "insts": insts, "org_inst_per_s": insts / wall,
            "ms_per_update": 1e3 * wall / updates,
            "live_organisms": w.num_organisms}
-    res.update({k: kern[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "bytes_read",
-                                     "bytes_written")})
+    res.update({k: v for k, v in kern.items()
+                if k not in ("name", "route", "source", "replaces",
+                             "launches", "match", "checked_launches",
+                             "library_ms")})
     if not ok:
         raise AssertionError(f"costs_kernel check failed: {res}")
     return res
+
+
+# (side, TPU_MAX_MEMORY): B = 128 (one CTA a cluster), B = 256 (a cluster
+# of two), and the largest tile, L = 1024 (C = 64, a cluster of eight)
+GEOMETRY_CASES = ((8, 384), (16, 384), (24, 1024))
+
+
+def phase_geometry(tmp, updates=24, n_launch=3):
+    """The Hopper kernel and the first port held word for word against the
+    plain version at the launch geometries the 320x320 and 60x60 paths do
+    not reach (GEOMETRY_CASES): each world runs the costs instruction set
+    (COSTS_INSTSET) with mixed programs for `updates` updates on the card,
+    then `n_launch` consecutive launches are checked on its state."""
+    from avida_tpu_torch.ops import cycles
+    cases = []
+    for side, mem in GEOMETRY_CASES:
+        cdir = write_config_dir(os.path.join(tmp, f"cfg_geom_{side}"),
+                                instset=COSTS_INSTSET)
+        w = make_world(side, os.path.join(tmp, f"geom_{side}"), "cuda",
+                       ["u begin InjectAll"], {"TPU_MAX_MEMORY": mem}, cdir)
+        w.process_events()
+        reseed_mixed(w)
+        w.run(max_updates=updates)
+        kern = phase_kernel(w, n_launch=n_launch, time_it=False)
+        p = w.params
+        B, _, L = cycles.dims(p, p.num_cells, p.max_memory)
+        C = cycles.cta_lanes(L, p.num_reactions, B)
+        cases.append({"world": f"{side}x{side}", "B": B, "L": L, "C": C,
+                      "cluster": B // C,
+                      "smem_bytes": cycles.cta_smem_bytes(
+                          L, p.num_reactions, C),
+                      "checked_launches": n_launch,
+                      "max_abs_err": kern["max_abs_err"],
+                      "births": int(w._total_births),
+                      "live_organisms": w.num_organisms})
+    got = [(c["B"], c["L"], c["cluster"]) for c in cases]
+    if got != [(128, 384, 1), (256, 384, 2), (512, 1024, 8)] \
+            or any(c["births"] == 0 for c in cases):
+        raise AssertionError(f"geometry phase reached {cases}")
+    return {"phase": "geometry", "match": True, "cases": cases}
 
 
 class one_thread:
@@ -913,10 +997,10 @@ def mw_next_launch(mw):
 
 def phase_mw_kernel(mw, name, time_it=True):
     """One stacked launch on the batch's evolved planes held against the
-    plain version on the same planes and seeds (max_abs_err) and, world by
-    world, against that world's solo launch; then the stacked launch's
-    CUDA-event time beside the summed times of the W solo launches, and
-    its bound."""
+    plain version on the same planes and seeds (max_abs_err; the first
+    port too) and, world by world, against that world's solo launch; then
+    the stacked launch's CUDA-event time, in turns with the first port's,
+    beside the summed times of the W solo launches, and its bound."""
     from avida_tpu_torch.ops import cycles, update
     p = mw.params
     n = p.num_cells
@@ -926,15 +1010,12 @@ def phase_mw_kernel(mw, name, time_it=True):
     W = len(k_steps)
     wseeds = cycles.world_seed_bases(k_steps)
     seeds = cycles.stacked_block_seeds(wseeds, n_pad, B)
-    kern = tuple(t.clone() for t in base)
-    plain = tuple(t.clone() for t in base)
-    cycles.run_packed_stacked(p, kern, wseeds, cap, B)
-    _sync(mw.device)
-    t0 = time.perf_counter()
-    cycles.cycles_reference(p, plain, seeds, cap, B)
-    _sync(mw.device)
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    worst = compare_planes(kern, plain, f"the {name} stacked launch")
+
+    def stacked(work):
+        cycles.run_packed_stacked(p, work, wseeds, cap, B)
+
+    kern, worst, plain_ms = hold_both(p, base, seeds, cap, B,
+                                      f"the {name} stacked launch", stacked)
 
     def world(planes, w):
         return tuple(x[:, w * n_pad:(w + 1) * n_pad] for x in planes)
@@ -949,8 +1030,8 @@ def phase_mw_kernel(mw, name, time_it=True):
            "blocks": base[0].shape[1] // B, "plain_ms": plain_ms}
     res.update(kernel_bound(base, kern, seeds, pad_lanes=W * (n_pad - n)))
     if time_it:
-        res["ms"] = launch_ms(base, lambda work: cycles.run_packed_stacked(
-            p, work, wseeds, cap, B))
+        res.update(paired_ms(p, base, seeds, cap, B, stacked))
+        res["reached"] = res["bound_ms"] / res["ms"]
         res["solo_ms_sum"] = sum(
             kernel_ms(p, tuple(t.clone() for t in world(base, w)),
                       solo_seeds[w], cap, B) for w in range(W))
@@ -1100,11 +1181,13 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = cycles.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": os.path.relpath(lib), "flags": list(cycles.NVCC_FLAGS)})
+          "library": os.path.relpath(lib), "flags": list(cycles.NVCC_FLAGS),
+          "resources": cycles.resources()})
 
     with tempfile.TemporaryDirectory() as tmp:
         emit(phase_cross_device(tmp))
         emit(phase_mw_cross_device(tmp))
+        emit(phase_geometry(tmp))
         w, main_res = phase_main(SIDE, UPDATES, os.path.join(tmp, "data"))
         emit(main_res)
         kern = phase_kernel(w)
@@ -1136,21 +1219,17 @@ def main() -> int:
             emit(phase_mw_breakdown(mw, mw_res, f"{path}_breakdown"))
             del mw
             mw_runs.append((mw_res, mwk))
+    timing = ("max_abs_err", "ms", "simple_ms", "turns_ms", "reached",
+              "plain_ms", "bound_ms", "bytes_read", "bytes_written")
     per_path = [
-        {"path": "main_path", "launches": main_res["kernel_launches"],
-         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-         "bytes_read": kern["bytes_read"],
-         "bytes_written": kern["bytes_written"]},
+        dict({k: kern[k] for k in timing}, path="main_path",
+             launches=main_res["kernel_launches"]),
         dict(dkern, launches=def_res["kernel_launches"]),
         dict(skern, launches=sex_res["kernel_launches"]),
-        {k: ckern[k] for k in ("path", "launches", "max_abs_err", "ms",
-                               "plain_ms", "bound_ms", "bytes_read",
-                               "bytes_written")}]
-    per_path += [dict({k: mwk[k] for k in (
-        "path", "max_abs_err", "ms", "plain_ms", "bound_ms", "bytes_read",
-        "bytes_written", "solo_ms_sum")}, launches=mw_res["kernel_launches"],
-        stacked=True) for mw_res, mwk in mw_runs]
+        {k: ckern[k] for k in ("path", "launches") + timing}]
+    per_path += [dict({k: mwk[k] for k in ("path", "solo_ms_sum") + timing},
+                      launches=mw_res["kernel_launches"], stacked=True)
+                 for mw_res, mwk in mw_runs]
     emit({"phase": "kernel_paths", "nvidia_smi": smi, "paths": per_path})
     # the kernels line: K1 with its solo launches (the four solo paths),
     # the worst error of all, times and bound at the sexual path; K3b,
@@ -1160,9 +1239,9 @@ def main() -> int:
     kern.update(launches=sum(q["launches"] for q in per_path
                              if not q.get("stacked")),
                 max_abs_err=max(q["max_abs_err"] for q in per_path),
-                **{k: skern[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "bytes_read",
-                                         "bytes_written")})
+                **{k: skern[k] for k in ("ms", "simple_ms", "reached",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "bytes_read", "bytes_written")})
     mwk = mw_runs[0][1]
     stacked = {"name": "cycles_stacked", "route": "cuda",
                "source": "avida_tpu_torch/csrc/cycles.cu",
@@ -1170,8 +1249,8 @@ def main() -> int:
                "launches": sum(r["stacked_launches"] for r, _ in mw_runs),
                "max_abs_err": max(k["max_abs_err"] for _, k in mw_runs),
                "library_ms": None,
-               **{k: mwk[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "bound_by")}}
+               **{k: mwk[k] for k in ("ms", "simple_ms", "reached",
+                                      "plain_ms", "bound_ms", "bound_by")}}
     emit({"phase": "kernels", "nvidia_smi": smi, "kernels": [kern, stacked]})
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

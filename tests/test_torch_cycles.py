@@ -3,7 +3,8 @@ against the reference (avida_tpu/ops/pallas_cycles.py, its Pallas kernel
 run in interpret mode on a single shard).
 
 Tolerance: exact -- every plane word and every state field byte for
-byte.  The CUDA leg holds the kernel to its plain version the same way.
+byte.  The CUDA leg holds the Hopper kernel and the first port
+(csrc/cycles_simple.cu) to the plain version the same way.
 """
 
 import numpy as np
@@ -255,11 +256,14 @@ def test_kernel_equals_plain_on_cuda():
     B, n_pad, _ = tpc.dims(w.params, w.params.num_cells, 384)
     seeds = tpc.block_seeds(torch.tensor([0, 9], device="cuda"), n_pad, B)
     kern = tuple(t.clone() for t in quad)
+    simple = tuple(t.clone() for t in quad)
     plain = tuple(t.clone() for t in quad)
     n0 = tpc.LAUNCHES
     tpc.cycles(w.params, kern, seeds, 2**31 - 1, B)
+    tpc.cycles_simple(w.params, simple, seeds, 2**31 - 1, B)
     tpc.cycles_reference(w.params, plain, seeds, 2**31 - 1, B)
     torch.cuda.synchronize()
-    assert tpc.LAUNCHES == n0 + 1
-    for a, b in zip(kern, plain):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert tpc.LAUNCHES == n0 + 1          # the first port is not counted
+    for a, b, c in zip(kern, simple, plain):
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+        assert torch.equal(b.view(torch.int32), c.view(torch.int32))
