@@ -4,8 +4,9 @@
 
 Runs one world and writes its .dat files, with the reference's defaults
 (systematics on: the per-update engine; -set TPU_SYSTEMATICS 0 takes the
-packed-resident engine).  --worlds runs a batch of static-equal worlds
-with one kernel launch per update for the whole batch
+packed-resident engine; -set TPU_USE_PALLAS 2 the micro-step engine).
+--worlds runs a batch of static-equal worlds with the update's cycles run
+once for the whole batch
 (parallel/multiworld.py): SEEDS is a comma list ("7,8,9"; world k writes
 to DATA_DIR/w00k), MANIFEST a worlds.json path ([{"name", "seed",
 "data_dir"}]).  A batch the configuration refuses exits 2 with the

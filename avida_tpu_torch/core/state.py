@@ -394,6 +394,9 @@ _FIELDS = (
     ("res_grid", _F32, "Rs n"), ("grad_peak", _I32, "Rs 2"),
 )
 FIELD_DTYPES = {name: dt for name, dt, _ in _FIELDS}
+# the per-organism fields (leading axis: one slot per cell)
+LANE_FIELDS = tuple(name for name, _, shape in _FIELDS
+                    if shape.split()[:1] == ["n"])
 # fields whose fresh value is not zero
 _FILL = {"forage_target": -1, "mating_type": -1, "bc_type": -1,
          "genotype_id": -1, "parent_id": -1, "birth_update": -1,

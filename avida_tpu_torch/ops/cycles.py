@@ -112,12 +112,16 @@ FLAG_NEWDIV = 16       # divided during this launch (cleared by the flush)
 
 DEFAULT_BLOCK = 512
 CHUNK = 64
+# csrc/cycles.cu's capacity: tape words (32 sites each) and reactions
+MAX_LW = 32
+MAX_R = 32
 
 
 def unsupported_reason(params) -> str | None:
-    """Why the cycle interpreter cannot run `params` (None = it can): the
+    """Why the cycle kernel cannot run `params` (None = it can): the
     reference's kernel gate, gate for gate -- heads hardware
-    (update.use_pallas_path) and pallas_cycles.eligible."""
+    (update.use_pallas_path) and pallas_cycles.eligible.  What neither
+    engine runs is update.engine_unported_reason."""
     if params.hw_type != 0:
         return "non-heads hardware"
     if params.max_cpu_threads > 1:
@@ -132,6 +136,58 @@ def unsupported_reason(params) -> str | None:
         return "math-family tasks"
     if any(r >= 0 for r in params.proc_res_idx):
         return "resource-bound reactions"
+    return None
+
+
+def use_kernel(params) -> bool:
+    """The routing rule (the reference's update.use_pallas_path): does
+    this configuration's update run its cycles in the kernel (True) or on
+    the micro-step engine?  TPU_USE_PALLAS=2 always takes the micro-step
+    engine; 1 demands the kernel and raises the reference's ValueError on
+    a configuration the gate refuses; 0 takes the kernel wherever the gate
+    admits the configuration -- on the card, and on the CPU as its plain
+    version, where the reference's 0 takes its XLA engine (tests pick the
+    reference engine they compare against explicitly)."""
+    if params.hw_type != 0 or int(params.use_pallas) == 2:
+        return False
+    ok = unsupported_reason(params) is None
+    if int(params.use_pallas) == 1 and not ok:
+        raise ValueError(
+            "TPU_USE_PALLAS=1 but this configuration disqualifies the "
+            "Pallas cycle kernel (ops/pallas_cycles.eligible): a "
+            "resource-bound reaction, by-products, math tasks, the "
+            "energy model, MAX_CPU_THREADS > 1, or an instruction set "
+            "with thread/mating-type instructions; use TPU_USE_PALLAS="
+            "0 or 2")
+    return ok
+
+
+def kernel_limit_reason(params, device_type: str) -> str | None:
+    """The CUDA kernel's own limits (csrc/cycles.cu: MAX_LW, MAX_R, the
+    64-slot opcode tables, a CTA width that fits shared memory), checked
+    before a run on a `device_type` device routed to the kernel (None =
+    within them).  The CPU's plain version has none of them."""
+    if device_type != "cuda" or not use_kernel(params):
+        return None
+    L = dims(params, 1, params.max_memory)[2]
+    R = params.num_reactions
+    hint = "; TPU_USE_PALLAS=2 runs this configuration on the micro-step " \
+        "engine"
+    if L > 32 * MAX_LW:
+        return (f"the CUDA cycle kernel holds a tape of at most "
+                f"{32 * MAX_LW} sites (TPU_MAX_MEMORY {params.max_memory} "
+                f"pads to {L}){hint}")
+    if R > MAX_R:
+        return (f"the CUDA cycle kernel holds at most {MAX_R} reactions "
+                f"(this environment has {R}){hint}")
+    if params.num_insts > TAB_INSTS:
+        return (f"the CUDA cycle kernel holds at most {TAB_INSTS} "
+                f"instructions (this set has {params.num_insts}){hint}")
+    B = dims(params, params.num_cells, params.max_memory)[0]
+    try:
+        cta_lanes(L, R, B)
+    except ValueError as e:
+        return f"the CUDA cycle kernel: {e}{hint}"
     return None
 
 
@@ -480,22 +536,22 @@ def _range_mask(lw_rows, lo, hi):
 
 
 def _logic_id(i0, i1, i2, n_in, out):
-    """tasks.compute_logic_id on lane vectors (cTaskLib.cc:369)."""
-    lo = []
-    ok = torch.ones_like(i0, dtype=torch.bool)
-    for c in range(8):
-        m = ((i0 if c & 1 else ~i0) & (i1 if c & 2 else ~i1)
-             & (i2 if c & 4 else ~i2))
-        cnt = _popcount(m)
-        ones = _popcount(m & out)
-        ok = ok & ((ones == 0) | (ones == cnt))
-        lo.append((ones > 0).to(torch.int64))
+    """tasks.compute_logic_id on lane vectors (cTaskLib.cc:369): the eight
+    input combinations' truth-table rows at once, int64 values."""
+    c = torch.arange(8, device=i0.device)[:, None]
+    m = (torch.where((c & 1) != 0, i0[None], ~i0[None])
+         & torch.where((c & 2) != 0, i1[None], ~i1[None])
+         & torch.where((c & 4) != 0, i2[None], ~i2[None]))      # [8, N]
+    cnt = _popcount(m)
+    ones = _popcount(m & out[None])
+    ok = ((ones == 0) | (ones == cnt)).all(dim=0)
+    lo = list((ones > 0).to(torch.int64).unbind(0))
     lo[1] = torch.where(n_in < 1, lo[0], lo[1])
     lo[2] = torch.where(n_in < 2, lo[0], lo[2])
     lo[3] = torch.where(n_in < 2, lo[1], lo[3])
-    for c in range(4):
-        lo[4 + c] = torch.where(n_in < 3, lo[c], lo[4 + c])
-    logic = sum(lo[c] << c for c in range(8))
+    for k in range(4):
+        lo[4 + k] = torch.where(n_in < 3, lo[k], lo[4 + k])
+    logic = (torch.stack(lo) << c).sum(dim=0)
     return torch.where(ok, logic, -1)
 
 
@@ -1296,21 +1352,28 @@ def cta_lanes(L, R, B) -> int:
                      f"and block {B} in shared memory")
 
 
+def params_cached(store: dict, params, device, build):
+    """build(params, device), made once per params object and device and
+    kept in `store` (tables copied to a card synchronise with the host,
+    so no per-launch or per-cycle caller rebuilds them)."""
+    key = (id(params), str(device))
+    hit = store.get(key)
+    if hit is not None and hit[0] is params:
+        return hit[1]
+    if len(store) >= 16:
+        store.clear()
+    value = build(params, device)
+    store[key] = (params, value)
+    return value
+
+
 _TABLES = {}           # (id(params), device) -> (params, table on device)
 
 
 def kernel_tables(params, device) -> torch.Tensor:
-    """The kernel's int32 table, built and copied to `device` once per
-    params object (the copy synchronises with the host)."""
-    key = (id(params), str(device))
-    hit = _TABLES.get(key)
-    if hit is not None and hit[0] is params:
-        return hit[1]
-    if len(_TABLES) >= 16:
-        _TABLES.clear()
-    tab = _build_tables(params).to(device)
-    _TABLES[key] = (params, tab)
-    return tab
+    """The kernel's int32 table on `device` (params_cached)."""
+    return params_cached(_TABLES, params, device,
+                         lambda p, d: _build_tables(p).to(d))
 
 
 # opcode tables of the launch table, 64 slots each, in csrc/cycles.cu's
@@ -1388,7 +1451,7 @@ def _launch_cuda(params, planes, seeds, num_steps, B, simple=False):
             raise ValueError(f"cycle kernel operand: got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}, expected "
                              f"contiguous {dt} {shape} on {dev}")
-    if LW > 32 or R > 32 or B > 512 or B % 32 \
+    if LW > MAX_LW or R > MAX_R or B > 512 or B % 32 \
             or B < TAB_INSTS or n_pad % B or params.num_insts > TAB_INSTS:
         raise ValueError("cycle kernel limits: tape <= 1024, <= 32 "
                          "reactions, <= 64 instructions, block width a "
@@ -1484,10 +1547,11 @@ def run_packed_stacked(params, planes, world_seeds, num_steps, B):
 
 def lane_perm_active(params, st) -> bool:
     """Does the per-update engine pack by the persistent lane permutation?
-    Only with TPU_LANE_PERM > 0 and the packed chunk inactive: resident
+    Only on the kernel route, with TPU_LANE_PERM > 0 and the packed chunk
+    inactive: resident
     planes are cell-ordered, and both engines must give each organism the
     same kernel lane (hence the same random stream)."""
-    if int(params.lane_perm_k) <= 0:
+    if int(params.lane_perm_k) <= 0 or not use_kernel(params):
         return False
     from avida_tpu_torch.ops import packed_chunk
     return not packed_chunk.active(params, st)

@@ -54,11 +54,15 @@ def ineligible_reason(params, nb_ring: bool = False) -> str | None:
     (None = it can): the reference's routing predicate, gate for gate and
     in its words.  `nb_ring`: the state carries a non-empty newborn ring
     (TPU_SYSTEMATICS=1).  An ineligible configuration runs the per-update
-    engine (ops/update.py)."""
+    engine (ops/update.py); so does every run off the kernel route
+    (cycles.use_kernel), on the micro-step engine."""
     if int(params.packed_chunk) == 0:
         return "TPU_PACKED_CHUNK=0"
     if params.hw_type != 0 or params.max_cpu_threads > 1:
         return "non-heads hardware or multi-threaded CPUs (XLA path)"
+    if not cycles.use_kernel(params):
+        return ("Pallas cycle kernel off for this run "
+                "(TPU_USE_PALLAS / eligibility / backend)")
     if birth_ops.has_divide_sex(params):
         return "divide-sex instruction set (recombination is canonical)"
     if not birth_ops.local_torus_fast_path(params, sexual=False):

@@ -44,7 +44,8 @@ def compute_budgets_from(params, alive, merit, key):
         share = p * ud_size.to(f32)
         base = torch.floor(share)
         frac = share - base
-        remainder = (ud_size - base.double().sum().to(f32)).to(torch.int32)
+        # the float32 total in XLA's order: past 2**24 it rounds by order
+        remainder = (ud_size - prng.xla_f32_sum(base)).to(torch.int32)
         order = torch.argsort(-frac, stable=True)
         rank = torch.empty_like(order)
         rank[order] = torch.arange(order.shape[0], device=order.device)
@@ -54,22 +55,16 @@ def compute_budgets_from(params, alive, merit, key):
     raise NotImplementedError(f"SLICING_METHOD {params.slicing_method}")
 
 
-def _f32_total(x):
-    """float32 total of a vector, exactly rounded (accumulated in
-    float64; equal to the reference's float32 reduction while the sum is
-    exact, as it is for integer budgets below 2**24)."""
-    return x.double().sum().to(torch.float32)
-
-
 def block_ceiling(granted, block: int):
     """Lockstep lane-cycle ceiling of a granted vector under `block`-wide
-    blocking: sum over blocks of block * block max (float32)."""
+    blocking: sum over blocks of block * block max (float32, in XLA's
+    summation order: past 2**24 the total rounds by order)."""
     n = granted.shape[0]
     g = torch.zeros(n + (-n) % block, dtype=granted.dtype,
                     device=granted.device)
     g[:n] = granted                   # padded lanes grant 0 cycles
     bmax = g.reshape(-1, block).max(dim=1).values.to(torch.float32)
-    return _f32_total(bmax * float(block))
+    return prng.xla_f32_sum(bmax * float(block))
 
 
 def block_utilization(granted, block: int):
@@ -77,4 +72,4 @@ def block_utilization(granted, block: int):
     doing useful work (float32; ops/update.perm_phase's early-refresh
     statistic)."""
     ceil = block_ceiling(granted, block)
-    return _f32_total(granted.to(torch.float32)) / ceil.clamp(min=1.0)
+    return prng.xla_f32_sum(granted.to(torch.float32)) / ceil.clamp(min=1.0)

@@ -7,15 +7,23 @@ how the driver chunks the run.  It picks one of two bodies, as the
 reference does:
 
   packed     the population stays in the kernel's plane layout for the
-             whole chunk (ops/packed_chunk.py)
+             whole chunk (ops/packed_chunk.py); kernel route only
   per-update `update_step` on the canonical PopulationState: resources ->
-             schedule -> lane permutation -> run_cycles (pack, kernel,
-             unpack) -> bank -> birth flush (+ point mutations); the
-             engine behind systematics (TPU_SYSTEMATICS=1), whose newborn
-             ring the canonical flush fills
+             schedule -> lane permutation -> cycles -> bank -> birth flush
+             (+ point mutations); the engine behind systematics
+             (TPU_SYSTEMATICS=1), whose newborn ring the canonical flush
+             fills
 
-`update_scan_batched` is the same for W stacked worlds, with one kernel
-launch per update for the whole batch.
+The update's cycles run on one of two engines, routed as the reference
+routes them (cycles.use_kernel): the cycle kernel (run_cycles: pack, one
+launch, unpack) or the micro-step engine (xla_cycles: one
+interpreter.micro_step a cycle, up to the update's largest grant, then the
+offspring extraction) -- TPU_USE_PALLAS=2, and every configuration the
+kernel gate refuses.
+
+`update_scan_batched` is the same for W stacked worlds: one kernel launch
+per update for the whole batch, or the micro-step engine over the worlds'
+lanes folded onto one organism axis (mw_fold_cycles_xla).
 """
 
 from __future__ import annotations
@@ -23,6 +31,9 @@ from __future__ import annotations
 import torch
 
 from avida_tpu_torch.core.state import stack_states, unstack_states
+from avida_tpu_torch.models.heads import (
+    SEM_FORK_TH, SEM_ID_TH, SEM_IF_MATE_FEMALE, SEM_IF_MATE_MALE, SEM_KILL_TH,
+    SEM_SET_MATE_FEMALE, SEM_SET_MATE_JUV, SEM_SET_MATE_MALE)
 from avida_tpu_torch.ops import birth as birth_ops
 from avida_tpu_torch.ops import cycles
 from avida_tpu_torch.ops import scheduler
@@ -95,6 +106,36 @@ def _has_resource_pools(params) -> bool:
                 or params.num_deme_res or any(params.sres_grad_height))
 
 
+_THREAD_SEMS = frozenset((SEM_FORK_TH, SEM_KILL_TH, SEM_ID_TH))
+_MATING_SEMS = frozenset((SEM_SET_MATE_MALE, SEM_SET_MATE_FEMALE,
+                          SEM_SET_MATE_JUV, SEM_IF_MATE_MALE,
+                          SEM_IF_MATE_FEMALE))
+
+
+def engine_unported_reason(params) -> str | None:
+    """What neither cycle engine of this package runs yet (None = one of
+    them runs `params`); each reason names the ROADMAP.md item that owns
+    it.  The cycle kernel's own gate is cycles.unsupported_reason."""
+    if params.hw_type != 0:
+        return ("non-heads hardware (SMT and transsmt: ROADMAP.md Queue 1 "
+                "item 12c; experimental spatial hardware: item 12h)")
+    if params.max_cpu_threads > 1:
+        return "MAX_CPU_THREADS > 1 (threads: ROADMAP.md Queue 1 item 12f)"
+    sems = {int(x) for x in params.sem}
+    if sems & _THREAD_SEMS:
+        return ("thread instructions fork-th / kill-th / id-th (ROADMAP.md "
+                "Queue 1 item 12f)")
+    if sems & _MATING_SEMS:
+        return "mating-type instructions (ROADMAP.md Queue 1 item 12e)"
+    if params.energy_enabled:
+        return "the energy model (ROADMAP.md Queue 1 item 12f)"
+    if any(pi >= 0 for pi in params.proc_product_idx):
+        return "reaction by-products (ROADMAP.md Queue 1 item 12a)"
+    if any(r >= 0 for r in params.proc_res_idx):
+        return "resource-bound reactions (ROADMAP.md Queue 1 item 12a)"
+    return None
+
+
 def per_update_unported_reason(params) -> str | None:
     """Why the per-update engine cannot run `params` in this package
     (None = it can).  The cycle kernel's own gaps are
@@ -124,8 +165,10 @@ def schedule_phase(params, st, k_budget):
 
 def perm_phase(params, st, granted, update_no):
     """Refresh the persistent lane permutation (st.lane_perm / lane_inv)
-    that run_cycles packs by.  K = TPU_LANE_PERM: K == 1 sorts by this
-    update's granted budgets every update; K > 1 sorts by merit on
+    that run_cycles packs by (kernel route only: on the micro-step engine
+    the fields stay as they are, as in the reference).  K =
+    TPU_LANE_PERM: K == 1 sorts by this update's granted budgets every
+    update; K > 1 sorts by merit on
     update_no % K == 0, or earlier when the current permutation's block
     utilization falls under TPU_LANE_PERM_MIN_UTIL.  The sort is stable
     (budgets tie massively, and the order decides each organism's
@@ -149,9 +192,63 @@ def perm_phase(params, st, granted, update_no):
     return st.replace(lane_perm=p, lane_inv=inv)
 
 
-def interpret_phase(params, st, k_steps, granted, cap):
-    """The update's cycles: one kernel launch through run_cycles."""
-    return cycles.run_cycles(params, st, k_steps, granted, int(cap))
+def materialize_offspring(params, st, pending_before):
+    """End-of-update offspring extraction of the micro-step engine: each
+    parent that divided this update gets its offspring's opcodes, from its
+    split point on, in off_tape (the kernel writes them at the divide
+    cycle).  A stalled parent's tape is frozen, so this reads the
+    divide-time bytes."""
+    from avida_tpu_torch.ops.interpreter import OP_MASK, barrel_shift_left
+    new_div = st.divide_pending & ~pending_before
+    L = st.tape.shape[1]
+    ext = barrel_shift_left(st.tape & OP_MASK, st.off_start, L)
+    cols = torch.arange(L, device=ext.device)[None, :]
+    ext = torch.where(cols < st.off_len[:, None], ext, torch.zeros_like(ext))
+    return st.replace(off_tape=torch.where(new_div[:, None], ext,
+                                           st.off_tape))
+
+
+def xla_cycles(params, st, k_steps, granted, max_k):
+    """The micro-step engine's update (the reference's XLA while_loop):
+    cycle s runs interpreter.micro_step on the organisms alive, granted
+    more than s cycles and not waiting on a birth, keyed fold_in(k_steps,
+    s), for s below max_k; then the offspring extraction.  `k_steps` is
+    one key (int64[2]) or, for W worlds folded onto the organism axis,
+    int64[W, 2] with max_k the largest of their trip counts (a world past
+    its own grants runs masked, which is the identity)."""
+    pending_before = st.divide_pending
+    st = run_micro_steps(params, st, k_steps, granted, max_k)
+    return materialize_offspring(params, st, pending_before)
+
+
+def run_micro_steps(params, st, k_steps, granted, max_k):
+    """xla_cycles' cycle loop, without the offspring extraction.  max_k
+    is read to the host once, here; no cycle reads a value back."""
+    from avida_tpu_torch.ops.interpreter import draw_keys, micro_step
+    keys = k_steps.reshape(-1, 2)
+    W = keys.shape[0]
+    trips = int(max_k)
+    if trips > 0:
+        # every cycle's keys at once: [T, W, 2], and their draw keys
+        ck = prng.fold_in_rows(keys, torch.arange(
+            trips, device=keys.device)).transpose(0, 1)
+        dk = draw_keys(params, ck.reshape(-1, 2))
+        dk = dk.reshape(dk.shape[0], trips, W, 2)
+    for s in range(trips):
+        exec_mask = st.alive & (s < granted) & ~st.divide_pending
+        st = micro_step(params, st, ck[s], exec_mask, dk[:, s])
+    return st
+
+
+def interpret_phase(params, st, k_steps, granted, cap, max_k=None):
+    """The update's cycles on the routed engine: one kernel launch through
+    run_cycles, or the micro-step engine (xla_cycles) for max_k cycles
+    (by default the largest grant; granted is already capped)."""
+    if cycles.use_kernel(params):
+        return cycles.run_cycles(params, st, k_steps, granted, int(cap))
+    if max_k is None:
+        max_k = granted.max()
+    return xla_cycles(params, st, k_steps, granted, max_k)
 
 
 def bank_phase(params, st, budgets, executed0):
@@ -194,10 +291,11 @@ def update_step(params, st, key, update_no):
     ks = prng.split(key, 3)
     k_budget, k_steps, k_birth = ks[0], ks[1], ks[2]
     st = resource_phase(params, st, key, update_no)
-    budgets, granted, _ = schedule_phase(params, st, k_budget)
+    budgets, granted, max_k = schedule_phase(params, st, k_budget)
     st = perm_phase(params, st, granted, update_no)
     executed0 = st.insts_executed
-    st = interpret_phase(params, st, k_steps, granted, static_cap(params))
+    st = interpret_phase(params, st, k_steps, granted, static_cap(params),
+                         max_k)
     st, executed = bank_phase(params, st, budgets, executed0)
     st = birth_phase(params, st, k_birth, k_steps, update_no)
     return st, executed
@@ -236,13 +334,12 @@ def update_scan(params, st, chunk, run_key, u0):
 # W static-equal worlds advance together.  The cheap phases (schedule,
 # lane permutation, bank, birth flush, stats) run world by world on each
 # world's own slice, keys and update number -- a loop over the members is
-# this package's vmap -- and the update's cycles run as ONE stacked
-# kernel launch over all worlds' planes (cycles.run_packed_stacked), so
-# each world's blocks stop at their own budgets.  World w of a batch is
-# its solo run with its own seed, bit for bit.
-
-_XLA_FOLD_UNPORTED = ("the XLA fold engine (update._mw_fold_cycles_xla, "
-                      "TPU_USE_PALLAS=2; ROADMAP.md Queue 1 item 10)")
+# this package's vmap -- and the update's cycles run once for the whole
+# batch: ONE stacked kernel launch over all worlds' planes
+# (cycles.run_packed_stacked), each world's blocks stopping at their own
+# budgets, or the micro-step engine over the worlds' organisms folded onto
+# one axis (mw_fold_cycles_xla), each world drawing from its own key.
+# World w of a batch is its solo run with its own seed, bit for bit.
 
 
 def mw_pre_phase(params, st, key, update_no):
@@ -278,9 +375,10 @@ def mw_unpack(params, sts, flat):
 def mw_stack_kernel_cycles(params, sts, k_steps, granted, cap):
     """The update's cycles for W worlds in one launch: mw_pack, one
     stacked launch seeded per world, mw_unpack."""
-    if int(params.use_pallas) == 2:
-        raise NotImplementedError(
-            f"{_XLA_FOLD_UNPORTED} is not ported to avida_tpu_torch")
+    if not cycles.use_kernel(params):
+        raise ValueError(
+            "mw_stack_kernel_cycles: this configuration's cycles run on "
+            "the micro-step engine (mw_fold_cycles_xla), not the kernel")
     flat = mw_pack(params, sts, granted)
     B = cycles.dims(params, sts[0].tape.shape[0], params.max_memory)[0]
     cycles.run_packed_stacked(params, flat, cycles.world_seed_bases(k_steps),
@@ -288,9 +386,46 @@ def mw_stack_kernel_cycles(params, sts, k_steps, granted, cap):
     return mw_unpack(params, sts, flat)
 
 
+def fold_lanes(sts):
+    """W same-shaped worlds -> one state whose per-organism fields hold
+    the worlds' organisms world-major on the organism axis (world-level
+    fields are world 0's; the micro-step engine reads none of them)."""
+    from avida_tpu_torch.core.state import LANE_FIELDS
+    if len(sts) == 1:
+        return sts[0]
+    return sts[0].replace(**{name: torch.cat([getattr(st, name)
+                                              for st in sts])
+                             for name in LANE_FIELDS})
+
+
+def unfold_lanes(sts, folded):
+    """fold_lanes' inverse: each world's organisms back into its own
+    state (views of the folded fields)."""
+    from avida_tpu_torch.core.state import LANE_FIELDS
+    if len(sts) == 1:
+        return [folded]
+    n = sts[0].alive.shape[0]
+    return [st.replace(**{name: getattr(folded, name)[w * n:(w + 1) * n]
+                          for name in LANE_FIELDS})
+            for w, st in enumerate(sts)]
+
+
+def mw_fold_cycles_xla(params, sts, k_steps, granted, max_k):
+    """The update's cycles for W worlds on the micro-step engine (the
+    reference's _mw_fold_cycles_xla): the worlds' organisms folded onto
+    one axis, one micro_step a cycle for the whole batch with each
+    world's draws from fold_in(its k_steps, s), up to the batch's largest
+    trip count.  A world past its own trip count runs masked, the
+    identity, so each world computes its solo update."""
+    folded = xla_cycles(params, fold_lanes(sts),
+                        torch.stack(list(k_steps)), torch.cat(list(granted)),
+                        torch.stack(list(max_k)).max())
+    return unfold_lanes(sts, folded)
+
+
 def batched_update_step(params, sts, keys, update_no):
-    """One update of W worlds (update_step's phase order, the cycles as
-    one stacked launch); `sts`, `keys` and `update_no` hold one entry per
+    """One update of W worlds (update_step's phase order, the cycles run
+    once for the batch on the routed engine); `sts`, `keys` and `update_no` hold one entry per
     world.  Returns (sts', executed[W], trips[W]), trips being each
     world's own trip count max_k."""
     pre = [mw_pre_phase(params, st, k, u)
@@ -298,8 +433,11 @@ def batched_update_step(params, sts, keys, update_no):
     sts = [p[0] for p in pre]
     budgets, granted, max_k, k_steps, k_birth = zip(*[p[1] for p in pre])
     executed0 = [st.insts_executed for st in sts]
-    sts = mw_stack_kernel_cycles(params, sts, k_steps, granted,
-                                 static_cap(params))
+    if cycles.use_kernel(params):
+        sts = mw_stack_kernel_cycles(params, sts, k_steps, granted,
+                                     static_cap(params))
+    else:
+        sts = mw_fold_cycles_xla(params, sts, k_steps, granted, max_k)
     out, executed = [], []
     for w, st in enumerate(sts):
         st, ex = bank_phase(params, st, budgets[w], executed0[w])

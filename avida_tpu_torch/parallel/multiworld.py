@@ -5,9 +5,12 @@ Counterpart of avida_tpu/parallel/multiworld.py (`multiworld_scan`,
 WorldParams) but their own seeds are stacked on a leading axis of every
 PopulationState leaf and advanced in chunks by
 ops/update.update_scan_batched: the cheap phases run world by world, and
-every update's cycles run as ONE kernel launch over all worlds' planes
-(cycles.run_packed_stacked), on the packed-resident engine
-(TPU_SYSTEMATICS=0) and on the per-update engine (the default).
+every update's cycles run once for the batch -- ONE kernel launch over all
+worlds' planes (cycles.run_packed_stacked), on the packed-resident engine
+(TPU_SYSTEMATICS=0) and on the per-update engine (the default), or, off
+the kernel route (TPU_USE_PALLAS=2 and what the kernel gate refuses), the
+micro-step engine over the worlds' organisms folded onto one axis
+(update.mw_fold_cycles_xla).
 
 Contract: world k of a batch IS the solo run with seed k.
   * each world's update keys stay fold_in(run_key_w, update_no);
@@ -23,8 +26,8 @@ GenotypeArbiter at every chunk boundary (the solo run defers the drain by
 one stretch; both record the same genotypes).
 
 Not ported here, raised by name: checkpoints and resume (ROADMAP.md
-Queue 1 item 11), the serving batch ServeBatch (item 16), the XLA fold
-engine (item 10) and TPU_KERNEL_SHARDS > 1.  The exporter, profiler,
+Queue 1 item 11), the serving batch ServeBatch (item 16) and
+TPU_KERNEL_SHARDS > 1.  The exporter, profiler,
 state digests and scrubs (item 15) are refused by the members' World.
 """
 

@@ -86,15 +86,53 @@ def bits(k: torch.Tensor, shape) -> torch.Tensor:
     return (b0 ^ b1).reshape(shape)
 
 
-def _bits_to_unit(b):
-    """uint32 bits -> float32 in [0, 1): 23 mantissa bits under exponent 0."""
+def split_rows(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`split` of each row of int64[K, 2] keys -> int64[K, num, 2]."""
+    hi, lo = _counts(num, keys.device)
+    b0, b1 = threefry2x32(keys[:, :1], keys[:, 1:], hi[None], lo[None])
+    return torch.stack([b0, b1], dim=2)
+
+
+def fold_in_rows(keys: torch.Tensor, data) -> torch.Tensor:
+    """`fold_in(k, data)` of each row of int64[K, 2] keys -> [K, 2]; `data`
+    a scalar, or int64[D] for every (key, datum) pair -> [K, D, 2]."""
+    d = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & MASK32
+    if d.dim():
+        o0, o1 = threefry2x32(keys[:, :1], keys[:, 1:],
+                              torch.zeros_like(d)[None], d[None])
+        return torch.stack([o0, o1], dim=2)
+    o0, o1 = threefry2x32(keys[:, 0], keys[:, 1], torch.zeros_like(d), d)
+    return torch.stack([o0, o1], dim=1)
+
+
+def bits_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`bits(k, (n,))` of each row of int64[K, 2] keys -> int64[K, n]."""
+    hi, lo = _counts(n, keys.device)
+    b0, b1 = threefry2x32(keys[:, :1], keys[:, 1:], hi[None], lo[None])
+    return b0 ^ b1
+
+
+def randint_from_bits(higher, lower, minval: int, maxval: int):
+    """`randint`'s arithmetic on its two bit draws (Python int bounds):
+    the int32 values."""
+    lo, hi = max(int(minval), -2**31), min(int(maxval), 2**31 - 1)
+    span = (hi - lo) & MASK32 if hi > lo else 1
+    mult = ((2**16 % span) ** 2 & MASK32) % span
+    off = ((((higher % span) * mult) & MASK32) + (lower % span)) & MASK32
+    out = lo + off % span
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+
+
+def bits_to_unit(b):
+    """uint32 bits -> float32 in [0, 1): 23 mantissa bits under exponent 0
+    (`uniform` on [0, 1) is exactly this)."""
     w = ((b >> 9) | 0x3F800000).to(torch.int32)
     return w.view(torch.float32) - 1.0
 
 
 def uniform(k, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
     """`jax.random.uniform(k, shape, float32, minval, maxval)`."""
-    f = _bits_to_unit(bits(k, shape))
+    f = bits_to_unit(bits(k, shape))
     lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
     return torch.maximum(lo, fma_f32(f, hi - lo, lo))
@@ -128,10 +166,25 @@ def fma_f32(a, b, c):
     """float32 fused multiply-add, computed in float64: the float32
     product is exact there, so only the final rounding to float32
     remains (a double rounding that differs from a true fma only on
-    exact float64 ties)."""
+    exact float64 ties).  A Python number operand is rounded to float32
+    first and enters as a scalar (no host-to-device copy)."""
     a = torch.as_tensor(a)
-    return (a.double() * torch.as_tensor(b, device=a.device).double()
-            + torch.as_tensor(c, device=a.device).double()).float()
+    return (a.double() * _f64(b, a) + _f64(c, a)).float()
+
+
+def _f64(x, like):
+    """An fma_f32 operand in float64: a tensor on `like`'s device, or a
+    Python number rounded to float32."""
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(x, device=like.device).double()
+    return round_f32(x)
+
+
+def round_f32(x) -> float:
+    """A Python number rounded to the nearest float32 (as a Python
+    float): the value a float32 tensor op gives a weakly typed scalar."""
+    import struct
+    return struct.unpack("<f", struct.pack("<f", float(x)))[0]
 
 
 def xla_f32_sum(x):
@@ -193,13 +246,13 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     invalid = ~(x > 0)                 # x <= 0 or NaN
     iszero = x == 0
     isinf = x == math.inf
-    xc = torch.where(x <= _MIN_NORM, _f32(_MIN_NORM, x), x)
+    xc = torch.where(x <= _MIN_NORM, _MIN_NORM, x)
     w = xc.view(torch.int32)
     e = ((w >> 23) & 0x1FF) - 127
     m = ((w & 0x807FFFFF) | 0x3F000000).view(torch.float32)
     e1 = e.float() + 1.0
     mask = m < _SQRTHF
-    tmp = torch.where(mask, m, _f32(0.0, x))
+    tmp = torch.where(mask, m, 0.0)
     e2 = e1 - mask.float()
     xm = (m - 1.0) + tmp
     x2 = xm * xm
@@ -217,9 +270,43 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     r = fma_f32(x2, -0.5, xm)
     r = r + y
     r = fma_f32(e2, _LOG_Q2, r)
-    r = torch.where(invalid, _f32(math.nan, x), r)
-    r = torch.where(iszero, _f32(-math.inf, x), r)
-    return torch.where(isinf, _f32(math.inf, x), r)
+    r = torch.where(invalid, math.nan, r)
+    r = torch.where(iszero, -math.inf, r)
+    return torch.where(isinf, math.inf, r)
+
+
+_EXP_LN2 = _hexf(0x3FE62E4300000000)
+_EXP_LO = _hexf(0xC055F33340000000)
+_EXP_HI = _hexf(0x4056333340000000)
+_EXP_LOG2E = _hexf(0x3FF7154760000000)
+_EXP_C1 = _hexf(0x3FE6300000000000)
+_EXP_C2 = _hexf(0xBF2BD01060000000)
+_EXP_P = tuple(_hexf(h) for h in (
+    0x3F2A0D2CE0000000, 0x3F56E879C0000000, 0x3F81112100000000,
+    0x3FA5553820000000, 0x3FC5555540000000))
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp as XLA's CPU backend computes it: the Cephes range
+    reduction and polynomial with the multiply-adds its code generator
+    fuses, a power of two built in the exponent bits, and results below
+    the smallest normal flushed to zero."""
+    x = x.float().clamp(_EXP_LO, _EXP_HI)
+    fx = torch.floor(fma_f32(x, _EXP_LOG2E, 0.5)).clamp(-127.0, 127.0)
+    x = fma_f32(fx, -_EXP_C1, x)
+    x = fma_f32(fx, -_EXP_C2, x)
+    p0, p1, p2, p3, p4 = _EXP_P
+    y = fma_f32(x, p0, p1)
+    for c in (p2, p3, p4, 0.5):
+        y = fma_f32(y, x, c)
+    r = fma_f32(y, x * x, x) + 1.0
+    r = r * ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
+    return torch.where(r.abs() < _MIN_NORM, r * 0.0, r)
+
+
+def xla_exp2(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.exp2` on XLA's CPU backend: exp(x * float32(ln 2))."""
+    return xla_exp(x.float() * _EXP_LN2)
 
 
 _L1P_A = tuple(_hexf(h) for h in (

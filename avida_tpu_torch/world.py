@@ -2,8 +2,9 @@
 
 Counterpart of avida_tpu/world.py for the main path: one solo world of
 heads-CPU organisms, run by the packed-resident engine or, when the
-reference would not take it (systematics on, its default), the per-update
-engine (ops/update.py); the live phylogeny (systematics/) fed from the
+reference would not take it (systematics on, its default; a run off the
+cycle kernel, on the micro-step engine), the per-update engine
+(ops/update.py); the live phylogeny (systematics/) fed from the
 device's newborn ring through the reference's deferred drain; the standard
 events (Inject, InjectAll, Exit, PrintAverageData, PrintCountData,
 PrintTasksData, PrintTimeData, PrintDominantData) and their .dat files.
@@ -56,7 +57,7 @@ _OFF_SWITCHES = (
     ("TPU_STATE_DIGEST", 0, (0,)), ("TPU_SCRUB_EVERY", 0, (0,)),
     ("TPU_CKPT_EVERY", 0, (0,)), ("TPU_CKPT_FINAL", 0, (0,)),
     ("TPU_AUDIT_EVERY", 0, (0,)), ("TPU_FAULT", "", ("", "-")),
-    ("TPU_USE_PALLAS", 0, (0, 1)), ("TPU_KERNEL_SHARDS", 0, (0, 1)),
+    ("TPU_USE_PALLAS", 0, (0, 1, 2)), ("TPU_KERNEL_SHARDS", 0, (0, 1)),
     ("REVERT_FATAL", 0.0, (0.0,)), ("REVERT_DETRIMENTAL", 0.0, (0.0,)),
     ("REVERT_NEUTRAL", 0.0, (0.0,)), ("REVERT_BENEFICIAL", 0.0, (0.0,)),
     ("STERILIZE_FATAL", 0.0, (0.0,)),
@@ -208,10 +209,14 @@ class World:
                             if cfg.get("TPU_SYSTEMATICS", 1) else None)
 
     def _check_engine(self):
-        """Route as the reference does (packed_chunk.ineligible_reason)
-        and refuse, by name, what the chosen engine does not port."""
+        """Route as the reference does (cycles.use_kernel, then
+        packed_chunk.ineligible_reason) and refuse, by name, what the
+        chosen engine does not port and what the CUDA kernel cannot
+        hold."""
         p = self.params
-        reason = cycles.unsupported_reason(p)
+        reason = update_ops.engine_unported_reason(p)
+        if reason is None:
+            reason = cycles.kernel_limit_reason(p, self.device.type)
         if reason is None:
             fallback = packed_chunk.ineligible_reason(p, p.nb_cap > 0)
             if fallback is None:

@@ -25,6 +25,23 @@ and checks that every update of each launched the Hopper kernel once:
   multiworld_packed  the batch with TPU_SYSTEMATICS=0: the stacked
                 packed-resident engine
 
+and the micro-step cycle engine (TPU_USE_PALLAS=2, and every
+configuration the kernel gate refuses), whose paths launch no kernel:
+
+  kernel_limits     a 1088-site tape and 33 reactions refused on the
+                    kernel route by name; TPU_USE_PALLAS=2 runs them
+  xla_path          the 320x320 world with TPU_USE_PALLAS=2 (trips an
+                    update, ms a cycle, its phases timed, a profiler
+                    trace of a few cycles: kernels, busy and idle share)
+  math_path         320x320, logic-9 plus math-family reactions with
+                    fractional values under the default TPU_USE_PALLAS=0
+  engines_agree     320x320, the reference's cross-engine configuration:
+                    kernel and micro-step engine equal after every update
+  xla_cross_device  card against CPU: a 24x24 math world and a W = 3
+                    batch on the folded engine
+  multiworld_fold   the 16 x 60x60 batch on the folded engine, members 0
+                    and 15 against their solo runs
+
 On each path's evolved state it holds both kernels bit for bit against
 the plain PyTorch version, times them on the same planes in turns (first
 port, Hopper, Hopper, first port) and times the path's own phase
@@ -51,7 +68,14 @@ import time
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries the script's elapsed seconds
+    (`t_s`), for planning the phases' depths against the time limit."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -117,25 +141,40 @@ TASK_GENOME = ["IO", "push", "pop", "nop-C", "nand", "IO", "nand", "IO",
 
 
 def reseed_mixed(w):
-    """Reseed a third of the cells with a task-performing program and a
-    third with random genomes, so every instruction and reward path runs."""
+    """Reseed a freshly InjectAll-ed world: a third of the cells get a
+    task-performing program and a third random genomes of 30-89
+    instructions, so every instruction and reward path runs.  One pass:
+    each reseeded cell's genome, tape, lengths, merit and age limit are
+    written at once (every other field is already fresh; the cell inputs
+    stay InjectAll's)."""
     import numpy as np
-    from avida_tpu_torch.core.state import seed_organism
-    from avida_tpu_torch.utils import prng
+    import torch
+    from avida_tpu_torch.core.state import _max_executed
     names = w.instset.inst_names
-    task = np.asarray([names.index(n) for n in TASK_GENOME], np.int8)
+    n, L = w.params.num_cells, w.params.max_memory
     rng = np.random.default_rng(7)
     st = w.state
-    for c in range(w.params.num_cells):
-        if c % 3 == 1:
-            g = task
-        elif c % 3 == 2:
-            g = rng.integers(0, len(names), rng.integers(30, 90)).astype(
-                np.int8)
-        else:
-            continue
-        st = seed_organism(w.params, st, g, prng.key(c, st.device), c)
-    w.state = st
+    genome = st.genome.cpu().numpy().copy()
+    glen = st.genome_len.cpu().numpy().copy()
+    task = [names.index(x) for x in TASK_GENOME]
+    for c in range(1, n, 3):
+        genome[c] = 0
+        genome[c, :len(task)] = task
+        glen[c] = len(task)
+    for c in range(2, n, 3):
+        k = int(rng.integers(30, 90))
+        genome[c] = 0
+        genome[c, :k] = rng.integers(0, len(names), k)
+        glen[c] = k
+    dev = st.device
+    g = torch.from_numpy(genome).to(dev)
+    gl = torch.from_numpy(glen.astype(np.int32)).to(dev)
+    max_exec = torch.tensor([_max_executed(w.params, int(x)) for x in glen],
+                            dtype=torch.int32, device=dev)
+    w.state = st.replace(genome=g, tape=g.to(torch.uint8) & 0x3F,
+                         genome_len=gl, mem_len=gl.clone(),
+                         executed_size=gl.clone(), copied_size=gl.clone(),
+                         merit=gl.to(torch.float32), max_executed=max_exec)
 
 
 # the heads opcodes with nop-A/B/C moved off 0-2 and every cost column
@@ -1159,12 +1198,421 @@ def phase_mw_cross_device(tmp, devices=("cuda", "cpu")):
             "cases": results}
 
 
+# ---- the micro-step cycle engine (TPU_USE_PALLAS=2, and every
+# configuration the kernel gate refuses) ----
+
+# logic-9 plus math-family reactions with fractional values: an output
+# that repeats a positive input performs math_1AJ (|x|) and, for the
+# smaller of two inputs, math_2AC (x % y) -- several fractional rewards
+# of one process type in one cycle
+MATH_ENV_TEXT = """
+REACTION NOT  not  process:value=1.0:type=pow requisite:max_count=1
+REACTION NAND nand process:value=1.0:type=pow requisite:max_count=1
+REACTION AND  and  process:value=2.0:type=pow requisite:max_count=1
+REACTION ORN  orn  process:value=2.0:type=pow requisite:max_count=1
+REACTION OR   or   process:value=3.0:type=pow requisite:max_count=1
+REACTION ANDN andn process:value=3.0:type=pow requisite:max_count=1
+REACTION NOR  nor  process:value=4.0:type=pow requisite:max_count=1
+REACTION XOR  xor  process:value=4.0:type=pow requisite:max_count=1
+REACTION EQU  equ  process:value=5.0:type=pow requisite:max_count=1
+REACTION ABS1 math_1AJ process:value=1.37:type=mult requisite:max_count=2
+REACTION REM1 math_2AC process:value=0.615:type=pow requisite:max_count=3
+REACTION ABS2 math_1AJ process:value=0.83:type=mult
+REACTION SUM2 math_2AN process:value=0.25:type=add
+REACTION REM2 math_2AC process:value=1.19:type=mult
+REACTION ABS3 math_1AJ process:value=0.3:type=pow
+REACTION REM3 math_2AC process:value=0.77:type=add
+REACTION ABS4 math_1AJ process:value=-0.45:type=pow
+REACTION ABS5 math_1AJ process:value=0.33:type=add
+REACTION ABS6 math_1AJ process:value=1.7:type=add
+"""
+XLA_PRINTS = PRINTS[:4]
+
+
+def math_config_dir(cdir, text=MATH_ENV_TEXT):
+    os.makedirs(cdir)
+    with open(os.path.join(cdir, "avida.cfg"), "w") as f:
+        f.write("INST_SET -\n")
+    with open(os.path.join(cdir, "environment.cfg"), "w") as f:
+        f.write(text)
+    return cdir
+
+
+def xla_breakdown(w, updates):
+    """Per-phase device-synchronised wall ms of the per-update engine on
+    the micro-step engine (update_step's phases in order) on the world's
+    state, and each update's trip count (the cycles it runs, max_k)."""
+    import torch
+    from avida_tpu_torch.ops import update
+    from avida_tpu_torch.utils import prng
+    p, st = w.params, w.state
+    acc = {k: 0.0 for k in ("schedule", "cycles", "materialize", "bank",
+                            "flush", "stats")}
+
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        acc[name] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    trips = []
+    for i in range(updates):
+        u = w.update + i
+        key = prng.fold_in(w._run_key, u)
+        ks = prng.split(key, 3)
+        alive_before = st.alive.sum().to(torch.int32)
+        budgets, granted, max_k = timed("schedule", update.schedule_phase,
+                                        p, st, ks[0])
+        trips.append(int(max_k))
+        executed0 = st.insts_executed
+        pending = st.divide_pending
+        st = timed("cycles", update.run_micro_steps, p, st, ks[1], granted,
+                   max_k)
+        st = timed("materialize", update.materialize_offspring, p, st,
+                   pending)
+        st, _ = timed("bank", update.bank_phase, p, st, budgets, executed0)
+        st = timed("flush", update.birth_phase, p, st, ks[2], ks[1], u)
+        timed("stats", update.update_stats, p, st, alive_before, u)
+    per = {k: v / updates for k, v in acc.items()}
+    return {"updates": updates, "trips": trips,
+            "ms_per_update": per, "ms_per_update_total": sum(per.values()),
+            "ms_per_cycle": acc["cycles"] / max(sum(trips), 1)}
+
+
+def xla_trace(w, n_cycles=5):
+    """torch.profiler over n_cycles micro-step cycles of the world's next
+    update (after one untraced warm-up cycle): CUDA kernels a cycle, the
+    device's busy ms a cycle (the kernels' summed time), the traced wall
+    ms a cycle and the device's idle share.  The profiler adds host time,
+    so the idle share is an upper bound; a trace with no device time
+    reports null."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from avida_tpu_torch.ops import update
+    from avida_tpu_torch.utils import prng
+    p, st = w.params, w.state
+    ks = prng.split(prng.fold_in(w._run_key, w.update), 3)
+    _, granted, max_k = update.schedule_phase(p, st, ks[0])
+    n = max(min(n_cycles, int(max_k)), 1)
+    update.run_micro_steps(p, st, ks[1], granted, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        update.run_micro_steps(p, st, ks[1], granted, n)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_us, kernels = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += ev.count
+            busy_us += getattr(ev, "self_device_time_total",
+                               getattr(ev, "self_cuda_time_total", 0.0))
+    if busy_us == 0.0:
+        return {"cycles": n, "traced_wall_ms_per_cycle": wall_ms / n,
+                "device_busy_ms_per_cycle": None, "kernels_per_cycle": None,
+                "idle_share": None}
+    return {"cycles": n, "traced_wall_ms_per_cycle": wall_ms / n,
+            "device_busy_ms_per_cycle": busy_us / 1e3 / n,
+            "kernels_per_cycle": kernels / n,
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms}
+
+
+def _xla_run(w, updates):
+    """World.run on the card with the cycle kernel's launches counted:
+    (instructions, wall s, launches)."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    torch.cuda.synchronize()
+    cycles.reset_launches()
+    t0 = time.perf_counter()
+    insts = w.run(max_updates=updates)
+    torch.cuda.synchronize()
+    return insts, time.perf_counter() - t0, cycles.LAUNCHES
+
+
+def _check_xla_world(w, name, res, files=None):
+    """The micro-step world's checks: routed off the kernel, no launch,
+    live organisms with finite merits, the .dat files written."""
+    import torch
+    rep = w.engine_report()
+    ok = (res["kernel_launches"] == 0 and rep["engine"] == "per-update"
+          and "kernel off" in rep["fallback_reason"]
+          and w.num_organisms > 0
+          and bool(torch.isfinite(w.state.merit).all())
+          and (files is None or sorted(dat_bodies(w.data_dir)) == files))
+    if not ok:
+        raise AssertionError(f"{name} check failed: {res} {rep}")
+
+
+def phase_xla_path(side, updates, data_dir, smi):
+    """The headline world (every cell seeded, systematics off) with
+    TPU_USE_PALLAS=2: World.run on the micro-step engine, no kernel
+    launch; then its phases timed one by one over two more updates."""
+    ev = ["u begin InjectAll"] + [f"u 0:{updates}:end {a}"
+                                  for a in XLA_PRINTS]
+    w = make_world(side, data_dir, "cuda", ev, {"TPU_USE_PALLAS": 2})
+    insts, wall, launches = _xla_run(w, updates)
+    res = {"phase": "xla_path", "world": f"{side}x{side}",
+           "engine_report": w.engine_report(), "updates": w.update,
+           "kernel_launches": launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / updates, "wall_s": wall,
+           "live_organisms": w.num_organisms, "nvidia_smi": smi}
+    _check_xla_world(w, "xla_path", res, ["average.dat", "count.dat",
+                                          "tasks.dat", "time.dat"])
+    res["breakdown"] = xla_breakdown(w, 2)
+    res["trace"] = xla_trace(w)
+    return res
+
+
+def phase_math_path(side, updates, tmp, smi):
+    """Logic-9 plus math-family reactions with fractional values under the
+    default TPU_USE_PALLAS=0: the kernel gate refuses math tasks, so the
+    world routes to the micro-step engine (no launch); a third of the
+    cells run a task program, a third random genomes, and the math
+    reactions must reward."""
+    import torch
+    cdir = math_config_dir(os.path.join(tmp, "cfg_math"))
+    w = make_world(side, os.path.join(tmp, "math"), "cuda",
+                   ["u begin InjectAll"], {}, cdir)
+    w.process_events()
+    reseed_mixed(w)
+    insts, wall, launches = _xla_run(w, updates)
+    st = w.state
+    performed = st.task_exe_total.sum(dim=0).tolist()
+    frac = st.cur_bonus[st.alive]
+    res = {"phase": "math_path", "world": f"{side}x{side}",
+           "reactions": w.params.num_reactions,
+           "engine_report": w.engine_report(), "updates": w.update,
+           "kernel_launches": launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / updates, "wall_s": wall,
+           "math_performed": performed[9:],
+           "fractional_bonus_organisms": int((frac != frac.round()).sum()),
+           "nvidia_smi": smi}
+    _check_xla_world(w, "math_path", res)
+    if sum(performed[9:]) == 0 or res["fractional_bonus_organisms"] == 0 \
+            or not bool(torch.isfinite(st.cur_bonus).all()):
+        raise AssertionError(f"math_path: no math reward: {res}")
+    res["breakdown"] = xla_breakdown(w, 1)
+    return res
+
+
+def _fields_equal(a, b, skip=("lane_perm", "lane_inv")):
+    """Names of the state fields that differ bit for bit (on the card)."""
+    import dataclasses
+    import torch
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name in skip or x is None:
+            continue
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            bad.append(f.name)
+    return bad
+
+
+def phase_engines_agree(side, updates, tmp):
+    """The reference's cross-engine configuration at full width: mutations
+    off, SLICING_METHOD 0, AVE_TIME_SLICE 100, TPU_MAX_STEPS_PER_UPDATE
+    100.  The kernel (packed engine) and the micro-step engine start from
+    one state; after every update every field but the lane permutation
+    must be equal."""
+    import torch
+    extra = dict(COPY_MUT_PROB=0.0, DIVIDE_INS_PROB=0.0, DIVIDE_DEL_PROB=0.0,
+                 SLICING_METHOD=0, AVE_TIME_SLICE=100,
+                 TPU_MAX_STEPS_PER_UPDATE=100)
+    wk = make_world(side, os.path.join(tmp, "agree_k"), "cuda",
+                    ["u begin InjectAll"], dict(extra, TPU_USE_PALLAS=0))
+    wx = make_world(side, os.path.join(tmp, "agree_x"), "cuda",
+                    ["u begin InjectAll"], dict(extra, TPU_USE_PALLAS=2))
+    from avida_tpu_torch.ops import cycles
+    walls = {"kernel": 0.0, "micro_step": 0.0}
+    launches = 0
+    for u in range(1, updates + 1):
+        for name, w in (("kernel", wk), ("micro_step", wx)):
+            torch.cuda.synchronize()
+            cycles.reset_launches()
+            t0 = time.perf_counter()
+            w.run(max_updates=u)
+            torch.cuda.synchronize()
+            walls[name] += time.perf_counter() - t0
+            if name == "kernel":
+                launches += cycles.LAUNCHES
+            elif cycles.LAUNCHES:
+                raise AssertionError("engines_agree: the micro-step world "
+                                     "launched the kernel")
+        bad = _fields_equal(wk.state, wx.state)
+        if bad:
+            raise AssertionError(f"engines_agree: update {u}: the engines "
+                                 f"differ in {bad}")
+    divides = int(wx.state.num_divides.sum())
+    births = int(wx._total_births)
+    if divides == 0 or births == 0 or launches != updates \
+            or wk.engine_report()["engine"] != "packed":
+        raise AssertionError(f"engines_agree: divides {divides}, births "
+                             f"{births}, launches {launches}")
+    return {"phase": "engines_agree", "world": f"{side}x{side}",
+            "updates": updates, "fields_equal": True,
+            "skipped": ["lane_perm", "lane_inv"], "divides": divides,
+            "births": births, "kernel_launches": launches,
+            "ms_per_update": {k: 1e3 * v / updates for k, v in walls.items()}}
+
+
+XLA_CROSS_SEEDS = (3, 11, 29)
+
+
+def phase_xla_cross_device(tmp, devices=("cuda", "cpu"), updates=9):
+    """TPU_USE_PALLAS=2 on the card and on the CPU must end identical: a
+    24x24 world with mutations on, mixed programs and the math
+    environment, and a W = 3 batch of 8x8 worlds (the folded engine);
+    states and .dat bytes."""
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.parallel.multiworld import MultiWorld
+    cdir = math_config_dir(os.path.join(tmp, "cfg_xla_cross"))
+    ev = ["u begin InjectAll"] + [f"u 0:4:end {a}" for a in XLA_PRINTS]
+    extra = {"TPU_USE_PALLAS": 2, "AVE_TIME_SLICE": 60}
+    solo, batch = [], []
+    for dev in devices:
+        w = make_world(24, os.path.join(tmp, f"xla_x_{dev}"), dev, ev, extra,
+                       cdir)
+        w.process_events()
+        reseed_mixed(w)
+        mw = MultiWorld([make_world(
+            8, os.path.join(tmp, f"xla_mw_{dev}_{k}"), dev, ev,
+            dict(extra, RANDOM_SEED=s)) for k, s in enumerate(
+                XLA_CROSS_SEEDS)])
+        if dev == "cpu":
+            with one_thread():
+                w.run(max_updates=updates)
+                mw.run(max_updates=updates)
+        else:
+            w.run(max_updates=updates)
+            mw.run(max_updates=updates)
+        _sync(dev)
+        solo.append((convert.state_to_arrays(w.state), dat_bodies(w.data_dir)))
+        batch.append(([convert.state_to_arrays(x.state) for x in mw.worlds],
+                      [dat_bodies(x.data_dir) for x in mw.worlds], mw.engine))
+    (sa, da), (sb, db) = solo
+    bad = [k for k in sa if sa[k] is not None
+           and sa[k].tobytes() != sb[k].tobytes()]
+    if da != db:
+        bad.append(".dat files")
+    (ma, mda, ea), (mb, mdb, eb) = batch
+    bad += [(k, f) for k in range(len(ma)) for f in ma[k]
+            if ma[k][f] is not None and ma[k][f].tobytes() != mb[k][f].tobytes()]
+    bad += [(k, "dat") for k in range(len(mda)) if mda[k] != mdb[k]]
+    births = int((sb["birth_update"] >= 0).sum())
+    mw_births = sum(int((s["birth_update"] >= 0).sum()) for s in mb)
+    if bad or births == 0 or mw_births == 0 or ea != "per-update":
+        raise AssertionError(f"xla_cross_device: cuda vs cpu differ in "
+                             f"{bad[:10]} (births {births}, {mw_births})")
+    return {"phase": "xla_cross_device", "fields_equal": True,
+            "cases": [{"case": "solo_math", "world": "24x24",
+                       "updates": updates, "births": births,
+                       "math_performed": int(sb["task_exe_total"][:, 9:].sum()),
+                       "dat_files_equal": sorted(da)},
+                      {"case": "batch", "worlds": len(ma), "world": "8x8",
+                       "engine": ea, "updates": updates,
+                       "births": mw_births}]}
+
+
+def phase_multiworld_fold(tmp, side, seeds, updates, smi):
+    """16 stock 60x60 worlds with TPU_USE_PALLAS=2: MultiWorld.run on the
+    folded micro-step engine (one micro_step a cycle for the whole batch),
+    no launch; members 0 and 15 equal their solo runs on the card."""
+    import torch
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.parallel.multiworld import MultiWorld
+    ev = ["u begin InjectAll"] + [f"u 0:{updates}:end {a}"
+                                  for a in XLA_PRINTS]
+
+    def member(k, tag):
+        return make_world(side, os.path.join(tmp, f"{tag}_{k:03d}"), "cuda",
+                          ev, {"RANDOM_SEED": seeds[k], "TPU_USE_PALLAS": 2})
+
+    mw = MultiWorld([member(k, "fold") for k in range(len(seeds))])
+    torch.cuda.synchronize()
+    cycles.reset_launches()
+    t0 = time.perf_counter()
+    insts = mw.run(max_updates=updates)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, stacked = cycles.LAUNCHES, cycles.STACKED_LAUNCHES
+    checked = []
+    for k in (0, len(seeds) - 1):
+        sw = member(k, "fold_solo")
+        sw.run(max_updates=updates)
+        bad = _fields_equal(sw.state, mw.worlds[k].state, skip=())
+        if dat_bodies(sw.data_dir) != dat_bodies(mw.worlds[k].data_dir):
+            bad.append(".dat files")
+        if bad:
+            raise AssertionError(f"multiworld_fold: member {k} differs from "
+                                 f"its solo run in {bad}")
+        checked.append(k)
+    res = {"phase": "multiworld_fold", "worlds": len(seeds),
+           "world": f"{side}x{side}", "engine": mw.engine,
+           "engine_report": mw.engine_report, "updates": mw.update,
+           "kernel_launches": launches, "stacked_launches": stacked,
+           "insts": insts, "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / updates, "wall_s": wall,
+           "batch_trip_efficiency": mw.trip_efficiency(),
+           "live_organisms": sum(w.num_organisms for w in mw.worlds),
+           "members_equal_solo": checked, "nvidia_smi": smi}
+    if launches or stacked or mw.engine != "per-update" \
+            or any(w.num_organisms == 0 for w in mw.worlds):
+        raise AssertionError(f"multiworld_fold check failed: {res}")
+    return res
+
+
+def phase_kernel_limits(tmp):
+    """On the card, the kernel route refuses what csrc/cycles.cu cannot
+    hold at World construction, naming the limit (a 1088-site tape, 33
+    reactions); TPU_USE_PALLAS=2 runs the same configurations."""
+    from avida_tpu_torch.ops import cycles
+    env33 = "".join(f"REACTION R{k} not process:value=1.0:type=pow\n"
+                    for k in range(33))
+    cdir = math_config_dir(os.path.join(tmp, "cfg_r33"), env33)
+    cases = []
+    for name, extra, cfg, needle in (
+            ("tape_1088", {"TPU_MAX_MEMORY": 1088}, None, "1024 sites"),
+            ("reactions_33", {}, cdir, "32 reactions")):
+        try:
+            make_world(8, os.path.join(tmp, f"lim_{name}"), "cuda", [],
+                       extra, cfg)
+        except NotImplementedError as e:
+            if needle not in str(e) or "TPU_USE_PALLAS=2" not in str(e):
+                raise AssertionError(f"{name}: refusal does not name the "
+                                     f"limit: {e}")
+        else:
+            raise AssertionError(f"{name}: the kernel route was not refused")
+        w = make_world(8, os.path.join(tmp, f"lim2_{name}"), "cuda",
+                       ["u begin InjectAll"], dict(extra, TPU_USE_PALLAS=2),
+                       cfg)
+        cycles.reset_launches()
+        w.run(max_updates=1)
+        if cycles.LAUNCHES or w.num_organisms == 0:
+            raise AssertionError(f"{name}: the micro-step run failed")
+        cases.append({"case": name, "refused_with": needle,
+                      "micro_step_runs": True})
+    return {"phase": "kernel_limits", "cases": cases}
+
+
 MW_SIDE, MW_UPDATES = 60, 30   # the fleet batch: 16 stock 60x60 worlds
 MW_SEEDS = tuple(range(101, 117))  # TPU_FLEET_MAX_BATCH = 16 members
 
 SIDE, UPDATES = 320, 50        # the main path's full-width world
 DEFAULT_UPDATES = 30           # the default and sexual paths' depth
 COSTS_UPDATES = 10             # the costs world's depth
+XLA_UPDATES = 3                # the micro-step paths' depth at 320x320
+AGREE_UPDATES = 6              # engines_agree: the first divides land
+FOLD_UPDATES = 6               # the folded batch's depth
 
 
 def main() -> int:
@@ -1219,6 +1667,15 @@ def main() -> int:
             emit(phase_mw_breakdown(mw, mw_res, f"{path}_breakdown"))
             del mw
             mw_runs.append((mw_res, mwk))
+        # the micro-step engine (no kernel launch on its paths)
+        emit(phase_kernel_limits(tmp))
+        emit(phase_xla_path(SIDE, XLA_UPDATES, os.path.join(tmp, "xla"),
+                            smi))
+        emit(phase_math_path(SIDE, XLA_UPDATES, tmp, smi))
+        emit(phase_engines_agree(SIDE, AGREE_UPDATES, tmp))
+        emit(phase_xla_cross_device(tmp))
+        emit(phase_multiworld_fold(tmp, MW_SIDE, MW_SEEDS, FOLD_UPDATES,
+                                   smi))
     timing = ("max_abs_err", "ms", "simple_ms", "turns_ms", "reached",
               "plain_ms", "bound_ms", "bytes_read", "bytes_written")
     per_path = [

@@ -26,11 +26,29 @@ bad = sorted(m for m in sys.modules
              or m == "avida_tpu" or m.startswith("avida_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 17, names
+assert len(names) >= 18, names
 assert {"avida_tpu_torch.systematics",
         "avida_tpu_torch.systematics.genotypes",
         "avida_tpu_torch.parallel",
-        "avida_tpu_torch.parallel.multiworld"} <= set(names), names
+        "avida_tpu_torch.parallel.multiworld",
+        "avida_tpu_torch.ops.interpreter",
+        "avida_tpu_torch.ops.tasks"} <= set(names), names
+"""
+
+# the micro-step engine end to end (TPU_USE_PALLAS 2, a 4x4 world, one
+# update)
+_XLA_CLI = r"""
+import sys
+from avida_tpu_torch.__main__ import main
+rc = main(["-u", "1", "-set", "WORLD_X", "4", "-set", "WORLD_Y", "4",
+           "-set", "TPU_USE_PALLAS", "2", "--device", "cpu",
+           "-d", sys.argv[1]])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "avida_tpu" or m.startswith("avida_tpu."))
+assert rc == 0, rc
+assert "avida_tpu_torch.ops.tasks" in sys.modules
+assert not bad, bad
 """
 
 # the --worlds path end to end (a 4x4 batch of two worlds, one update)
@@ -63,6 +81,13 @@ def test_worlds_cli_imports_no_jax_and_no_reference(tmp_path):
     assert sorted(os.listdir(tmp_path / "data")) == ["w000", "w001"]
 
 
+def test_xla_engine_cli_imports_no_jax_and_no_reference(tmp_path):
+    res = subprocess.run([sys.executable, "-c", _XLA_CLI,
+                          str(tmp_path / "data")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_world_without_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: World() runs on it")
@@ -82,7 +107,7 @@ def _cfg(**kw):
     ({"TPU_SYSTEMATICS": 1, "POPULATION_CAP": 10}, "per-update engine"),
     ({"BIRTH_METHOD": 11}, "BIRTH_METHOD 11"),
     ({"WORLD_GEOMETRY": 3}, "WORLD_GEOMETRY 3"),
-    ({"TPU_USE_PALLAS": 2}, "TPU_USE_PALLAS"),
+    ({"TPU_USE_PALLAS": 3}, "TPU_USE_PALLAS"),
     ({"POINT_MUT_PROB": 0.01, "WORLD_GEOMETRY": 4}, "per-update engine"),
     ({"TPU_PACKED_BITS": 1}, "TPU_PACKED_BITS"),
     ({"TPU_TRACE": 1}, "TPU_TRACE"),
@@ -115,6 +140,56 @@ def test_per_update_configs_route_and_report(overrides, reason):
     assert reason in rep["fallback_reason"]
     assert World(cfg=_cfg(), device="cpu").engine_report() == {
         "engine": "packed", "sub_path": "fused", "packed_bits": 0}
+
+
+@pytest.mark.parametrize("use_pallas", [0, 2])
+@pytest.mark.parametrize("replace,needle", [
+    ({"max_cpu_threads": 2}, "item 12f"),
+    ({"energy_enabled": True}, "item 12f"),
+    ({"sem": "fork"}, "item 12f"),
+    ({"sem": "mating"}, "item 12e"),
+    ({"proc_product_idx": (0,) + (-1,) * 8}, "item 12a"),
+    ({"proc_res_idx": (0,) + (-1,) * 8}, "item 12a"),
+    ({"hw_type": 1}, "item 12c"),
+])
+def test_engine_refusals_name_their_item(replace, needle, use_pallas):
+    """What neither cycle engine runs is refused at World construction by
+    name, with the ROADMAP.md item that owns it, on either route."""
+    from avida_tpu_torch.models.heads import SEM_FORK_TH, SEM_SET_MATE_MALE
+    from avida_tpu_torch.world import World
+    w = World(cfg=_cfg(TPU_USE_PALLAS=use_pallas), device="cpu")
+    if replace.get("sem") == "fork":
+        replace = {"sem": w.params.sem[:-1] + (SEM_FORK_TH,)}
+    elif replace.get("sem") == "mating":
+        replace = {"sem": w.params.sem[:-1] + (SEM_SET_MATE_MALE,)}
+    w.params = w.params.replace(**replace)
+    with pytest.raises(NotImplementedError, match=needle):
+        w._check_engine()
+
+
+def test_kernel_limits_refused_by_name_on_cuda():
+    """On a CUDA device the kernel route refuses what csrc/cycles.cu cannot
+    hold -- a CHUNK-padded tape over 1024 sites, more than 32 reactions,
+    more than 64 instructions -- naming the limit and TPU_USE_PALLAS=2;
+    the CPU's plain version and the micro-step engine take them."""
+    from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.world import World
+    w = World(cfg=_cfg(TPU_MAX_MEMORY=1088), device="cpu")
+    p = w.params
+    assert cycles.dims(p, p.num_cells, p.max_memory)[2] == 1088
+    reason = cycles.kernel_limit_reason(p, "cuda")
+    assert "1024 sites" in reason and "TPU_USE_PALLAS=2" in reason
+    assert cycles.kernel_limit_reason(p, "cpu") is None
+    assert cycles.kernel_limit_reason(p.replace(use_pallas=2), "cuda") is None
+    w.device = torch.device("cuda")
+    with pytest.raises(NotImplementedError, match="1024 sites"):
+        w._check_engine()
+    q = World(cfg=_cfg(), device="cpu").params
+    assert cycles.kernel_limit_reason(q, "cuda") is None
+    r33 = q.replace(num_reactions=33)
+    assert "at most 32 reactions" in cycles.kernel_limit_reason(r33, "cuda")
+    big = q.replace(num_insts=65)
+    assert "64 instructions" in cycles.kernel_limit_reason(big, "cuda")
 
 
 def test_unported_event_action_raises():

@@ -371,7 +371,8 @@ def test_multiworld_refusals(tmp_path):
     late.update = 4
     with pytest.raises(ValueError, match="disagree on the current update"):
         MultiWorld([a, late])
-    # unported: checkpoints, the XLA fold engine, K2 with S > 1
+    # unported: checkpoints, K2 with S > 1; the stacked launch refuses a
+    # configuration routed to the micro-step engine
     with pytest.raises(NotImplementedError, match="checkpoints"):
         MultiWorld.from_seeds([1, 2], overrides=list(vals.items()),
                               data_dir=str(tmp_path / "s"),
@@ -387,7 +388,7 @@ def test_multiworld_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         mw.save_checkpoints()
     a.process_events()
-    with pytest.raises(NotImplementedError, match="XLA fold engine"):
+    with pytest.raises(ValueError, match="micro-step engine"):
         tupd.mw_stack_kernel_cycles(
             a.params.replace(use_pallas=2), [a.state],
             [torch.zeros(2, dtype=torch.int64)],

@@ -81,3 +81,56 @@ def test_summarize_fractional_averages(side):
                   "ave_genome_len", "ave_generation"):
             a = np.asarray(want[k], np.float32)
             assert a.tobytes() == got[k].numpy().tobytes(), (seed, k)
+
+
+def _big_grants(rng, n):
+    """Granted budgets whose float32 total passes 2**24 (uncapped grants
+    at bench scale): a heavy tail over a few hundred cycles."""
+    lo = 2**24 // n + 20
+    g = rng.integers(lo, 3 * lo, n) + (rng.random(n) < 0.01) * rng.integers(
+        1000, 20000, n)
+    return g.astype(np.int32)
+
+
+@pytest.mark.parametrize("n,block", [(102400, 512), (40000, 128),
+                                     (65536, 256)])
+def test_scheduler_totals_past_2_24_equal_reference(n, block):
+    """block_ceiling and block_utilization (the lane permutation's
+    early-refresh statistic) on granted vectors whose totals pass
+    16,777,216, where float32 totals round by summation order: equal to
+    the reference's compiled functions."""
+    rng = np.random.default_rng(n + block)
+    for _ in range(3):
+        g = _big_grants(rng, n)
+        assert g.astype(np.float64).sum() > 2**24
+        want_c = np.asarray(jax.jit(rsched.block_ceiling,
+                                    static_argnums=1)(jnp.asarray(g), block))
+        want_u = np.asarray(jax.jit(rsched.block_utilization,
+                                    static_argnums=1)(jnp.asarray(g), block))
+        gt = torch.from_numpy(g)
+        assert want_c.tobytes() == tsched.block_ceiling(
+            gt, block).numpy().tobytes()
+        assert want_u.tobytes() == tsched.block_utilization(
+            gt, block).numpy().tobytes()
+
+
+def test_integrated_slicing_remainder_past_2_24_equals_reference():
+    """SLICING_METHOD 2 with an update size past 2**24 (AVE_TIME_SLICE
+    200 over 102,400 organisms): the remainder handed out by largest
+    fraction comes from a float32 total of the floored shares, whose
+    rounding depends on the order; the budgets equal the reference's."""
+    rp, tp = both_params(dict(WORLD_X=320, WORLD_Y=320, SLICING_METHOD=2,
+                              AVE_TIME_SLICE=200))
+    rng = np.random.default_rng(24)
+    n = 320 * 320
+    for seed in range(2):
+        alive = rng.random(n) < 0.98
+        merit = (50.0 + 400.0 * rng.random(n)).astype(np.float32)
+        a = np.asarray(jax.jit(lambda al, m, k: rsched.compute_budgets_from(
+            rp, al, m, k))(jnp.asarray(alive), jnp.asarray(merit),
+                           jax.random.key(seed)))
+        b = tsched.compute_budgets_from(
+            tp, torch.from_numpy(alive), torch.from_numpy(merit),
+            prng.key(seed)).numpy()
+        assert 200 * alive.sum() > 2**24
+        assert a.dtype == b.dtype and (a == b).all(), seed

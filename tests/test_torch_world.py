@@ -80,6 +80,14 @@ def _reseed_mixed(ref, port):
     files."""
     ref.process_events()
     port.process_events()
+    _reseed_port(port)
+    ref.state = PopulationState(**{
+        k: (None if v is None else jnp.asarray(v))
+        for k, v in convert.state_to_arrays(port.state).items()})
+
+
+def _reseed_port(port):
+    """_reseed_mixed's reseeding of the port world's current state."""
     names = port.instset.inst_names
     task = np.asarray([names.index(n) for n in TASK_GENOME], np.int8)
     rng = np.random.default_rng(7)
@@ -92,9 +100,6 @@ def _reseed_mixed(ref, port):
             st = seed_organism(port.params, st, g.astype(np.int8),
                                prng.key(c), c)
     port.state = st
-    ref.state = PopulationState(**{
-        k: (None if v is None else jnp.asarray(v))
-        for k, v in convert.state_to_arrays(st).items()})
 
 
 def _run_ladder(tmp_path, vals, every, stops, mixed=False):
