@@ -9,8 +9,18 @@ packed-resident engine; -set TPU_USE_PALLAS 2 the micro-step engine).
 once for the whole batch
 (parallel/multiworld.py): SEEDS is a comma list ("7,8,9"; world k writes
 to DATA_DIR/w00k), MANIFEST a worlds.json path ([{"name", "seed",
-"data_dir"}]).  A batch the configuration refuses exits 2 with the
-reason.  --resume and --serve-worlds are not ported and exit 2.
+"data_dir", "ckpt_dir"}]).  A batch the configuration refuses exits 2
+with the reason.
+
+Persistence: -set TPU_CKPT_DIR DIR checkpoints the run (every
+TPU_CKPT_EVERY updates, at the end with TPU_CKPT_FINAL 1, and on
+SIGTERM/SIGINT, which stop the run cleanly with exit 0).  --resume [DIR]
+continues a solo run from the newest valid generation under DIR (default
+TPU_CKPT_DIR); an empty directory starts fresh.  With --worlds, --resume
+(no DIR) resumes every member from its own checkpoint dir, aligned on a
+common update.  Exit codes as the reference's: 66 no valid generation,
+65 an invariant audit failed, 67 a scrub found a divergence.
+--serve-worlds is not ported and exits 2.
 """
 
 from __future__ import annotations
@@ -20,6 +30,11 @@ import json
 import os
 import sys
 import time
+
+# classified exit codes (the reference's avida_tpu/service/__init__.py)
+EXIT_AUDIT = 65      # StateInvariantError escaped the run
+EXIT_CKPT = 66       # no valid checkpoint generation on resume
+EXIT_SDC = 67        # StateDivergenceError: a scrub caught a divergence
 
 
 def _sync(device):
@@ -53,9 +68,51 @@ def _worlds_main(args, overrides) -> int:
     except (ValueError, NotImplementedError) as e:
         print(f"[avida_tpu_torch] --worlds refused: {e}", file=sys.stderr)
         return 2
+    from avida_tpu_torch.utils.audit import StateInvariantError
+    from avida_tpu_torch.utils.checkpoint import (CheckpointError,
+                                                  CheckpointMismatchError,
+                                                  restore_candidates)
+    from avida_tpu_torch.utils.integrity import StateDivergenceError
+    if args.resume is not None:
+        if args.resume:
+            print("[avida_tpu_torch] --worlds resumes from each world's "
+                  "own checkpoint dir; --resume takes no directory here "
+                  "(set TPU_CKPT_DIR / the manifest ckpt_dir instead)",
+                  file=sys.stderr)
+            return 2
+        have = [bool(w._ckpt_base() and restore_candidates(w._ckpt_base()))
+                for w in mw.worlds]
+        if all(have):
+            try:
+                mw.resume()
+            except CheckpointMismatchError:
+                raise
+            except CheckpointError as e:
+                print(f"[avida_tpu_torch] resume failed: {e}",
+                      file=sys.stderr)
+                return EXIT_CKPT
+            except StateInvariantError as e:
+                print(f"[avida_tpu_torch] {e}", file=sys.stderr)
+                return EXIT_AUDIT
+        elif any(have):
+            # no update common to every member: everyone restarts fresh
+            # (trajectories are pure functions of the seeds)
+            print("[avida_tpu_torch] WARNING: only some worlds have "
+                  "checkpoints; no common update exists, so the whole "
+                  "batch restarts fresh", file=sys.stderr)
+        else:
+            print("[avida_tpu_torch] no checkpoints under any world; "
+                  "starting fresh", file=sys.stderr)
     start = [w._cum_insts for w in mw.worlds]
     t0 = time.perf_counter()
-    mw.run(max_updates=args.updates)
+    try:
+        mw.run(max_updates=args.updates)
+    except StateDivergenceError as e:
+        print(f"[avida_tpu_torch] {e}", file=sys.stderr)
+        return EXIT_SDC
+    except StateInvariantError as e:
+        print(f"[avida_tpu_torch] {e}", file=sys.stderr)
+        return EXIT_AUDIT
     _sync(mw.device)
     wall = time.perf_counter() - t0
     insts = [w._flush_exec() - s for w, s in zip(mw.worlds, start)]
@@ -65,7 +122,8 @@ def _worlds_main(args, overrides) -> int:
                       "updates": mw.update,
                       "organisms": [w.num_organisms for w in mw.worlds],
                       "insts": insts, "wall_s": wall,
-                      "device": str(mw.device)}))
+                      "device": str(mw.device),
+                      "preempted": mw.preempted}))
     return 0
 
 
@@ -84,16 +142,13 @@ def main(argv=None) -> int:
                    help="run a batch of worlds (comma seed list or a "
                         "worlds.json manifest)")
     p.add_argument("--resume", nargs="?", const="", default=None,
-                   metavar="DIR", help="not ported (checkpoints)")
+                   metavar="DIR",
+                   help="continue from the newest valid checkpoint under "
+                        "DIR (default TPU_CKPT_DIR); empty: start fresh")
     p.add_argument("--serve-worlds", default=None, metavar="CONTROL",
                    help="not ported (the serving batch)")
     args = p.parse_args(argv)
 
-    if args.resume is not None:
-        print("[avida_tpu_torch] --resume: checkpoints are not ported to "
-              "avida_tpu_torch yet (ROADMAP.md Queue 1 item 11)",
-              file=sys.stderr)
-        return 2
     if args.serve_worlds is not None:
         print("[avida_tpu_torch] --serve-worlds: the serving batch "
               "(ServeBatch) is not ported to avida_tpu_torch yet "
@@ -105,17 +160,52 @@ def main(argv=None) -> int:
     if args.worlds is not None:
         return _worlds_main(args, overrides)
 
+    from avida_tpu_torch.utils.audit import StateInvariantError
+    from avida_tpu_torch.utils.checkpoint import (CheckpointError,
+                                                  CheckpointMismatchError,
+                                                  restore_candidates)
+    from avida_tpu_torch.utils.integrity import StateDivergenceError
     from avida_tpu_torch.world import World
     w = World(config_dir=args.config_dir, overrides=overrides,
               data_dir=args.data_dir, device=args.device)
+    if args.resume is not None:
+        # a first boot with an empty checkpoint directory starts fresh;
+        # generations that exist but all fail verification exit 66
+        base = args.resume or w._ckpt_base()
+        if base and not restore_candidates(base):
+            print(f"[avida_tpu_torch] no checkpoint under {base}; starting "
+                  f"fresh", file=sys.stderr)
+        else:
+            try:
+                w.resume(args.resume or None)
+            except CheckpointMismatchError:
+                raise
+            except CheckpointError as e:
+                print(f"[avida_tpu_torch] resume failed: {e}",
+                      file=sys.stderr)
+                return EXIT_CKPT
+            except StateInvariantError as e:
+                print(f"[avida_tpu_torch] {e}", file=sys.stderr)
+                return EXIT_AUDIT
     t0 = time.perf_counter()
-    insts = w.run(max_updates=args.updates)
+    try:
+        insts = w.run(max_updates=args.updates)
+    except StateDivergenceError as e:
+        print(f"[avida_tpu_torch] {e}", file=sys.stderr)
+        return EXIT_SDC
+    except StateInvariantError as e:
+        print(f"[avida_tpu_torch] {e}", file=sys.stderr)
+        return EXIT_AUDIT
     _sync(w.device)
     wall = time.perf_counter() - t0
+    if w.preempted:
+        print(f"[avida_tpu_torch] preempted at update {w.update}; "
+              f"checkpoint saved", file=sys.stderr)
     print(json.dumps({"updates": w.update, "organisms": w.num_organisms,
                       "insts": insts, "wall_s": wall,
                       "device": str(w.device),
-                      "engine": w.engine_report()}))
+                      "engine": w.engine_report(),
+                      "preempted": w.preempted}))
     return 0
 
 

@@ -690,3 +690,11 @@ def init_population(params: WorldParams, seed_genome: np.ndarray,
     if inject_cell is None:
         inject_cell = n // 2
     return seed_organism(params, st, seed_genome, key, inject_cell)
+
+
+def clone_state(st: PopulationState) -> PopulationState:
+    """An owned copy of every leaf (a retained pre-chunk state)."""
+    return PopulationState(**{
+        name: (None if getattr(st, name) is None
+               else getattr(st, name).clone())
+        for name in state_field_names()})

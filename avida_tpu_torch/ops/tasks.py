@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import itertools
 
+import numpy as np
 import torch
 
 from avida_tpu_torch.ops.cycles import _logic_id, params_cached
@@ -203,14 +204,68 @@ def _build_env_tables(params, device) -> dict:
         "noreq_reaction_mask": t(params.noreq_reaction_mask,
                                  torch.bool).reshape(R, R),
         "proc_max": t(params.proc_max, torch.float32),
+        "chunks": vector_chunks(params),
     }
 
 
-def _fold(cols, op, init):
-    """Reduce a list of [N] columns in order, from `init` (the order of
-    XLA's CPU row reduction over a short minor axis)."""
-    acc = torch.full_like(cols[0], init)
-    for c in cols:
+# the reaction count from which the compiled engine vectorizes each
+# reduction (below it: in order)
+_VECTOR_FROM = {"pow": 17, "mult": 17, "add": 19}
+
+
+def vector_chunks(params) -> dict:
+    """How the reference's compiled micro-step engine combines the pow
+    and mult products and the add sum over the R reactions (XLA marks
+    these reductions reassociable and LLVM vectorizes them): for each of
+    "pow", "mult", "add", 0 = in order, k > 0 = k chunks of 8 lanes
+    (vector_fold).
+
+    Read off the reference's engine (the while_loop of interpret_phase,
+    solo, and of _mw_fold_cycles_xla, folded: both the same) on an
+    x86-64 CPU with AVX-512, by probing which two of every three
+    fractional rewards of one type combine first: with logic-task
+    reactions (logic-9's requisite max_count=1) and math-task reactions
+    of all three process types, the products vectorize from 17 reactions
+    and the sum from 19.  Other compositions compile other loops and are
+    left in order (ROADMAP.md Queue 3)."""
+    R = params.num_reactions
+    off = {k: 0 for k in _VECTOR_FROM}
+    if R < min(_VECTOR_FROM.values()):
+        return off
+    names = params.task_math_name
+    logic = np.asarray(params.task_logic_mask, bool).reshape(R, -1)
+    has_math = any(names)
+    has_logic = any(not nm and logic[r].any() for r, nm in enumerate(names))
+    if not (has_math and has_logic
+            and {PROCTYPE_ADD, PROCTYPE_MULT, PROCTYPE_POW}
+            <= set(params.proc_type)):
+        return off
+    return {k: (R // 8 if R >= v else 0) for k, v in _VECTOR_FROM.items()}
+
+
+def vector_fold(cols, op, init, chunks):
+    """Reduce R [N] columns as the compiled loop does: with chunks == 0
+    in order from `init`; else chunk k (columns 8k..8k+7) folds lane-wise
+    into accumulator k % 2, the two accumulators combine lane-wise, the
+    8 lanes reduce as a tree (lane j with lane j+4, then j+2, then j+1),
+    and the columns past the chunks follow in order."""
+    if not chunks:
+        acc = torch.full_like(cols[0], init)
+        for c in cols:
+            acc = op(acc, c)
+        return acc
+    accs = [None, None]
+    for k in range(chunks):
+        part = cols[8 * k:8 * k + 8]
+        a = accs[k % 2]
+        accs[k % 2] = part if a is None else [op(x, y)
+                                              for x, y in zip(a, part)]
+    lanes = [op(x, y) for x, y in zip(accs[0], accs[1])]
+    while len(lanes) > 1:
+        h = len(lanes) // 2
+        lanes = [op(lanes[j], lanes[j + h]) for j in range(h)]
+    acc = lanes[0]
+    for c in cols[8 * chunks:]:
         acc = op(acc, c)
     return acc
 
@@ -256,9 +311,13 @@ def apply_reactions(params, tables, io_mask, logic_id, cur_bonus,
     mult_f = torch.where(rewarded & (ptype == PROCTYPE_MULT) & (va != 0),
                          va, one)
     add_f = torch.where(rewarded & (ptype == PROCTYPE_ADD), va, zero)
-    pow_mult = _fold([pow_f[:, r] for r in range(R)], torch.mul, 1.0)
-    mult_mult = _fold([mult_f[:, r] for r in range(R)], torch.mul, 1.0)
-    add_sum = _fold([add_f[:, r] for r in range(R)], torch.add, 0.0)
+    chunks = tables["chunks"]
+    pow_mult = vector_fold([pow_f[:, r] for r in range(R)], torch.mul, 1.0,
+                           chunks["pow"])
+    mult_mult = vector_fold([mult_f[:, r] for r in range(R)], torch.mul,
+                            1.0, chunks["mult"])
+    add_sum = vector_fold([add_f[:, r] for r in range(R)], torch.add, 0.0,
+                          chunks["add"])
     # XLA's CPU code generator fuses the last multiply and the add
     new_bonus = prng.fma_f32(cur_bonus * pow_mult, mult_mult, add_sum)
     return (new_bonus, cur_task_count + performed.to(torch.int32),

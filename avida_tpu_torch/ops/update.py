@@ -163,6 +163,13 @@ def schedule_phase(params, st, k_budget):
     return schedule_grant(params, budgets, st.budget_carry)
 
 
+def scheduler_probe(params, st, seed: int = 0):
+    """The scheduler's grant re-sampled with a FIXED key, outside the run
+    stream (the reference's scheduler_probe): read by the state
+    auditor's dead-lane check (utils/audit.py), never by update_step."""
+    return schedule_phase(params, st, prng.key(seed, st.device))
+
+
 def perm_phase(params, st, granted, update_no):
     """Refresh the persistent lane permutation (st.lane_perm / lane_inv)
     that run_cycles packs by (kernel route only: on the micro-step engine

@@ -216,3 +216,45 @@ class GenotypeArbiter:
         for gid in doomed:
             g = self.genotypes.pop(gid)
             self._by_seq.pop(g.sequence.tobytes(), None)
+
+    # -- checkpoint serialization (utils/checkpoint.py) -------------------
+
+    _SNAP_FIELDS = ("gid", "parent_gid", "depth", "update_born", "num_units",
+                    "total_units", "last_birth_update", "update_deactivated",
+                    "threshold", "merit_sum", "fitness_sum", "gestation_sum",
+                    "stat_n")
+
+    def to_snapshot(self) -> dict:
+        """JSON-able snapshot of the full phylogeny (native checkpoints).
+        Genome sequences ride as base64 int8 bytes; everything else is a
+        plain scalar, so the round-trip is exact."""
+        import base64
+        return {
+            "threshold": self.threshold,
+            "next_id": self._next_id,
+            "num_births_total": self.num_births_total,
+            "cell_gid": self.cell_gid.tolist(),
+            "genotypes": [
+                dict({f: getattr(g, f) for f in self._SNAP_FIELDS},
+                     seq=base64.b64encode(
+                         np.ascontiguousarray(g.sequence, np.int8)
+                         .tobytes()).decode("ascii"))
+                for g in self.genotypes.values()],
+        }
+
+    @classmethod
+    def from_snapshot(cls, snap: dict) -> "GenotypeArbiter":
+        """Rebuild an arbiter from to_snapshot output (exact inverse)."""
+        import base64
+        arb = cls(world_cells=len(snap["cell_gid"]),
+                  threshold=int(snap["threshold"]))
+        arb._next_id = int(snap["next_id"])
+        arb.num_births_total = int(snap["num_births_total"])
+        arb.cell_gid = np.asarray(snap["cell_gid"], np.int64)
+        for rec in snap["genotypes"]:
+            seq = np.frombuffer(base64.b64decode(rec["seq"]), np.int8).copy()
+            kw = {f: rec[f] for f in cls._SNAP_FIELDS}
+            g = Genotype(sequence=seq, **kw)
+            arb.genotypes[g.gid] = g
+            arb._by_seq[seq.tobytes()] = g
+        return arb

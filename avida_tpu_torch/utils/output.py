@@ -11,18 +11,81 @@ counterpart of avida_tpu/utils/output.py.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
+
+# Resume continuity (World.resume -> World._file): inside this context,
+# opening a DatFile whose path already holds data APPENDS instead of
+# truncating, so a checkpoint-resumed run extends the preempted run's
+# .dat rows rather than erasing them.  Depth-counted so nested opens
+# behave; fresh files still get their header block.
+_APPEND_EXISTING = 0
+
+
+@contextlib.contextmanager
+def append_existing():
+    global _APPEND_EXISTING
+    _APPEND_EXISTING += 1
+    try:
+        yield
+    finally:
+        _APPEND_EXISTING -= 1
+
+
+def trim_dat_rows(data_dir: str, max_update: int):
+    """Resume continuity, half two: drop data rows PAST the restored
+    update from every .dat file under data_dir, so appending after a
+    checkpoint restore never duplicates updates (a crash that outran the
+    last auto-save, or a CRC fallback to an older generation, leaves
+    rows newer than the restored state on disk).  The cutoff is STRICT
+    (drop rows >= max_update): checkpoints are written before the
+    restored update's events fire, so the resumed run re-emits the row
+    labeled max_update itself.  Best-effort column convention: the
+    standard print actions all emit the update as the first column;
+    rows whose first token is non-numeric are kept.  Rewrites are
+    atomic (tmp + rename)."""
+    if not os.path.isdir(data_dir):
+        return
+    for fname in os.listdir(data_dir):
+        if not fname.endswith(".dat"):
+            continue
+        path = os.path.join(data_dir, fname)
+        with open(path) as f:
+            lines = f.readlines()
+        kept = []
+        dropped = 0
+        for line in lines:
+            t = line.split()
+            if not t or line.startswith("#"):
+                kept.append(line)
+                continue
+            try:
+                u = float(t[0])
+            except ValueError:
+                kept.append(line)
+                continue
+            if u < max_update:
+                kept.append(line)
+            else:
+                dropped += 1
+        if dropped:
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                f.writelines(kept)
+            os.replace(tmp, path)
 
 
 class DatFile:
     def __init__(self, path: str, title: str, col_descrs: list,
                  preamble: list | None = None, append: bool = False):
-        """append=True extends a non-empty existing file (a second
-        World.run on the same world) instead of truncating it."""
+        """append=True (a second World.run on the same world, a resumed
+        run) or an enclosing append_existing() extends a non-empty
+        existing file instead of truncating it."""
         self.path = path
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        if append and os.path.exists(path) and os.path.getsize(path) > 0:
+        if (append or _APPEND_EXISTING) and os.path.exists(path) \
+                and os.path.getsize(path) > 0:
             self._f = open(path, "a")
             return
         self._f = open(path, "w")

@@ -7,10 +7,16 @@ cycle kernel, on the micro-step engine), the per-update engine
 (ops/update.py); the live phylogeny (systematics/) fed from the
 device's newborn ring through the reference's deferred drain; the standard
 events (Inject, InjectAll, Exit, PrintAverageData, PrintCountData,
-PrintTasksData, PrintTimeData, PrintDominantData) and their .dat files.
-Anything outside that path (checkpoints, telemetry, other birth methods,
-resources, ...) raises NotImplementedError naming the feature instead of
-running something else.
+PrintTasksData, PrintTimeData, PrintDominantData, SavePopulation,
+LoadPopulation) and their .dat files; persistence: native checkpoints
+(TPU_CKPT_DIR, TPU_CKPT_EVERY, TPU_CKPT_FINAL; save_checkpoint / resume,
+in the reference's on-disk format), SIGTERM/SIGINT preemption with a
+final checkpoint, the state digest and the scrub's shadow replay
+(TPU_STATE_DIGEST, TPU_SCRUB_EVERY) and the invariant audit
+(TPU_AUDIT_EVERY, TPU_CKPT_AUDIT).  Anything outside that (telemetry,
+tracing, fault injection, other birth methods, resources, ...) raises
+NotImplementedError naming the feature instead of running something
+else.
 
 Runs on `cuda` unless the caller passes device="cpu"; with neither a GPU
 nor an explicit device it raises.
@@ -31,12 +37,14 @@ from avida_tpu_torch.config import (AvidaConfig, default_instset,
 from avida_tpu_torch.config.environment import default_logic9_environment
 from avida_tpu_torch.config.events import parse_event_line
 from avida_tpu_torch.config.schema import _parse_scalar
-from avida_tpu_torch.core.state import (init_population, make_cell_inputs,
-                                        make_world_params, seed_organism)
+from avida_tpu_torch.core.state import (clone_state, init_population,
+                                        make_cell_inputs, make_world_params,
+                                        seed_organism)
 from avida_tpu_torch.ops import cycles, packed_chunk
 from avida_tpu_torch.ops import update as update_ops
 from avida_tpu_torch.ops.update import summarize, update_scan
 from avida_tpu_torch.systematics import GenotypeArbiter
+from avida_tpu_torch.utils import integrity
 from avida_tpu_torch.utils import output as output_mod
 from avida_tpu_torch.utils import prng
 
@@ -54,9 +62,7 @@ _OFF_SWITCHES = (
     ("TPU_TELEMETRY", 0, (0,)),
     ("TPU_TRACE", 0, (0,)), ("TPU_METRICS", 0, (0,)),
     ("TPU_PROFILE", 0, (0,)), ("TPU_ANALYTICS", 0, (0,)),
-    ("TPU_STATE_DIGEST", 0, (0,)), ("TPU_SCRUB_EVERY", 0, (0,)),
-    ("TPU_CKPT_EVERY", 0, (0,)), ("TPU_CKPT_FINAL", 0, (0,)),
-    ("TPU_AUDIT_EVERY", 0, (0,)), ("TPU_FAULT", "", ("", "-")),
+    ("TPU_FAULT", "", ("", "-")),
     ("TPU_USE_PALLAS", 0, (0, 1, 2)), ("TPU_KERNEL_SHARDS", 0, (0, 1)),
     ("REVERT_FATAL", 0.0, (0.0,)), ("REVERT_DETRIMENTAL", 0.0, (0.0,)),
     ("REVERT_NEUTRAL", 0.0, (0.0,)), ("REVERT_BENEFICIAL", 0.0, (0.0,)),
@@ -198,7 +204,9 @@ class World:
         self._avida_time = torch.zeros((), **f32)
         self._last_ave_gen = torch.zeros((), **f32)
         self._deaths_this = 0
+        self._prev_alive = None
         self._total_births = 0
+        self._task_exe_prev = None   # tasks_exe diff baseline (LoadPopulation)
         self._events_done_for = None
         self._gen_next = {}
         self._summary_cache_update = None
@@ -207,6 +215,16 @@ class World:
         # live phylogeny (ref Systematics::GenotypeArbiter)
         self.systematics = (GenotypeArbiter(self.params.num_cells)
                             if cfg.get("TPU_SYSTEMATICS", 1) else None)
+        self._preempt = False        # SIGTERM/SIGINT tripwire (run loop)
+        self.preempted = False       # last run() ended via preemption
+        # the integrity plane (ops/digest.py, utils/integrity.py): off by
+        # default, and then nothing is digested and no copy is retained
+        self._digest_on = integrity.digest_enabled(cfg)
+        self._scrub_every = integrity.scrub_every(cfg)
+        self._chunk_no = 0              # process-lifetime chunk counter
+        self._digest_pending = None     # (update, device digest) deferred
+        self.state_digest = None        # (update, value) last resolved
+        self._last_verified_update = 0  # newest scrub-verified update
 
     def _check_engine(self):
         """Route as the reference does (cycles.use_kernel, then
@@ -235,7 +253,7 @@ class World:
 
     _ACTIONS = ("Inject", "InjectAll", "Exit", "PrintAverageData",
                 "PrintCountData", "PrintTasksData", "PrintTimeData",
-                "PrintDominantData")
+                "PrintDominantData", "SavePopulation", "LoadPopulation")
 
     def _check_action(self, action):
         if action not in self._ACTIONS:
@@ -335,6 +353,55 @@ class World:
 
     def _action_Exit(self, args):
         self._exit = True
+
+    def _action_LoadPopulation(self, args):
+        """LoadPopulation <file.spop> (ref cActionLoadPopulation,
+        actions/SaveLoadActions.cc:289 -> cPopulation::LoadPopulation
+        cc:6723): rebuild the population from a structured save."""
+        from avida_tpu_torch.utils import spop
+        path = args[0]
+        if self.config_dir and not os.path.isabs(path) \
+                and not os.path.exists(path):
+            path = os.path.join(self.config_dir, args[0])
+        if not os.path.exists(path) and not os.path.isabs(args[0]):
+            cand = os.path.join(self.data_dir, args[0])
+            if os.path.exists(cand):
+                path = cand
+        k = self._split_key()
+        orgs = spop.load_population(path, self.params, k)
+        self.state = spop.restore_population(self.params, orgs, k)
+        # per-cell task-execution lifetime totals ride a sidecar written
+        # by SavePopulation (absent sidecar -> totals restart at zero)
+        side = path + ".tasks.npy"
+        if os.path.exists(side):
+            totals = np.load(side)
+            if totals.shape == tuple(self.state.task_exe_total.shape):
+                self.state = self.state.replace(
+                    task_exe_total=torch.from_numpy(
+                        totals.astype(np.int32)).to(self.device))
+        self._reset_task_exe_baseline()
+        if self.systematics is not None:
+            self.systematics = GenotypeArbiter(self.params.num_cells)
+            for o in orgs:
+                self.systematics.classify_seed(o["cell"], o["genome"],
+                                               update=self.update)
+
+    def _reset_task_exe_baseline(self):
+        """Seed the tasks_exe diff baseline from the CURRENT state, after
+        the state was reloaded wholesale (LoadPopulation)."""
+        self._summary_cache_update = None
+        self._task_exe_prev = self.state.task_exe_total.sum(
+            dim=0).cpu().numpy().astype(np.int64)
+
+    def _action_SavePopulation(self, args):
+        from avida_tpu_torch.utils import spop
+        os.makedirs(self.data_dir, exist_ok=True)
+        path = os.path.join(self.data_dir, f"detail-{self.update}.spop")
+        spop.save_population(path, self.params, self.state, self.update)
+        # sidecar: per-cell task-execution lifetime totals (not in the
+        # .spop columns), so a LoadPopulation keeps them
+        np.save(path + ".tasks.npy",
+                self.state.task_exe_total.detach().cpu().numpy())
 
     def _file(self, name, opener, *a):
         if name not in self._files:
@@ -475,9 +542,16 @@ class World:
     def _scan_updates(self, k: int):
         """Run k updates through the routed engine (ops/update.update_scan);
         returns the per-update executed-instruction vector (device
-        tensor)."""
+        tensor).  With the integrity plane armed, the chunk's digest (and,
+        on every TPU_SCRUB_EVERY-th chunk, its shadow replay) follows."""
         if self.state is None:
             raise RuntimeError("no population injected")
+        pre = None
+        if self._scrub_every > 0:
+            self._chunk_no += 1
+            if self._chunk_no % self._scrub_every == 0:
+                # the pre-chunk state, kept for the shadow replay
+                pre = (clone_state(self.state), self.update)
         self.state, (executed, births, deaths, dts, ave_gens, n_alive) = \
             update_scan(self.params, self.state, k, self._run_key,
                         self.update)
@@ -485,8 +559,92 @@ class World:
         self._avida_time = self._avida_time + prng.xla_f32_sum(dts)
         self._last_ave_gen = ave_gens[-1]
         self._deaths_this = deaths[-1]
+        self._prev_alive = n_alive[-1]
         self._total_births = self._total_births + births.sum()
+        if self._digest_on or pre is not None:
+            self._integrity_boundary(k, pre)
         return executed
+
+    # ---- the integrity plane: state digests and the scrub ----
+
+    def _engine_name(self) -> str:
+        """The chunk engine just run, named in divergence errors."""
+        if not cycles.use_kernel(self.params):
+            return "micro-step"
+        return ("kernel-packed" if packed_chunk.active(self.params,
+                                                       self.state)
+                else "kernel")
+
+    def _integrity_record(self, event: str, **fields):
+        integrity.append_integrity_record(
+            self.data_dir, event,
+            max_bytes=int(self.cfg.get("TPU_RUNLOG_MAX_BYTES", 16 << 20)),
+            **fields)
+
+    def _resolve_digest(self, pending):
+        """Read back one deferred digest (its chunk finished a boundary
+        ago) into state_digest and an integrity.jsonl record."""
+        import time as _time
+        u, dev = pending
+        t0 = _time.monotonic()
+        val = int(dev)
+        integrity.note_digest_ms((_time.monotonic() - t0) * 1e3)
+        self.state_digest = (u, val)
+        self._integrity_record("digest", update=u, digest=f"{val:#010x}")
+
+    def _flush_digest(self):
+        """Resolve any deferred digest now (checkpoint save, run exit)."""
+        prev, self._digest_pending = self._digest_pending, None
+        if prev is not None:
+            self._resolve_digest(prev)
+
+    def _integrity_boundary(self, k: int, pre):
+        """Right after the chunk, before any host-side change of the
+        state: the live digest (read back one boundary later), and when
+        the chunk was sampled for a scrub (`pre` holds the pre-chunk
+        state) its replay from `pre`, compared digest to digest.  On this
+        deterministic engine any difference is corruption -- or a kernel
+        that is not deterministic -- raised as StateDivergenceError."""
+        import time as _time
+
+        from avida_tpu_torch.ops.digest import state_digest
+        u1 = self.update + k
+        t0 = _time.monotonic()
+        d_live = state_digest(self.state)
+        integrity.note_digest_ms((_time.monotonic() - t0) * 1e3)
+        self._flush_digest()
+        if pre is None:
+            self._digest_pending = (u1, d_live)
+            return
+        pre_st, u0 = pre
+        integrity.note_scrub()
+        shadow_st, _ = update_scan(self.params, pre_st, k, self._run_key, u0)
+        t0 = _time.monotonic()
+        live, shad = int(d_live), int(state_digest(shadow_st))
+        integrity.note_digest_ms((_time.monotonic() - t0) * 1e3)
+        if live != shad:
+            integrity.note_mismatch()
+            engine = self._engine_name()
+            self._integrity_record(
+                "scrub", update=u1, chunk_updates=k, ok=False,
+                live=f"{live:#010x}", shadow=f"{shad:#010x}",
+                engine=engine,
+                last_verified_update=self._last_verified_update)
+            from avida_tpu_torch.observability.runlog import emit_event
+            emit_event(self, "state_divergence", update=u1,
+                       live=f"{live:#010x}", shadow=f"{shad:#010x}")
+            raise integrity.StateDivergenceError(
+                f"silent state divergence in updates [{u0}, {u1}): live "
+                f"digest {live:#010x} != shadow replay {shad:#010x} "
+                f"(engine {engine}, "
+                f"last_verified_update={self._last_verified_update})")
+        self._last_verified_update = u1
+        if self._digest_on:
+            self.state_digest = (u1, live)
+            self._integrity_record("digest", update=u1,
+                                   digest=f"{live:#010x}")
+        self._integrity_record("scrub", update=u1, chunk_updates=k,
+                               ok=True, digest=f"{live:#010x}")
 
     def run_updates(self, k: int):
         """k updates as one stretch; advances self.update by k."""
@@ -645,18 +803,114 @@ class World:
                     genomes[start:i], lens[start:i], parents[start:i])
                 start = i
 
+    # ---- persistence: native checkpoints and preemption ----
+
+    def _ckpt_base(self) -> str | None:
+        d = str(self.cfg.get("TPU_CKPT_DIR", "-") or "-")
+        return None if d in ("-", "") else d
+
+    def _install_preempt_handlers(self):
+        """SIGTERM/SIGINT set a flag that run() checks at chunk
+        boundaries (drain, final checkpoint, return); a second SIGINT
+        raises KeyboardInterrupt.  Returns the displaced handlers; a no-op
+        off the main thread."""
+        import signal
+        saved = {}
+
+        def trip(signum, frame):
+            if self._preempt and signum == signal.SIGINT:
+                raise KeyboardInterrupt
+            self._preempt = True
+
+        for s in (signal.SIGTERM, signal.SIGINT):
+            try:
+                saved[s] = signal.signal(s, trip)
+            except ValueError:
+                pass
+        return saved
+
+    def _audit_on(self, audit) -> bool:
+        if audit is None:
+            return bool(int(self.cfg.get("TPU_CKPT_AUDIT", 1)))
+        return bool(audit)
+
+    def save_checkpoint(self, base_dir: str | None = None,
+                        audit: bool | None = None) -> str:
+        """Write one native checkpoint generation (the whole state, the
+        PRNG keys, the host counters, the event cursors, the phylogeny)
+        in the reference's format.  Atomic; rolling retention
+        TPU_CKPT_KEEP.  audit=None follows TPU_CKPT_AUDIT (default 1):
+        the invariant audit runs first.  Returns the generation path."""
+        from avida_tpu_torch.utils import checkpoint as ckpt_mod
+        base = base_dir or self._ckpt_base()
+        if base is None:
+            raise ValueError(
+                "no checkpoint directory (set TPU_CKPT_DIR or pass one)")
+        # the phylogeny must be current before it is serialized
+        self._flush_newborn_drain()
+        self._flush_digest()
+        if self._audit_on(audit):
+            from avida_tpu_torch.utils.audit import check_invariants
+            check_invariants(self.params, self.state,
+                             where=f"checkpoint save (update {self.update})")
+        return ckpt_mod.save_checkpoint(base, self)
+
+    def resume(self, ckpt_dir: str | None = None,
+               audit: bool | None = None,
+               at_update: int | None = None) -> int:
+        """Restore this world from the newest VALID checkpoint generation
+        (or the one at `at_update`) and position the run loop to continue
+        bit for bit.  Corrupt generations fall back to the previous
+        retained one.  The .dat files keep their rows before the restored
+        update and are extended from there.  Returns the restored
+        update."""
+        from avida_tpu_torch.observability.runlog import trim_update_records
+        from avida_tpu_torch.utils import checkpoint as ckpt_mod
+        base = ckpt_dir or self._ckpt_base()
+        if base is None:
+            raise ValueError(
+                "no checkpoint directory (set TPU_CKPT_DIR or pass one)")
+        update = ckpt_mod.restore_checkpoint(base, self, at_update=at_update)
+        self._dat_append = True
+        output_mod.trim_dat_rows(self.data_dir, update)
+        # per-update run logs a reference run may have left in data_dir
+        trim_update_records(os.path.join(self.data_dir, "telemetry.jsonl"),
+                            update)
+        ana_log = os.path.join(self.data_dir, "analysis", "analytics.jsonl")
+        trim_update_records(ana_log, update)
+        trim_update_records(ana_log + ".1", update)
+        if self._audit_on(audit):
+            from avida_tpu_torch.utils.audit import check_invariants
+            check_invariants(self.params, self.state,
+                             where=f"checkpoint restore (update {update})")
+        # the restored generation passed its digest check
+        self._last_verified_update = update
+        return update
+
     def run(self, max_updates: int | None = None) -> int:
-        """Run until Exit or `max_updates`; returns the instructions
-        executed by this call."""
+        """Run until Exit, `max_updates` or preemption; returns the
+        instructions executed by this call.  With TPU_CKPT_DIR set,
+        SIGTERM/SIGINT stop the run at the next chunk boundary with a
+        final checkpoint (`preempted` is then True), TPU_CKPT_EVERY saves
+        every so many updates and TPU_CKPT_FINAL=1 saves the end state;
+        TPU_AUDIT_EVERY audits the state every so many updates."""
         if self.state is None:
             self.process_events()
             if self.state is None:
                 self.inject()
         start_insts = self._cum_insts
+        ckpt_base = self._ckpt_base()
+        ckpt_every = int(self.cfg.get("TPU_CKPT_EVERY", 0))
+        audit_every = int(self.cfg.get("TPU_AUDIT_EVERY", 0))
+        self.preempted = False
+        self._preempt = False
+        handlers = self._install_preempt_handlers() if ckpt_base else {}
+        last_ckpt = self.update
+        last_audit = self.update
         can_chunk = self._chunkable()
         max_stretch = int(self.cfg.get("TPU_MAX_STRETCH", 0))
         try:
-            while not self._exit:
+            while not self._exit and not self._preempt:
                 if max_updates is not None and self.update >= max_updates:
                     break
                 if self._nb_pending is not None and self._events_fire_now():
@@ -686,8 +940,34 @@ class World:
                 if self.systematics is not None and self.update % 100 == 0:
                     self._flush_newborn_drain()
                     self.systematics.prune_extinct(keep_ancestry=True)
+                # at chunk boundaries: the periodic audit and the auto-save
+                if audit_every and self.update - last_audit >= audit_every:
+                    from avida_tpu_torch.utils.audit import check_invariants
+                    check_invariants(self.params, self.state,
+                                     where=f"update {self.update}")
+                    last_audit = self.update
+                if ckpt_base and ckpt_every \
+                        and self.update - last_ckpt >= ckpt_every:
+                    self.save_checkpoint(ckpt_base)
+                    last_ckpt = self.update
+            # orderly exit (normal or preempted); neither the drain nor the
+            # final checkpoint runs after an exception
             self._flush_newborn_drain()
+            self._flush_digest()
+            if self._preempt and ckpt_base and self.state is not None:
+                self.save_checkpoint(ckpt_base)
+            elif ckpt_base and self.state is not None \
+                    and int(self.cfg.get("TPU_CKPT_FINAL", 0)) \
+                    and self.update != last_ckpt:
+                self.save_checkpoint(ckpt_base)
+            self.preempted = self._preempt
         finally:
+            import signal as _signal
+            for sig, h in handlers.items():
+                try:
+                    _signal.signal(sig, h)
+                except (ValueError, OSError):
+                    pass
             for f in self._files.values():
                 try:
                     f.close()

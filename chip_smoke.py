@@ -42,6 +42,29 @@ configuration the kernel gate refuses), whose paths launch no kernel:
   multiworld_fold   the 16 x 60x60 batch on the folded engine, members 0
                     and 15 against their solo runs
 
+and persistence (native checkpoints in the reference's format):
+
+  persist_path      the 320x320 packed world saving every 10 updates
+                    with the state digest on; a second World resumes at
+                    update 20 and must end equal (state, .dat files, K1
+                    launched once per resumed update, the manifest's
+                    digest equal to the device digest); save, resume and
+                    digest times, the generation's size
+  persist_default   the default_path configuration saved at 15 and
+                    resumed to 30: state, dominant.dat, systematics.json
+  preempt_cli       `python -m avida_tpu_torch` as a child process, sent
+                    SIGTERM after update 10: exit 0 with a generation,
+                    then --resume to 40, whose final arrays must be
+                    persist_path's byte for byte
+  scrub_path        TPU_SCRUB_EVERY=1 for 10 updates: every chunk's
+                    shadow replay (the same kernel on the same planes)
+                    equal to the live chunk
+  spop_path         SavePopulation / LoadPopulation on a 60x60 world: the
+                    restore on the card equal to the one on the CPU
+  multiworld_persist  multiworld_path's batch saved at 15, resumed by a
+                    new batch to 30: every member equal, K3b once per
+                    resumed update
+
 On each path's evolved state it holds both kernels bit for bit against
 the plain PyTorch version, times them on the same planes in turns (first
 port, Hopper, Hopper, first port) and times the path's own phase
@@ -211,7 +234,7 @@ INST h-search:redundancy=0.5
 CROSS_CASES = (
     # (name, side, updates, extra config, custom environment, mixed
     # programs, print every n updates (0 = no .dat files))
-    ("default", 8, 24, {}, False, False, 0),
+    ("default", 8, 16, {}, False, False, 0),
     ("mixed", 12, 16, dict(BASE_MERIT_METHOD=5, DIVIDE_METHOD=0,
                            GENERATION_INC_METHOD=0, REQUIRE_ALLOCATE=0,
                            COPY_MUT_PROB=0.05), True, True, 0),
@@ -220,7 +243,7 @@ CROSS_CASES = (
     ("sex", 8, 32, dict(TPU_SYSTEMATICS=1, INST_SET="heads_sex"), False,
      False, 4),
     ("costs", 8, 24, dict(COPY_MUT_PROB=0.02), False, True, 0),
-    ("soup", 8, 24, dict(BIRTH_METHOD=4, WORLD_GEOMETRY=1), False, False,
+    ("soup", 8, 16, dict(BIRTH_METHOD=4, WORLD_GEOMETRY=1), False, False,
      0),
 )
 # the engine each case must take, and words of its reason
@@ -912,18 +935,25 @@ class one_thread:
         torch.set_num_threads(self.n)
 
 
-def mw_members(side, seeds, tmp, tag, device, sysm, every):
+def mw_members(side, seeds, tmp, tag, device, sysm, every, ckpt_root=None):
     """One World per seed, each seeded everywhere with the ancestor and
     printing every `every` updates into its own directory (dominant.dat
-    with systematics)."""
+    with systematics); with ckpt_root, each saving a generation every
+    MW_UPDATES/2 updates into its own directory under it."""
     ev = ["u begin InjectAll"] + [f"u 0:{every}:end {a}" for a in PRINTS
                                   if sysm or a != "PrintDominantData"]
+    ck = ({} if ckpt_root is None
+          else {"TPU_CKPT_EVERY": MW_UPDATES // 2, "TPU_CKPT_KEEP": 4})
     return [make_world(side, os.path.join(tmp, f"{tag}_{k:03d}"), device, ev,
-                       {"RANDOM_SEED": s, "TPU_SYSTEMATICS": sysm})
+                       dict(ck, RANDOM_SEED=s, TPU_SYSTEMATICS=sysm,
+                            **({} if ckpt_root is None else {
+                                "TPU_CKPT_DIR": os.path.join(
+                                    ckpt_root, f"w{k:03d}")})))
             for k, s in enumerate(seeds)]
 
 
-def phase_multiworld(name, sysm, tmp, side, seeds, updates, device="cuda"):
+def phase_multiworld(name, sysm, tmp, side, seeds, updates, device="cuda",
+                     ckpt_root=None):
     """A batch of len(seeds) worlds (MultiWorld.run, one stacked kernel
     launch per update for the batch): `multiworld_path` with systematics
     on (the batched per-update engine), `multiworld_packed` with
@@ -935,8 +965,11 @@ def phase_multiworld(name, sysm, tmp, side, seeds, updates, device="cuda"):
     from avida_tpu_torch import convert
     from avida_tpu_torch.ops import cycles
     from avida_tpu_torch.parallel.multiworld import MultiWorld
-    every = 10
-    mw = MultiWorld(mw_members(side, seeds, tmp, name, device, sysm, every))
+    # with checkpoints, a print every 5 updates puts a chunk boundary at
+    # each save (every MW_UPDATES/2)
+    every = 5 if ckpt_root else 10
+    mw = MultiWorld(mw_members(side, seeds, tmp, name, device, sysm, every,
+                               ckpt_root))
     drains = [time_host_drain(w) for w in mw.worlds] if sysm else []
     _sync(device)
     cycles.reset_launches()
@@ -1467,7 +1500,7 @@ def phase_engines_agree(side, updates, tmp):
 XLA_CROSS_SEEDS = (3, 11, 29)
 
 
-def phase_xla_cross_device(tmp, devices=("cuda", "cpu"), updates=9):
+def phase_xla_cross_device(tmp, devices=("cuda", "cpu"), updates=7):
     """TPU_USE_PALLAS=2 on the card and on the CPU must end identical: a
     24x24 world with mutations on, mixed programs and the math
     environment, and a W = 3 batch of 8x8 worlds (the folded engine);
@@ -1615,6 +1648,365 @@ AGREE_UPDATES = 6              # engines_agree: the first divides land
 FOLD_UPDATES = 6               # the folded batch's depth
 
 
+# ---- persistence (native checkpoints, resume, preemption, the digest
+# and the scrub, .spop) ----
+
+PERSIST_UPDATES, PERSIST_AT = 40, 20    # persist_path: saves every 10
+PERSIST_EVENTS = ["u begin InjectAll"] + [
+    f"u 0:10:end {a}" for a in PRINTS[:4]]
+
+
+def persist_config_dir(tmp):
+    """The headline world's config directory for persist_path and the
+    preempt_cli child: avida.cfg with the built-in set, events.cfg with
+    PERSIST_EVENTS (the CLI reads its events from there)."""
+    cdir = write_config_dir(os.path.join(tmp, "persist_cfg"))
+    with open(os.path.join(cdir, "events.cfg"), "w") as f:
+        f.write("\n".join(PERSIST_EVENTS) + "\n")
+    return cdir
+
+
+def gen_mb(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path)) / 1e6
+
+
+def state_diff(a, b):
+    """Fields where two worlds' states differ (the newborn ring's record
+    rows compared up to its cursor: past it they are scratch whose
+    contents depend on where drains fell)."""
+    from avida_tpu_torch import convert
+    sa, sb = convert.state_to_arrays(a.state), convert.state_to_arrays(b.state)
+    cnt = int(sa["nb_count"])
+    bad = []
+    for k, v in sa.items():
+        if v is None:
+            continue
+        w = sb[k]
+        if k.startswith("nb_") and k != "nb_count":
+            v, w = v[:cnt], w[:cnt]
+        if v.tobytes() != w.tobytes():
+            bad.append(k)
+    return bad
+
+
+def generation_arrays_equal(a, b):
+    """Names of the .npy files that differ between two generations."""
+    fa = sorted(f for f in os.listdir(a) if f.endswith(".npy"))
+    fb = sorted(f for f in os.listdir(b) if f.endswith(".npy"))
+    if fa != fb:
+        return ["file set"]
+    bad = []
+    for f in fa:
+        with open(os.path.join(a, f), "rb") as x, \
+                open(os.path.join(b, f), "rb") as y:
+            if x.read() != y.read():
+                bad.append(f)
+    return bad
+
+
+def phase_persist_path(tmp, smi):
+    """The headline world on the packed engine with TPU_CKPT_EVERY=10 and
+    TPU_STATE_DIGEST=1 for PERSIST_UPDATES updates; a second World
+    resumes the generation at PERSIST_AT and runs to the end.  Checks:
+    the resumed state equals the uninterrupted one field by field, every
+    .dat file equal, K1 launched once per resumed update, the manifest's
+    digest equal to the device digest of the live state.  Times: a save,
+    a resume, a digest (CUDA-synchronised wall)."""
+    import shutil
+
+    import torch
+    from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.ops.digest import state_digest
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    cdir = persist_config_dir(tmp)
+    ck = os.path.join(tmp, "persist_ck")
+    extra = {"TPU_CKPT_DIR": ck, "TPU_CKPT_EVERY": 10, "TPU_CKPT_KEEP": 8,
+             "TPU_STATE_DIGEST": 1}
+    a = make_world(SIDE, os.path.join(tmp, "persist_a"), "cuda",
+                   PERSIST_EVENTS, extra, config_dir=cdir)
+    a.run(max_updates=PERSIST_UPDATES)
+    _sync("cuda")
+    gens = [ckpt_mod.generation_update(g)
+            for g in ckpt_mod.list_generations(ck)]
+    last = os.path.join(ck, ckpt_mod.generation_name(PERSIST_UPDATES))
+    stored = ckpt_mod.verify_generation(last)["state_digest"]
+    t0 = time.perf_counter()
+    live = int(state_digest(a.state))
+    digest_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    path = a.save_checkpoint(os.path.join(tmp, "persist_timed"))
+    save_ms = 1e3 * (time.perf_counter() - t0)
+
+    d_b = os.path.join(tmp, "persist_b")
+    shutil.copytree(a.data_dir, d_b)
+    ck_b = os.path.join(tmp, "persist_ck_b")
+    shutil.copytree(ck, ck_b)
+    b = make_world(SIDE, d_b, "cuda", PERSIST_EVENTS,
+                   dict(extra, TPU_CKPT_DIR=ck_b), config_dir=cdir)
+    _sync("cuda")
+    t0 = time.perf_counter()
+    at = b.resume(at_update=PERSIST_AT)
+    _sync("cuda")
+    resume_ms = 1e3 * (time.perf_counter() - t0)
+    cycles.reset_launches()
+    b.run(max_updates=PERSIST_UPDATES)
+    _sync("cuda")
+    launches = cycles.LAUNCHES
+    bad = state_diff(a, b)
+    if dat_bodies(a.data_dir) != dat_bodies(d_b):
+        bad.append(".dat files")
+    res = {"phase": "persist_path", "nvidia_smi": smi,
+           "world": f"{SIDE}x{SIDE}", "engine_report": b.engine_report(),
+           "updates": b.update, "resumed_at": at, "generations": gens,
+           "kernel_launches_after_resume": launches,
+           "state_digest": f"{live:#010x}",
+           "manifest_digest": f"{stored:#010x}", "digest_ms": digest_ms,
+           "save_ms": save_ms, "resume_ms": resume_ms,
+           "generation_mb": gen_mb(path), "differs": bad,
+           "dat_files": sorted(dat_bodies(d_b))}
+    ok = (not bad and at == PERSIST_AT and launches == PERSIST_UPDATES - at
+          and stored == live and gens == [10, 20, 30, 40]
+          and b.num_organisms > 0
+          and bool(torch.isfinite(b.state.merit).all()))
+    if not ok:
+        raise AssertionError(f"persist_path check failed: {res}")
+    return res, os.path.join(ck, ckpt_mod.generation_name(PERSIST_UPDATES))
+
+
+def phase_persist_default(tmp, smi, updates=DEFAULT_UPDATES):
+    """The default_path configuration (systematics on, per-update engine),
+    saved at updates/2 and resumed to `updates`: the state, dominant.dat
+    and every .dat file, and systematics.json of the end generation equal
+    to the uninterrupted run's."""
+    import shutil
+
+    from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    half = updates // 2
+    every = max(updates // 6, 1)
+    ev = ["u begin InjectAll"] + [f"u 0:{every}:end {a}" for a in PRINTS]
+    ck = os.path.join(tmp, "pdef_ck")
+    extra = {"TPU_SYSTEMATICS": 1, "TPU_CKPT_DIR": ck,
+             "TPU_CKPT_EVERY": half, "TPU_CKPT_FINAL": 1}
+    a = make_world(SIDE, os.path.join(tmp, "pdef_a"), "cuda", ev, extra)
+    a.run(max_updates=updates)
+    d_b = os.path.join(tmp, "pdef_b")
+    shutil.copytree(a.data_dir, d_b)
+    ck_b = os.path.join(tmp, "pdef_ck_b")
+    shutil.copytree(ck, ck_b)
+    b = make_world(SIDE, d_b, "cuda", ev, dict(extra, TPU_CKPT_DIR=ck_b))
+    at = b.resume(at_update=half)
+    cycles.reset_launches()
+    b.run(max_updates=updates)
+    _sync("cuda")
+    launches = cycles.LAUNCHES
+    bad = state_diff(a, b)
+    da, db = dat_bodies(a.data_dir), dat_bodies(d_b)
+    bad += [f for f in da if da[f] != db.get(f)]
+    sysa, sysb = (open(os.path.join(c, ckpt_mod.generation_name(updates),
+                                    "systematics.json"), "rb").read()
+                  for c in (ck, ck_b))
+    if sysa != sysb:
+        bad.append("systematics.json")
+    res = {"phase": "persist_default", "nvidia_smi": smi,
+           "world": f"{SIDE}x{SIDE}", "engine_report": b.engine_report(),
+           "updates": b.update, "resumed_at": at,
+           "kernel_launches_after_resume": launches,
+           "genotypes": b.systematics.num_genotypes,
+           "dominant_rows": len(db.get("dominant.dat", [])),
+           "systematics_json_bytes": len(sysb), "differs": bad}
+    if bad or launches != updates - half or "dominant.dat" not in db:
+        raise AssertionError(f"persist_default check failed: {res}")
+    return res
+
+
+def phase_preempt_cli(tmp, smi, persist_gen):
+    """`python -m avida_tpu_torch` on persist_path's world as a child
+    process, SIGTERM once its first auto-save (update 10) is on disk: it
+    must exit 0 with a generation at the update it stopped at (its chunks
+    of at most 3 updates put that where persist_path never chunked);
+    `--resume`
+    to the end with TPU_CKPT_FINAL=1 must publish a final generation
+    whose arrays are byte for byte persist_path's at the same update."""
+    import signal
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    cdir = os.path.join(tmp, "persist_cfg")
+    ck = os.path.join(tmp, "cli_ck")
+    base = [sys.executable, "-m", "avida_tpu_torch", "-c", cdir,
+            "-s", "11", "-d", os.path.join(tmp, "cli_d"),
+            "-set", "WORLD_X", str(SIDE), "-set", "WORLD_Y", str(SIDE),
+            "-set", "TPU_SYSTEMATICS", "0", "-set", "TPU_CKPT_DIR", ck,
+            "-set", "TPU_CKPT_KEEP", "8", "-set", "TPU_STATE_DIGEST", "1"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    # chunks of at most 3 updates until the stop: it lands where
+    # persist_path (chunks of 8 and 2) has no boundary
+    proc = subprocess.Popen(base + ["-u", "400", "-set", "TPU_CKPT_EVERY",
+                                    "10", "-set", "TPU_MAX_STRETCH", "3"],
+                            cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        while not ckpt_mod.list_generations(ck):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                raise AssertionError(
+                    f"preempt_cli: no generation before the signal: "
+                    f"{proc.stderr.read().decode()[-2000:]}")
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stop_rc = proc.returncode
+    rep = json.loads(out.decode().strip().splitlines()[-1])
+    stopped = rep["updates"]
+    gens = [ckpt_mod.generation_update(g)
+            for g in ckpt_mod.list_generations(ck)]
+    t1 = time.perf_counter()
+    res2 = subprocess.run(base + ["-u", str(PERSIST_UPDATES), "--resume",
+                                  "-set", "TPU_CKPT_FINAL", "1"],
+                          cwd=root, capture_output=True, timeout=600)
+    resume_s = time.perf_counter() - t1
+    final = os.path.join(ck, ckpt_mod.generation_name(PERSIST_UPDATES))
+    bad = (generation_arrays_equal(persist_gen, final)
+           if os.path.isdir(final) else ["no final generation"])
+    res = {"phase": "preempt_cli", "nvidia_smi": smi,
+           "world": f"{SIDE}x{SIDE}", "stop_exit_code": stop_rc,
+           "preempted": rep.get("preempted"), "stopped_at": stopped,
+           "generations_after_stop": gens,
+           "resume_exit_code": res2.returncode, "resume_wall_s": resume_s,
+           "final_equals_persist_path": not bad, "differs": bad}
+    if stop_rc != 0 or not rep.get("preempted") or stopped not in gens \
+            or stopped % 10 in (0, 8) or res2.returncode != 0 or bad:
+        res["stderr"] = (err.decode()[-1500:], res2.stderr.decode()[-1500:])
+        raise AssertionError(f"preempt_cli check failed: {res}")
+    return res
+
+
+def phase_scrub_path(tmp, smi, updates=10):
+    """TPU_SCRUB_EVERY=1 on the headline world: every chunk is replayed
+    from its retained pre-chunk state by the same kernel and the digests
+    must agree (the kernel is deterministic: same planes, same bits)."""
+    from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.utils import integrity
+    ev = ["u begin InjectAll"] + [f"u 0:5:end {a}" for a in PRINTS[:4]]
+    w = make_world(SIDE, os.path.join(tmp, "scrub"), "cuda", ev,
+                   {"TPU_SCRUB_EVERY": 1})
+    n0 = integrity.counters()
+    cycles.reset_launches()
+    _sync("cuda")
+    t0 = time.perf_counter()
+    w.run(max_updates=updates)
+    _sync("cuda")
+    wall = time.perf_counter() - t0
+    launches = cycles.LAUNCHES
+    n1 = integrity.counters()
+    with open(os.path.join(w.data_dir, integrity.INTEGRITY_LOG)) as f:
+        recs = [json.loads(ln) for ln in f]
+    scrubs = [r for r in recs if r["event"] == "scrub"]
+    res = {"phase": "scrub_path", "nvidia_smi": smi,
+           "world": f"{SIDE}x{SIDE}", "updates": w.update,
+           "scrubs": n1["scrubs"] - n0["scrubs"],
+           "mismatches": n1["mismatches"] - n0["mismatches"],
+           "kernel_launches": launches,
+           "last_verified_update": w._last_verified_update,
+           "digest_ms": n1["digest_ms"] - n0["digest_ms"],
+           "ms_per_update_with_scrub": 1e3 * wall / updates,
+           "chunks": [r["chunk_updates"] for r in scrubs]}
+    ok = (all(r["ok"] for r in scrubs) and res["mismatches"] == 0
+          and res["scrubs"] == len(scrubs) > 0
+          and sum(res["chunks"]) == updates
+          and w._last_verified_update == updates
+          and launches == 2 * updates)
+    if not ok:
+        raise AssertionError(f"scrub_path check failed: {res}")
+    return res, launches
+
+
+def phase_spop_path(tmp, smi, side=MW_SIDE, updates=12):
+    """SavePopulation / LoadPopulation on a 60x60 world: the population
+    saved on the card, reloaded on the card and on the CPU (each organism
+    fast-forwarded its gestation offset with micro-steps): equal."""
+    from avida_tpu_torch import convert
+    d = os.path.join(tmp, "spop")
+    w = make_world(side, d, "cuda", ["u begin InjectAll",
+                                     f"u {updates} SavePopulation"],
+                   {"AVE_TIME_SLICE": 100})
+    w.run(max_updates=updates + 1)
+    path = os.path.join(d, f"detail-{updates}.spop")
+    loaded = {}
+    for dev in ("cuda", "cpu"):
+        x = make_world(side, os.path.join(tmp, f"spop_{dev}"), dev, [],
+                       {"AVE_TIME_SLICE": 100})
+        x.inject()
+        _sync(dev)
+        t0 = time.perf_counter()
+        x._action_LoadPopulation([path])
+        _sync(dev)
+        loaded[dev] = (convert.state_to_arrays(x.state),
+                       1e3 * (time.perf_counter() - t0), x.num_organisms)
+    a, b = loaded["cuda"][0], loaded["cpu"][0]
+    bad = [k for k, v in a.items() if v is not None
+           and v.tobytes() != b[k].tobytes()]
+    with open(path) as f:
+        genotypes = sum(1 for ln in f if ln.strip() and ln[0] != "#")
+    res = {"phase": "spop_path", "nvidia_smi": smi, "world": f"{side}x{side}",
+           "saved_at": updates, "genotypes": genotypes,
+           "organisms": loaded["cuda"][2],
+           "load_ms_cuda": loaded["cuda"][1], "load_ms_cpu": loaded["cpu"][1],
+           "differs": bad}
+    if bad or loaded["cuda"][2] == 0 or genotypes < 2:
+        raise AssertionError(f"spop_path check failed: {res}")
+    return res
+
+
+def phase_multiworld_persist(tmp, smi, mw_a, ck_root):
+    """The 16 x 60x60 batch of multiworld_path (systematics on), which
+    saved per-world generations every MW_UPDATES/2 updates: a new batch
+    resumes them at the midpoint and runs to MW_UPDATES; every member
+    equals the uninterrupted batch's, with one stacked launch (K3b) per
+    resumed update."""
+    import shutil
+
+    from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.parallel.multiworld import MultiWorld
+    half = MW_UPDATES // 2
+    d = os.path.join(tmp, "mwp")
+    members = mw_members(MW_SIDE, MW_SEEDS, d, "m", "cuda", 1, 5,
+                         ckpt_root=os.path.join(tmp, "mwp_ck"))
+    shutil.copytree(ck_root, os.path.join(tmp, "mwp_ck"))
+    for w, src in zip(members, mw_a.worlds):
+        shutil.copytree(src.data_dir, w.data_dir, dirs_exist_ok=True)
+    mw = MultiWorld(members)
+    at = mw.resume(at_update=half)
+    cycles.reset_launches()
+    _sync("cuda")
+    t0 = time.perf_counter()
+    mw.run(max_updates=MW_UPDATES)
+    _sync("cuda")
+    wall = time.perf_counter() - t0
+    launches, stacked = cycles.LAUNCHES, cycles.STACKED_LAUNCHES
+    bad = []
+    for k, (x, y) in enumerate(zip(mw_a.worlds, mw.worlds)):
+        diff = state_diff(x, y)
+        if dat_bodies(x.data_dir) != dat_bodies(y.data_dir):
+            diff.append(".dat files")
+        if diff:
+            bad.append((k, diff))
+    res = {"phase": "multiworld_persist", "nvidia_smi": smi,
+           "worlds": len(MW_SEEDS), "world": f"{MW_SIDE}x{MW_SIDE}",
+           "resumed_at": at, "updates": mw.update,
+           "stacked_launches_after_resume": stacked,
+           "kernel_launches_after_resume": launches,
+           "ms_per_update": 1e3 * wall / (MW_UPDATES - half),
+           "members_equal": len(MW_SEEDS) - len(bad), "differs": bad}
+    if bad or at != half or stacked != MW_UPDATES - half:
+        raise AssertionError(f"multiworld_persist check failed: {res}")
+    return res, stacked
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1657,14 +2049,32 @@ def main() -> int:
         del ws
         ckern = phase_costs_kernel(SIDE, COSTS_UPDATES, tmp)
         emit(dict(ckern, phase="costs_kernel"))
+        # persistence: each resumed run counts its own launches
+        pres, persist_gen = phase_persist_path(tmp, smi)
+        emit(pres)
+        dres = phase_persist_default(tmp, smi)
+        emit(dres)
+        emit(phase_preempt_cli(tmp, smi, persist_gen))
+        scrub_res, scrub_launches = phase_scrub_path(tmp, smi)
+        emit(scrub_res)
+        emit(phase_spop_path(tmp, smi))
+        persist_launches = (pres["kernel_launches_after_resume"]
+                            + dres["kernel_launches_after_resume"]
+                            + scrub_launches)
         mw_runs = []
+        mw_ck = os.path.join(tmp, "mw_ck")
         for path, sysm in (("multiworld_path", 1), ("multiworld_packed", 0)):
-            mw, mw_res = phase_multiworld(path, sysm, tmp, MW_SIDE, MW_SEEDS,
-                                          MW_UPDATES)
+            mw, mw_res = phase_multiworld(
+                path, sysm, tmp, MW_SIDE, MW_SEEDS, MW_UPDATES,
+                ckpt_root=mw_ck if sysm else None)
             emit(mw_res)
             mwk = phase_mw_kernel(mw, path)
             emit(dict(mwk, phase=f"{path}_kernel", nvidia_smi=smi))
             emit(phase_mw_breakdown(mw, mw_res, f"{path}_breakdown"))
+            if sysm:
+                mres, mw_resumed = phase_multiworld_persist(tmp, smi, mw,
+                                                            mw_ck)
+                emit(mres)
             del mw
             mw_runs.append((mw_res, mwk))
         # the micro-step engine (no kernel launch on its paths)
@@ -1688,13 +2098,15 @@ def main() -> int:
                       launches=mw_res["kernel_launches"], stacked=True)
                  for mw_res, mwk in mw_runs]
     emit({"phase": "kernel_paths", "nvidia_smi": smi, "paths": per_path})
-    # the kernels line: K1 with its solo launches (the four solo paths),
+    # the kernels line: K1 with its solo launches (the four solo paths and
+    # the resumed and scrubbed persistence runs),
     # the worst error of all, times and bound at the sexual path; K3b,
     # the stacked launch, with its launches over the two batch paths and
+    # the resumed batch, and
     # its times and bound at the default batch path (multiworld_path).
     # Each launch is counted once, under the wrapper that made it.
     kern.update(launches=sum(q["launches"] for q in per_path
-                             if not q.get("stacked")),
+                             if not q.get("stacked")) + persist_launches,
                 max_abs_err=max(q["max_abs_err"] for q in per_path),
                 **{k: skern[k] for k in ("ms", "simple_ms", "reached",
                                          "plain_ms", "bound_ms", "bound_by",
@@ -1703,7 +2115,8 @@ def main() -> int:
     stacked = {"name": "cycles_stacked", "route": "cuda",
                "source": "avida_tpu_torch/csrc/cycles.cu",
                "replaces": "avida_tpu/ops/pallas_cycles.py:1729",
-               "launches": sum(r["stacked_launches"] for r, _ in mw_runs),
+               "launches": sum(r["stacked_launches"] for r, _ in mw_runs)
+               + mw_resumed,
                "max_abs_err": max(k["max_abs_err"] for _, k in mw_runs),
                "library_ms": None,
                **{k: mwk[k] for k in ("ms", "simple_ms", "reached",

@@ -26,13 +26,40 @@ bad = sorted(m for m in sys.modules
              or m == "avida_tpu" or m.startswith("avida_tpu."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 18, names
+assert len(names) >= 25, names
 assert {"avida_tpu_torch.systematics",
         "avida_tpu_torch.systematics.genotypes",
         "avida_tpu_torch.parallel",
         "avida_tpu_torch.parallel.multiworld",
         "avida_tpu_torch.ops.interpreter",
-        "avida_tpu_torch.ops.tasks"} <= set(names), names
+        "avida_tpu_torch.ops.tasks",
+        "avida_tpu_torch.ops.digest",
+        "avida_tpu_torch.utils.checkpoint",
+        "avida_tpu_torch.utils.integrity",
+        "avida_tpu_torch.utils.audit",
+        "avida_tpu_torch.utils.spop",
+        "avida_tpu_torch.observability",
+        "avida_tpu_torch.observability.runlog"} <= set(names), names
+"""
+
+# a checkpointed run and its resume end to end (a 4x4 world, 2 + 2
+# updates): the persistence modules load without jax or avida_tpu
+_RESUME_CLI = r"""
+import sys
+from avida_tpu_torch.__main__ import main
+common = ["-set", "WORLD_X", "4", "-set", "WORLD_Y", "4", "--device", "cpu",
+          "-d", sys.argv[1], "-set", "TPU_CKPT_DIR", sys.argv[2],
+          "-set", "TPU_CKPT_FINAL", "1", "-set", "TPU_STATE_DIGEST", "1",
+          "-set", "TPU_SCRUB_EVERY", "1", "-set", "TPU_AUDIT_EVERY", "1"]
+assert main(["-u", "2"] + common) == 0
+assert main(["-u", "4", "--resume"] + common) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "avida_tpu" or m.startswith("avida_tpu."))
+for m in ("avida_tpu_torch.utils.checkpoint", "avida_tpu_torch.ops.digest",
+          "avida_tpu_torch.utils.audit"):
+    assert m in sys.modules, m
+assert not bad, bad
 """
 
 # the micro-step engine end to end (TPU_USE_PALLAS 2, a 4x4 world, one
@@ -86,6 +113,92 @@ def test_xla_engine_cli_imports_no_jax_and_no_reference(tmp_path):
                           str(tmp_path / "data")], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_resume_cli_imports_no_jax_and_no_reference(tmp_path):
+    res = subprocess.run([sys.executable, "-c", _RESUME_CLI,
+                          str(tmp_path / "data"), str(tmp_path / "ck")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert sorted(os.listdir(tmp_path / "ck")) == [
+        "ckpt-000000000002", "ckpt-000000000004"]
+
+
+@pytest.mark.parametrize("name,value", [
+    ("TPU_CKPT_EVERY", 5), ("TPU_CKPT_FINAL", 1), ("TPU_STATE_DIGEST", 1),
+    ("TPU_SCRUB_EVERY", 2), ("TPU_AUDIT_EVERY", 3)])
+def test_persistence_switches_accepted(name, value):
+    """The five persistence switches the port refused before it ran them
+    are accepted and reach the World's run loop."""
+    from avida_tpu_torch.world import World
+    w = World(cfg=_cfg(**{name: value}), device="cpu")
+    assert w.cfg.get(name) == value
+    if name == "TPU_STATE_DIGEST":
+        assert w._digest_on
+    if name == "TPU_SCRUB_EVERY":
+        assert w._scrub_every == value
+
+
+@pytest.mark.parametrize("name,value", [
+    ("TPU_TELEMETRY", 1), ("TPU_METRICS", 1), ("TPU_FAULT", "nan@update=3")])
+def test_observability_switches_still_refused(name, value):
+    from avida_tpu_torch.world import World
+    with pytest.raises(NotImplementedError, match=name):
+        World(cfg=_cfg(**{name: value}), device="cpu")
+
+
+def test_ckpt_dir_alone_arms_preemption(tmp_path):
+    """TPU_CKPT_DIR alone installs the SIGTERM/SIGINT handlers for the
+    run: a SIGTERM mid-run stops it at the next chunk boundary with a
+    final generation (preempted), the handlers are restored after, and
+    without TPU_CKPT_DIR the run installs nothing."""
+    import signal
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    from avida_tpu_torch.world import World
+    before = signal.getsignal(signal.SIGTERM)
+    w = World(cfg=_cfg(TPU_CKPT_DIR=str(tmp_path / "ck"),
+                       TPU_MAX_STRETCH=2), data_dir=str(tmp_path / "d"),
+              device="cpu")
+    seen = []
+    real = w._scan_updates
+
+    def scan(k):
+        seen.append(signal.getsignal(signal.SIGTERM))
+        if len(seen) == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return real(k)
+
+    w._scan_updates = scan
+    w.run(max_updates=20)
+    assert w.preempted and w.update == 4
+    assert seen[0] is not before
+    assert signal.getsignal(signal.SIGTERM) is before
+    gens = ckpt_mod.list_generations(str(tmp_path / "ck"))
+    assert [ckpt_mod.generation_update(g) for g in gens] == [4]
+    v = World(cfg=_cfg(), data_dir=str(tmp_path / "e"), device="cpu")
+    v._scan_updates = lambda k, real=v._scan_updates: (
+        seen.append(signal.getsignal(signal.SIGTERM)), real(k))[1]
+    v.run(max_updates=2)
+    assert seen[-1] is before
+
+
+def test_second_sigint_escalates(tmp_path):
+    """A first SIGINT requests the boundary stop; a second one raises
+    KeyboardInterrupt at once (the reference's escalation)."""
+    import signal
+    from avida_tpu_torch.world import World
+    w = World(cfg=_cfg(TPU_CKPT_DIR=str(tmp_path / "ck")),
+              data_dir=str(tmp_path / "d"), device="cpu")
+    handlers = w._install_preempt_handlers()
+    try:
+        os.kill(os.getpid(), signal.SIGINT)
+        assert w._preempt
+        with pytest.raises(KeyboardInterrupt):
+            os.kill(os.getpid(), signal.SIGINT)
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
 
 
 def test_world_without_device_raises_without_cuda():
@@ -195,8 +308,8 @@ def test_kernel_limits_refused_by_name_on_cuda():
 def test_unported_event_action_raises():
     from avida_tpu_torch.world import World
     w = World(cfg=_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="SavePopulation"):
-        w.add_event("u 10 SavePopulation")
+    with pytest.raises(NotImplementedError, match="KillProb"):
+        w.add_event("u 10 KillProb 0.5")
 
 
 def test_wrapper_refuses_other_devices():

@@ -371,22 +371,22 @@ def test_multiworld_refusals(tmp_path):
     late.update = 4
     with pytest.raises(ValueError, match="disagree on the current update"):
         MultiWorld([a, late])
-    # unported: checkpoints, K2 with S > 1; the stacked launch refuses a
-    # configuration routed to the micro-step engine
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        MultiWorld.from_seeds([1, 2], overrides=list(vals.items()),
-                              data_dir=str(tmp_path / "s"),
-                              ckpt_dir=str(tmp_path / "ck"), device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        MultiWorld.from_seeds(
-            [1, 2], overrides=list(vals.items())
-            + [("TPU_CKPT_DIR", str(tmp_path / "ck"))],
-            data_dir=str(tmp_path / "s"), device="cpu")
+    # checkpoints go to one dir per member; a shared one is refused
+    mw = MultiWorld.from_seeds([1, 2], overrides=list(vals.items()),
+                               data_dir=str(tmp_path / "s"),
+                               ckpt_dir=str(tmp_path / "ck"), device="cpu")
+    assert [w._ckpt_base() for w in mw.worlds] == [
+        str(tmp_path / "ck" / "w000"), str(tmp_path / "ck" / "w001")]
+    shared = [World(cfg=convert.config_from_dict(
+        dict(vals, RANDOM_SEED=s, TPU_CKPT_DIR=str(tmp_path / "one"))),
+        data_dir=str(tmp_path / f"sh{s}"), device="cpu") for s in (1, 2)]
+    with pytest.raises(ValueError, match="share a checkpoint dir"):
+        MultiWorld(shared)
     mw = MultiWorld([a, _world(vals, 2, str(tmp_path / "h"))])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mw.resume()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="no checkpoint directory"):
         mw.save_checkpoints()
+    # K2 with S > 1 is not ported; the stacked launch refuses a
+    # configuration routed to the micro-step engine
     a.process_events()
     with pytest.raises(ValueError, match="micro-step engine"):
         tupd.mw_stack_kernel_cycles(
@@ -401,9 +401,9 @@ def test_multiworld_refusals(tmp_path):
     mp = tmp_path / "ck.json"
     mp.write_text(json.dumps([{"seed": 1, "data_dir": str(tmp_path / "m"),
                                "ckpt_dir": str(tmp_path / "mck")}]))
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        MultiWorld.from_manifest(str(mp), overrides=list(vals.items()),
-                                 device="cpu")
+    mw = MultiWorld.from_manifest(str(mp), overrides=list(vals.items()),
+                                  device="cpu")
+    assert mw.worlds[0]._ckpt_base() == str(tmp_path / "mck")
 
 
 # ---- the --worlds CLI ----
@@ -420,7 +420,8 @@ def _cli(argv):
 def test_worlds_cli_seed_list_and_manifest(tmp_path):
     """`--worlds 5,6` writes DATA_DIR/w000 and w001, and w000's .dat files
     equal the solo CLI run with seed 5; a manifest names its own dirs; a
-    refused batch, --resume and --serve-worlds exit 2."""
+    refused batch, --resume DIR with --worlds and --serve-worlds exit 2;
+    --resume over empty checkpoint dirs starts fresh."""
     common = ["-u", "4", "-set", "WORLD_X", "6", "-set", "WORLD_Y", "6",
               "-set", "TPU_SYSTEMATICS", "0", "--device", "cpu"]
     rc, rep = _cli(["--worlds", "5,6", "-d", str(tmp_path / "b")] + common)
@@ -448,10 +449,15 @@ def test_worlds_cli_seed_list_and_manifest(tmp_path):
     bad = tmp_path / "bad.json"
     bad.write_text(json.dumps([{"seed": "x", "data_dir": "d"}]))
     assert _cli(["--worlds", str(bad)] + common)[0] == 2
-    assert _cli(["--worlds", "1,2", "-set", "TPU_CKPT_DIR",
-                 str(tmp_path / "ck")] + common)[0] == 2
-    assert _cli(["--resume"] + common)[0] == 2
-    assert _cli(["--worlds", "1,2", "--resume"] + common)[0] == 2
+    ck = ["-set", "TPU_CKPT_DIR", str(tmp_path / "ck")]
+    assert _cli(["--worlds", "1,2", "-d", str(tmp_path / "c")] + ck
+                + common)[0] == 0
+    assert _cli(["--resume", "-d", str(tmp_path / "r"), "-set",
+                 "TPU_CKPT_DIR", str(tmp_path / "empty")] + common)[0] == 0
+    assert _cli(["--worlds", "1,2", "--resume", "-d", str(tmp_path / "e")]
+                + common)[0] == 0
+    assert _cli(["--worlds", "1,2", "--resume", str(tmp_path / "ck")]
+                + common)[0] == 2
     assert _cli(["--serve-worlds", str(man)] + common)[0] == 2
 
 

@@ -227,3 +227,152 @@ def test_row_key_draws_equal_jax():
         got_r = prng.randint_from_bits(prng.bits_rows(ks[:1], 100)[0],
                                        prng.bits_rows(ks[1:], 100)[0], 0, 26)
         assert _same(r, got_r)
+
+
+# ---- the reaction reductions' order inside the micro-step engine ----
+
+_LOGIC3 = ("not", "nand", "and")
+
+
+def _order_env(R, rng):
+    """R reactions: the first three logic tasks (integer pow values and
+    logic-9's requisite max_count=1) from R = 4 on, the rest math_1AJ (|x|) rewards with
+    fractional values, process types cycling mult / pow / add.  An
+    organism that outputs a copy of a positive input collects every
+    math reward it is inside the window of at once."""
+    lines, ptypes = [], []
+    n_logic = 3 if R >= 4 else 0
+    for r in range(R):
+        if r < n_logic:
+            lines.append(f"REACTION L{r} {_LOGIC3[r]} "
+                         f"process:value={(1, 1, 2)[r]}.0:type=pow "
+                         f"requisite:max_count=1")
+            ptypes.append("ipow")
+            continue
+        t = ("mult", "pow", "add")[r % 3]
+        v = {"mult": 1 + rng.uniform(0.001, 0.9),
+             "pow": rng.uniform(0.05, 0.95),
+             "add": rng.uniform(0.5, 3.0)}[t]
+        lines.append(f"REACTION R{r} math_1AJ "
+                     f"process:value={float(np.float32(v))!r}:type={t}")
+        ptypes.append(t)
+    return "\n".join(lines) + "\n", ptypes
+
+
+def _order_case(tmp_path, R, in_order=False):
+    """One cycle of each package's micro-step engine (TPU_USE_PALLAS=2) on
+    the same populated 8x8 state: every organism's first instruction is
+    IO, outputting a copy of its positive input, and it is inside the
+    requisite window of a random 70% of the reactions.  Returns both
+    states, the reward counts per organism and type, and the port world's
+    params.  in_order=True runs the port with every reduction in order
+    (the order before vector_chunks)."""
+    from avida_tpu.core.state import PopulationState as RefState
+    from avida_tpu.ops import update as rupd
+    from avida_tpu.world import World as RefWorld
+
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.ops import update as tupd
+    from avida_tpu_torch.world import World
+
+    rng = np.random.default_rng(R)
+    env, ptypes = _order_env(R, rng)
+    (tmp_path / "environment.cfg").write_text(env)
+    (tmp_path / "avida.cfg").write_text("")
+    ov = [("WORLD_X", 8), ("WORLD_Y", 8), ("TPU_USE_PALLAS", 2),
+          ("TPU_SYSTEMATICS", 0), ("TPU_KERNEL_SHARDS", 1),
+          ("TPU_COMPILE_CACHE", 0), ("RANDOM_SEED", R)]
+    ref = RefWorld(config_dir=str(tmp_path), overrides=ov,
+                   data_dir=str(tmp_path / "r"))
+    port = World(config_dir=str(tmp_path), overrides=ov,
+                 data_dir=str(tmp_path / "p"), device="cpu")
+    port.process_events()          # the ancestor, InjectAll-free
+    port._action_InjectAll([])
+    st = {k: (None if v is None else v.copy())
+          for k, v in convert.state_to_arrays(port.state).items()}
+    n = st["tape"].shape[0]
+    io = port.instset.inst_names.index("IO")
+    a = rng.integers(1 << 20, 1 << 30, n).astype(np.int32)
+    st["tape"][:, 0] = io
+    st["heads"][:] = 0
+    st["regs"][:] = a[:, None]
+    st["input_buf"][:] = 0
+    st["input_buf"][:, 0] = a
+    st["input_buf_n"][:] = 1
+    window = rng.random((n, R)) < 0.7
+    st["cur_task_count"][:] = np.where(window, 0, 2**30)
+    st["cur_bonus"][:] = rng.uniform(0.5, 4.0, n).astype(np.float32)
+    granted = np.ones(n, np.int32)
+    key = jax.random.key(5)
+    r_in = RefState(**{k: (None if v is None else jnp.asarray(v))
+                       for k, v in st.items()})
+    r_out = jax.jit(lambda s, g: rupd.interpret_phase(
+        ref.params, s, key, g, jnp.int32(1), 0)[0])(r_in, granted)
+    tables = ttasks.env_tables_to_device(port.params, torch.device("cpu"))
+    chunks = tables["chunks"]
+    if in_order:
+        tables["chunks"] = {k: 0 for k in chunks}
+    try:
+        t_out = tupd.interpret_phase(
+            port.params, convert.state_from_arrays(st),
+            convert.key_from_data(jax.random.key_data(key)),
+            torch.from_numpy(granted), 0, max_k=1)
+    finally:
+        tables["chunks"] = chunks
+    rew = np.asarray(r_out.cur_reaction_count)
+    per_type = {t: rew[:, [r for r in range(R) if ptypes[r] == t]].sum(1)
+                for t in ("pow", "mult", "add")}
+    return r_out, t_out, per_type, port.params
+
+
+def _assert_order_holds(tmp_path, R):
+    from avida_tpu.core.state import state_field_names
+
+    from avida_tpu_torch import convert
+    r_out, t_out, per_type, params = _order_case(tmp_path, R)
+    got = convert.state_to_arrays(t_out)
+    for k in state_field_names():
+        if getattr(r_out, k) is None:
+            continue
+        assert np.asarray(getattr(r_out, k)).tobytes() == got[k].tobytes(), k
+    if R >= 12:
+        assert all((v >= 3).sum() > 10 for v in per_type.values())
+    return params
+
+
+_ORDER_TIER1 = (12, 16, 17, 19, 24, 32)
+
+
+@pytest.mark.parametrize("R", _ORDER_TIER1)
+def test_engine_reaction_order_equals_reference(tmp_path, R):
+    """cur_bonus (and every other field) exact after one engine cycle in
+    which organisms collect three or more fractional rewards of each
+    process type: the products and the sum over the reactions combine in
+    the compiled engine's order (ops/tasks.vector_chunks / vector_fold):
+    in order up to 16 reactions (18 for the sum), else 8-lane chunks into
+    two accumulators, a lane tree and the rest in order."""
+    params = _assert_order_holds(tmp_path, R)
+    want = {k: (R // 8 if R >= v else 0)
+            for k, v in (("pow", 17), ("mult", 17), ("add", 19))}
+    assert ttasks.vector_chunks(params) == want
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("R", [r for r in range(1, 33)
+                               if r not in _ORDER_TIER1])
+def test_engine_reaction_order_equals_reference_every_r(tmp_path, R):
+    _assert_order_holds(tmp_path, R)
+
+
+@pytest.mark.parametrize("R", [17, 24, 32])
+def test_in_order_reduction_differs_from_engine(tmp_path, R):
+    """The fault this order repairs: the same engine cycle with every
+    reduction over the reactions in order (the port's previous _fold)
+    gives another cur_bonus than the reference's engine for some
+    organisms from 17 reactions on."""
+    r_out, t_out, _, _ = _order_case(tmp_path, R, in_order=True)
+    want = np.asarray(r_out.cur_bonus)
+    got = t_out.cur_bonus.numpy()
+    assert (want != got).sum() > 0
+    assert np.array_equal(np.asarray(r_out.cur_reaction_count),
+                          t_out.cur_reaction_count.numpy())
