@@ -159,10 +159,36 @@ class WorldParams:
         return dataclasses.replace(self, **kw)
 
 
+def _migration_cdf(cfg):
+    """Method-4 migration: each source deme's cumulative weight row from
+    the MIGRATION_FILE matrix (cMigrationMatrix::GetProbabilisticDemeID),
+    accumulated in float64 as the reference does."""
+    if int(cfg.DEMES_MIGRATION_METHOD) != 4:
+        return ()
+    mat = getattr(cfg, "_migration_matrix", None)
+    if mat is None:
+        raise ValueError(
+            "DEMES_MIGRATION_METHOD 4 requires MIGRATION_FILE (an NxN "
+            "weight matrix; cMigrationMatrix::Load)")
+    rows = []
+    for r in mat:
+        tot = float(sum(r))
+        if tot <= 0:
+            raise ValueError("MIGRATION_FILE row with no positive weight")
+        acc, row = 0.0, []
+        for v in r:
+            acc += float(v) / tot
+            row.append(acc)
+        rows.append(tuple(row))
+    return tuple(rows)
+
+
 def make_world_params(cfg, instset, environment) -> WorldParams:
     """Build WorldParams from parsed config objects (host side).  The
-    reference's validation is kept; migration matrices (demes) and fault
-    injection are outside this package and refused by World."""
+    reference's validation is kept; fault injection is outside this
+    package and refused by World.  A MIGRATION_FILE matrix (demes,
+    method 4) is read by World and attached to cfg as
+    `_migration_matrix`."""
     tables = instset_tables(instset)
     env_tables = environment.device_tables()
 
@@ -174,6 +200,22 @@ def make_world_params(cfg, instset, environment) -> WorldParams:
         raise NotImplementedError(
             "instset res_cost (resource-bin execution costs, cInstSet.h:69) "
             "is not implemented; zero the res_cost column")
+    for r in environment.spatial_resources():
+        if r.is_gradient and (r.peakx >= cfg.WORLD_X
+                              or r.peaky >= cfg.WORLD_Y):
+            raise ValueError(
+                f"GRADIENT_RESOURCE {r.name!r} peak ({r.peakx},{r.peaky}) "
+                f"lies outside the {cfg.WORLD_X}x{cfg.WORLD_Y} world")
+    if int(cfg.DEMES_MIGRATION_METHOD) == 3:
+        raise NotImplementedError(
+            "DEMES_MIGRATION_METHOD 3 (deme points) needs the deme points "
+            "system, which is not modeled; use methods 0/1/2/4")
+    if int(cfg.DEMES_MIGRATION_METHOD) == 1 and cfg.NUM_DEMES > 1 \
+            and (cfg.DEMES_NUM_X <= 0
+                 or cfg.NUM_DEMES % max(cfg.DEMES_NUM_X, 1)):
+        raise ValueError(
+            "DEMES_MIGRATION_METHOD 1 requires DEMES_NUM_X dividing "
+            "NUM_DEMES (cPopulation.cc:5530)")
     if cfg.POPULATION_CAP and cfg.POP_CAP_ELDEST:
         raise ValueError(
             "POPULATION_CAP and POP_CAP_ELDEST are mutually exclusive "
@@ -245,6 +287,7 @@ def make_world_params(cfg, instset, environment) -> WorldParams:
         pred_prey_switch=int(cfg.PRED_PREY_SWITCH),
         pred_efficiency=float(cfg.PRED_EFFICIENCY),
         demes_num_x=int(cfg.DEMES_NUM_X),
+        migration_cdf=_migration_cdf(cfg),
         death_method=cfg.DEATH_METHOD,
         age_limit=cfg.AGE_LIMIT,
         birth_method=cfg.BIRTH_METHOD,
@@ -689,7 +732,18 @@ def init_population(params: WorldParams, seed_genome: np.ndarray,
                 params.num_spatial_res, n).clone())
     if inject_cell is None:
         inject_cell = n // 2
-    return seed_organism(params, st, seed_genome, key, inject_cell)
+    st = seed_organism(params, st, seed_genome, key, inject_cell)
+    if params.demes_use_germline:
+        # every deme's germline starts as the ancestor (cGermline seeded
+        # at world setup)
+        g = np.zeros(L, np.int8)
+        g[:len(seed_genome)] = seed_genome
+        st = st.replace(
+            germ_mem=torch.from_numpy(g).to(dev)[None, :].expand(
+                params.num_demes, L).clone(),
+            germ_len=torch.full((params.num_demes,), len(seed_genome),
+                                dtype=torch.int32, device=dev))
+    return st
 
 
 def clone_state(st: PopulationState) -> PopulationState:

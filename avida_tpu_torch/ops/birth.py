@@ -475,10 +475,8 @@ def has_divide_sex(params) -> bool:
 def canonical_unsupported_reason(params) -> str | None:
     """Why this package's canonical flush cannot run `params` (None = it
     can): heads hardware on a grid or torus, BIRTH_METHOD 0-10, asexual
-    or divide-sex without mating types; no demes, energy or population
-    caps."""
-    if params.num_demes > 1:
-        return "demes"
+    or divide-sex without mating types, demes with migration methods 0,
+    1, 2 and 4; no energy or population caps."""
     if params.hw_type != 0:
         return "non-heads hardware in the birth flush"
     if params.energy_enabled:
@@ -677,6 +675,12 @@ def general_placement(params, k_place, pending, alive, time_used, merit):
     cand = neighbors.to(torch.int32)
     pad = cand < 0             # padding slots never win
     cand = torch.where(pad, rows[:, None], cand)
+    cpd = params.num_cells // max(params.num_demes, 1)
+    if params.num_demes > 1:
+        # deme-local placement: a candidate in another deme collapses to
+        # the parent's cell (only migration crosses demes)
+        cand = torch.where(cand // cpd == (rows // cpd)[:, None], cand,
+                           rows[:, None])
     if params.allow_parent and bm in (0, 1, 2, 3):
         cand = torch.cat([cand, rows[:, None]], dim=1)
         pad = torch.cat([pad, torch.zeros((n, 1), dtype=torch.bool,
@@ -710,13 +714,16 @@ def general_placement(params, k_place, pending, alive, time_used, merit):
     target = cand[rl, choice]
     if bm == 3:
         pending = pending & ~occupied.all(dim=1)
-    elif bm == 4:              # FULL_SOUP_RANDOM
-        target = prng.randint(prng.fold_in(k_place, 4), (n,), 0, n)
+    elif bm == 4:              # FULL_SOUP_RANDOM (inside the deme)
+        if params.num_demes > 1:
+            r = prng.randint(prng.fold_in(k_place, 4), (n,), 0, cpd)
+            target = (rows // cpd) * cpd + r
+        else:
+            target = prng.randint(prng.fold_in(k_place, 4), (n,), 0, n)
     elif bm == 5:              # FULL_SOUP_ELDEST: the globally oldest
         age = torch.where(alive, time_used, 2**30)
         target = torch.argmax(age).to(torch.int32).expand(n)
-    elif bm == 6:              # DEME_RANDOM (one deme: the world)
-        cpd = params.num_cells // max(params.num_demes, 1)
+    elif bm == 6:              # DEME_RANDOM
         r = prng.randint(prng.fold_in(k_place, 6), (n,), 0, cpd)
         target = (rows // cpd) * cpd + r
     elif bm == 7:              # PARENT_FACING: heads hardware faces
@@ -738,6 +745,12 @@ def general_placement(params, k_place, pending, alive, time_used, merit):
         choice10 = pick_empty_first(
             torch.where(occupied, used10[cl], 0.0) + u)
         target = cand[rl, choice10]
+    if params.num_demes > 1:
+        if bm in (5, 7, 8):
+            # an absolute target in another deme collapses to the parent
+            target = torch.where(target // cpd == rows // cpd, target, rows)
+        if params.demes_migration_rate > 0:
+            target = migrate_targets(params, k_place, pending, target)
 
     BIG = 2**30
     claim = torch.full((n,), BIG, dtype=torch.int32, device=dev)
@@ -748,6 +761,54 @@ def general_placement(params, k_place, pending, alive, time_used, merit):
     parent_idx = claim.clamp(0, n - 1)
     won = pending & (claim[target.long()] == rows)
     return pending, births, parent_idx, won, cand, u, choice, occupied
+
+
+_MIG_DY = (-1, -1, -1, 0, 0, 1, 1, 1)
+_MIG_DX = (-1, 0, 1, -1, 1, -1, 0, 1)
+
+
+def migrate_targets(params, k_place, pending, target):
+    """DEMES_MIGRATION_RATE (cPopulation.cc:5508-5600): each pending
+    offspring migrates with that probability to a random cell of another
+    deme, picked by DEMES_MIGRATION_METHOD: 0 uniform over the other
+    demes, 1 a random 8-neighbor on the DEMES_NUM_X deme grid, 2 the
+    previous or next deme, 4 the MIGRATION_FILE weights.  Method 3 (deme
+    points) is refused, as in the reference."""
+    n = pending.shape[0]
+    dev = pending.device
+    D = params.num_demes
+    cpd = params.num_cells // D
+    ks = prng.split(prng.fold_in(k_place, 1), 3)
+    k_mig, k_mcell, k_mdeme = ks[0], ks[1], ks[2]
+    migrate = (prng.uniform(k_mig, (n,)) < prng.round_f32(
+        params.demes_migration_rate)) & pending
+    home = torch.arange(n, dtype=torch.int32, device=dev) // cpd
+    mm = params.demes_migration_method
+    if mm == 0:
+        d_r = prng.randint(k_mdeme, (n,), 0, D - 1)
+        mig_deme = torch.where(d_r >= home, d_r + 1, d_r)
+    elif mm == 1:
+        xs = params.demes_num_x
+        ys = D // xs
+        d8 = prng.randint(k_mdeme, (n,), 0, 8).long()
+        dy = torch.tensor(_MIG_DY, dtype=torch.int32, device=dev)[d8]
+        dx = torch.tensor(_MIG_DX, dtype=torch.int32, device=dev)[d8]
+        mx = torch.remainder(home % xs + dx + xs, xs)
+        my = torch.remainder(home // xs + dy + ys, ys)
+        mig_deme = mx + xs * my
+    elif mm == 2:
+        pm = prng.randint(k_mdeme, (n,), 0, 2) * 2 - 1
+        mig_deme = torch.remainder(home + pm + D, D)
+    elif mm == 4:
+        u_d = prng.uniform(k_mdeme, (n,))
+        cdf = torch.tensor(params.migration_cdf, dtype=torch.float32,
+                           device=dev)
+        mig_deme = (u_d[:, None] >= cdf[home.long()]).sum(dim=1).to(
+            torch.int32).clamp(0, D - 1)
+    else:
+        raise NotImplementedError(f"DEMES_MIGRATION_METHOD {mm}")
+    mig_cell = mig_deme * cpd + prng.randint(k_mcell, (n,), 0, cpd)
+    return torch.where(migrate, mig_cell, target)
 
 
 # ---- the canonical flush (the per-update engine) ----
@@ -926,6 +987,10 @@ def flush_births(params, st, key, update_no):
                          update_no)
         births = births | b2
     ring_append(st, new, births, parent_idx, update_no)
+    if params.num_demes > 1:
+        # the per-deme birth tally (cDeme::IncBirthCount)
+        new["deme_birth_count"] = st.deme_birth_count + births.reshape(
+            params.num_demes, -1).sum(dim=1).to(torch.int32)
     st = st.replace(**new)
     resumes = won | ~st.alive
     if sexual:

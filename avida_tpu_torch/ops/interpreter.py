@@ -19,10 +19,12 @@ lanes that do not want them are unused or the identity, so no cycle reads
 a flag back to the host.  Integer state stays int32 with the reference's
 wraparound.
 
+The IO block carries the resource pools (global, spatial, deme) through
+tasks.apply_reactions when a reaction binds or produces into one.
+
 Not ported here, refused by name (ops/update.engine_unported_reason):
 threads and their signals (`return_signals`, `charge_time`), mating-type
-instructions, the energy model, experimental spatial hardware and
-resource pools.
+instructions, the energy model and experimental spatial hardware.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from avida_tpu_torch.models.heads import (
     SEM_INC, SEM_IO, SEM_JMP_HEAD, SEM_MOV_HEAD, SEM_NAND, SEM_POP, SEM_PUSH,
     SEM_SET_FLOW, SEM_SHIFT_L, SEM_SHIFT_R, SEM_SUB, SEM_SWAP, SEM_SWAP_STK,
 )
+from avida_tpu_torch.ops import resources as res_ops
 from avida_tpu_torch.ops import tasks as tasks_ops
 from avida_tpu_torch.ops.cycles import params_cached, uniform_mutation
 from avida_tpu_torch.utils import prng
@@ -456,10 +459,21 @@ def micro_step(params, st, key, exec_mask, cycle_draw_keys=None):
     io_m = is_op(SEM_IO)
     value_in = _at(st.inputs, st.input_ptr % 3)
     logic_id = tasks_ops.compute_logic_id(st.input_buf, st.input_buf_n, val)
-    new_bonus, new_tc, new_rc, _ = tasks_ops.apply_reactions(
+    new_bonus, new_tc, new_rc, _, *new_pools = tasks_ops.apply_reactions(
         params, tasks_ops.env_tables_to_device(params, dev), io_m, logic_id,
         st.cur_bonus, st.cur_task_count, st.cur_reaction_count,
-        st.input_buf, st.input_buf_n, val)
+        st.input_buf, st.input_buf_n, val, st.resources, st.res_grid,
+        st.deme_resources)
+    pools = {}
+    if res_ops.binds_pools(params):
+        # the reference runs this block under lax.cond(io_m.any()): with
+        # no lane doing IO the pools stay as they were (not max(x - 0, 0),
+        # which is not the identity on -0.0, NaN or a negative deme
+        # level) -- selected on the device, no host read
+        any_io = io_m.any()
+        pools = {name: torch.where(any_io, new, getattr(st, name))
+                 for name, new in zip(("resources", "res_grid",
+                                       "deme_resources"), new_pools)}
     task_exe_total = st.task_exe_total + (new_tc - st.cur_task_count)
     input_ptr = torch.where(io_m, st.input_ptr + 1, st.input_ptr)
     input_buf = torch.where(io_m[:, None], torch.stack(
@@ -598,7 +612,7 @@ def micro_step(params, st, key, exec_mask, cycle_draw_keys=None):
         off_copied_size=torch.where(div_m, copied_count, st.off_copied_size),
         off_sex=torch.where(div_m, div_sex_try, st.off_sex),
         insts_executed=st.insts_executed + charge, cost_wait=cost_wait,
-        ft_paid_lo=ft_paid_lo, ft_paid_hi=ft_paid_hi)
+        ft_paid_lo=ft_paid_lo, ft_paid_hi=ft_paid_hi, **pools)
 
 
 def roll_right(plane, r, L):

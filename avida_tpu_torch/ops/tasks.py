@@ -5,10 +5,10 @@ Counterpart of avida_tpu/ops/tasks.py (cOrganism::DoOutput ->
 cEnvironment::TestOutput, cEnvironment.cc:1314; cTaskLib::SetupTests,
 cTaskLib.cc:369; DoProcesses, cc:1610).  Every organism performing IO in a
 cycle is evaluated at once: its logic id from the truth-table scan, the
-math-family candidates over its stored inputs, the requisite windows, and
-the pow / mult / add bonus.  Only infinite-resource processes run here
-(the amount consumed is the process's max); resource pools and
-by-products are refused by name.
+math-family candidates over its stored inputs, the requisite windows, the
+draw-down of the pools the rewarded reactions bind (ops/resources.py:
+global, spatial and deme pools; an infinite process consumes its max),
+the by-products, and the pow / mult / add bonus of value x amount.
 
 Integer arithmetic keeps the reference's int32 wraparound; division and
 remainder truncate toward zero as C does (XLA's div / rem, with
@@ -31,8 +31,6 @@ from avida_tpu_torch.utils import prng
 
 PROCTYPE_ADD, PROCTYPE_MULT, PROCTYPE_POW, PROCTYPE_LIN = 0, 1, 2, 3
 _SENTINEL = -(2**30)
-_POOLS_UNPORTED = ("resource-bound reactions, by-products and deme "
-                   "resources (ROADMAP.md Queue 1 item 12a)")
 
 
 def _i32(x):
@@ -168,15 +166,6 @@ def compute_logic_id(input_buf, input_buf_n, output):
     return _logic_id(i0, i1, i2, n, output.long()).to(torch.int32)
 
 
-def unported_reason(params) -> str | None:
-    """Why apply_reactions cannot run `params` (None = it can)."""
-    if any(r >= 0 for r in params.proc_res_idx) \
-            or any(pi >= 0 for pi in params.proc_product_idx) \
-            or params.num_deme_res:
-        return _POOLS_UNPORTED
-    return None
-
-
 _TABLES = {}           # (id(params), device) -> (params, tables)
 
 
@@ -204,6 +193,8 @@ def _build_env_tables(params, device) -> dict:
         "noreq_reaction_mask": t(params.noreq_reaction_mask,
                                  torch.bool).reshape(R, R),
         "proc_max": t(params.proc_max, torch.float32),
+        "is_deme": t(params.proc_res_deme if params.num_deme_res
+                     else [False] * R, torch.bool),
         "chunks": vector_chunks(params),
     }
 
@@ -272,14 +263,14 @@ def vector_fold(cols, op, init, chunks):
 
 def apply_reactions(params, tables, io_mask, logic_id, cur_bonus,
                     cur_task_count, cur_reaction_count, input_buf,
-                    input_buf_n, output):
+                    input_buf_n, output, resources=None, res_grid=None,
+                    deme_resources=None):
     """Trigger reactions for the organisms performing IO this cycle.
-    Returns (new_bonus, new_task_count, new_reaction_count, any_reward).
-    Lanes outside io_mask come back unchanged."""
-    reason = unported_reason(params)
-    if reason is not None:
-        raise NotImplementedError(
-            f"apply_reactions: {reason} are not ported to avida_tpu_torch")
+    Returns (new_bonus, new_task_count, new_reaction_count, any_reward,
+    resources', res_grid', deme_resources').  Lanes outside io_mask come
+    back unchanged; the pools are drawn down only when a reaction binds
+    one or produces into one (resources.binds_pools)."""
+    from avida_tpu_torch.ops import resources as res_ops
     R = params.num_reactions
     lid = logic_id.clamp(0, 255).long()
     valid = (logic_id >= 0) & io_mask
@@ -300,8 +291,18 @@ def apply_reactions(params, tables, io_mask, logic_id, cur_bonus,
                  & ~rc_zero[:, None]).any(2)
     rewarded = performed & in_window & req_ok & noreq_ok
 
-    # infinite-resource processes consume their max outright
-    amount = tables["proc_max"][None] * rewarded.to(torch.float32)
+    if res_ops.binds_pools(params):
+        amount, resources, res_grid = res_ops.consume(
+            params, rewarded, 1.0, resources, res_grid)
+        if params.num_deme_res:
+            amt_d, deme_resources = res_ops.consume_deme(
+                params, rewarded, deme_resources)
+            amount = torch.where(tables["is_deme"][None], amt_d, amount)
+        resources, res_grid = _by_products(params, rewarded, amount,
+                                           resources, res_grid)
+    else:
+        # infinite-resource processes consume their max outright
+        amount = tables["proc_max"][None] * rewarded.to(torch.float32)
     va = tables["proc_value"][None] * amount
     ptype = tables["proc_type"][None]
     one = torch.ones((), dtype=torch.float32, device=va.device)
@@ -318,8 +319,39 @@ def apply_reactions(params, tables, io_mask, logic_id, cur_bonus,
                             1.0, chunks["mult"])
     add_sum = vector_fold([add_f[:, r] for r in range(R)], torch.add, 0.0,
                           chunks["add"])
-    # XLA's CPU code generator fuses the last multiply and the add
-    new_bonus = prng.fma_f32(cur_bonus * pow_mult, mult_mult, add_sum)
+    # XLA's CPU code generator fuses the last multiply and the add; with
+    # no mult process the product over them folds to 1 and drops out, so
+    # the pow product is the last multiply
+    if PROCTYPE_MULT in params.proc_type:
+        new_bonus = prng.fma_f32(cur_bonus * pow_mult, mult_mult, add_sum)
+    else:
+        new_bonus = prng.fma_f32(cur_bonus, pow_mult, add_sum)
     return (new_bonus, cur_task_count + performed.to(torch.int32),
             cur_reaction_count + rewarded.to(torch.int32),
-            rewarded.any(dim=1))
+            rewarded.any(dim=1), resources, res_grid, deme_resources)
+
+
+def _by_products(params, rewarded, amount, resources, res_grid):
+    """By-products (DoProcesses cc:1824-1830): each rewarded reaction
+    with a product adds consumed x conversion to the product's pool --
+    a global pool the float32 total over organisms, a spatial pool cell
+    by cell -- in reaction order."""
+    prod_idx = params.proc_product_idx
+    if not any(pi >= 0 for pi in prod_idx):
+        return resources, res_grid
+    conv = torch.tensor(params.proc_conversion, dtype=torch.float32,
+                        device=amount.device)
+    produced = torch.where(rewarded, amount, 0.0) * conv[None, :]
+    resources, res_grid = resources.clone(), res_grid.clone()
+    for r, pi in enumerate(prod_idx):
+        if pi < 0:
+            continue
+        if params.proc_product_spatial[r]:
+            # XLA's CPU backend contracts the conversion product into
+            # the add
+            res_grid[pi] = prng.fma_f32(
+                torch.where(rewarded[:, r], amount[:, r], 0.0), conv[r],
+                res_grid[pi])
+        else:
+            resources[pi] = resources[pi] + prng.xla_f32_sum(produced[:, r])
+    return resources, res_grid

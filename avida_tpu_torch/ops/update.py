@@ -36,6 +36,7 @@ from avida_tpu_torch.models.heads import (
     SEM_SET_MATE_FEMALE, SEM_SET_MATE_JUV, SEM_SET_MATE_MALE)
 from avida_tpu_torch.ops import birth as birth_ops
 from avida_tpu_torch.ops import cycles
+from avida_tpu_torch.ops import resources as res_ops
 from avida_tpu_torch.ops import scheduler
 from avida_tpu_torch.utils import prng
 
@@ -98,14 +99,6 @@ def update_stats(params, st, alive_before, update_no):
 
 # ---- the per-update engine's phases, in update_step's order ----
 
-_RESOURCES_UNPORTED = "resource pools (ROADMAP.md Queue 1 item 12)"
-
-
-def _has_resource_pools(params) -> bool:
-    return bool(params.num_global_res or params.num_spatial_res
-                or params.num_deme_res or any(params.sres_grad_height))
-
-
 _THREAD_SEMS = frozenset((SEM_FORK_TH, SEM_KILL_TH, SEM_ID_TH))
 _MATING_SEMS = frozenset((SEM_SET_MATE_MALE, SEM_SET_MATE_FEMALE,
                           SEM_SET_MATE_JUV, SEM_IF_MATE_MALE,
@@ -129,10 +122,6 @@ def engine_unported_reason(params) -> str | None:
         return "mating-type instructions (ROADMAP.md Queue 1 item 12e)"
     if params.energy_enabled:
         return "the energy model (ROADMAP.md Queue 1 item 12f)"
-    if any(pi >= 0 for pi in params.proc_product_idx):
-        return "reaction by-products (ROADMAP.md Queue 1 item 12a)"
-    if any(r >= 0 for r in params.proc_res_idx):
-        return "resource-bound reactions (ROADMAP.md Queue 1 item 12a)"
     return None
 
 
@@ -140,19 +129,22 @@ def per_update_unported_reason(params) -> str | None:
     """Why the per-update engine cannot run `params` in this package
     (None = it can).  The cycle kernel's own gaps are
     cycles.unsupported_reason."""
-    if _has_resource_pools(params):
-        return _RESOURCES_UNPORTED
     return birth_ops.canonical_unsupported_reason(params)
 
 
 def resource_phase(params, st, key, update_no):
-    """Resource dynamics: the identity for a world without resource
-    pools, the only kind this package runs."""
-    if _has_resource_pools(params):
-        raise NotImplementedError(
-            f"resource_phase: {_RESOURCES_UNPORTED} are not ported to "
-            f"avida_tpu_torch")
-    return st
+    """Resource dynamics, once an update (ops/resources.py): the global,
+    spatial and deme pools' inflow and outflow, then the gradient pools
+    under fold_in(key, 0x6AD) with the update's own key.  The identity
+    for a world without pools."""
+    if not res_ops.has_pools(params):
+        return st
+    st = st.replace(resources=res_ops.step_global(params, st.resources),
+                    res_grid=res_ops.step_spatial(params, st.res_grid),
+                    deme_resources=res_ops.step_deme(params,
+                                                     st.deme_resources))
+    return res_ops.step_gradient(params, st, prng.fold_in(key, 0x6AD),
+                                 update_no)
 
 
 def schedule_phase(params, st, k_budget):
@@ -284,8 +276,11 @@ def point_mutation_sweep(params, st, key):
 
 
 def birth_phase(params, st, k_birth, k_steps, update_no):
-    """The canonical birth flush, then the point-mutation sweep."""
+    """The canonical birth flush, the demes' ageing (cDeme::IncAge), then
+    the point-mutation sweep."""
     st = birth_ops.flush_births(params, st, k_birth, update_no)
+    if params.num_demes > 1:
+        st = st.replace(deme_age=st.deme_age + 1)
     if params.point_mut_prob > 0:
         st = point_mutation_sweep(params, st,
                                   prng.fold_in(k_steps, 0x7FFFFFFF))

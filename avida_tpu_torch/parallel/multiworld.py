@@ -49,6 +49,7 @@ import torch
 
 from avida_tpu_torch.core.state import (clone_state, stack_states,
                                         world_state)
+from avida_tpu_torch.ops import resources as res_ops
 from avida_tpu_torch.ops.update import update_scan_batched
 from avida_tpu_torch.utils import integrity, prng
 from avida_tpu_torch.world import World
@@ -125,6 +126,11 @@ class MultiWorld:
                 f"TPU_KERNEL_SHARDS={self.params.kernel_shards}: one "
                 f"launch per card (K2 with S > 1) is not ported to "
                 f"avida_tpu_torch yet")
+        if res_ops.has_pools(self.params) or self.params.num_demes > 1:
+            raise NotImplementedError(
+                "batch members with resource pools or demes: the batched "
+                "engines carry no per-world pools or deme state "
+                "(ROADMAP.md Queue 1 item 14); run each world solo")
         self._exit = False
         self._preempt = False
         self.preempted = False

@@ -4,7 +4,7 @@ Reproduces the reference's data-file format (Avida::Output::File,
 avida-core/source/output/File.cc:102-212: `#` header with numbered column
 descriptions, then space-separated rows) for the standard print actions
 (PrintAverageData / PrintCountData / PrintTasksData / PrintTimeData /
-PrintDominantData, from the
+PrintDominantData / PrintResourceData, from the
 244-action print library, avida-core/source/actions/PrintActions.cc); the
 counterpart of avida_tpu/utils/output.py.
 """
@@ -144,6 +144,16 @@ def open_tasks_dat(data_dir: str, task_names: list, append: bool = False) -> Dat
         ["Update"] + [t.capitalize() for t in task_names],
         preamble=["First column gives the current update, next columns give the number",
                   "of organisms that have the particular task as a component of their merit"],
+        append=append)
+
+
+def open_resource_dat(data_dir: str, resource_names: list,
+                      append: bool = False) -> DatFile:
+    return DatFile(
+        os.path.join(data_dir, "resource.dat"), "Avida resource data",
+        ["Update", "Avida time"] + [f"{n} resource" for n in resource_names],
+        preamble=["First columns give the current update and time, next columns give",
+                  "the quantity of the particular resource"],
         append=append)
 
 

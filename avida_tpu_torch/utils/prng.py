@@ -194,12 +194,16 @@ def xla_f32_sum(x):
     vector zero-padded to a multiple of 32, the smaller half of the
     padding in front -- sums each window in order, and repeats on the
     window sums; 32 or fewer values are summed in order.  Float32 adds
-    only, so it rounds the same on every device."""
+    only, so it rounds the same on every device.  A tensor of more than
+    one dimension is reduced along its first: each column in that
+    order."""
     x = torch.as_tensor(x).to(torch.float32)
     while x.shape[0] > 32:
         pad = -x.shape[0] % 32
-        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
-        x = _sum_rows_in_order(x.reshape(-1, 32).T)
+        x = torch.cat([x.new_zeros((pad // 2,) + x.shape[1:]), x,
+                       x.new_zeros((pad - pad // 2,) + x.shape[1:])])
+        x = _sum_rows_in_order(x.reshape((-1, 32) + x.shape[1:])
+                               .transpose(0, 1))
     return _sum_rows_in_order(x)
 
 
@@ -463,3 +467,39 @@ def binomial(k, count, prob) -> torch.Tensor:
                           _f32(math.inf, q), samples)
     keep = (prob < 0.5) | count_bad | q_nan | count_inf
     return torch.where(keep, samples, count - samples)
+
+
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.cumsum` of a float32 vector on XLA's CPU backend.  Up to 16
+    values: the running sum in order.  Longer: its reduce-window rewrite
+    -- the vector zero-padded to rows of 16, the running sum inside each
+    row, and the total of the rows before it (this same scan over the
+    row totals, shifted by one) added to each row."""
+    x = x.to(torch.float32)
+    n = x.shape[0]
+    if n <= 16:
+        out = torch.empty_like(x)
+        acc = x.new_zeros(())
+        for i in range(n):
+            acc = acc + x[i]
+            out[i] = acc
+        return out
+    k = -(-n // 16)
+    rows = torch.cat([x, x.new_zeros(16 * k - n)]).reshape(k, 16)
+    inner = torch.empty_like(rows)
+    acc = x.new_zeros(k)
+    for j in range(16):
+        acc = acc + rows[:, j]
+        inner[:, j] = acc
+    before = torch.cat([x.new_zeros(1), xla_cumsum(inner[:, 15])[:-1]])
+    return (inner + before[:, None]).reshape(-1)[:n]
+
+
+def choice(k, n: int, shape, p) -> torch.Tensor:
+    """`jax.random.choice(k, n, shape, p=p)` with replacement: the
+    cumulative weights (xla_cumsum), r = total * (1 - uniform), and the
+    first index whose cumulative weight reaches r (searchsorted,
+    left)."""
+    p_cuml = xla_cumsum(p.to(torch.float32))
+    r = p_cuml[-1] * (1.0 - uniform(k, shape))
+    return torch.searchsorted(p_cuml, r).to(torch.int32)

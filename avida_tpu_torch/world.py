@@ -5,16 +5,19 @@ heads-CPU organisms, run by the packed-resident engine or, when the
 reference would not take it (systematics on, its default; a run off the
 cycle kernel, on the micro-step engine), the per-update engine
 (ops/update.py); the live phylogeny (systematics/) fed from the
-device's newborn ring through the reference's deferred drain; the standard
-events (Inject, InjectAll, Exit, PrintAverageData, PrintCountData,
-PrintTasksData, PrintTimeData, PrintDominantData, SavePopulation,
-LoadPopulation) and their .dat files; persistence: native checkpoints
-(TPU_CKPT_DIR, TPU_CKPT_EVERY, TPU_CKPT_FINAL; save_checkpoint / resume,
-in the reference's on-disk format), SIGTERM/SIGINT preemption with a
-final checkpoint, the state digest and the scrub's shadow replay
+device's newborn ring through the reference's deferred drain; resource
+pools and demes; the standard events (Inject, InjectAll, Exit,
+PrintAverageData, PrintCountData, PrintTasksData, PrintTimeData,
+PrintDominantData, PrintResourceData, SavePopulation, LoadPopulation,
+SetResource, CompeteDemes, ReplicateDemes,
+Pred_DemeResourceThresholdPredicate) and their .dat files; persistence:
+native checkpoints (TPU_CKPT_DIR, TPU_CKPT_EVERY, TPU_CKPT_FINAL;
+save_checkpoint / resume, in the reference's on-disk format),
+SIGTERM/SIGINT preemption with a final checkpoint, the state digest and
+the scrub's shadow replay
 (TPU_STATE_DIGEST, TPU_SCRUB_EVERY) and the invariant audit
 (TPU_AUDIT_EVERY, TPU_CKPT_AUDIT).  Anything outside that (telemetry,
-tracing, fault injection, other birth methods, resources, ...) raises
+tracing, fault injection, other hardware, ...) raises
 NotImplementedError naming the feature instead of running something
 else.
 
@@ -41,6 +44,7 @@ from avida_tpu_torch.core.state import (clone_state, init_population,
                                         make_cell_inputs, make_world_params,
                                         seed_organism)
 from avida_tpu_torch.ops import cycles, packed_chunk
+from avida_tpu_torch.ops import demes as deme_ops
 from avida_tpu_torch.ops import update as update_ops
 from avida_tpu_torch.ops.update import summarize, update_scan
 from avida_tpu_torch.systematics import GenotypeArbiter
@@ -72,24 +76,6 @@ _OFF_SWITCHES = (
     ("STERILIZE_BENEFICIAL", 0.0, (0.0,)),
 )
 
-# InjectAll's fresh-organism reset (the reference's ops/demes.py
-# _ZERO_FIELDS / _FALSE_FIELDS, heads hardware)
-_ZERO_FIELDS = (
-    "regs", "heads", "stacks", "sp", "active_stack", "read_label",
-    "read_label_len", "input_ptr", "input_buf", "input_buf_n",
-    "output_buf", "cur_task_count", "cur_reaction_count",
-    "last_task_count", "time_used", "cpu_cycles", "gestation_start",
-    "child_copied_size", "num_divides", "off_start", "off_len",
-    "off_copied_size", "insts_executed", "budget_carry",
-    "last_bonus", "last_merit_base",
-    "smt_aux", "smt_aux_len", "pmem", "pmem_len", "smt_stacks", "smt_sp",
-    "gstack", "gsp", "smt_head_pos", "inj_mem", "inj_len",
-    "cost_wait", "ft_paid_lo", "ft_paid_hi",
-)
-_FALSE_FIELDS = ("mal_active", "breed_true", "divide_pending", "off_sex",
-                 "parasite_active", "inject_pending", "sterile")
-
-
 def default_ancestor(instset) -> np.ndarray:
     name_to_op = {n: i for i, n in enumerate(instset.inst_names)}
     if "h-divide" not in name_to_op and "divide-sex" in name_to_op:
@@ -105,6 +91,22 @@ def default_ancestor(instset) -> np.ndarray:
             f"instruction set {instset.name!r} has no built-in default "
             f"ancestor (lacks {missing[:4]}); inject an explicit genome")
     return np.asarray([name_to_op[n] for n in names], np.int8)
+
+
+def _load_migration_matrix(path: str, num_demes: int, name: str) -> list:
+    """DEMES_MIGRATION_METHOD 4's MIGRATION_FILE (cMigrationMatrix::Load):
+    one whitespace-separated row of weights per source deme, `#`
+    comments ignored."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if line:
+                rows.append([float(x) for x in line.split()])
+    if len(rows) != num_demes or any(len(r) != num_demes for r in rows):
+        raise ValueError(f"MIGRATION_FILE {name!r} must be a "
+                         f"{num_demes}x{num_demes} matrix")
+    return rows
 
 
 def resolve_device(device=None) -> torch.device:
@@ -183,6 +185,11 @@ class World:
         for ev in self.events:
             self._check_action(ev.action)
 
+        if int(cfg.DEMES_MIGRATION_METHOD) == 4 \
+                and cfg.MIGRATION_FILE not in ("-", ""):
+            cfg._migration_matrix = _load_migration_matrix(
+                os.path.join(config_dir, cfg.MIGRATION_FILE) if config_dir
+                else cfg.MIGRATION_FILE, cfg.NUM_DEMES, cfg.MIGRATION_FILE)
         self.params = make_world_params(cfg, self.instset, self.environment)
         self._check_engine()
 
@@ -207,6 +214,7 @@ class World:
         self._prev_alive = None
         self._total_births = 0
         self._task_exe_prev = None   # tasks_exe diff baseline (LoadPopulation)
+        self._deme_predicates = []   # Pred_DemeResourceThresholdPredicate
         self._events_done_for = None
         self._gen_next = {}
         self._summary_cache_update = None
@@ -253,7 +261,9 @@ class World:
 
     _ACTIONS = ("Inject", "InjectAll", "Exit", "PrintAverageData",
                 "PrintCountData", "PrintTasksData", "PrintTimeData",
-                "PrintDominantData", "SavePopulation", "LoadPopulation")
+                "PrintDominantData", "PrintResourceData", "SavePopulation",
+                "LoadPopulation", "SetResource", "CompeteDemes",
+                "ReplicateDemes", "Pred_DemeResourceThresholdPredicate")
 
     def _check_action(self, action):
         if action not in self._ACTIONS:
@@ -340,9 +350,7 @@ class World:
             up[name] = torch.full((n,), glen, dtype=torch.int32, device=dev)
         up["max_executed"] = torch.full((n,), max_exec, dtype=torch.int32,
                                         device=dev)
-        for name in _ZERO_FIELDS:
-            up[name] = torch.zeros_like(getattr(st, name))
-        for name in _FALSE_FIELDS:
+        for name in deme_ops.ZERO_FIELDS + deme_ops.FALSE_FIELDS:
             up[name] = torch.zeros_like(getattr(st, name))
         up["cur_bonus"] = torch.full((n,), p.default_bonus,
                                      dtype=torch.float32, device=dev)
@@ -353,6 +361,77 @@ class World:
 
     def _action_Exit(self, args):
         self._exit = True
+
+    # ---- resources and demes ----
+
+    def _action_PrintResourceData(self, args):
+        """resource.dat: each global pool's level and each spatial pool's
+        total over the cells (ref PrintResourceData)."""
+        names = ([r.name for r in self.environment.global_resources()]
+                 + [r.name for r in self.environment.spatial_resources()])
+        if not names:
+            return
+        f = self._file("resource", output_mod.open_resource_dat, names)
+        levels = [float(x) for x in self.state.resources.cpu().numpy()]
+        if self.params.num_spatial_res:
+            # numpy's float32 total, as the reference takes it
+            levels += [float(x) for x in
+                       self.state.res_grid.cpu().numpy().sum(axis=1)]
+        f.write_row([self.update, float(self._avida_time)] + levels)
+
+    def _action_SetResource(self, args):
+        """SetResource <name> <level> (ref EnvironmentActions.cc): a
+        global pool's level, or a spatial pool spread evenly over the
+        cells."""
+        name, level = args[0], float(args[1])
+        st = self.state
+        for i, r in enumerate(self.environment.global_resources()):
+            if r.name == name:
+                res = st.resources.clone()
+                res[i] = level
+                self.state = st.replace(resources=res)
+                return
+        for i, r in enumerate(self.environment.spatial_resources()):
+            if r.name == name:
+                grid = st.res_grid.clone()
+                grid[i] = level / self.params.num_cells
+                self.state = st.replace(res_grid=grid)
+                return
+
+    def _action_CompeteDemes(self, args):
+        """CompeteDemes [competition_type] (ref cPopulation::CompeteDemes):
+        fitness-proportional deme selection and wholesale replacement."""
+        ctype = int(args[0]) if args else self.cfg.DEMES_COMPETITION_STYLE
+        k = self._split_key()
+        self.state = deme_ops.compete_demes(self.params, self.state, k,
+                                            ctype)
+
+    _REP_TRIGGERS = {"all": 0, "full_deme": 1, "full": 1, "corners": 2,
+                     "deme-age": 3, "age": 3, "births": 4,
+                     "sat-deme-predicate": 5}
+
+    def _action_ReplicateDemes(self, args):
+        """ReplicateDemes [trigger] (ref cPopulation::ReplicateDemes)."""
+        trig = str(args[0]) if args else "full"
+        trig = int(trig) if trig.isdigit() else self._REP_TRIGGERS.get(trig)
+        if trig is None:
+            raise ValueError(f"unknown ReplicateDemes trigger {args[0]!r}")
+        k = self._split_key()
+        self.state = deme_ops.replicate_demes(
+            self.params, self.state, k, trig,
+            predicates=tuple(self._deme_predicates))
+
+    def _action_Pred_DemeResourceThresholdPredicate(self, args):
+        """`<resource> <op> <value>`: a deme resource-threshold predicate
+        (cActionPred_DemeResourceThresholdPredicate,
+        PopulationActions.cc:4421) for ReplicateDemes
+        sat-deme-predicate."""
+        name, op, value = args[0], args[1], float(args[2])
+        dres = [r.name for r in self.environment.deme_resources()]
+        if name not in dres:
+            raise ValueError(
+                f"deme resource {name!r} not defined (have {dres})")
+        self._deme_predicates.append((dres.index(name), op, value))
 
     def _action_LoadPopulation(self, args):
         """LoadPopulation <file.spop> (ref cActionLoadPopulation,

@@ -42,6 +42,22 @@ configuration the kernel gate refuses), whose paths launch no kernel:
   multiworld_fold   the 16 x 60x60 batch on the folded engine, members 0
                     and 15 against their solo runs
 
+and resource pools and demes (ROADMAP items 12a, 12b):
+
+  resource_path     320x320, mixed programs, logic-9 with seven reactions
+                    on global pools, one on a diffusing torus pool fed by
+                    a by-product, one on a moving gradient: the
+                    micro-step engine, 3 updates + 1 timed
+  deme_path         320x320 in 16 demes with germlines and migration,
+                    CompeteDemes at 10 and ReplicateDemes births at 24:
+                    the kernel route's per-update engine, 30 launches;
+                    K1 held against the plain version on its state
+  deme_resource_path  320x320 in 16 demes whose rewards draw on deme
+                    pools, a predicate-triggered ReplicateDemes: the
+                    micro-step engine, 3 updates + 1 timed
+  resources_cross_device  small worlds of the three paths on the card
+                    and on the CPU, ending identical
+
 and persistence (native checkpoints in the reference's format):
 
   persist_path      the 320x320 packed world saving every 10 updates
@@ -53,7 +69,8 @@ and persistence (native checkpoints in the reference's format):
   persist_default   the default_path configuration saved at 15 and
                     resumed to 30: state, dominant.dat, systematics.json
   preempt_cli       `python -m avida_tpu_torch` as a child process, sent
-                    SIGTERM after update 10: exit 0 with a generation,
+                    SIGTERM after its save at 12: exit 0 with a
+                    generation off persist_path's chunk boundaries,
                     then --resume to 40, whose final arrays must be
                     persist_path's byte for byte
   scrub_path        TPU_SCRUB_EVERY=1 for 10 updates: every chunk's
@@ -1823,9 +1840,10 @@ def phase_persist_default(tmp, smi, updates=DEFAULT_UPDATES):
 
 def phase_preempt_cli(tmp, smi, persist_gen):
     """`python -m avida_tpu_torch` on persist_path's world as a child
-    process, SIGTERM once its first auto-save (update 10) is on disk: it
+    process, SIGTERM once its first auto-save (update 12) is on disk: it
     must exit 0 with a generation at the update it stopped at (its chunks
-    of at most 3 updates put that where persist_path never chunked);
+    of 2 updates and saves every 11 put that where persist_path never
+    chunked);
     `--resume`
     to the end with TPU_CKPT_FINAL=1 must publish a final generation
     whose arrays are byte for byte persist_path's at the same update."""
@@ -1840,10 +1858,11 @@ def phase_preempt_cli(tmp, smi, persist_gen):
             "-set", "TPU_CKPT_KEEP", "8", "-set", "TPU_STATE_DIGEST", "1"]
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    # chunks of at most 3 updates until the stop: it lands where
-    # persist_path (chunks of 8 and 2) has no boundary
+    # chunks of 2 updates (TPU_MAX_STRETCH 3) and the first save at 12:
+    # the stop lands at 12, 14 or 16, where persist_path (chunks of 8 and
+    # 2) has no boundary, however late after the save the signal is seen
     proc = subprocess.Popen(base + ["-u", "400", "-set", "TPU_CKPT_EVERY",
-                                    "10", "-set", "TPU_MAX_STRETCH", "3"],
+                                    "11", "-set", "TPU_MAX_STRETCH", "3"],
                             cwd=root,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     try:
@@ -2007,6 +2026,308 @@ def phase_multiworld_persist(tmp, smi, mw_a, ck_root):
     return res, stacked
 
 
+# ---- resource pools and demes (ROADMAP items 12a and 12b) ----
+
+# logic-9 with seven reactions on their own global pools, XOR on a
+# diffusing torus pool (xdiffuse = ydiffuse = 1.0: two stencil sub-steps)
+# fed by AND's by-product, EQU on a moving gradient pool; stock values,
+# requisite max_count=1, the stock resource rates (inflow 100, outflow
+# 0.01, frac 0.0025, max 25)
+RES_GLOBAL = ("not", "nand", "and", "orn", "or", "andn", "nor")
+RES_VALUES = dict(zip(RES_GLOBAL + ("xor", "equ"), (1, 1, 2, 2, 3, 3, 4, 4,
+                                                    5)))
+RESOURCE_ENV_TEXT = "".join(
+    f"RESOURCE r_{t}:inflow=100:outflow=0.01:initial=1000\n"
+    for t in RES_GLOBAL) + (
+    "RESOURCE r_xor:geometry=torus:xdiffuse=1.0:ydiffuse=1.0:inflow=100:"
+    "outflow=0.01:initial=1\n"
+    "GRADIENT_RESOURCE r_equ:height=8:spread=40:plateau=2:updatestep=2:"
+    "move_a_scaler=2\n") + "".join(
+    f"REACTION {t.upper()} {t} process:value={RES_VALUES[t]}.0:type=pow:"
+    f"resource=r_{t}:frac=0.0025:max=25"
+    + (":product=r_xor:conversion=0.5" if t == "and" else "")
+    + " requisite:max_count=1\n" for t in RES_VALUES)
+# deme pools bound to NOT and NAND (the task program's), global AND / ORN
+DEME_RES_ENV_TEXT = """
+RESOURCE d_food:inflow=50:outflow=0.01:initial=500:demeresource=1
+RESOURCE g_and:inflow=100:outflow=0.01:initial=1000
+RESOURCE g_orn:inflow=100:outflow=0.01:initial=1000
+REACTION NOT  not  process:value=1.0:type=pow:resource=d_food:frac=0.0025:max=25
+REACTION NAND nand process:value=1.0:type=pow:resource=d_food:frac=0.005:max=25
+REACTION AND  and  process:value=2.0:type=pow:resource=g_and:frac=0.0025:max=25
+REACTION ORN  orn  process:value=2.0:type=pow:resource=g_orn:frac=0.0025:max=25
+"""
+DEMES = dict(NUM_DEMES=16, DEMES_USE_GERMLINE=1, DEMES_MIGRATION_RATE=0.01,
+             DEMES_MIGRATION_METHOD=0)
+DEME_UPDATES, DEME_REPLICATE_AT = 30, 24
+
+
+def pool_breakdown(w, updates):
+    """Per-phase device-synchronised wall ms of update_step's phases in
+    order (resources, schedule, lane permutation, the cycles on the routed
+    engine, bank, flush, stats) on the world's state."""
+    import torch
+    from avida_tpu_torch.ops import update
+    from avida_tpu_torch.utils import prng
+    p, st = w.params, w.state
+    acc = {k: 0.0 for k in ("resources", "schedule", "perm", "cycles",
+                            "bank", "flush", "stats")}
+
+    def timed(name, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        acc[name] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    trips = []
+    for i in range(updates):
+        u = w.update + i
+        key = prng.fold_in(w._run_key, u)
+        ks = prng.split(key, 3)
+        alive_before = st.alive.sum().to(torch.int32)
+        st = timed("resources", update.resource_phase, p, st, key, u)
+        budgets, granted, max_k = timed("schedule", update.schedule_phase,
+                                        p, st, ks[0])
+        trips.append(int(max_k))
+        st = timed("perm", update.perm_phase, p, st, granted, u)
+        executed0 = st.insts_executed
+        st = timed("cycles", update.interpret_phase, p, st, ks[1], granted,
+                   update.static_cap(p), max_k)
+        st, _ = timed("bank", update.bank_phase, p, st, budgets, executed0)
+        st = timed("flush", update.birth_phase, p, st, ks[2], ks[1], u)
+        timed("stats", update.update_stats, p, st, alive_before, u)
+    per = {k: v / updates for k, v in acc.items()}
+    return {"updates": updates, "trips": trips, "ms_per_update": per,
+            "ms_per_update_total": sum(per.values())}
+
+
+def _pool_levels(st):
+    """Finite pool levels: (global levels, spatial totals, deme levels)."""
+    import torch
+    for t in (st.resources, st.res_grid, st.deme_resources):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("a resource pool is not finite")
+    return (st.resources.tolist(), st.res_grid.sum(dim=1).tolist(),
+            st.deme_resources.tolist())
+
+
+def phase_resource_path(side, updates, tmp, smi):
+    """The headline world reseeded with mixed programs (reseed_mixed),
+    RESOURCE_ENV_TEXT under the default TPU_USE_PALLAS=0: the kernel gate
+    refuses resource-bound reactions, so the micro-step engine runs (no
+    launch); `updates` updates, resource.dat every update, then one more
+    timed phase by phase."""
+    import torch
+    cdir = math_config_dir(os.path.join(tmp, "cfg_res"), RESOURCE_ENV_TEXT)
+    ddir = os.path.join(tmp, "res")
+    w = make_world(side, ddir, "cuda",
+                   ["u begin InjectAll", "u 0:1:end PrintResourceData"], {},
+                   cdir)
+    w.process_events()
+    reseed_mixed(w)
+    insts, wall, launches = _xla_run(w, updates)
+    glob, spatial, _ = _pool_levels(w.state)
+    rows = [ln.split() for ln in dat_bodies(ddir)["resource.dat"]
+            if ln.strip() and not ln.startswith("#")]
+    rewarded = w.state.task_exe_total.sum(dim=0).tolist()
+    res = {"phase": "resource_path", "world": f"{side}x{side}",
+           "reactions": w.params.num_reactions,
+           "pools": {"global": w.params.num_global_res,
+                     "spatial": w.params.num_spatial_res},
+           "engine_report": w.engine_report(), "updates": w.update,
+           "kernel_launches": launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / updates, "wall_s": wall,
+           "global_levels": glob, "spatial_totals": spatial,
+           "gradient_peak": w.state.grad_peak[1].tolist(),
+           "tasks_performed": rewarded, "resource_dat_rows": len(rows),
+           "nvidia_smi": smi}
+    _check_xla_world(w, "resource_path", res)
+    if len(rows) != updates or min(glob) >= 1000.0 \
+            or rewarded[0] == 0 or spatial[0] <= 0.0:
+        raise AssertionError(f"resource_path: pools not drawn: {res}")
+    res["breakdown"] = pool_breakdown(w, 1)
+    return res
+
+
+def deme_world(side, ddir, events, extra):
+    return make_world(side, ddir, "cuda", events, dict(DEMES, **extra))
+
+
+def phase_deme_path(side, tmp, smi):
+    """The headline world in 16 demes (bands of 6,400 cells) with
+    germlines and migration (rate 0.01, method 0) on the kernel route's
+    per-update engine: CompeteDemes 1 at update 10 and ReplicateDemes
+    births at DEME_REPLICATE_AT, one launch an update.  At update 10 no
+    deme has reproduced yet (the ancestor's first gestation ends near
+    update 12), so the roulette is uniform; the replaced demes restart as
+    fresh clones and first reproduce near update 22.  DEMES_MAX_BIRTHS is
+    the median of the per-deme birth counts at DEME_REPLICATE_AT, read
+    from a first run of the same world, so that some demes trigger and
+    some do not; the measured run is the second, with that value set."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    events = ["u begin InjectAll", "u 10 CompeteDemes 1",
+              f"u {DEME_REPLICATE_AT} ReplicateDemes births"]
+    probe = deme_world(side, os.path.join(tmp, "deme_probe"), events, {})
+    probe.run(max_updates=DEME_REPLICATE_AT)
+    counts = sorted(probe.state.deme_birth_count.tolist())
+    del probe
+    above = [c for c in counts if c > counts[0]]
+    if not above:
+        raise AssertionError(f"deme_path: every deme has {counts[0]} "
+                             f"births at update {DEME_REPLICATE_AT}")
+    threshold = max(counts[len(counts) // 2], above[0])
+    ev = events + [f"u 0:10:end {a}" for a in XLA_PRINTS]
+    w = deme_world(side, os.path.join(tmp, "deme"), ev,
+                   {"DEMES_MAX_BIRTHS": threshold})
+    torch.cuda.synchronize()
+    cycles.reset_launches()
+    t0 = time.perf_counter()
+    insts = w.run(max_updates=DEME_REPLICATE_AT)
+    births_at = w.state.deme_birth_count.tolist()
+    germ_before = w.state.germ_mem.clone()
+    insts += w.run(max_updates=DEME_UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cycles.LAUNCHES
+    triggered = [d for d, c in enumerate(births_at) if c >= threshold]
+    germ_changed = (w.state.germ_mem != germ_before).any(dim=1)
+    age = w.state.deme_age.tolist()
+    fired = DEME_UPDATES - DEME_REPLICATE_AT
+    rep = w.engine_report()
+    res = {"phase": "deme_path", "world": f"{side}x{side}",
+           "demes": w.params.num_demes, "engine_report": rep,
+           "updates": w.update, "kernel_launches": launches,
+           "insts": insts, "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / DEME_UPDATES, "wall_s": wall,
+           "births_total": int(w._total_births),
+           "live_organisms": w.num_organisms,
+           "demes_max_births": threshold,
+           "deme_births_at_replicate": births_at,
+           "demes_triggered": triggered,
+           "demes_not_triggered": [d for d in range(len(births_at))
+                                   if d not in triggered],
+           "germlines_changed": int(germ_changed.sum()),
+           "deme_age": age, "nvidia_smi": smi}
+    ok = (launches == DEME_UPDATES and rep["engine"] == "per-update"
+          and "demes" in rep["fallback_reason"]
+          and 0 < len(triggered) < len(births_at)
+          and all(age[d] == fired for d in triggered)
+          and all(a in (fired, DEME_UPDATES - 10) for a in age)
+          and w.num_organisms > 0
+          and bool(torch.isfinite(w.state.merit).all()))
+    if not ok:
+        raise AssertionError(f"deme_path check failed: {res}")
+    res["breakdown"] = pool_breakdown(w, 1)
+    return w, res
+
+
+def phase_deme_resource_path(side, updates, tmp, smi):
+    """The headline world in 16 demes whose NOT and NAND rewards draw on
+    per-deme pools (DEME_RES_ENV_TEXT), reseeded with mixed programs, on
+    the micro-step engine (no launch); a
+    Pred_DemeResourceThresholdPredicate and ReplicateDemes
+    sat-deme-predicate after the first update."""
+    import torch
+    cdir = math_config_dir(os.path.join(tmp, "cfg_deme_res"),
+                           DEME_RES_ENV_TEXT)
+    w = make_world(side, os.path.join(tmp, "deme_res"), "cuda",
+                   ["u begin InjectAll",
+                    "u begin Pred_DemeResourceThresholdPredicate d_food "
+                    "<= 480",
+                    "u 1 ReplicateDemes sat-deme-predicate"],
+                   dict(DEMES, DEMES_USE_GERMLINE=0), cdir)
+    w.process_events()
+    reseed_mixed(w)
+    insts, wall, launches = _xla_run(w, updates)
+    _, _, deme_levels = _pool_levels(w.state)
+    levels = [x[0] for x in deme_levels]
+    res = {"phase": "deme_resource_path", "world": f"{side}x{side}",
+           "demes": w.params.num_demes,
+           "engine_report": w.engine_report(), "updates": w.update,
+           "kernel_launches": launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / updates, "wall_s": wall,
+           "deme_levels": levels,
+           "deme_age": w.state.deme_age.tolist(), "nvidia_smi": smi}
+    _check_xla_world(w, "deme_resource_path", res)
+    if max(levels) >= 500.0:                  # every deme drew its pool
+        raise AssertionError(f"deme_resource_path: deme pools: {res}")
+    res["breakdown"] = pool_breakdown(w, 1)
+    return res
+
+
+# (name, side, updates, extra config, environment or None, mixed
+# programs, events after InjectAll)
+POOL_CROSS_CASES = (
+    ("resources", 12, 6, {}, RESOURCE_ENV_TEXT, True,
+     ["u 0:2:end PrintResourceData"]),
+    ("demes_kernel", 8, 24, dict(DEMES, NUM_DEMES=4, DEMES_MAX_BIRTHS=10,
+                                 DEMES_MIGRATION_RATE=0.2), None, True,
+     ["u 14 CompeteDemes 2", "u 18 ReplicateDemes births",
+      "u 20 ReplicateDemes all"]),
+    ("deme_resources", 12, 6, dict(DEMES, NUM_DEMES=4, DEMES_USE_GERMLINE=0,
+                                   DEMES_MIGRATION_RATE=0.1),
+     DEME_RES_ENV_TEXT, True,
+     ["u begin Pred_DemeResourceThresholdPredicate d_food <= 480",
+      "u 3 ReplicateDemes sat-deme-predicate", "u 4 CompeteDemes 2"]),
+)
+# the micro-step cases run 6 updates (each update is ~80 cycles of about
+# 14 ms on the CPU and 20 ms on the card), too few for the ancestor's
+# first birth: they are held to rewards and pool levels instead; births,
+# migration and the deme flush are the kernel-route case's
+
+
+def phase_resources_cross_device(tmp, devices=("cuda", "cpu")):
+    """Small worlds of the new paths run on the card and on the CPU (the
+    plain versions) must end identical: a resource world on the
+    micro-step engine (resource.dat included), a 4-deme world with
+    germlines, migration, CompeteDemes and ReplicateDemes on the kernel
+    route, a deme-pool world with a predicate-triggered replication."""
+    from avida_tpu_torch import convert
+    results = []
+    for name, side, updates, extra, env, mixed, events in POOL_CROSS_CASES:
+        cdir = (math_config_dir(os.path.join(tmp, f"cfg_pc_{name}"), env)
+                if env else None)
+        states, dats = [], []
+        for dev in devices:
+            ddir = os.path.join(tmp, f"pc_{name}_{dev}")
+            w = make_world(side, ddir, dev, ["u begin InjectAll"] + events,
+                           extra, cdir)
+            w.process_events()
+            if mixed:
+                reseed_mixed(w)
+            if dev == "cpu":
+                with one_thread():
+                    w.run(max_updates=updates)
+            else:
+                w.run(max_updates=updates)
+            _sync(dev)
+            states.append(convert.state_to_arrays(w.state))
+            dats.append(dat_bodies(ddir) if os.path.isdir(ddir) else {})
+        sa, sb = states
+        bad = [k for k in sa if sa[k] is not None
+               and sa[k].tobytes() != sb[k].tobytes()]
+        if dats[0] != dats[1]:
+            bad.append(".dat files")
+        births = int((sb["birth_update"] >= 0).sum())
+        rewards = int(sb["task_exe_total"].sum())
+        if bad or rewards == 0 or (env is None and births == 0):
+            raise AssertionError(f"resources_cross_device {name}: cuda vs "
+                                 f"cpu differ in {bad} (births {births}, "
+                                 f"rewards {rewards})")
+        results.append({"case": name, "world": f"{side}x{side}",
+                        "updates": updates, "births": births,
+                        "rewards": rewards,
+                        "engine": w.engine_report()["engine"],
+                        "dat_files_equal": sorted(dats[0])})
+    return {"phase": "resources_cross_device", "fields_equal": True,
+            "cases": results}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2086,6 +2407,14 @@ def main() -> int:
         emit(phase_xla_cross_device(tmp))
         emit(phase_multiworld_fold(tmp, MW_SIDE, MW_SEEDS, FOLD_UPDATES,
                                    smi))
+        # resource pools and demes
+        emit(phase_resource_path(SIDE, XLA_UPDATES, tmp, smi))
+        wdeme, deme_res = phase_deme_path(SIDE, tmp, smi)
+        emit(deme_res)
+        demek = phase_default_kernel(wdeme, name="deme_path")
+        del wdeme
+        emit(phase_deme_resource_path(SIDE, XLA_UPDATES, tmp, smi))
+        emit(phase_resources_cross_device(tmp))
     timing = ("max_abs_err", "ms", "simple_ms", "turns_ms", "reached",
               "plain_ms", "bound_ms", "bytes_read", "bytes_written")
     per_path = [
@@ -2093,13 +2422,14 @@ def main() -> int:
              launches=main_res["kernel_launches"]),
         dict(dkern, launches=def_res["kernel_launches"]),
         dict(skern, launches=sex_res["kernel_launches"]),
-        {k: ckern[k] for k in ("path", "launches") + timing}]
+        {k: ckern[k] for k in ("path", "launches") + timing},
+        dict(demek, launches=deme_res["kernel_launches"])]
     per_path += [dict({k: mwk[k] for k in ("path", "solo_ms_sum") + timing},
                       launches=mw_res["kernel_launches"], stacked=True)
                  for mw_res, mwk in mw_runs]
     emit({"phase": "kernel_paths", "nvidia_smi": smi, "paths": per_path})
-    # the kernels line: K1 with its solo launches (the four solo paths and
-    # the resumed and scrubbed persistence runs),
+    # the kernels line: K1 with its solo launches (the five solo paths,
+    # deme_path included, and the resumed and scrubbed persistence runs),
     # the worst error of all, times and bound at the sexual path; K3b,
     # the stacked launch, with its launches over the two batch paths and
     # the resumed batch, and

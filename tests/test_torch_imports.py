@@ -34,6 +34,8 @@ assert {"avida_tpu_torch.systematics",
         "avida_tpu_torch.ops.interpreter",
         "avida_tpu_torch.ops.tasks",
         "avida_tpu_torch.ops.digest",
+        "avida_tpu_torch.ops.resources",
+        "avida_tpu_torch.ops.demes",
         "avida_tpu_torch.utils.checkpoint",
         "avida_tpu_torch.utils.integrity",
         "avida_tpu_torch.utils.audit",
@@ -261,8 +263,6 @@ def test_per_update_configs_route_and_report(overrides, reason):
     ({"energy_enabled": True}, "item 12f"),
     ({"sem": "fork"}, "item 12f"),
     ({"sem": "mating"}, "item 12e"),
-    ({"proc_product_idx": (0,) + (-1,) * 8}, "item 12a"),
-    ({"proc_res_idx": (0,) + (-1,) * 8}, "item 12a"),
     ({"hw_type": 1}, "item 12c"),
 ])
 def test_engine_refusals_name_their_item(replace, needle, use_pallas):
@@ -278,6 +278,41 @@ def test_engine_refusals_name_their_item(replace, needle, use_pallas):
     w.params = w.params.replace(**replace)
     with pytest.raises(NotImplementedError, match=needle):
         w._check_engine()
+
+
+@pytest.mark.parametrize("use_pallas", [0, 2])
+@pytest.mark.parametrize("replace", [
+    {"proc_product_idx": (0,) + (-1,) * 8, "num_global_res": 1,
+     "proc_conversion": (1.0,) * 9},
+    {"proc_res_idx": (0,) + (-1,) * 8, "num_global_res": 1},
+])
+def test_pool_configs_take_the_micro_step_engine(replace, use_pallas):
+    """By-products and resource-bound reactions (ROADMAP.md item 12a,
+    ported) are accepted on either route and run the micro-step engine:
+    the kernel gate refuses them, as the reference's does."""
+    from avida_tpu_torch.world import World
+    w = World(cfg=_cfg(TPU_USE_PALLAS=use_pallas), device="cpu")
+    w.params = w.params.replace(**replace)
+    w._check_engine()
+    rep = w.engine_report()
+    assert rep["engine"] == "per-update"
+    assert "kernel off" in rep["fallback_reason"]
+
+
+def test_multiworld_refuses_pools_and_demes_by_name():
+    """Batches whose members hold demes or resource pools stay refused,
+    naming ROADMAP.md item 14."""
+    from avida_tpu_torch.parallel.multiworld import MultiWorld
+    from avida_tpu_torch.world import World
+    with pytest.raises(NotImplementedError, match="item 14"):
+        MultiWorld.from_seeds([1, 2], overrides=[("NUM_DEMES", 4)],
+                              data_dir="/nonexistent", device="cpu")
+    worlds = [World(cfg=_cfg(RANDOM_SEED=s), data_dir=f"/nonexistent/w{s}",
+                    device="cpu") for s in (1, 2)]
+    for w in worlds:
+        w.params = w.params.replace(num_global_res=1, res_initial=(5.0,))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        MultiWorld(worlds)
 
 
 def test_kernel_limits_refused_by_name_on_cuda():

@@ -183,15 +183,46 @@ def test_apply_reactions_vectorized_order_equal_where_order_cannot_show(R):
     assert b_want.tobytes() == got[0].numpy()[calm].tobytes()
 
 
-def test_apply_reactions_refuses_resource_pools():
-    params = _env_params(np.random.default_rng(0), 9)
+def test_apply_reactions_draws_resource_pools():
+    """A reaction bound to a global pool (ROADMAP.md item 12a, ported):
+    apply_reactions draws the pool down and rewards value x the amount
+    consumed, as the reference's does, on the _reactions_case inputs."""
+    rng = np.random.default_rng(0)
+    params = _env_params(rng, 9)
     params.proc_res_idx = (0,) + (-1,) * 8
-    z = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 12a"):
-        ttasks.apply_reactions(params, None, z > 0, z, z.float(),
-                               torch.zeros(4, 9, dtype=torch.int32),
-                               torch.zeros(4, 9, dtype=torch.int32),
-                               torch.zeros(4, 3, dtype=torch.int32), z, z)
+    params.proc_frac = (0.01,) + (1.0,) * 8
+    params.num_global_res = 1
+    params.min_task_count = (0,) + params.min_task_count[1:]
+    params.proc_res_deme = (False,) * 9
+    params.proc_product_spatial = (False,) * 9
+    params.proc_conversion = (1.0,) * 9
+    n = 512
+    io = rng.random(n) < 0.8
+    buf = rng.integers(-50, 50, (n, 3)).astype(np.int32)
+    buf_n = rng.integers(0, 4, n).astype(np.int32)
+    out = rng.integers(-100, 100, n).astype(np.int32)
+    lid = rng.integers(-1, 256, n).astype(np.int32)
+    bonus = (rng.random(n) * 6 + 0.25).astype(np.float32)
+    tc = np.zeros((n, 9), np.int32)
+    rc = np.zeros((n, 9), np.int32)
+    pool = np.asarray([37.5], np.float32)
+    args = (io, lid, bonus, tc, rc, buf, buf_n, out)
+
+    def ref(io, lid, bonus, tc, rc, buf, buf_n, out, pool):
+        r = rtasks.apply_reactions(
+            params, rtasks.env_tables_to_device(params), io, lid, bonus, tc,
+            rc, pool, jnp.zeros((0, n)), input_buf=buf, input_buf_n=buf_n,
+            output=out)
+        return r[0], r[1], r[2], r[6], r[3]
+
+    want = jax.jit(ref)(*args, pool)
+    got = ttasks.apply_reactions(
+        params, ttasks.env_tables_to_device(params, "cpu"),
+        *(_t(a) for a in args), torch.from_numpy(pool),
+        torch.zeros((0, n)))
+    for w, g in zip(want, got[:5]):
+        assert _same(w, g)
+    assert float(got[4][0]) < 37.5 and int(got[2][:, 0].sum()) > 5
 
 
 @pytest.mark.parametrize("lo,hi,n", [(-3.0, 6.0, 2001), (-30.0, 30.0, 60001),
