@@ -206,6 +206,18 @@ def make_world_params(cfg, instset, environment) -> WorldParams:
             raise ValueError(
                 f"GRADIENT_RESOURCE {r.name!r} peak ({r.peakx},{r.peaky}) "
                 f"lies outside the {cfg.WORLD_X}x{cfg.WORLD_Y} world")
+    if cfg.MAX_CPU_THREADS > 1 and instset.hw_type != 0:
+        raise NotImplementedError(
+            "MAX_CPU_THREADS > 1 is implemented for heads hardware only "
+            "(TransSMT has its own host/parasite thread model)")
+    if instset.hw_type in (1, 2) and (instset.cost.any()
+                                      or instset.ft_cost.any()
+                                      or instset.prob_fail.any()
+                                      or instset.addl_time_cost.any()):
+        raise NotImplementedError(
+            "instruction costs/prob_fail/addl_time_cost are not implemented "
+            "for TransSMT hardware yet; zero those columns or use heads "
+            "hardware")
     if int(cfg.DEMES_MIGRATION_METHOD) == 3:
         raise NotImplementedError(
             "DEMES_MIGRATION_METHOD 3 (deme points) needs the deme points "
@@ -362,18 +374,15 @@ def make_world_params(cfg, instset, environment) -> WorldParams:
 
 
 def instset_tables(instset):
-    """Semantic tables of a heads-hardware instruction set (the only
-    hardware this package runs)."""
-    from avida_tpu_torch.models import heads
-    if instset.hw_type != 0:
-        raise NotImplementedError(
-            f"HARDWARE_TYPE {instset.hw_type}: only heads hardware (0) is "
-            f"ported to avida_tpu_torch")
+    """Semantic tables of an instruction set, from its hardware's module
+    (models/registry.py)."""
+    from avida_tpu_torch.models.registry import get_hardware
+    mod = get_hardware(instset.hw_type)["module"]
     if len(instset.inst_names) > 64:
         raise ValueError(
             "packed-tape layout supports <= 64 instructions per set "
             "(6 opcode bits + 2 flag bits)")
-    return heads.build_semantic_tables(instset.inst_names)
+    return mod.build_semantic_tables(instset.inst_names)
 
 
 # (name, dtype, shape) for every PopulationState leaf, in the reference's
@@ -571,12 +580,16 @@ class PopulationState:
 
 def zeros_population(n: int, L: int, R: int, n_global_res: int = 0,
                      n_spatial_res: int = 0, n_demes: int = 1,
-                     num_registers: int = 3, nb_cap: int = 0,
-                     n_deme_res: int = 0, max_threads: int = 1,
-                     trace_cap: int = 0, device="cpu") -> PopulationState:
-    """A fresh (all-empty) heads-hardware population of n cells."""
+                     smt: bool = False, num_registers: int = 3,
+                     nb_cap: int = 0, n_deme_res: int = 0,
+                     max_threads: int = 1, trace_cap: int = 0,
+                     device="cpu") -> PopulationState:
+    """A fresh (all-empty) population of n cells.  `smt` gives the
+    TransSMT axes their sizes (two threads, memory spaces of L sites, a
+    10-deep global stack); on heads hardware they are empty."""
     dims = {"n": n, "L": L, "R": R, "Te": max(max_threads, 1) - 1,
-            "NR": num_registers, "T": 0, "Ls": 0, "G": 0,
+            "NR": num_registers, "T": 2 if smt else 0, "Ls": L if smt else 0,
+            "G": 10 if smt else 0,
             "Rg": n_global_res, "Rs": n_spatial_res, "D": n_demes,
             "Rd": n_deme_res, "CAP": nb_cap, "TCAP": trace_cap}
     leaves = {}
@@ -644,6 +657,18 @@ def unstack_states(bst: PopulationState) -> list:
     return [world_state(bst, w) for w in range(bst.alive.shape[0])]
 
 
+def is_smt(params) -> bool:
+    """Does `params` run the TransSMT hardware (HARDWARE_TYPE 1 or 2)?"""
+    return params.hw_type in (1, 2)
+
+
+def smt_base_spaces(device) -> torch.Tensor:
+    """int32[2, 4]: the memory space of every head of a fresh TransSMT
+    CPU, the host thread's in its genome (space 0), the parasite
+    thread's in its code (space 2)."""
+    return torch.tensor([[0] * 4, [2] * 4], dtype=_I32, device=device)
+
+
 def _max_executed(params, glen):
     if params.death_method == 2:
         return params.age_limit * glen
@@ -660,6 +685,7 @@ def seed_organism(params: WorldParams, st: PopulationState,
     n, L, R = params.num_cells, params.max_memory, params.num_reactions
     blank = zeros_population(1, L, R, params.num_global_res,
                              params.num_spatial_res, 1,
+                             smt=is_smt(params),
                              num_registers=params.num_registers,
                              max_threads=params.max_cpu_threads,
                              device=st.device)
@@ -714,6 +740,7 @@ def init_population(params: WorldParams, seed_genome: np.ndarray,
     dev = key.device
     st = zeros_population(n, L, R, params.num_global_res,
                           params.num_spatial_res, params.num_demes,
+                          smt=is_smt(params),
                           num_registers=params.num_registers,
                           nb_cap=params.nb_cap,
                           n_deme_res=params.num_deme_res,
@@ -743,6 +770,9 @@ def init_population(params: WorldParams, seed_genome: np.ndarray,
                 params.num_demes, L).clone(),
             germ_len=torch.full((params.num_demes,), len(seed_genome),
                                 dtype=torch.int32, device=dev))
+    if is_smt(params):
+        st = st.replace(smt_head_space=smt_base_spaces(dev)[None].expand(
+            n, 2, 4).clone())
     return st
 
 

@@ -136,6 +136,8 @@ struct Params {
   int has_costs, has_prob_fail, has_addl, weighted_mut;
   float copy_mut_prob, size_range, min_exe_lines, min_copied_lines;
   float default_bonus, const_merit;
+  float size_range_inv;     // float32 1 / size_range: XLA's CPU compiler
+                            // divides by the constant as this product
   int C, K, rows, gshift;   // CTA lanes, cluster CTAs, tile rows, log2
                             // tape rows per dirty-mask bit
 };
@@ -646,7 +648,7 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         if (!ipx && ip < parent_size) exec_count += 1;
         const float fsize = (float)gsize;
         const int min_sz = max(P.min_genome_len,
-                               (int)(fsize / P.size_range));
+                               (int)(fsize * P.size_range_inv));
         const int max_sz = min(P.L0, (int)(fsize * P.size_range));
         const bool viable =
             !(flags & FLAG_STERILE) && child_size >= min_sz
@@ -936,7 +938,7 @@ extern "C" int avida_cycles_launch(void* tape, void* off, void* ivec,
   P.weighted_mut = pi[19];
   P.copy_mut_prob = pf[0]; P.size_range = pf[1]; P.min_exe_lines = pf[2];
   P.min_copied_lines = pf[3]; P.default_bonus = pf[4];
-  P.const_merit = pf[5];
+  P.const_merit = pf[5]; P.size_range_inv = pf[6];
   P.C = pi[20];
   if ((P.C != 32 && P.C != 64 && P.C != MAX_C) || block % P.C
       || block / P.C > MAX_CLUSTER || P.n_pad % block || P.LW > MAX_LW

@@ -78,6 +78,8 @@ struct Params {
   int has_costs, has_prob_fail, has_addl, weighted_mut;
   float copy_mut_prob, size_range, min_exe_lines, min_copied_lines;
   float default_bonus, const_merit;
+  float size_range_inv;     // float32 1 / size_range: XLA's CPU compiler
+                            // divides by the constant as this product
 };
 
 // table layout (built by the wrapper): 8 opcode tables of TAB_INSTS ints
@@ -432,7 +434,7 @@ cycles_simple_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         if (!ipx && ip < parent_size) exec_count += 1;
         const float fsize = (float)gsize;
         const int min_sz = max(P.min_genome_len,
-                               (int)(fsize / P.size_range));
+                               (int)(fsize * P.size_range_inv));
         const int max_sz = min(P.L0, (int)(fsize * P.size_range));
         const bool viable =
             !(flags & FLAG_STERILE) && child_size >= min_sz
@@ -677,7 +679,7 @@ extern "C" int avida_cycles_launch_simple(void* tape, void* off,
   P.weighted_mut = pi[19];
   P.copy_mut_prob = pf[0]; P.size_range = pf[1]; P.min_exe_lines = pf[2];
   P.min_copied_lines = pf[3]; P.default_bonus = pf[4];
-  P.const_merit = pf[5];
+  P.const_merit = pf[5]; P.size_range_inv = pf[6];
   if (P.LW > MAX_LW || P.R > MAX_R || block > 512 || block % 32
       || P.n_pad % block)
     return -1;

@@ -28,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from avida_tpu_torch.core.state import (is_smt, make_cell_inputs,
+                                        smt_base_spaces)
 from avida_tpu_torch.models.heads import MAX_LABEL_SIZE, SEM_H_DIVIDE_SEX
 from avida_tpu_torch.utils import prng
 
@@ -289,7 +291,6 @@ def flush_births_packed(params, st, key, planes, update_no):
     planes (tape_t, off_t, gen_t, ivec, fvec), cell-ordered.  Updates the
     canonical columns unpack cannot rebuild on `st`.  Returns
     (planes', st')."""
-    from avida_tpu_torch.core.state import make_cell_inputs
     from avida_tpu_torch.ops import cycles as pc
     tape_t, off_t, gen_t, ivec, fvec = planes
     LP, n = tape_t.shape
@@ -477,8 +478,9 @@ def canonical_unsupported_reason(params) -> str | None:
     can): heads hardware on a grid or torus, BIRTH_METHOD 0-10, asexual
     or divide-sex without mating types, demes with migration methods 0,
     1, 2 and 4; no energy or population caps."""
-    if params.hw_type != 0:
-        return "non-heads hardware in the birth flush"
+    if params.hw_type not in (0, 1, 2):
+        return ("experimental spatial hardware in the birth flush "
+                "(ROADMAP.md Queue 1 item 12h)")
     if params.energy_enabled:
         return "the energy model in the birth flush"
     if params.population_cap or params.pop_cap_eldest:
@@ -828,6 +830,10 @@ def newborn_fields(params, st, births, by_parent, off_mem, off_len,
            for name, src in parent_updates.items()}
     new["tape"] = _where_rows(births, pack_tape(new["genome"]), st.tape)
     _const_fields(params, new, st, births, fresh_inputs, update_no)
+    if is_smt(params):
+        # newborn SMT thread bases: host at space 0, parasite at space 2
+        new["smt_head_space"] = _where_rows(
+            births, smt_base_spaces(births.device)[None], st.smt_head_space)
     return new
 
 
@@ -941,7 +947,6 @@ def flush_births(params, st, key, update_no):
     if reason is not None:
         raise NotImplementedError(
             f"birth flush: {reason} is not ported to avida_tpu_torch")
-    from avida_tpu_torch.core.state import make_cell_inputs
     from avida_tpu_torch.ops import interpreter
     n = st.tape.shape[0]
     ks = prng.split(key, 4)
@@ -1008,7 +1013,60 @@ def flush_births(params, st, key, update_no):
     # winners, dead parents and parents whose offspring went into the
     # store resume; living losers retry next update
     cleared = torch.where(resumes, False, st.divide_pending)
-    return st.replace(divide_pending=cleared, off_sex=st.off_sex & cleared)
+    st = st.replace(divide_pending=cleared, off_sex=st.off_sex & cleared)
+    if is_smt(params):
+        # a winning SMT parent's offspring buffer resets to the
+        # one-instruction blank (Divide_Main tail, cHardwareTransSMT.cc:485)
+        st = st.replace(
+            smt_aux=_set_thread(st.smt_aux, 0, won, 0),
+            smt_aux_len=_set_thread(st.smt_aux_len, 0, won, 1))
+        st = flush_injections(params, st, prng.fold_in(key, 17))
+    return st
+
+
+def _set_thread(field, j, mask, val):
+    """field [N, 2, ...] with thread j's row set to val where mask."""
+    rows = [field[:, 0], field[:, 1]]
+    rows[j] = _where_rows(mask, val, rows[j])
+    return torch.stack(rows, dim=1)
+
+
+def flush_injections(params, st, key):
+    """Parasite transmission (ParasiteInfectHost,
+    cHardwareTransSMT.cc:375-417): each living organism with a staged
+    injection targets a random neighbor; the infection takes when the
+    target is alive and holds no parasite.  Several injectors on one
+    target: the lowest injector wins (a scatter-min).  Every staged
+    injection is consumed, whether it took or not, so a failed one loses
+    its parasite.  The new parasite thread starts at (space 2, position
+    0) with empty stacks."""
+    n = st.alive.shape[0]
+    dev = st.alive.device
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    neighbors = neighbors_on(params, dev)
+    pend = st.inject_pending & st.alive
+    choice = prng.randint(key, (n,), 0, neighbors.shape[1])
+    target = neighbors[rows.long(), choice.long()].long()
+    # a padding slot (-1) indexes the last cell, as the reference's
+    # negative index does
+    target = torch.where(target < 0, target + n, target)
+    ok = pend & st.alive[target] & ~st.parasite_active[target]
+    big = 2**30
+    claim = torch.full((n,), big, dtype=torch.int32, device=dev)
+    claim = claim.scatter_reduce(
+        0, torch.where(ok, target, rows.long()),
+        torch.where(ok, rows, big), reduce="amin")
+    infected = (claim < big) & st.alive & ~st.parasite_active
+    src = claim.clamp(0, n - 1).long()
+    return st.replace(
+        pmem=_where_rows(infected, st.inj_mem[src], st.pmem),
+        pmem_len=torch.where(infected, st.inj_len[src], st.pmem_len),
+        parasite_active=st.parasite_active | infected,
+        smt_head_pos=_set_thread(st.smt_head_pos, 1, infected, 0),
+        smt_head_space=_set_thread(st.smt_head_space, 1, infected, 2),
+        smt_stacks=_set_thread(st.smt_stacks, 1, infected, 0),
+        smt_sp=_set_thread(st.smt_sp, 1, infected, 0),
+        inject_pending=st.inject_pending & ~pend)
 
 
 def birth_death_masks(alive_before, st, update_no):

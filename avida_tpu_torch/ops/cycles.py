@@ -901,7 +901,11 @@ def cycles_reference(params, planes, seeds, num_steps, B):
         div_m0 = is_op(SEM_H_DIVIDE) | div_sex
         gsize = row(IV_GENOME_LEN)
         fsize = gsize.to(torch.float32)
-        min_sz = torch.clamp((fsize / osr).to(i64), min=params.min_genome_len)
+        # XLA rewrites the division by a constant as a product with its
+        # float32 reciprocal
+        min_sz = torch.clamp(
+            (fsize * prng.f32_reciprocal(params.offspring_size_range)).to(
+                i64), min=params.min_genome_len)
         max_sz = torch.clamp((fsize * osr).to(i64), max=L0)
         if bool(div_m0.any()):
             below_p = _range_mask(lw_rows, torch.zeros_like(ip), parent_size)
@@ -1472,10 +1476,11 @@ def _launch_cuda(params, planes, seeds, num_steps, B, simple=False):
         int(bool(params.inst_addl_time_cost)),
         int(not uniform_mutation(params)),
         cta_lanes(LP * 4, R, B))
-    pf = (ctypes.c_float * 6)(
+    pf = (ctypes.c_float * 7)(
         params.copy_mut_prob, params.offspring_size_range,
         params.min_exe_lines, params.min_copied_lines, params.default_bonus,
-        float(params.base_const_merit))
+        float(params.base_const_merit),
+        prng.f32_reciprocal(params.offspring_size_range))
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _load()
     fn = lib.avida_cycles_launch_simple if simple else lib.avida_cycles_launch

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from avida_tpu_torch.core.state import make_cell_inputs
+from avida_tpu_torch.core.state import (is_smt, make_cell_inputs,
+                                        smt_base_spaces)
 from avida_tpu_torch.utils import prng
 
 # ReplicateDemes triggers (cPopulation::ReplicateDemes switch order)
@@ -90,8 +91,8 @@ def _sel(mask, ndim):
     return mask.reshape(mask.shape + (1,) * (ndim - 1))
 
 
-def _clone_reset(params, st, sel_cells, genome, genome_len, alive, merit,
-                 key):
+def clone_reset(params, st, sel_cells, genome, genome_len, alive, merit,
+                key):
     """Field updates installing genome / merit at sel_cells with fresh
     hardware and lifetime state (InjectClone / SetupClone,
     cPopulation.cc:7377).  Returns the updates for st.replace."""
@@ -125,6 +126,11 @@ def _clone_reset(params, st, sel_cells, genome, genome_len, alive, merit,
         updates[name] = torch.where(sel_cells, -1, getattr(st, name))
     updates["inputs"] = torch.where(sel_cells[:, None],
                                     make_cell_inputs(key, n), st.inputs)
+    if is_smt(params):
+        # fresh SMT threads: host heads in space 0, parasite heads in 2
+        updates["smt_head_space"] = torch.where(
+            _sel(sel_cells, 3), smt_base_spaces(st.device)[None],
+            st.smt_head_space)
     return updates
 
 
@@ -143,9 +149,9 @@ def _replace_blocks(params, st, src, replaced, key):
         return torch.where(_sel(replaced, g.dim()), g, b).reshape(x.shape)
 
     rep_cells = replaced[deme_of_cells(params, st.alive.device)]
-    updates = _clone_reset(params, st, rep_cells, blk_gather(st.genome),
-                           blk_gather(st.genome_len), blk_gather(st.alive),
-                           blk_gather(st.merit), key)
+    updates = clone_reset(params, st, rep_cells, blk_gather(st.genome),
+                          blk_gather(st.genome_len), blk_gather(st.alive),
+                          blk_gather(st.merit), key)
     for name in ("gestation_time", "fitness", "generation"):
         updates[name] = torch.where(rep_cells, blk_gather(getattr(st, name)),
                                     getattr(st, name))
@@ -294,9 +300,9 @@ def _clear_and_seed(params, st, replaced, seed_mem, seed_len, key):
     rep_cells = replaced[d_of]
     seed_cell = rep_cells & ((torch.arange(n, device=dev) % C) == C // 2)
     seed_length = seed_len[d_of]
-    updates = _clone_reset(params, st, rep_cells, seed_mem[d_of],
-                           seed_length, seed_cell,
-                           seed_length.to(st.merit.dtype), key)
+    updates = clone_reset(params, st, rep_cells, seed_mem[d_of],
+                          seed_length, seed_cell,
+                          seed_length.to(st.merit.dtype), key)
     for name in ("gestation_time", "fitness", "generation"):
         dst = getattr(st, name)
         updates[name] = torch.where(rep_cells, torch.zeros_like(dst), dst)

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from avida_tpu_torch.core.state import is_smt
 from avida_tpu_torch.models.heads import (
     HEAD_FLOW, HEAD_IP, HEAD_READ, HEAD_WRITE, MAX_LABEL_SIZE,
     MOD_HEAD, MOD_LABEL, MOD_NONE, MOD_REG,
@@ -200,7 +201,21 @@ def _build_tables(params, device) -> dict:
     return tab
 
 
-def micro_step(params, st, key, exec_mask, cycle_draw_keys=None):
+def cycle_bits(draw_keys_fn, params, keys, n):
+    """The bit draws of one or more cycles: keys int64[..., W, 2] (the
+    cycle keys of W worlds, world-major lanes) -> int64[D, ..., n], one
+    bit draw per draw key over every lane of its world, as the reference
+    draws them.  D = 0 when the configuration reads no draw."""
+    lead = keys.shape[:-2]
+    W = keys.shape[-2]
+    dk = draw_keys_fn(params, keys.reshape(-1, 2))
+    if not dk.shape[0]:
+        return dk.new_zeros((0,) + tuple(lead) + (n,))
+    return prng.bits_rows(dk.reshape(-1, 2), n // W).reshape(
+        (dk.shape[0],) + tuple(lead) + (n,))
+
+
+def micro_step(params, st, key, exec_mask, bits=None):
     """Execute one CPU cycle for every organism where exec_mask is set
     (one pass of the reference hot loop, Avida2Driver.cc:111-116, over
     every scheduled organism at once).  Returns the new state; a lane
@@ -209,15 +224,14 @@ def micro_step(params, st, key, exec_mask, cycle_draw_keys=None):
     `key` is the cycle's key (int64[2]), or int64[W, 2] for W worlds whose
     lanes are stacked world-major on the state's organism axis: each
     world's draws then come from its own key over its own lanes, as the
-    reference's vmap over worlds draws them.  `cycle_draw_keys` is
-    draw_keys(params, keys) when the caller derived it already (the
-    engine derives a whole update's at once)."""
+    reference's vmap over worlds draws them.  `bits` is
+    cycle_bits(draw_keys, params, keys, n) when the caller drew it
+    already (the engine draws blocks of cycles at once)."""
     i32, u8 = torch.int32, torch.uint8
     n, L = st.tape.shape
     dev = st.tape.device
     T = _tables(params, dev)
     keys = key[None] if key.dim() == 1 else key
-    n_w = n // keys.shape[0]
     ni = params.num_insts
     cols = torch.arange(L, device=dev)[None, :]
     f32 = torch.float32
@@ -278,11 +292,8 @@ def micro_step(params, st, key, exec_mask, cycle_draw_keys=None):
 
     # ---- the cycle's draws: one bit draw per key over every lane of its
     # world, as the reference draws them ----
-    dk = draw_keys(params, keys) if cycle_draw_keys is None \
-        else cycle_draw_keys
-    if dk.shape[0]:
-        bits = prng.bits_rows(dk.reshape(-1, 2), n_w).reshape(
-            dk.shape[0], n)
+    if bits is None:
+        bits = cycle_bits(draw_keys, params, keys, n)
     if params.copy_mut_prob > 0:
         u_copy_mut = prng.bits_to_unit(bits[0])
         if T["uniform"]:
@@ -440,7 +451,10 @@ def micro_step(params, st, key, exec_mask, cycle_draw_keys=None):
     div_try = is_op(SEM_H_DIVIDE) | div_sex_try
     gsize = st.genome_len
     fsize = gsize.to(f32)
-    min_sz = (fsize / osr).to(i32).clamp(min=params.min_genome_len)
+    # XLA rewrites the division by a constant as a product with its
+    # float32 reciprocal
+    min_sz = (fsize * prng.f32_reciprocal(osr)).to(i32).clamp(
+        min=params.min_genome_len)
     max_sz = (fsize * osr).to(i32).clamp(max=L)
     exec_count = exec_count0 + (div_try & ~ip_exec_already
                                 & (ip < parent_size)).to(i32)
@@ -635,13 +649,16 @@ def extract_offspring(params, st, key):
     """Pending offspring genomes with divide mutations applied
     (Divide_DoMutations, cHardwareBase.cc:296): the reference's
     extract_offspring with use_off_tape=True, draw for draw.  The cycle
-    kernel has already written every fresh offspring to st.off_tape.
-    Returns (off int8[N, L], off_len int32[N])."""
+    kernel has already written every fresh offspring to st.off_tape;
+    TransSMT hardware divides off the host write buffer, smt_aux[:, 0]
+    (Divide_Main, cHardwareTransSMT.cc:438).  Returns (off int8[N, L],
+    off_len int32[N])."""
     n, L = st.tape.shape
     dev = st.tape.device
     cols = torch.arange(L, device=dev)[None, :]
     off_len = st.off_len
-    off = torch.where(cols < off_len[:, None], st.off_tape.to(torch.int8),
+    src = st.smt_aux[:, 0] if is_smt(params) else st.off_tape
+    off = torch.where(cols < off_len[:, None], src.to(torch.int8),
                       torch.zeros((), dtype=torch.int8, device=dev))
 
     def f32(x):

@@ -202,6 +202,12 @@ def _build_env_tables(params, device) -> dict:
 # the reaction count from which the compiled engine vectorizes each
 # reduction (below it: in order)
 _VECTOR_FROM = {"pow": 17, "mult": 17, "add": 19}
+# vector_chunks' value for a tree over the first 16 reactions padded to a
+# power of two, the rest in order; the largest reaction count at which
+# that form was read
+TREE = -1
+_TREE_LANES = 16
+_TREE_UP_TO = 17
 
 
 def vector_chunks(params) -> dict:
@@ -217,10 +223,17 @@ def vector_chunks(params) -> dict:
     fractional rewards of one type combine first: with logic-task
     reactions (logic-9's requisite max_count=1) and math-task reactions
     of all three process types, the products vectorize from 17 reactions
-    and the sum from 19.  Other compositions compile other loops and are
-    left in order (ROADMAP.md Queue 3)."""
+    and the sum from 19.  With processes bound to pools beside processes
+    bound to none, all three reduce as a tree over the first 16
+    reactions padded to a power of two, then the rest in order (TREE;
+    read from 11 to 17 reactions, wherever the unbound ones sit).  Other
+    compositions compile other loops and are left in order (ROADMAP.md
+    Queue 3)."""
     R = params.num_reactions
     off = {k: 0 for k in _VECTOR_FROM}
+    bound = [r >= 0 for r in params.proc_res_idx]
+    if any(bound) and not all(bound):
+        return {k: TREE for k in off} if R <= _TREE_UP_TO else off
     if R < min(_VECTOR_FROM.values()):
         return off
     names = params.task_math_name
@@ -236,10 +249,25 @@ def vector_chunks(params) -> dict:
 
 def vector_fold(cols, op, init, chunks):
     """Reduce R [N] columns as the compiled loop does: with chunks == 0
-    in order from `init`; else chunk k (columns 8k..8k+7) folds lane-wise
+    in order from `init`; with chunks == TREE as a tree over the first 16
+    columns padded with `init` to a power of two lanes (lane j with lane
+    j + half, halving), the rest in order; else chunk k (columns
+    8k..8k+7) folds lane-wise
     into accumulator k % 2, the two accumulators combine lane-wise, the
     8 lanes reduce as a tree (lane j with lane j+4, then j+2, then j+1),
     and the columns past the chunks follow in order."""
+    if chunks == TREE:
+        head = cols[:_TREE_LANES]
+        width = 1 << max(len(head) - 1, 0).bit_length()
+        lanes = list(head) + [torch.full_like(cols[0], init)] * (
+            width - len(head))
+        while len(lanes) > 1:
+            h = len(lanes) // 2
+            lanes = [op(lanes[j], lanes[j + h]) for j in range(h)]
+        acc = lanes[0]
+        for c in cols[_TREE_LANES:]:
+            acc = op(acc, c)
+        return acc
     if not chunks:
         acc = torch.full_like(cols[0], init)
         for c in cols:

@@ -16,10 +16,12 @@ reference does:
 
 The update's cycles run on one of two engines, routed as the reference
 routes them (cycles.use_kernel): the cycle kernel (run_cycles: pack, one
-launch, unpack) or the micro-step engine (xla_cycles: one
-interpreter.micro_step a cycle, up to the update's largest grant, then the
-offspring extraction) -- TPU_USE_PALLAS=2, and every configuration the
-kernel gate refuses.
+launch, unpack) or the micro-step engine (xla_cycles: one micro-step a
+cycle, up to the update's largest grant, then the offspring extraction)
+-- TPU_USE_PALLAS=2, and every configuration the kernel gate refuses,
+TransSMT hardware among them.  The micro-step is the hardware's
+(cycle_step_fn): interpreter.micro_step for heads hardware,
+interpreter_smt.micro_step_smt for TransSMT.
 
 `update_scan_batched` is the same for W stacked worlds: one kernel launch
 per update for the whole batch, or the micro-step engine over the worlds'
@@ -30,7 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from avida_tpu_torch.core.state import stack_states, unstack_states
+from avida_tpu_torch.core.state import (is_smt, stack_states,
+                                        unstack_states)
 from avida_tpu_torch.models.heads import (
     SEM_FORK_TH, SEM_ID_TH, SEM_IF_MATE_FEMALE, SEM_IF_MATE_MALE, SEM_KILL_TH,
     SEM_SET_MATE_FEMALE, SEM_SET_MATE_JUV, SEM_SET_MATE_MALE)
@@ -109,12 +112,13 @@ def engine_unported_reason(params) -> str | None:
     """What neither cycle engine of this package runs yet (None = one of
     them runs `params`); each reason names the ROADMAP.md item that owns
     it.  The cycle kernel's own gate is cycles.unsupported_reason."""
-    if params.hw_type != 0:
-        return ("non-heads hardware (SMT and transsmt: ROADMAP.md Queue 1 "
-                "item 12c; experimental spatial hardware: item 12h)")
+    if params.hw_type not in (0, 1, 2):
+        return ("experimental spatial hardware (ROADMAP.md Queue 1 item "
+                "12h)")
     if params.max_cpu_threads > 1:
         return "MAX_CPU_THREADS > 1 (threads: ROADMAP.md Queue 1 item 12f)"
-    sems = {int(x) for x in params.sem}
+    # the semantic opcodes below are the heads hardware's numbering
+    sems = {int(x) for x in params.sem} if params.hw_type == 0 else set()
     if sems & _THREAD_SEMS:
         return ("thread instructions fork-th / kill-th / id-th (ROADMAP.md "
                 "Queue 1 item 12f)")
@@ -191,6 +195,17 @@ def perm_phase(params, st, granted, update_no):
     return st.replace(lane_perm=p, lane_inv=inv)
 
 
+def cycle_step_fn(params):
+    """The hardware's micro-step and the derivation of its cycle draws:
+    one dispatch shared by the solo cycle loop and the folded batch (the
+    reference's _cycle_step_fn), so a hardware type routes both."""
+    if is_smt(params):
+        from avida_tpu_torch.ops import interpreter_smt as smt
+        return smt.micro_step_smt, smt.draw_keys
+    from avida_tpu_torch.ops import interpreter
+    return interpreter.micro_step, interpreter.draw_keys
+
+
 def materialize_offspring(params, st, pending_before):
     """End-of-update offspring extraction of the micro-step engine: each
     parent that divided this update gets its offspring's opcodes, from its
@@ -214,28 +229,39 @@ def xla_cycles(params, st, k_steps, granted, max_k):
     s), for s below max_k; then the offspring extraction.  `k_steps` is
     one key (int64[2]) or, for W worlds folded onto the organism axis,
     int64[W, 2] with max_k the largest of their trip counts (a world past
-    its own grants runs masked, which is the identity)."""
+    its own grants runs masked, which is the identity).  TransSMT
+    offspring wait in the host write buffer instead: no extraction."""
     pending_before = st.divide_pending
     st = run_micro_steps(params, st, k_steps, granted, max_k)
+    if is_smt(params):
+        return st
     return materialize_offspring(params, st, pending_before)
+
+
+# cycles whose bit draws are drawn together (bounds their memory: at
+# 320x320, 32 cycles of four draws hold 105 MB)
+_BITS_BLOCK = 32
 
 
 def run_micro_steps(params, st, k_steps, granted, max_k):
     """xla_cycles' cycle loop, without the offspring extraction.  max_k
-    is read to the host once, here; no cycle reads a value back."""
-    from avida_tpu_torch.ops.interpreter import draw_keys, micro_step
+    is read to the host once, here; no cycle reads a value back.  Cycle
+    s is keyed fold_in(k_steps, s); the draws of _BITS_BLOCK cycles are
+    made at once."""
+    from avida_tpu_torch.ops.interpreter import cycle_bits
+    micro_step, draw_keys = cycle_step_fn(params)
     keys = k_steps.reshape(-1, 2)
-    W = keys.shape[0]
+    n = st.alive.shape[0]
     trips = int(max_k)
-    if trips > 0:
-        # every cycle's keys at once: [T, W, 2], and their draw keys
+    for s0 in range(0, trips, _BITS_BLOCK):
+        b = min(_BITS_BLOCK, trips - s0)
+        # the block's cycle keys [b, W, 2] and their bit draws [D, b, n]
         ck = prng.fold_in_rows(keys, torch.arange(
-            trips, device=keys.device)).transpose(0, 1)
-        dk = draw_keys(params, ck.reshape(-1, 2))
-        dk = dk.reshape(dk.shape[0], trips, W, 2)
-    for s in range(trips):
-        exec_mask = st.alive & (s < granted) & ~st.divide_pending
-        st = micro_step(params, st, ck[s], exec_mask, dk[:, s])
+            s0, s0 + b, device=keys.device)).transpose(0, 1)
+        bits = cycle_bits(draw_keys, params, ck, n)
+        for j in range(b):
+            exec_mask = st.alive & (s0 + j < granted) & ~st.divide_pending
+            st = micro_step(params, st, ck[j], exec_mask, bits[:, j])
     return st
 
 

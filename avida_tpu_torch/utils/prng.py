@@ -187,6 +187,14 @@ def round_f32(x) -> float:
     return struct.unpack("<f", struct.pack("<f", float(x)))[0]
 
 
+def f32_reciprocal(x) -> float:
+    """1 / x in float32 arithmetic, as a Python float: the constant XLA's
+    algebraic simplifier multiplies by where a program divides a float32
+    value by the constant x."""
+    import numpy as np
+    return float(np.float32(1.0) / np.float32(x))
+
+
 def xla_f32_sum(x):
     """float32 total of a vector in the order of XLA's CPU backend (the
     reference's `x.sum()` in a compiled program).  Its tree-reduction pass

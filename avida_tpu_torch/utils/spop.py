@@ -137,7 +137,7 @@ def restore_population(params, orgs, key):
     """A PopulationState (on key's device) from load_population output,
     each organism fast-forwarded to its gestation offset with masked
     micro-steps."""
-    from avida_tpu_torch.core.state import (make_cell_inputs,
+    from avida_tpu_torch.core.state import (is_smt, make_cell_inputs,
                                             zeros_population)
     from avida_tpu_torch.ops.interpreter import micro_step
 
@@ -145,6 +145,7 @@ def restore_population(params, orgs, key):
     dev = key.device
     st = zeros_population(n, L, R, params.num_global_res,
                           params.num_spatial_res, params.num_demes,
+                          smt=is_smt(params),
                           num_registers=params.num_registers,
                           nb_cap=params.nb_cap,
                           n_deme_res=params.num_deme_res,

@@ -1,7 +1,9 @@
 """World: the host-side composition root and update driver.
 
 Counterpart of avida_tpu/world.py for the main path: one solo world of
-heads-CPU organisms, run by the packed-resident engine or, when the
+heads-CPU organisms, or of TransSMT hosts and their parasites
+(INST_SET transsmt, on the micro-step engine), run by the
+packed-resident engine or, when the
 reference would not take it (systematics on, its default; a run off the
 cycle kernel, on the micro-step engine), the per-update engine
 (ops/update.py); the live phylogeny (systematics/) fed from the
@@ -10,7 +12,8 @@ pools and demes; the standard events (Inject, InjectAll, Exit,
 PrintAverageData, PrintCountData, PrintTasksData, PrintTimeData,
 PrintDominantData, PrintResourceData, SavePopulation, LoadPopulation,
 SetResource, CompeteDemes, ReplicateDemes,
-Pred_DemeResourceThresholdPredicate) and their .dat files; persistence:
+Pred_DemeResourceThresholdPredicate, InjectParasite) and their .dat
+files; persistence:
 native checkpoints (TPU_CKPT_DIR, TPU_CKPT_EVERY, TPU_CKPT_FINAL;
 save_checkpoint / resume, in the reference's on-disk format),
 SIGTERM/SIGINT preemption with a final checkpoint, the state digest and
@@ -36,13 +39,13 @@ import torch
 from avida_tpu_torch.config import (AvidaConfig, default_instset,
                                     heads_sex_instset, load_avida_cfg,
                                     load_environment, load_events,
-                                    load_instset, load_organism)
+                                    load_instset, load_organism,
+                                    transsmt_instset)
 from avida_tpu_torch.config.environment import default_logic9_environment
 from avida_tpu_torch.config.events import parse_event_line
 from avida_tpu_torch.config.schema import _parse_scalar
 from avida_tpu_torch.core.state import (clone_state, init_population,
-                                        make_cell_inputs, make_world_params,
-                                        seed_organism)
+                                        make_world_params, seed_organism)
 from avida_tpu_torch.ops import cycles, packed_chunk
 from avida_tpu_torch.ops import demes as deme_ops
 from avida_tpu_torch.ops import update as update_ops
@@ -58,6 +61,26 @@ _DEFAULT_ANCESTOR_NAMES = (
     + ["nop-C"] * 86
     + ["h-search", "h-copy", "if-label", "nop-C", "nop-A", "h-divide",
        "mov-head", "nop-A", "nop-B"]
+)
+
+# Reference transsmt ancestor (support/config/default-transsmt.org): search
+# end label, SetMemory offspring space, copy loop, Divide at end-position.
+_TRANSSMT_ANCESTOR_NAMES = (
+    ["Search", "Nop-C", "Nop-D", "Push-Prev", "SetMemory", "Nop-A",
+     "Head-Move"]
+    + ["Nop-C"] * 83
+    + ["Search", "Inst-Read", "Inst-Write", "Head-Push", "Nop-C",
+       "If-Equal", "Divide", "Head-Move", "Nop-A", "Nop-B"]
+)
+
+# Reference transsmt parasite (support/config/default-transsmt-parasite.org):
+# nop body, copy loop into its own write space, Inject at the end.
+_TRANSSMT_PARASITE_NAMES = (
+    ["Nop-A"] + ["Nop-B"] * 75
+    + ["Inst-Read", "Val-Add", "Val-Dec", "SetMemory", "Nop-C", "IO",
+       "Nop-C", "Nop-B", "Head-Move", "Nop-C", "Search", "Inst-Write",
+       "Inst-Read", "If-Greater", "Head-Move", "Val-Sub", "Val-Dec", "IO",
+       "Val-Div", "Val-Dec", "Val-Dec", "Val-Dec", "Val-Div", "Inject"]
 )
 
 # config switches whose features this package does not run yet:
@@ -78,7 +101,9 @@ _OFF_SWITCHES = (
 
 def default_ancestor(instset) -> np.ndarray:
     name_to_op = {n: i for i, n in enumerate(instset.inst_names)}
-    if "h-divide" not in name_to_op and "divide-sex" in name_to_op:
+    if "Divide" in name_to_op or "Divide-Erase" in name_to_op:
+        names = _TRANSSMT_ANCESTOR_NAMES       # transsmt hardware
+    elif "h-divide" not in name_to_op and "divide-sex" in name_to_op:
         # the sexual ancestor: the same replicator with divide-sex
         # (ref support/config/default-heads-sex.org)
         names = ["divide-sex" if n == "h-divide" else n
@@ -91,6 +116,13 @@ def default_ancestor(instset) -> np.ndarray:
             f"instruction set {instset.name!r} has no built-in default "
             f"ancestor (lacks {missing[:4]}); inject an explicit genome")
     return np.asarray([name_to_op[n] for n in names], np.int8)
+
+
+def default_parasite(instset) -> np.ndarray:
+    """The stock transsmt parasite's opcodes in `instset`."""
+    name_to_op = {n: i for i, n in enumerate(instset.inst_names)}
+    return np.asarray([name_to_op[n] for n in _TRANSSMT_PARASITE_NAMES],
+                      np.int8)
 
 
 def _load_migration_matrix(path: str, num_demes: int, name: str) -> list:
@@ -153,10 +185,12 @@ class World:
         if config_dir and cfg.INST_SET not in ("-", ""):
             self.instset = load_instset(os.path.join(config_dir,
                                                      cfg.INST_SET))
-        elif any(t in cfg.INST_SET for t in ("smt", "pred", "experimental")):
+        elif "transsmt" in cfg.INST_SET or "smt" in cfg.INST_SET:
+            self.instset = transsmt_instset()
+        elif "pred" in cfg.INST_SET or "experimental" in cfg.INST_SET:
             raise NotImplementedError(
-                f"INST_SET {cfg.INST_SET!r}: only the heads instruction "
-                f"sets (heads_default, heads_sex) are ported to "
+                f"INST_SET {cfg.INST_SET!r}: experimental spatial hardware "
+                f"(ROADMAP.md Queue 1 item 12h) is not ported to "
                 f"avida_tpu_torch")
         elif "sex" in cfg.INST_SET:
             self.instset = heads_sex_instset()
@@ -263,7 +297,8 @@ class World:
                 "PrintCountData", "PrintTasksData", "PrintTimeData",
                 "PrintDominantData", "PrintResourceData", "SavePopulation",
                 "LoadPopulation", "SetResource", "CompeteDemes",
-                "ReplicateDemes", "Pred_DemeResourceThresholdPredicate")
+                "ReplicateDemes", "Pred_DemeResourceThresholdPredicate",
+                "InjectParasite")
 
     def _check_action(self, action):
         if action not in self._ACTIONS:
@@ -329,35 +364,48 @@ class World:
 
     def _clone_all(self, gm, glen, key):
         """InjectClone / SetupClone on every cell (the reference's
-        ops/demes._clone_reset with all cells selected)."""
-        p, st = self.params, self.state
-        n = p.num_cells
-        dev = self.device
-        genome = torch.from_numpy(gm).to(dev)[None, :].expand(n, -1)
-        if p.death_method == 2:
-            max_exec = p.age_limit * glen
+        ops/demes._clone_reset with all cells selected; this package's
+        demes.clone_reset)."""
+        st = self.state
+        n = self.params.num_cells
+        full = torch.ones(n, dtype=torch.bool, device=self.device)
+        genome = torch.from_numpy(gm).to(self.device)[None, :].expand(n, -1)
+        return st.replace(**deme_ops.clone_reset(
+            self.params, st, full, genome,
+            torch.full((n,), glen, dtype=torch.int32, device=self.device),
+            full, torch.full((n,), float(glen), dtype=torch.float32,
+                             device=self.device), key))
+
+    def _action_InjectParasite(self, args):
+        """InjectParasite [filename [label [cell_start [cell_end]]]] (ref
+        cActionInjectParasite): the parasite genome -- by default the
+        stock transsmt parasite -- into the parasite memory space of every
+        living, uninfected organism in cells [start, end)."""
+        if args and args[0] not in ("-", ""):
+            genome = self._resolve_org_path(args[0])
         else:
-            max_exec = p.age_limit if p.death_method == 1 else 2**30
-        up = {
-            "genome": genome.clone(),
-            "tape": genome.to(torch.uint8) & 0x3F,
-            "alive": torch.ones(n, dtype=torch.bool, device=dev),
-            "merit": torch.full((n,), float(glen), dtype=torch.float32,
-                                device=dev),
-        }
-        for name in ("genome_len", "mem_len", "executed_size",
-                     "copied_size"):
-            up[name] = torch.full((n,), glen, dtype=torch.int32, device=dev)
-        up["max_executed"] = torch.full((n,), max_exec, dtype=torch.int32,
-                                        device=dev)
-        for name in deme_ops.ZERO_FIELDS + deme_ops.FALSE_FIELDS:
-            up[name] = torch.zeros_like(getattr(st, name))
-        up["cur_bonus"] = torch.full((n,), p.default_bonus,
-                                     dtype=torch.float32, device=dev)
-        for name in ("genotype_id", "parent_id", "birth_update"):
-            up[name] = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        up["inputs"] = make_cell_inputs(key, n)
-        return st.replace(**up)
+            genome = default_parasite(self.instset)
+        start = int(args[2]) if len(args) > 2 else 0
+        end = int(args[3]) if len(args) > 3 else start + 1
+        cells = torch.arange(self.params.num_cells, device=self.device)
+        self.inject_parasite(genome, (cells >= start) & (cells < end))
+
+    def inject_parasite(self, genome: np.ndarray, cells: torch.Tensor):
+        """InjectParasite's placement on the bool[N] mask `cells`: the
+        living, uninfected organisms there take `genome` as their
+        parasite, its thread at (space 2, position 0)."""
+        from avida_tpu_torch.ops.birth import _set_thread, _where_rows
+        st = self.state
+        sel = cells & st.alive & ~st.parasite_active
+        g = np.zeros(self.params.max_memory, np.uint8)
+        g[:len(genome)] = np.asarray(genome).astype(np.uint8)
+        self.state = st.replace(
+            pmem=_where_rows(sel, torch.from_numpy(g).to(self.device)[None],
+                             st.pmem),
+            pmem_len=torch.where(sel, len(genome), st.pmem_len),
+            parasite_active=st.parasite_active | sel,
+            smt_head_pos=_set_thread(st.smt_head_pos, 1, sel, 0),
+            smt_head_space=_set_thread(st.smt_head_space, 1, sel, 2))
 
     def _action_Exit(self, args):
         self._exit = True

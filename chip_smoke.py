@@ -58,6 +58,21 @@ and resource pools and demes (ROADMAP items 12a, 12b):
   resources_cross_device  small worlds of the three paths on the card
                     and on the CPU, ending identical
 
+and TransSMT hardware with host-parasite coevolution (ROADMAP item
+12c, BASELINE config 4), on the micro-step engine (micro_step_smt):
+
+  smt_path          320x320, INST_SET transsmt, every cell seeded with
+                    the TransSMT ancestor and the stock parasite in every
+                    other cell, PARASITE_VIRULENCE 0.8: World.run to
+                    update 20, then one update timed phase by phase (the
+                    flush with the injections) and run; hosts and
+                    parasites alive, infections landing, no launch
+  smt_cross_device  the same construction at 10x10 on the card and on
+                    the CPU, INT_MIN and -1 planted under Val-Div and
+                    Val-Mod: one cycle, then 14 updates, identical
+  smt_fold          16 TransSMT 60x60 worlds on the folded engine for
+                    18 updates, members 0 and 15 against their solo runs
+
 and persistence (native checkpoints in the reference's format):
 
   persist_path      the 320x320 packed world saving every 10 updates
@@ -90,13 +105,16 @@ against the solo launches, and two batch members against their solo
 runs; small worlds and a small batch run on the card and on the CPU
 must end identical; the geometry phase holds both kernels to the plain
 version at the launch shapes the paths do not reach (B = 128, 256, and
-L = 1024).  Each phase prints one JSON line; the last line is
+L = 1024), and the size_range phase holds them at OFFSPRING_SIZE_RANGE
+1.1, where the divide's size limit rounds.  Each phase prints one JSON
+line; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that
 line.  Needs a CUDA device: without one it exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -952,6 +970,50 @@ class one_thread:
         torch.set_num_threads(self.n)
 
 
+def phase_size_range(tmp):
+    """OFFSPRING_SIZE_RANGE 1.1 on the kernel route: every lane of an 8x8
+    world set to divide a 29- or 30-site child of a 33-site genome (the
+    reference's compiled minimum is 33 * f32(1 / 1.1f) = 29.999998 -> 29,
+    a true division gives 30): both kernels held word for word against
+    the plain version on one launch, and every lane divides."""
+    import torch
+    from avida_tpu_torch.ops import cycles, packed_chunk
+    from avida_tpu_torch.utils import prng
+    w = make_world(8, os.path.join(tmp, "size_range"), "cuda",
+                   ["u begin InjectAll"], {"OFFSPRING_SIZE_RANGE": 1.1})
+    w.process_events()
+    st, p = w.state, w.params
+    n = p.num_cells
+    op = {nm: i for i, nm in enumerate(w.instset.inst_names)}
+    tape = torch.full_like(st.tape, op["nop-A"])
+    tape[:, 10] = op["h-divide"]
+    tape[:, :30] |= 0x40
+    tape[:, 30:60] |= 0x80
+    heads = torch.tensor([10, 30, 0, 3], dtype=torch.int32,
+                         device=w.device).expand(n, 4).clone()
+    mem_len = 59 + torch.arange(n, dtype=torch.int32, device=w.device) % 2
+    w.state = st.replace(tape=tape, heads=heads, mem_len=mem_len,
+                         genome_len=torch.full_like(st.genome_len, 33),
+                         mal_active=torch.ones_like(st.mal_active))
+    pc = packed_chunk.pack_chunk(p, w.state)
+    B, n_pad, _ = cycles.dims(p, n, p.max_memory)
+    packed_chunk.schedule_phase(p, pc, prng.key(2, w.device))
+    planes = []
+    for t in (pc.tape_t, pc.off_t, pc.ivec, pc.fvec):
+        out = torch.zeros((t.shape[0], n_pad), dtype=t.dtype,
+                          device=t.device)
+        out[:, :n] = t
+        planes.append(out)
+    seeds = cycles.block_seeds(prng.key(1, w.device), n_pad, B)
+    kern, err, _ = hold_both(p, tuple(planes), seeds, 2, B, "size_range")
+    divided = int(((kern[2][cycles.IV_FLAGS, :n] & cycles.FLAG_NEWDIV)
+                   != 0).sum())
+    if divided != n:
+        raise AssertionError(f"size_range: {divided} of {n} lanes divided")
+    return {"phase": "size_range", "offspring_size_range": 1.1,
+            "lanes": n, "divided": divided, "max_abs_err": err}
+
+
 def mw_members(side, seeds, tmp, tag, device, sysm, every, ckpt_root=None):
     """One World per seed, each seeded everywhere with the ancestor and
     printing every `every` updates into its own directory (dominant.dat
@@ -1296,8 +1358,11 @@ def xla_breakdown(w, updates):
     from avida_tpu_torch.ops import update
     from avida_tpu_torch.utils import prng
     p, st = w.params, w.state
+    # TransSMT offspring wait in the write buffer: no extraction phase
+    smt = p.hw_type != 0
     acc = {k: 0.0 for k in ("schedule", "cycles", "materialize", "bank",
-                            "flush", "stats")}
+                            "flush", "stats") if not (smt and
+                                                      k == "materialize")}
 
     def timed(name, fn, *args):
         torch.cuda.synchronize()
@@ -1320,8 +1385,9 @@ def xla_breakdown(w, updates):
         pending = st.divide_pending
         st = timed("cycles", update.run_micro_steps, p, st, ks[1], granted,
                    max_k)
-        st = timed("materialize", update.materialize_offspring, p, st,
-                   pending)
+        if not smt:
+            st = timed("materialize", update.materialize_offspring, p, st,
+                       pending)
         st, _ = timed("bank", update.bank_phase, p, st, budgets, executed0)
         st = timed("flush", update.birth_phase, p, st, ks[2], ks[1], u)
         timed("stats", update.update_stats, p, st, alive_before, u)
@@ -1383,13 +1449,14 @@ def _xla_run(w, updates):
     return insts, time.perf_counter() - t0, cycles.LAUNCHES
 
 
-def _check_xla_world(w, name, res, files=None):
-    """The micro-step world's checks: routed off the kernel, no launch,
-    live organisms with finite merits, the .dat files written."""
+def _check_xla_world(w, name, res, files=None, reason="kernel off"):
+    """The micro-step world's checks: routed off the kernel (for
+    `reason`), no launch, live organisms with finite merits, the .dat
+    files written."""
     import torch
     rep = w.engine_report()
     ok = (res["kernel_launches"] == 0 and rep["engine"] == "per-update"
-          and "kernel off" in rep["fallback_reason"]
+          and reason in rep["fallback_reason"]
           and w.num_organisms > 0
           and bool(torch.isfinite(w.state.merit).all())
           and (files is None or sorted(dat_bodies(w.data_dir)) == files))
@@ -1654,6 +1721,209 @@ def phase_kernel_limits(tmp):
     return {"phase": "kernel_limits", "cases": cases}
 
 
+# TransSMT hardware and host-parasite coevolution (BASELINE config 4) on
+# the headline construction: PARASITE_VIRULENCE as in the reference's
+# host-parasite scenario (tests/test_transsmt.py)
+SMT = {"INST_SET": "transsmt", "TPU_MAX_MEMORY": 384,
+       "PARASITE_VIRULENCE": 0.8}
+I32_MIN = -2**31
+
+
+def smt_world(side, data_dir, device, extra=None, events=()):
+    """A TransSMT world with every cell seeded with the ancestor
+    (InjectAll) and the stock parasite in every other cell."""
+    import torch
+    from avida_tpu_torch.world import default_parasite
+    w = make_world(side, data_dir, device, ["u begin InjectAll"]
+                   + list(events), dict(SMT, **(extra or {})))
+    w.process_events()
+    n = w.params.num_cells
+    w.inject_parasite(default_parasite(w.instset),
+                      torch.arange(n, device=w.device) % 2 == 0)
+    return w
+
+
+def smt_counts(st):
+    """(living hosts, living parasites) of a TransSMT state."""
+    return (int(st.alive.sum()), int((st.alive & st.parasite_active).sum()))
+
+
+def smt_run(w, updates):
+    """World.run one update at a time up to `updates`, on the card with
+    the cycle kernel's launches counted: (instructions, wall s, launches,
+    infections per update).  An infection is a cell whose parasite flag
+    the birth flush's injections set."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    torch.cuda.synchronize()
+    cycles.reset_launches()
+    infections, insts, wall = [], 0, 0.0
+    for u in range(w.update + 1, updates + 1):
+        before = w.state.parasite_active.clone()
+        t0 = time.perf_counter()
+        insts += w.run(max_updates=u)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        infections.append(int((w.state.parasite_active & ~before).sum()))
+    return insts, wall, cycles.LAUNCHES, infections
+
+
+def phase_smt_path(side, updates, data_dir, smi):
+    """The headline world on TransSMT hardware, hosts and parasites: the
+    micro-step engine (micro_step_smt), no kernel launch.  World.run to
+    `updates`, then one more update timed phase by phase (its flush
+    includes the injections) and run: hosts and parasites alive,
+    infections landing."""
+    import torch
+    w = smt_world(side, data_dir, "cuda", events=[
+        f"u 0:{updates}:end {a}" for a in XLA_PRINTS])
+    hosts0, para0 = smt_counts(w.state)
+    insts, wall, launches, infections = smt_run(w, updates)
+    breakdown = xla_breakdown(w, 1)
+    t_insts, t_wall, t_launches, t_inf = smt_run(w, updates + 1)
+    hosts, para = smt_counts(w.state)
+    res = {"phase": "smt_path", "world": f"{side}x{side}",
+           "engine_report": w.engine_report(), "updates": w.update,
+           "kernel_launches": launches + t_launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / updates, "wall_s": wall,
+           "timed_update": {"update": w.update, "insts": t_insts,
+                            "ms": 1e3 * t_wall,
+                            "org_inst_per_s": t_insts / t_wall,
+                            "infections": t_inf[0]},
+           "breakdown": breakdown,
+           "hosts_start": hosts0, "parasites_start": para0,
+           "hosts": hosts, "parasites": para,
+           "infections_per_update": infections + t_inf,
+           "births": int(w._total_births), "nvidia_smi": smi}
+    _check_xla_world(w, "smt_path", res, ["average.dat", "count.dat",
+                                          "tasks.dat", "time.dat"],
+                     reason="non-heads hardware")
+    if hosts == 0 or para == 0 or sum(infections + t_inf) == 0 \
+            or not bool(torch.isfinite(w.state.fitness).all()):
+        raise AssertionError(f"smt_path: hosts {hosts}, parasites {para}, "
+                             f"infections {infections + t_inf}")
+    return res
+
+
+def plant_division(w):
+    """Cells 1, 3, 5 and 7 (no parasite): Val-Div, Val-Mod, Val-Div,
+    Val-Mod under the host's IP over BX = INT_MIN and CX = -1 (cells 5
+    and 7: CX = 0, no push)."""
+    st = w.state
+    names = w.instset.inst_names
+    tape, stacks = st.tape.clone(), st.smt_stacks.clone()
+    for c, op, b in ((1, "Val-Div", -1), (3, "Val-Mod", -1),
+                     (5, "Val-Div", 0), (7, "Val-Mod", 0)):
+        tape[c, 0] = names.index(op)
+        tape[c, 1] = names.index("Val-Inc")
+        stacks[c, 0, 1] = I32_MIN
+        stacks[c, 0, 2] = b
+    w.state = st.replace(tape=tape, smt_stacks=stacks)
+
+
+def phase_smt_cross_device(tmp, devices=("cuda", "cpu"), updates=14):
+    """TransSMT on the card and on the CPU must end identical: the smt_path
+    construction at 10x10 (the reference's TransSMT tests' world: 160
+    sites, time slices of 100), INT_MIN and -1 planted under Val-Div and
+    Val-Mod; first one micro_step_smt cycle (INT_MIN // -1 = INT_MIN and
+    INT_MIN % -1 = 0 on the BX stack, the same on both devices), then
+    World.run: states and .dat bytes after every update, births and
+    infections in the run."""
+    import torch
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.ops.interpreter_smt import micro_step_smt
+    from avida_tpu_torch.utils import prng
+    extra = {"TPU_MAX_MEMORY": 160, "AVE_TIME_SLICE": 100,
+             "TPU_MAX_STEPS_PER_UPDATE": 100, "RANDOM_SEED": 31}
+    ev = [f"u 0:1:end {a}" for a in XLA_PRINTS]
+    runs = []
+    for dev in devices:
+        w = smt_world(10, os.path.join(tmp, f"smt_x_{dev}"), dev, extra, ev)
+        plant_division(w)
+        st = micro_step_smt(w.params, w.state, prng.key(5, w.device),
+                            w.state.alive)
+        sp = st.smt_sp[[1, 3, 5, 7], 0, 1].long()
+        tops = st.smt_stacks[[1, 3, 5, 7], 0, 1][torch.arange(4), sp]
+        first = convert.state_to_arrays(st)
+        per_update, infections = [], 0
+        with one_thread() if dev == "cpu" else contextlib.nullcontext():
+            for u in range(1, updates + 1):
+                before = w.state.parasite_active.clone()
+                w.run(max_updates=u)
+                infections += int((w.state.parasite_active & ~before).sum())
+                per_update.append(convert.state_to_arrays(w.state))
+        _sync(dev)
+        runs.append((tops.tolist(), first, per_update,
+                     dat_bodies(w.data_dir), infections,
+                     int(w._total_births), smt_counts(w.state)))
+    (ta, fa, ua, da, ia, ba, ca), (tb, fb, ub, db, ib, bb, cb) = runs
+    bad = [k for k in fa if fa[k] is not None
+           and fa[k].tobytes() != fb[k].tobytes()]
+    bad += [(u + 1, k) for u in range(updates) for k in ua[u]
+            if ua[u][k] is not None and ua[u][k].tobytes() != ub[u][k].tobytes()]
+    if da != db:
+        bad.append(".dat files")
+    if bad or ta != tb or ta != [I32_MIN, 0, I32_MIN, I32_MIN] \
+            or ia == 0 or ba == 0:
+        raise AssertionError(f"smt_cross_device: cuda vs cpu differ in "
+                             f"{bad[:10]}; BX tops {ta} / {tb}; infections "
+                             f"{ia}, births {ba}")
+    return {"phase": "smt_cross_device", "fields_equal": True,
+            "world": "10x10", "updates": updates,
+            "division_tops": ta, "births": ba, "infections": ia,
+            "hosts_parasites": ca, "dat_files_equal": sorted(da)}
+
+
+def phase_smt_fold(tmp, side, seeds, updates, smi):
+    """16 TransSMT host-parasite worlds of 60x60 (the fleet's seeds) on the
+    folded micro-step engine: MultiWorld.run, no launch; members 0 and 15
+    equal their solo runs on the card."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.parallel.multiworld import MultiWorld
+    ev = [f"u 0:{updates}:end {a}" for a in XLA_PRINTS]
+
+    def member(k, tag):
+        return smt_world(side, os.path.join(tmp, f"{tag}_{k:03d}"), "cuda",
+                         {"RANDOM_SEED": seeds[k]}, ev)
+
+    mw = MultiWorld([member(k, "smt_fold") for k in range(len(seeds))])
+    torch.cuda.synchronize()
+    cycles.reset_launches()
+    t0 = time.perf_counter()
+    insts = mw.run(max_updates=updates)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, stacked = cycles.LAUNCHES, cycles.STACKED_LAUNCHES
+    checked = []
+    for k in (0, len(seeds) - 1):
+        sw = member(k, "smt_fold_solo")
+        sw.run(max_updates=updates)
+        bad = _fields_equal(sw.state, mw.worlds[k].state, skip=())
+        if dat_bodies(sw.data_dir) != dat_bodies(mw.worlds[k].data_dir):
+            bad.append(".dat files")
+        if bad:
+            raise AssertionError(f"smt_fold: member {k} differs from its "
+                                 f"solo run in {bad}")
+        checked.append(k)
+    counts = [smt_counts(w.state) for w in mw.worlds]
+    res = {"phase": "smt_fold", "worlds": len(seeds),
+           "world": f"{side}x{side}", "engine": mw.engine,
+           "engine_report": mw.engine_report, "updates": mw.update,
+           "kernel_launches": launches, "stacked_launches": stacked,
+           "insts": insts, "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / updates, "wall_s": wall,
+           "batch_trip_efficiency": mw.trip_efficiency(),
+           "hosts": sum(c[0] for c in counts),
+           "parasites": sum(c[1] for c in counts),
+           "members_equal_solo": checked, "nvidia_smi": smi}
+    if launches or stacked or mw.engine != "per-update" \
+            or any(c[0] == 0 for c in counts):
+        raise AssertionError(f"smt_fold check failed: {res}")
+    return res
+
+
 MW_SIDE, MW_UPDATES = 60, 30   # the fleet batch: 16 stock 60x60 worlds
 MW_SEEDS = tuple(range(101, 117))  # TPU_FLEET_MAX_BATCH = 16 members
 
@@ -1663,6 +1933,10 @@ COSTS_UPDATES = 10             # the costs world's depth
 XLA_UPDATES = 3                # the micro-step paths' depth at 320x320
 AGREE_UPDATES = 6              # engines_agree: the first divides land
 FOLD_UPDATES = 6               # the folded batch's depth
+# the TransSMT paths' depth: at time slices of 30 the first divides and
+# injections land from about update 16 (a 12x12 CPU run, seed 11; the
+# 320x320 world's first infections at 16); the batch stops at 18
+SMT_UPDATES, SMT_FOLD_UPDATES = 20, 18
 
 
 # ---- persistence (native checkpoints, resume, preemption, the digest
@@ -2349,6 +2623,7 @@ def main() -> int:
         emit(phase_cross_device(tmp))
         emit(phase_mw_cross_device(tmp))
         emit(phase_geometry(tmp))
+        emit(phase_size_range(tmp))
         w, main_res = phase_main(SIDE, UPDATES, os.path.join(tmp, "data"))
         emit(main_res)
         kern = phase_kernel(w)
@@ -2415,6 +2690,12 @@ def main() -> int:
         del wdeme
         emit(phase_deme_resource_path(SIDE, XLA_UPDATES, tmp, smi))
         emit(phase_resources_cross_device(tmp))
+        # TransSMT hardware and host-parasite coevolution
+        emit(phase_smt_path(SIDE, SMT_UPDATES, os.path.join(tmp, "smt"),
+                            smi))
+        emit(phase_smt_cross_device(tmp))
+        emit(phase_smt_fold(tmp, MW_SIDE, MW_SEEDS, SMT_FOLD_UPDATES,
+                            smi))
     timing = ("max_abs_err", "ms", "simple_ms", "turns_ms", "reached",
               "plain_ms", "bound_ms", "bytes_read", "bytes_written")
     per_path = [

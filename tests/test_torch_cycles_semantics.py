@@ -194,6 +194,37 @@ def test_launch_equals_reference(evolved, tmp_path, case):
         assert bool((iv[tpc.IV_OFF_SEX] != 0).any())
 
 
+def test_divide_size_limit_follows_the_compiled_reciprocal(evolved,
+                                                            tmp_path):
+    """OFFSPRING_SIZE_RANGE 1.1 on the kernel route: the reference's
+    compiled kernel takes 33 / 1.1 as 33 * f32(1 / 1.1f) = 29.999998 -> 29
+    (a true float32 division gives 30.0), so every lane's 29-site child
+    of a 33-site genome divides, as its 30-site one does; all four planes
+    equal the reference's."""
+    path = _instset_file(tmp_path / "instset.cfg", HEADS, {})
+    rp, tp = _both_params(path, dict(VALS, OFFSPRING_SIZE_RANGE=1.1))
+    a = convert.state_to_arrays(evolved.state)
+    op = {n: i for i, n in enumerate(HEADS)}
+    n = a["tape"].shape[0]
+    for c in range(n):
+        a["genome_len"][c] = 33
+        a["heads"][c] = [10, 30, 0, 3]
+        a["mem_len"][c] = 59 + c % 2
+        a["tape"][c] = op["nop-A"]
+        a["tape"][c, 10] = op["h-divide"]
+        a["tape"][c, :30] |= 0x40
+        a["tape"][c, 30:60] |= 0x80
+    a["divide_pending"][:] = False
+    a["mal_active"][:] = True
+    a["alive"][:] = True
+    out_r, out_t = _launch_both(rp, tp, a, np.full(n, 2, np.int32),
+                                jax.random.key(1))
+    for x, y in zip(out_r, out_t):
+        assert _eq(x, y)
+    flags = out_t[2][tpc.IV_FLAGS]            # n lanes and the padding
+    assert int(((flags & tpc.FLAG_NEWDIV) != 0).sum()) == n
+
+
 def test_float32_draw_thresholds(tmp_path):
     """prob_fail and the cumulative mutation weights are compared in
     float32, as the reference does.  Every lane runs h-copy with copy

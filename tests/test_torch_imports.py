@@ -36,6 +36,9 @@ assert {"avida_tpu_torch.systematics",
         "avida_tpu_torch.ops.digest",
         "avida_tpu_torch.ops.resources",
         "avida_tpu_torch.ops.demes",
+        "avida_tpu_torch.ops.interpreter_smt",
+        "avida_tpu_torch.models.transsmt",
+        "avida_tpu_torch.models.registry",
         "avida_tpu_torch.utils.checkpoint",
         "avida_tpu_torch.utils.integrity",
         "avida_tpu_torch.utils.audit",
@@ -227,7 +230,7 @@ def _cfg(**kw):
     ({"TPU_PACKED_BITS": 1}, "TPU_PACKED_BITS"),
     ({"TPU_TRACE": 1}, "TPU_TRACE"),
     ({"REVERT_FATAL": 0.5}, "REVERT_FATAL"),
-    ({"INST_SET": "instset-smt.cfg"}, "INST_SET"),
+    ({"INST_SET": "instset-experimental.cfg"}, "INST_SET"),
     ({"INST_SET": "heads_sex", "MATING_TYPES": 1}, "MATING_TYPES"),
     ({"TPU_KERNEL_SHARDS": 4}, "TPU_KERNEL_SHARDS"),
 ])
@@ -263,7 +266,7 @@ def test_per_update_configs_route_and_report(overrides, reason):
     ({"energy_enabled": True}, "item 12f"),
     ({"sem": "fork"}, "item 12f"),
     ({"sem": "mating"}, "item 12e"),
-    ({"hw_type": 1}, "item 12c"),
+    ({"hw_type": 3}, "item 12h"),
 ])
 def test_engine_refusals_name_their_item(replace, needle, use_pallas):
     """What neither cycle engine runs is refused at World construction by
@@ -278,6 +281,83 @@ def test_engine_refusals_name_their_item(replace, needle, use_pallas):
     w.params = w.params.replace(**replace)
     with pytest.raises(NotImplementedError, match=needle):
         w._check_engine()
+
+
+# the TransSMT world end to end (a 4x4 world, the parasite in cells
+# 0-7, one update): the SMT modules load without jax or avida_tpu
+_SMT_CLI = r"""
+import sys
+from avida_tpu_torch.__main__ import main
+rc = main(["-u", "1", "-set", "WORLD_X", "4", "-set", "WORLD_Y", "4",
+           "-set", "INST_SET", "transsmt", "--device", "cpu",
+           "-d", sys.argv[1]])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "avida_tpu" or m.startswith("avida_tpu."))
+assert rc == 0, rc
+for m in ("avida_tpu_torch.ops.interpreter_smt",
+          "avida_tpu_torch.models.transsmt"):
+    assert m in sys.modules, m
+assert not bad, bad
+"""
+
+
+def test_transsmt_cli_imports_no_jax_and_no_reference(tmp_path):
+    res = subprocess.run([sys.executable, "-c", _SMT_CLI,
+                          str(tmp_path / "data")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("inst_set", ["transsmt", "instset-smt.cfg"])
+def test_transsmt_is_not_refused(inst_set):
+    """TransSMT hardware (ROADMAP.md item 12c) is ported: both names of the
+    instruction set select it, on the micro-step engine, and InjectParasite
+    is an accepted action."""
+    from avida_tpu_torch.world import World
+    w = World(cfg=_cfg(INST_SET=inst_set), device="cpu")
+    assert w.params.hw_type == 2
+    w._check_engine()
+    rep = w.engine_report()
+    assert rep["engine"] == "per-update"
+    assert "non-heads hardware" in rep["fallback_reason"]
+    w.add_event("u 1 InjectParasite - - 0 4")
+
+
+@pytest.mark.parametrize("column", ["cost", "ft_cost", "prob_fail",
+                                    "addl_time_cost"])
+def test_transsmt_cost_columns_refused_by_name(tmp_path, column):
+    """The reference's own TransSMT limits stay: cost, ft_cost, prob_fail
+    and addl_time_cost columns, and MAX_CPU_THREADS > 1."""
+    from avida_tpu_torch.config import transsmt_instset
+    from avida_tpu_torch.world import World
+    names = transsmt_instset().inst_names
+    vals = {"cost": 2, "ft_cost": 3, "prob_fail": 0.5, "addl_time_cost": 1}
+    lines = ["INSTSET transsmt:hw_type=2"] + [
+        f"INST {nm}" + (f":{column}={vals[column]}" if k == 5 else "")
+        for k, nm in enumerate(names)]
+    (tmp_path / "instset.cfg").write_text("\n".join(lines) + "\n")
+    (tmp_path / "avida.cfg").write_text("INST_SET instset.cfg\n")
+    with pytest.raises(NotImplementedError, match="TransSMT"):
+        World(config_dir=str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="MAX_CPU_THREADS"):
+        World(cfg=_cfg(INST_SET="transsmt", MAX_CPU_THREADS=2),
+              device="cpu")
+
+
+def test_experimental_hardware_refused_by_name(tmp_path):
+    """HARDWARE_TYPE 3 (experimental spatial hardware, ROADMAP.md item 12h)
+    stays refused by name: by its instruction-set names and by a file's
+    hw_type."""
+    from avida_tpu_torch.world import World
+    for inst_set in ("experimental", "pred_look"):
+        with pytest.raises(NotImplementedError, match="item 12h"):
+            World(cfg=_cfg(INST_SET=inst_set), device="cpu")
+    (tmp_path / "instset.cfg").write_text(
+        "INSTSET exp:hw_type=3\nINST nop-A\nINST nop-B\nINST h-divide\n")
+    (tmp_path / "avida.cfg").write_text("INST_SET instset.cfg\n")
+    with pytest.raises(NotImplementedError, match="item 12h"):
+        World(config_dir=str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("use_pallas", [0, 2])

@@ -256,3 +256,30 @@ def test_materialize_offspring_equals_reference(tmp_path):
     got = tupd.materialize_offspring(tp, st_t, torch.from_numpy(before))
     _assert_states_equal(want, got)
     assert (arrays["divide_pending"] & ~before).sum() >= 10
+
+
+def test_divide_size_limit_follows_the_compiled_reciprocal(tmp_path):
+    """OFFSPRING_SIZE_RANGE 1.1: the reference's compiled divide check
+    takes 33 / 1.1 as 33 * f32(1 / 1.1f) = 29.999998 -> 29 (a true
+    float32 division gives 30.0), so a 29-site child of a 33-site genome
+    divides; every field equal after the cycle."""
+    path = _instset_file(tmp_path / "instset.cfg", HEADS, {})
+    rp, tp = _both_params(path, dict(VALS, OFFSPRING_SIZE_RANGE=1.1))
+    a = _random_arrays(tp, HEADS, 0)
+    for c in range(8, 16):           # children of 29 and 30 sites
+        a["genome_len"][c] = 33
+        a["heads"][c] = [10 + c, 30, 0, 3]
+        a["mem_len"][c] = 59 + c % 2
+        a["tape"][c, :30] |= 0x40
+        a["tape"][c, 30:60] |= 0x80
+        a["divide_pending"][c] = a["sterile"][c] = False
+        a["cost_wait"][c] = 0
+        a["alive"][c] = True
+    mask = np.ones(N, bool)
+    k = jax.random.key(3)
+    st_r = _ref_step(rp)(_ref_state(a), k, jnp.asarray(mask))
+    st_t = tinterp.micro_step(tp, convert.state_from_arrays(a),
+                              convert.key_from_data(jax.random.key_data(k)),
+                              torch.from_numpy(mask))
+    _assert_states_equal(st_r, st_t)
+    assert np.asarray(st_r.divide_pending)[8:16].all()

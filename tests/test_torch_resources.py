@@ -18,6 +18,8 @@ against the reference's avida_tpu on the same inputs.
 Tolerance: exact -- float32 bit patterns equal.
 """
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -39,6 +41,7 @@ from avida_tpu_torch.config import load_environment as tload  # noqa: E402
 from avida_tpu_torch.core import state as tstate  # noqa: E402
 from avida_tpu_torch.ops import cycles as tpc  # noqa: E402
 from avida_tpu_torch.ops import resources as tres  # noqa: E402
+from avida_tpu_torch.ops import tasks as ttasks  # noqa: E402
 from avida_tpu_torch.utils import prng  # noqa: E402
 from avida_tpu_torch.world import World  # noqa: E402
 
@@ -357,14 +360,73 @@ def test_engine_cycle_with_every_pool_equals_reference(tmp_path, seed):
     assert (got["cur_reaction_count"] > 0).sum() > 200
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "ROADMAP.md Queue 3: with pool-bound processes beside a process bound "
-    "to no pool, XLA's CPU backend compiles the bonus's reduction over "
-    "the reactions into a form the port's in-order fold does not "
-    "reproduce (cur_bonus differs in the first cycle)"))
+def _port_params(tmp_path):
+    """The params of _cycle_case's port world."""
+    return World(config_dir=str(tmp_path), overrides=[
+        ("WORLD_X", 12), ("WORLD_Y", 12), ("TPU_USE_PALLAS", 2),
+        ("TPU_SYSTEMATICS", 0), ("NUM_DEMES", 4)],
+        data_dir=str(tmp_path / "p3"), device="cpu").params
+
+
 def test_engine_cycle_with_an_unbound_process_beside_pools(tmp_path):
+    """Pool-bound processes beside one bound to no pool: the reference's
+    compiled IO block reduces the bonus's products and sum as one tree
+    over the reactions padded to a power of two (tasks.vector_chunks'
+    TREE), not in order; cur_bonus exact."""
     r_out, t_out, _ = _cycle_case(tmp_path, 1, infinite=True)
     assert _same(r_out.cur_bonus, t_out.cur_bonus)
+    assert ttasks.vector_chunks(_port_params(tmp_path)) == {
+        "pow": ttasks.TREE, "mult": ttasks.TREE, "add": ttasks.TREE}
+
+
+# (resource, process type) of each reaction of _mixed_env's compositions:
+# an unbound process first, two last, and 17 reactions (the 17th after
+# the tree); at most two reactions on one pool
+_BASE10 = [("glu", "pow"), ("glu", "mult"), ("suc", "add"), ("fix", "pow"),
+           ("tor", "mult"), ("grd", "add"), ("grd", "pow"),
+           ("hill", "mult"), ("dpool", "add"), ("dpool", "pow")]
+_MIXED = {
+    "first": [(None, "add")] + _BASE10,
+    "two": _BASE10 + [(None, "add"), (None, "pow")],
+    "r17": _BASE10 + [(None, "add"), ("suc", "pow"), ("fix", "mult"),
+                      ("tor", "add"), ("hill", "pow"), (None, "mult"),
+                      (None, "pow")],
+}
+
+
+def _mixed_env(spec):
+    def env(rng, infinite=False):
+        lines = []
+        for r, (res, t) in enumerate(spec):
+            v = {"mult": 1 + rng.uniform(0.001, 0.9),
+                 "pow": rng.uniform(0.05, 0.95),
+                 "add": rng.uniform(0.5, 3.0)}[t]
+            line = (f"REACTION R{r} math_1AJ process:value="
+                    f"{float(np.float32(v))!r}:type={t}")
+            if res is not None:
+                line += (f":resource={res}:frac="
+                         f"{float(np.float32(rng.uniform(0.01, 0.6)))!r}")
+            lines.append(line)
+        return POOLS + "\n".join(lines) + "\n"
+    return env
+
+
+@pytest.mark.parametrize("case", sorted(_MIXED))
+def test_engine_cycle_with_unbound_processes_reduces_as_a_tree(
+        tmp_path, case, monkeypatch):
+    """The tree form holds wherever the unbound processes sit, with two of
+    them, and at 17 reactions (the 17th folded after the tree)."""
+    monkeypatch.setattr(sys.modules[__name__], "_cycle_env",
+                        _mixed_env(_MIXED[case]))
+    r_out, t_out, _ = _cycle_case(tmp_path, 2)
+    got = convert.state_to_arrays(t_out)
+    for k in rstate.state_field_names():
+        if getattr(r_out, k) is None:
+            continue
+        assert np.asarray(getattr(r_out, k)).tobytes() == got[k].tobytes(), k
+    tables = ttasks.env_tables_to_device(_port_params(tmp_path),
+                                         torch.device("cpu"))
+    assert tables["chunks"]["add"] == ttasks.TREE
 
 
 def test_pools_stay_put_in_a_cycle_without_io(tmp_path):

@@ -407,3 +407,105 @@ def test_in_order_reduction_differs_from_engine(tmp_path, R):
     assert (want != got).sum() > 0
     assert np.array_equal(np.asarray(r_out.cur_reaction_count),
                           t_out.cur_reaction_count.numpy())
+
+
+# ---- the same reductions inside micro_step_smt's IO block ----
+
+def _smt_order_case(tmp_path, R):
+    """_order_case's cycle on TransSMT hardware: every host's first
+    instruction is IO with no modifier after it, outputting the top of
+    its BX stack, a copy of its positive input; it is inside the
+    requisite window of a random 70% of the reactions.  The reference's
+    IO block runs inside micro_step_smt's lax.cond.  Returns both
+    states, the reward counts per organism and type, and the port
+    world's params."""
+    from avida_tpu.core.state import PopulationState as RefState
+    from avida_tpu.ops import update as rupd
+    from avida_tpu.world import World as RefWorld
+
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.config import transsmt_instset
+    from avida_tpu_torch.ops import update as tupd
+    from avida_tpu_torch.world import World
+
+    rng = np.random.default_rng(R)
+    env, ptypes = _order_env(R, rng)
+    names = transsmt_instset().inst_names
+    (tmp_path / "environment.cfg").write_text(env)
+    (tmp_path / "instset-transsmt.cfg").write_text(
+        "INSTSET transsmt:hw_type=2\n"
+        + "".join(f"INST {nm}\n" for nm in names))
+    (tmp_path / "avida.cfg").write_text("INST_SET instset-transsmt.cfg\n")
+    ov = [("WORLD_X", 8), ("WORLD_Y", 8), ("TPU_MAX_MEMORY", 160),
+          ("TPU_SYSTEMATICS", 0), ("TPU_KERNEL_SHARDS", 1),
+          ("TPU_COMPILE_CACHE", 0), ("RANDOM_SEED", R)]
+    ref = RefWorld(config_dir=str(tmp_path), overrides=ov,
+                   data_dir=str(tmp_path / "r"))
+    port = World(config_dir=str(tmp_path), overrides=ov,
+                 data_dir=str(tmp_path / "p"), device="cpu")
+    assert ref.params.hw_type == port.params.hw_type == 2
+    port._action_InjectAll([])
+    st = {k: (None if v is None else v.copy())
+          for k, v in convert.state_to_arrays(port.state).items()}
+    n = st["tape"].shape[0]
+    a = rng.integers(1 << 20, 1 << 30, n).astype(np.int32)
+    st["tape"][:, 0] = names.index("IO")
+    st["tape"][:, 1] = names.index("Val-Inc")
+    st["smt_head_pos"][:] = 0
+    st["smt_stacks"][:, 0, 1, :] = a[:, None]
+    st["input_buf"][:] = 0
+    st["input_buf"][:, 0] = a
+    st["input_buf_n"][:] = 1
+    window = rng.random((n, R)) < 0.7
+    st["cur_task_count"][:] = np.where(window, 0, 2**30)
+    st["cur_bonus"][:] = rng.uniform(0.5, 4.0, n).astype(np.float32)
+    granted = np.ones(n, np.int32)
+    key = jax.random.key(5)
+    r_in = RefState(**{k: (None if v is None else jnp.asarray(v))
+                       for k, v in st.items()})
+    r_out = jax.jit(lambda s, g: rupd.interpret_phase(
+        ref.params, s, key, g, jnp.int32(1), 0)[0])(r_in, granted)
+    def port_cycle():
+        return tupd.interpret_phase(
+            port.params, convert.state_from_arrays(st),
+            convert.key_from_data(jax.random.key_data(key)),
+            torch.from_numpy(granted), 0, max_k=1)
+
+    t_out = port_cycle()
+    tables = ttasks.env_tables_to_device(port.params, torch.device("cpu"))
+    chunks = tables["chunks"]
+    tables["chunks"] = {k: 0 for k in chunks}
+    try:
+        t_in_order = port_cycle()
+    finally:
+        tables["chunks"] = chunks
+    rew = np.asarray(r_out.cur_reaction_count)
+    per_type = {t: rew[:, [r for r in range(R) if ptypes[r] == t]].sum(1)
+                for t in ("pow", "mult", "add")}
+    return r_out, t_out, t_in_order, per_type, port.params
+
+
+@pytest.mark.parametrize("R", [9, 17, 24, 32])
+def test_smt_engine_reaction_order_equals_reference(tmp_path, R):
+    """cur_bonus (and every other field) exact after one TransSMT cycle
+    in which hosts collect several fractional rewards of each process
+    type: the IO block under micro_step_smt's lax.cond combines the
+    products and the sum in the order of micro_step's
+    (ops/tasks.vector_chunks); from 17 reactions on, a fold in order
+    gives another cur_bonus for some hosts."""
+    from avida_tpu.core.state import state_field_names
+
+    from avida_tpu_torch import convert
+    r_out, t_out, t_in_order, per_type, params = _smt_order_case(tmp_path,
+                                                                 R)
+    got = convert.state_to_arrays(t_out)
+    for k in state_field_names():
+        if getattr(r_out, k) is None:
+            continue
+        assert np.asarray(getattr(r_out, k)).tobytes() == got[k].tobytes(), k
+    assert all((v >= 2).sum() > 10 for v in per_type.values())
+    want = {k: (R // 8 if R >= v else 0)
+            for k, v in (("pow", 17), ("mult", 17), ("add", 19))}
+    assert ttasks.vector_chunks(params) == want
+    differs = (np.asarray(r_out.cur_bonus) != t_in_order.cur_bonus.numpy())
+    assert differs.any() == (R >= 17)

@@ -152,3 +152,44 @@ def test_multiworld_fold_members_equal_solo(evolved, tmp_path):
                 y = f.read().splitlines()
             assert x[:1] + x[2:] == y[:1] + y[2:], d
     assert sum(int(w._total_births) for w in mw.worlds) > 0
+
+
+def test_multiworld_transsmt_members_equal_solo(tmp_path):
+    """TransSMT hardware on the folded batch: a W = 2 MultiWorld of 6x6
+    host-parasite worlds (every cell seeded, the parasite in half of
+    them), three updates of 200 cycles, each member's state and .dat
+    files equal its solo World.run; the first divides land in the
+    window."""
+    vals = dict(VALS, INST_SET="transsmt", TPU_MAX_MEMORY=160,
+                AVE_TIME_SLICE=200, TPU_MAX_STEPS_PER_UPDATE=200,
+                PARASITE_VIRULENCE=0.8)
+    ev = ["u begin InjectAll", "u begin InjectParasite - - 0 18"] + [
+        f"u 0:1:end Print{d.capitalize()}Data" for d in DATS]
+
+    def world(i, d):
+        w = World(cfg=convert.config_from_dict(dict(
+            vals, RANDOM_SEED=SEEDS[i])), data_dir=str(tmp_path / d),
+            device="cpu")
+        w.events = []
+        for e in ev:
+            w.add_event(e)
+        return w
+
+    solo = [world(i, f"solo{i}") for i in (0, 1)]
+    for w in solo:
+        w.run(max_updates=3)
+    mw = MultiWorld([world(i, f"mw{i}") for i in (0, 1)])
+    tpc.reset_launches()
+    mw.run(max_updates=3)
+    assert mw.engine == "per-update" and tpc.LAUNCHES == 0
+    for a, b in zip(solo, mw.worlds):
+        sa, sb = (convert.state_to_arrays(x.state) for x in (a, b))
+        for k in sa:
+            assert sa[k] is None or sa[k].tobytes() == sb[k].tobytes(), k
+        for d in DATS:
+            with open(os.path.join(a.data_dir, f"{d}.dat")) as f:
+                x = f.read().splitlines()
+            with open(os.path.join(b.data_dir, f"{d}.dat")) as f:
+                y = f.read().splitlines()
+            assert x[:1] + x[2:] == y[:1] + y[2:], d
+    assert sum(int(w.state.num_divides.sum()) for w in mw.worlds) > 0
