@@ -64,27 +64,127 @@ def local_torus_fast_path(params, sexual: bool) -> bool:
             and params.population_cap == 0 and params.pop_cap_eldest == 0)
 
 
-def neighbor_table(world_x: int, world_y: int, geometry: int) -> np.ndarray:
-    """Static [N, 8] neighbor cell ids (-1 = padding) for the GRID (1) and
-    TORUS (2) geometries (ref cPopulation::SetupCellGrid cc:376-394)."""
-    if geometry not in (1, 2):
-        raise NotImplementedError(
-            f"WORLD_GEOMETRY {geometry}: only grid (1) and torus (2) are "
-            f"ported to avida_tpu_torch")
+def neighbor_table(world_x: int, world_y: int, geometry: int,
+                   seed: int = 0, scale_free_m: int = 3,
+                   scale_free_alpha: float = 1.0,
+                   scale_free_zero_appeal: float = 0.0) -> np.ndarray:
+    """Static [N, C] neighbor cell ids, -1 = padding slot (ref
+    cPopulation::SetupCellGrid cc:376-394 switching over nGeometry.h:30-37
+    via the cTopology.h builders).  Geometries:
+
+      1 GRID   bounded 8-neighborhood (edge cells have shorter lists)
+      2 TORUS  wrapped 8-neighborhood (C=8, no padding)
+      3 CLIQUE every cell connects to every other (build_clique h:103)
+      4 HEX    grid minus the NE/SW diagonals (build_hex h:119)
+      6 LATTICE 3-D lattice with z=1 == bounded grid (build_lattice h:137)
+      7 RANDOM_CONNECTED random bidirectional graph grown to connectivity
+               (build_random_connected_network h:232)
+      8 SCALE_FREE preferential-attachment graph, P ~ (deg/|E|)^alpha +
+               zero_appeal, m edges per new vertex (build_scale_free h:376)
+
+    GLOBAL (0) and PARTIAL (5) are declared in nGeometry.h but have no
+    case in the reference's own SetupCellGrid switch -- they raise here
+    too.  Random geometries are frozen at world construction from `seed`
+    (the reference also builds them once at setup)."""
     n = world_x * world_y
-    out = np.full((n, 8), -1, np.int32)
-    for c in range(n):
-        y, x = divmod(c, world_x)
-        slot = 0
-        for dy, dx in _OFFS_2D:
-            ny, nx = y + dy, x + dx
-            if geometry == 2:
-                ny, nx = ny % world_y, nx % world_x
-            elif not (0 <= ny < world_y and 0 <= nx < world_x):
-                continue
-            out[c, slot] = ny * world_x + nx
-            slot += 1
-    return out
+    # column k of the table MUST be the _OFFS_2D[k] displacement: the torus
+    # fast path (local_torus_fast_path) replaces gathers on this table with
+    # rolls by _OFFS_2D[k], so the two orderings may never diverge
+    offs = _OFFS_2D
+
+    def grid_like(skip=()):
+        out = np.full((n, 8), -1, np.int32)
+        for y in range(world_y):
+            for x in range(world_x):
+                c = y * world_x + x
+                col = 0
+                for k, (dy, dx) in enumerate(offs):
+                    if (dy, dx) in skip:
+                        continue
+                    ny, nx = y + dy, x + dx
+                    if 0 <= ny < world_y and 0 <= nx < world_x:
+                        out[c, col] = ny * world_x + nx
+                        col += 1
+        return out
+
+    if geometry == 2:              # torus
+        out = np.zeros((n, 8), np.int32)
+        for y in range(world_y):
+            for x in range(world_x):
+                c = y * world_x + x
+                for k, (dy, dx) in enumerate(offs):
+                    out[c, k] = ((y + dy) % world_y) * world_x \
+                        + (x + dx) % world_x
+        return out
+    if geometry in (1, 6):         # bounded grid; lattice with z=1 == grid
+        return grid_like()
+    if geometry == 4:              # hex: drop NE (-1,+1) and SW (+1,-1)
+        return grid_like(skip={(-1, 1), (1, -1)})
+    if geometry == 3:              # clique
+        out = np.full((n, n - 1), -1, np.int32)
+        ids = np.arange(n)
+        for c in range(n):
+            out[c] = np.concatenate([ids[:c], ids[c + 1:]])
+        return out
+    if geometry in (7, 8):
+        rng = np.random.default_rng(seed + geometry)
+        adj = [set() for _ in range(n)]
+        if geometry == 7:          # random connected network
+            connected = set()
+            for i in range(n):
+                j = i
+                while j == i:
+                    j = int(rng.integers(0, n))
+                if j not in adj[i]:
+                    adj[i].add(j)
+                    adj[j].add(i)
+                    connected.update((i, j))
+            # grow to a single component like the reference's fix-up pass:
+            # connect any stranded cell to a connected one
+            comp = {0}
+            frontier = [0]
+            while frontier:
+                c = frontier.pop()
+                for d in adj[c]:
+                    if d not in comp:
+                        comp.add(d)
+                        frontier.append(d)
+            for i in range(n):
+                if i not in comp:
+                    j = int(rng.choice(sorted(comp)))
+                    adj[i].add(j)
+                    adj[j].add(i)
+                    comp.add(i)
+        else:                      # scale-free (build_scale_free h:376)
+            adj[0].add(1)
+            adj[1].add(0)
+            edge_count = 1
+            for u in range(2, n):
+                to_add = min(u, scale_free_m)
+                added = 0
+                v = 0
+                while added < to_add:
+                    if v not in adj[u] and v != u:
+                        p = (len(adj[v]) / edge_count) ** scale_free_alpha \
+                            + scale_free_zero_appeal
+                        if rng.random() < min(p, 1.0):
+                            adj[u].add(v)
+                            adj[v].add(u)
+                            edge_count += 1
+                            added += 1
+                    v += 1
+                    if v >= u:
+                        v = 0
+        deg = max(1, max(len(a) for a in adj))
+        out = np.full((n, deg), -1, np.int32)
+        for c in range(n):
+            for k, d in enumerate(sorted(adj[c])):
+                out[c, k] = d
+        return out
+    raise NotImplementedError(
+        f"WORLD_GEOMETRY {geometry}: GLOBAL (0) and PARTIAL (5) have no "
+        f"builder in the reference's cPopulation::SetupCellGrid either "
+        f"(cPopulation.cc:376-394); supported: 1-4, 6-8")
 
 
 def fast_torus_placement(params, k_place, pending, alive, time_used, merit):
@@ -475,23 +575,12 @@ def has_divide_sex(params) -> bool:
 
 def canonical_unsupported_reason(params) -> str | None:
     """Why this package's canonical flush cannot run `params` (None = it
-    can): heads hardware on a grid or torus, BIRTH_METHOD 0-10, asexual
-    or divide-sex without mating types, demes with migration methods 0,
-    1, 2 and 4; no energy or population caps."""
+    can): every branch of the reference's flush but experimental
+    hardware's.  The geometries the reference builds no table for raise
+    in neighbor_table, in its words."""
     if params.hw_type not in (0, 1, 2):
         return ("experimental spatial hardware in the birth flush "
                 "(ROADMAP.md Queue 1 item 12h)")
-    if params.energy_enabled:
-        return "the energy model in the birth flush"
-    if params.population_cap or params.pop_cap_eldest:
-        return "population caps"
-    if params.mating_types and has_divide_sex(params):
-        return "MATING_TYPES pairing in the birth chamber"
-    if params.geometry not in (1, 2):
-        return (f"WORLD_GEOMETRY {params.geometry} (only grid 1 and torus "
-                f"2 are ported)")
-    if params.birth_method == 11:
-        return "BIRTH_METHOD 11 (dispersal draws poisson)"
     if not 0 <= params.birth_method <= 11:
         return f"BIRTH_METHOD {params.birth_method}"
     return None
@@ -514,40 +603,84 @@ def _f32t(x, device):
 
 def recombine_sexual(params, st, key, off_mem, off_len, pending):
     """Birth-chamber pairing and one-region crossover (the reference's
-    recombine_sexual without mating types; cBirthChamber::SubmitOffspring
-    cc:443, DoBasicRecombination cc:290, RegionSwap cc:178).  Every sexual
-    offspring pending at flush time -- the waiting store entry first,
-    then cells in index order -- pairs with its neighbour in that order
-    (rank r mates rank r ^ 1); the odd one out moves into the
-    single-entry store and its parent resumes.  The row paired with the
-    store is a dual parent: it also carries the store-flank child.
+    recombine_sexual; cBirthChamber::SubmitOffspring cc:443,
+    DoBasicRecombination cc:290, RegionSwap cc:178).  Without mating
+    types every sexual offspring pending at flush time -- the waiting
+    store entry first, then cells in index order -- pairs with its
+    neighbour in that order (rank r mates rank r ^ 1).  With MATING_TYPES
+    (cBirthMatingTypeGlobalHandler::SelectOffspring) juvenile parents
+    lose their offspring, and male rank r mates female rank r, the ranks
+    drawn at random within each type each flush (the store entry holds
+    rank 0 of its own type).  The odd one out moves into the
+    single-entry store and its parent resumes; further waiters are
+    dropped.  The row paired with the store is a dual parent: it also
+    carries the store-flank child.
 
     Returns (off_mem, off_len, child_merit, placeable_pending, dual,
     dual_mem, dual_len, dual_merit, store), store = (bc_mem, bc_len,
     bc_merit, bc_valid, bc_type)."""
     from avida_tpu_torch.ops.interpreter import roll_right
-    if params.mating_types:
-        raise NotImplementedError(
-            "birth chamber: MATING_TYPES pairing is not ported to "
-            "avida_tpu_torch")
     n, L = off_mem.shape
     dev = off_mem.device
-    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    i32 = torch.int32
+    rows = torch.arange(n, dtype=i32, device=dev)
     sexp = pending & st.off_sex
     has_store = st.bc_valid
-    hs = has_store.to(torch.int32)
+    hs = has_store.to(i32)
 
-    # rank sexual rows by cell index, shifted by 1 when the store entry is
-    # occupied (the store is rank 0); rank r mates rank r ^ 1
-    rank = torch.cumsum(sexp.to(torch.int32), 0).to(torch.int32) - 1 + hs
-    total = sexp.sum().to(torch.int32) + hs
-    mate_rank = rank ^ 1
-    paired = sexp & (mate_rank < total)
-    store_paired = paired & (mate_rank == 0) & has_store
-    keep = sexp & (rank < n)
-    rank_to_row = torch.zeros(n, dtype=torch.int32, device=dev)
-    rank_to_row[rank[keep].long()] = rows[keep]
-    mate_row = rank_to_row[mate_rank.clamp(0, n - 1).long()].long()
+    if params.mating_types:
+        ptype = st.mating_type
+        juv_drop = sexp & (ptype == -1)
+        sexp = sexp & ~juv_drop
+        is_m = sexp & (ptype == 1)
+        is_f = sexp & (ptype == 0)
+        store_m = has_store & (st.bc_type == 1)
+        store_f = has_store & (st.bc_type == 0)
+        u_pair = prng.uniform(prng.fold_in(key, 0x9A13), (n,))
+        inf = _f32t(float("inf"), dev)
+
+        def rand_rank(mask):
+            # each row's rank among the mask rows, ordered by u_pair (the
+            # other rows sort after them, in index order)
+            order = torch.argsort(torch.where(mask, u_pair, inf),
+                                  stable=True)
+            r = torch.empty(n, dtype=i32, device=dev)
+            r[order] = rows
+            return r
+
+        rank_m = rand_rank(is_m) + store_m.to(i32)
+        rank_f = rand_rank(is_f) + store_f.to(i32)
+        rank = torch.where(is_m, rank_m, rank_f)
+        pairs = torch.minimum(is_m.sum() + store_m.to(i32),
+                              is_f.sum() + store_f.to(i32))
+        paired = sexp & (rank < pairs)
+
+        def row_of(mask, r):
+            # rank -> row; rows off the mask (and a rank of n) land in the
+            # extra slot n, which is cut off (the reference's mode="drop")
+            out = torch.zeros(n + 1, dtype=i32, device=dev)
+            out[torch.where(mask, r, n).long()] = rows
+            return out[:n]
+
+        row_of_m, row_of_f = row_of(is_m, rank_m), row_of(is_f, rank_f)
+        rc = rank.clamp(0, n - 1).long()
+        mate_row = torch.where(is_m, row_of_f[rc], row_of_m[rc]).long()
+        store_paired = paired & (rank == 0) & torch.where(is_m, store_f,
+                                                          store_m)
+        dropped = juv_drop
+    else:
+        # rank sexual rows by cell index, shifted by 1 when the store
+        # entry is occupied (the store is rank 0); rank r mates rank r ^ 1
+        rank = torch.cumsum(sexp.to(i32), 0).to(i32) - 1 + hs
+        total = sexp.sum().to(i32) + hs
+        mate_rank = rank ^ 1
+        paired = sexp & (mate_rank < total)
+        store_paired = paired & (mate_rank == 0) & has_store
+        keep = sexp & (rank < n)
+        rank_to_row = torch.zeros(n, dtype=i32, device=dev)
+        rank_to_row[rank[keep].long()] = rows[keep]
+        mate_row = rank_to_row[mate_rank.clamp(0, n - 1).long()].long()
+        dropped = torch.zeros_like(sexp)
 
     mate_mem = torch.where(store_paired[:, None], st.bc_mem[None, :],
                            off_mem[mate_row])
@@ -607,12 +740,17 @@ def recombine_sexual(params, st, key, off_mem, off_len, pending):
     dual_len = torch.where(do_rec, new_len_mate, mate_len)
 
     # merit mix (DoBasicRecombination): own*stay + mate*cut.  The
-    # reference's compiled CPU program (the jitted update) fuses the
-    # product that holds the row's own merit into the add, in both mixes
-    # (tests/test_torch_sex.py runs it jitted)
+    # reference's compiled CPU program (the jitted update) fuses one
+    # product of each mix into its add: in the dual mix the one holding
+    # the row's own merit; in the child's mix the same without mating
+    # types, the mate's with them (tests/test_torch_sex.py and
+    # tests/test_torch_mating.py run it jitted)
     stay = 1.0 - cut_frac
-    child_merit = torch.where(do_rec, prng.fma_f32(
-        st.merit, stay, mate_merit * cut_frac), st.merit)
+    if params.mating_types:
+        mixed = prng.fma_f32(mate_merit, cut_frac, st.merit * stay)
+    else:
+        mixed = prng.fma_f32(st.merit, stay, mate_merit * cut_frac)
+    child_merit = torch.where(do_rec, mixed, st.merit)
     dual_merit = torch.where(do_rec, prng.fma_f32(
         st.merit, cut_frac, mate_merit * stay), mate_merit)
     off_mem = torch.where(do_rec[:, None], child, off_mem)
@@ -621,7 +759,7 @@ def recombine_sexual(params, st, key, off_mem, off_len, pending):
     # the odd one out moves into the store and its parent resumes
     unpaired = sexp & ~paired
     leftover = unpaired & (torch.cumsum(unpaired.to(torch.int32), 0) == 1)
-    dropped = unpaired & ~leftover
+    dropped = dropped | (unpaired & ~leftover)
     # the occupant keeps its slot unless a pairing consumed it this flush
     slot_free = ~has_store | store_paired.any()
     dropped = dropped | (leftover & ~slot_free)
@@ -640,7 +778,9 @@ def recombine_sexual(params, st, key, off_mem, off_len, pending):
     new_bc_valid = torch.where(any_left, True,
                                has_store & ~store_paired.any())
     placeable = pending & ~leftover & ~dropped
-    new_bc_type = torch.where(any_left, -1, st.bc_type)
+    new_bc_type = torch.where(
+        any_left, torch.where(leftover, st.mating_type, 0).sum().to(i32)
+        if params.mating_types else -1, st.bc_type)
     store = (new_bc_mem, new_bc_len, new_bc_merit, new_bc_valid, new_bc_type)
     return (off_mem, off_len, child_merit, placeable,
             dual, dual_mem, dual_len, dual_merit, store)
@@ -648,32 +788,42 @@ def recombine_sexual(params, st, key, off_mem, off_len, pending):
 
 # ---- placement off the torus fast path ----
 
-_NEIGHBORS = {}        # (world_x, world_y, geometry, device) -> [N, 8]
+_NEIGHBORS = {}        # (world shape, geometry, topology, device) -> table
 
 
-def neighbors_on(params, device) -> torch.Tensor:
-    """The static neighbor table on `device` (built once per shape)."""
-    k = (params.world_x, params.world_y, params.geometry, str(device))
+def neighbors_on(params, device, seed: int = 0, scale_free_m: int = 3,
+                 scale_free_alpha: float = 1.0,
+                 scale_free_zero_appeal: float = 0.0) -> torch.Tensor:
+    """The static neighbor table on `device`, built once per world shape,
+    geometry and -- for the random geometries (7, 8), whose graph is drawn
+    from them -- the seed and the scale-free parameters (the reference's
+    World builds it from max(RANDOM_SEED, 0) and SCALE_FREE_*)."""
+    topo = ((int(seed), int(scale_free_m), float(scale_free_alpha),
+             float(scale_free_zero_appeal))
+            if params.geometry in (7, 8) else ())
+    k = (params.world_x, params.world_y, params.geometry, topo, str(device))
     if k not in _NEIGHBORS:
         _NEIGHBORS[k] = torch.from_numpy(neighbor_table(
-            params.world_x, params.world_y, params.geometry)).to(device)
+            params.world_x, params.world_y, params.geometry,
+            *topo)).to(device)
     return _NEIGHBORS[k]
 
 
-def general_placement(params, k_place, pending, alive, time_used, merit):
+def general_placement(params, k_place, pending, alive, time_used, merit,
+                      neighbors, energy_spent=None):
     """Target selection and conflict resolution through the neighbor
     table (the reference's general branch, PositionOffspring cc:5185,
-    BIRTH_METHOD 0-10): candidate cells with padding, the empty-first
+    BIRTH_METHOD 0-11): candidate cells with padding, the empty-first
     lexicographic pick, the method's target, then the lowest pending
-    parent index claims each cell (a scatter-min).  Returns (pending,
-    births, parent_idx, won, cand, u, choice, occupied); the last four
-    feed the sexual second birth."""
+    parent index claims each cell (a scatter-min).  `energy_spent` is
+    the energy model's used energy (BIRTH_METHOD 9 and 10 read time used
+    without it).  Returns (pending, births, parent_idx, won, cand, u,
+    choice, occupied); the last four feed the sexual second birth."""
     n = alive.shape[0]
     dev = alive.device
     rows = torch.arange(n, dtype=torch.int32, device=dev)
     rl = rows.long()
     bm = params.birth_method
-    neighbors = neighbors_on(params, dev)
     cand = neighbors.to(torch.int32)
     pad = cand < 0             # padding slots never win
     cand = torch.where(pad, rows[:, None], cand)
@@ -734,19 +884,24 @@ def general_placement(params, k_place, pending, alive, time_used, merit):
                              neighbors[:, 0].to(torch.int32))
     elif bm == 8:              # NEXT_CELL
         target = (rows + 1) % n
-    elif bm == 9:              # FULL_SOUP_ENERGY_USED (time used, energy
-        #                        off): empty cells first, random tiebreak
-        used9 = time_used.to(torch.float32)
+    elif bm == 9:              # FULL_SOUP_ENERGY_USED: empty cells
+        #                        first, random tiebreak
+        used9 = (energy_spent if energy_spent is not None
+                 else time_used.to(torch.float32))
         u9 = prng.uniform(prng.fold_in(k_place, 9), (n,))
         dead_pick = torch.argmax(torch.where(alive, -1.0, u9))
         live_pick = torch.argmax(torch.where(alive, used9 + u9, neg_inf))
         target = torch.where((~alive).any(), dead_pick, live_pick).to(
             torch.int32).expand(n)
     elif bm == 10:             # NEIGHBORHOOD_ENERGY_USED
-        used10 = time_used.to(torch.float32)
+        used10 = (energy_spent if energy_spent is not None
+                  else time_used.to(torch.float32))
         choice10 = pick_empty_first(
             torch.where(occupied, used10[cl], 0.0) + u)
         target = cand[rl, choice10]
+    elif bm == 11:             # DISPERSAL (cc:5363): Poisson(DISPERSAL_RATE)
+        #                        random single-cell hops, at most 8
+        target = dispersal_targets(params, prng.fold_in(k_place, 11), rows)
     if params.num_demes > 1:
         if bm in (5, 7, 8):
             # an absolute target in another deme collapses to the parent
@@ -767,6 +922,31 @@ def general_placement(params, k_place, pending, alive, time_used, merit):
 
 _MIG_DY = (-1, -1, -1, 0, 0, 1, 1, 1)
 _MIG_DX = (-1, 0, 1, -1, 1, -1, 0, 1)
+
+
+def dispersal_targets(params, k11, rows):
+    """BIRTH_METHOD 11's targets: each offspring takes min(Poisson(
+    DISPERSAL_RATE), 8) hops from its parent's cell, hop h in the 8-
+    neighbour direction randint(fold_in(k11, h + 1), 0, 8), wrapped on
+    the torus and clamped on every other geometry."""
+    n = rows.shape[0]
+    wx, wy = params.world_x, params.world_y
+    hops = prng.poisson(prng.fold_in(k11, 0), params.dispersal_rate,
+                        (n,)).clamp(0, 8)
+    dx_t = torch.tensor(_MIG_DX, dtype=torch.int32, device=rows.device)
+    y, x = rows // wx, rows % wx
+    for h in range(8):
+        d = prng.randint(prng.fold_in(k11, h + 1), (n,), 0, 8)
+        step = h < hops
+        dy = torch.where(d < 3, -1, torch.where(d < 5, 0, 1))
+        dx = dx_t[d.long()]
+        if params.geometry == 2:
+            y = torch.where(step, (y + dy) % wy, y)
+            x = torch.where(step, (x + dx) % wx, x)
+        else:
+            y = torch.where(step, (y + dy).clamp(0, wy - 1), y)
+            x = torch.where(step, (x + dx).clamp(0, wx - 1), x)
+    return (y * wx + x).to(torch.int32)
 
 
 def migrate_targets(params, k_place, pending, target):
@@ -826,6 +1006,14 @@ def newborn_fields(params, st, births, by_parent, off_mem, off_len,
     is_breed_true = (off_len == st.genome_len) & same_site.all(dim=1)
     parent_updates = _parent_fields(params, st, off_mem, off_len,
                                     child_merit, is_breed_true)
+    if params.energy_enabled:
+        # the child's share of the parent's energy lands with the birth;
+        # merit follows the energy (ConvertEnergyToMerit)
+        from avida_tpu_torch.ops.interpreter import (
+            child_energy, convert_energy_to_merit)
+        e = child_energy(params, st.energy)
+        parent_updates["energy"] = e
+        parent_updates["merit"] = convert_energy_to_merit(params, e)
     new = {name: _where_rows(births, by_parent(src), getattr(st, name))
            for name, src in parent_updates.items()}
     new["tape"] = _where_rows(births, pack_tape(new["genome"]), st.tape)
@@ -935,13 +1123,15 @@ def ring_append(st, new, births, parent_idx, update_no):
         nb_count=(st.nb_count + births.sum()).to(torch.int32))
 
 
-def flush_births(params, st, key, update_no):
+def flush_births(params, st, key, update_no, neighbors=None):
     """Place pending offspring on a canonical PopulationState (the
     reference's flush_births with use_off_tape=True): divide mutations,
     the birth chamber when the set has divide-sex, placement (the torus
     fast path's rolls, or the neighbor table's scatter-min), the newborn
-    fields, the dual second birth, and the append to the newborn ring
-    that host systematics drains.  Same PRNG splits and draw shapes as
+    fields, the dual second birth, the append to the newborn ring that
+    host systematics drains, the winning parents' energy and the
+    population caps.  `neighbors` is the world's table (neighbors_on's
+    default-seed table when None).  Same PRNG splits and draw shapes as
     the reference.  What it does not port raises by name."""
     reason = canonical_unsupported_reason(params)
     if reason is not None:
@@ -949,6 +1139,9 @@ def flush_births(params, st, key, update_no):
             f"birth flush: {reason} is not ported to avida_tpu_torch")
     from avida_tpu_torch.ops import interpreter
     n = st.tape.shape[0]
+    dev = st.tape.device
+    if neighbors is None:
+        neighbors = neighbors_on(params, dev)
     ks = prng.split(key, 4)
     k_place, k_inputs, k_off, k_sex = ks[0], ks[1], ks[2], ks[3]
     pending = st.divide_pending & st.alive
@@ -978,7 +1171,8 @@ def flush_births(params, st, key, update_no):
             return out
     else:
         (pending, births, parent_idx, won, *placement) = general_placement(
-            params, k_place, pending, st.alive, st.time_used, st.merit)
+            params, k_place, pending, st.alive, st.time_used, st.merit,
+            neighbors, st.energy_spent if params.energy_enabled else None)
         pl = parent_idx.long()
 
         def by_parent(x):
@@ -1011,17 +1205,49 @@ def flush_births(params, st, key, update_no):
             bc_valid=bc_valid | restore, bc_type=bc_type)
         resumes = resumes | leftover
     # winners, dead parents and parents whose offspring went into the
-    # store resume; living losers retry next update
+    # store (or were dropped) resume; living losers retry next update
     cleared = torch.where(resumes, False, st.divide_pending)
     st = st.replace(divide_pending=cleared, off_sex=st.off_sex & cleared)
+    if params.energy_enabled:
+        # the winning parent keeps (1 - decay)(1 - frac) of its energy and
+        # its merit follows (cPhenotype::DivideReset energy branch)
+        energy = torch.where(won, interpreter.parent_energy_after(
+            params, st.energy), st.energy)
+        st = st.replace(energy=energy, merit=torch.where(
+            won, interpreter.convert_energy_to_merit(params, energy),
+            st.merit))
+    if params.population_cap > 0 or params.pop_cap_eldest > 0:
+        st = st.replace(alive=cap_population(params, st, births,
+                                             prng.fold_in(key, 0xCAB)))
     if is_smt(params):
         # a winning SMT parent's offspring buffer resets to the
         # one-instruction blank (Divide_Main tail, cHardwareTransSMT.cc:485)
         st = st.replace(
             smt_aux=_set_thread(st.smt_aux, 0, won, 0),
             smt_aux_len=_set_thread(st.smt_aux_len, 0, won, 1))
-        st = flush_injections(params, st, prng.fold_in(key, 17))
+        st = flush_injections(params, st, prng.fold_in(key, 17), neighbors)
     return st
+
+
+def cap_population(params, st, births, k_cap):
+    """Carrying capacity (cPopulation::PositionOffspring pop-cap kills,
+    cc:5192-5238): past the cap the excess dies -- random victims under
+    POPULATION_CAP, the eldest (most time used, random tiebreak) under
+    POP_CAP_ELDEST -- sparing this flush's newborns.  Returns the new
+    alive mask."""
+    n = births.shape[0]
+    cap = params.population_cap or params.pop_cap_eldest
+    eligible = st.alive & ~births
+    excess = torch.minimum((st.alive.sum() - cap).clamp(min=0),
+                           eligible.sum())
+    u = prng.uniform(k_cap, (n,))
+    if params.pop_cap_eldest > 0:
+        u = st.time_used.to(torch.float32) + u
+    score = torch.where(eligible, u, -1.0)
+    order = torch.argsort(-score, stable=True)
+    rank = torch.empty(n, dtype=torch.int64, device=births.device)
+    rank[order] = torch.arange(n, device=births.device)
+    return st.alive & ~(rank < excess)
 
 
 def _set_thread(field, j, mask, val):
@@ -1031,7 +1257,7 @@ def _set_thread(field, j, mask, val):
     return torch.stack(rows, dim=1)
 
 
-def flush_injections(params, st, key):
+def flush_injections(params, st, key, neighbors=None):
     """Parasite transmission (ParasiteInfectHost,
     cHardwareTransSMT.cc:375-417): each living organism with a staged
     injection targets a random neighbor; the infection takes when the
@@ -1043,7 +1269,8 @@ def flush_injections(params, st, key):
     n = st.alive.shape[0]
     dev = st.alive.device
     rows = torch.arange(n, dtype=torch.int32, device=dev)
-    neighbors = neighbors_on(params, dev)
+    if neighbors is None:
+        neighbors = neighbors_on(params, dev)
     pend = st.inject_pending & st.alive
     choice = prng.randint(key, (n,), 0, neighbors.shape[1])
     target = neighbors[rows.long(), choice.long()].long()

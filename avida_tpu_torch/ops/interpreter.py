@@ -36,9 +36,12 @@ from avida_tpu_torch.models.heads import (
     HEAD_FLOW, HEAD_IP, HEAD_READ, HEAD_WRITE, MAX_LABEL_SIZE,
     MOD_HEAD, MOD_LABEL, MOD_NONE, MOD_REG,
     SEM_ADD, SEM_DEC, SEM_GET_HEAD, SEM_H_ALLOC, SEM_H_COPY, SEM_H_DIVIDE,
-    SEM_H_DIVIDE_SEX, SEM_H_SEARCH, SEM_IF_LABEL, SEM_IF_LESS, SEM_IF_N_EQU,
-    SEM_INC, SEM_IO, SEM_JMP_HEAD, SEM_MOV_HEAD, SEM_NAND, SEM_POP, SEM_PUSH,
-    SEM_SET_FLOW, SEM_SHIFT_L, SEM_SHIFT_R, SEM_SUB, SEM_SWAP, SEM_SWAP_STK,
+    SEM_FORK_TH, SEM_H_DIVIDE_SEX, SEM_H_SEARCH, SEM_ID_TH, SEM_IF_LABEL,
+    SEM_IF_LESS, SEM_IF_MATE_FEMALE, SEM_IF_MATE_MALE, SEM_IF_N_EQU,
+    SEM_INC, SEM_IO, SEM_JMP_HEAD, SEM_KILL_TH, SEM_MOV_HEAD, SEM_NAND,
+    SEM_POP, SEM_PUSH, SEM_SET_FLOW, SEM_SET_MATE_FEMALE, SEM_SET_MATE_JUV,
+    SEM_SET_MATE_MALE, SEM_SHIFT_L, SEM_SHIFT_R, SEM_SUB, SEM_SWAP,
+    SEM_SWAP_STK,
 )
 from avida_tpu_torch.ops import resources as res_ops
 from avida_tpu_torch.ops import tasks as tasks_ops
@@ -167,6 +170,48 @@ def _calc_size_merit(params, genome_len, copied_size, executed_size):
     raise NotImplementedError(f"BASE_MERIT_METHOD {m}")
 
 
+# ---- the energy model's arithmetic.  XLA's CPU simplifier folds the
+# constants of each product into one float32 constant and the code
+# generator fuses the child's share into one multiply-add; these repeat
+# it (tests/test_torch_energy.py holds them at the rounding edges) ----
+
+def _f32c(x) -> float:
+    return prng.round_f32(x)
+
+
+def convert_energy_to_merit(params, energy):
+    """cPhenotype::ConvertEnergyToMerit (cPhenotype.cc:2403): 100 x energy
+    / NUM_CYCLES_EXC_BEFORE_0_ENERGY, or 100 x FIX_METABOLIC_RATE: energy
+    times the folded constant float32(100) * float32(1 / n)."""
+    if params.fix_metabolic_rate > 0.0:
+        return torch.full_like(energy, 100.0 * params.fix_metabolic_rate)
+    c = _f32c(_f32c(100.0) * prng.f32_reciprocal(max(params.num_cycles_exc,
+                                                      1)))
+    return energy * c
+
+
+def child_energy(params, energy):
+    """The newborn's energy (cPhenotype::SetupOffspring energy branch):
+    the parent's energy times (1 - FRAC_ENERGY_DECAY_AT_ORG_BIRTH) times
+    FRAC_PARENT_ENERGY_GIVEN_TO_ORG_AT_BIRTH, plus ENERGY_GIVEN_AT_BIRTH,
+    at most ENERGY_CAP -- one fused multiply-add by the folded
+    constant."""
+    keep = _f32c(1.0 - params.frac_energy_decay_birth)
+    c = _f32c(keep * _f32c(params.frac_parent_energy))
+    e = prng.fma_f32(energy, c, params.energy_given_at_birth)
+    if params.energy_cap > 0:
+        e = torch.clamp(e, max=_f32c(params.energy_cap))
+    return e
+
+
+def parent_energy_after(params, energy):
+    """The winning parent's remaining energy (cPhenotype::DivideReset
+    energy branch): energy times the folded constant (1 - decay)(1 -
+    frac)."""
+    keep = _f32c(1.0 - params.frac_energy_decay_birth)
+    return energy * _f32c(keep * _f32c(1.0 - params.frac_parent_energy))
+
+
 _TABLES = {}           # (id(params), device) -> (params, tables)
 
 
@@ -198,6 +243,8 @@ def _build_tables(params, device) -> dict:
         tab["prob_fail"] = t(params.inst_prob_fail, torch.float32)
     if params.inst_addl_time_cost:
         tab["addl"] = t(params.inst_addl_time_cost)
+    if params.inst_energy_cost:
+        tab["energy_cost"] = t(params.inst_energy_cost, torch.float32)
     return tab
 
 
@@ -215,7 +262,8 @@ def cycle_bits(draw_keys_fn, params, keys, n):
         (dk.shape[0],) + tuple(lead) + (n,))
 
 
-def micro_step(params, st, key, exec_mask, bits=None):
+def micro_step(params, st, key, exec_mask, bits=None, return_signals=False,
+               charge_time=True):
     """Execute one CPU cycle for every organism where exec_mask is set
     (one pass of the reference hot loop, Avida2Driver.cc:111-116, over
     every scheduled organism at once).  Returns the new state; a lane
@@ -226,7 +274,14 @@ def micro_step(params, st, key, exec_mask, bits=None):
     world's draws then come from its own key over its own lanes, as the
     reference's vmap over worlds draws them.  `bits` is
     cycle_bits(draw_keys, params, keys, n) when the caller drew it
-    already (the engine draws blocks of cycles at once)."""
+    already (the engine draws blocks of cycles at once).
+
+    Under MAX_CPU_THREADS > 1 this is the per-thread core of
+    micro_step_threads, which hands it the active thread's view and asks
+    for `return_signals` -- (new state, {fork, kill, div, child_ip}) --
+    to do the slot bookkeeping itself; `charge_time=False` skips the
+    cycle's time_used / cpu_cycles / insts_executed charge (slicing
+    method 1 charges once a slice)."""
     i32, u8 = torch.int32, torch.uint8
     n, L = st.tape.shape
     dev = st.tape.device
@@ -407,7 +462,9 @@ def micro_step(params, st, key, exec_mask, bits=None):
     ).all(dim=1)
     skip = ((is_op(SEM_IF_N_EQU) & (val == val2))
             | (is_op(SEM_IF_LESS) & (val >= val2))
-            | (is_op(SEM_IF_LABEL) & ~rl_match))
+            | (is_op(SEM_IF_LABEL) & ~rl_match)
+            | (is_op(SEM_IF_MATE_MALE) & (st.mating_type != 1))
+            | (is_op(SEM_IF_MATE_FEMALE) & (st.mating_type != 0)))
 
     # ---- h-alloc (Inst_MaxAlloc cc:3294 + Allocate_Main cc:1707) ----
     osr = fconst(params.offspring_size_range)
@@ -508,7 +565,8 @@ def micro_step(params, st, key, exec_mask, bits=None):
                  (SEM_INC, val + 1), (SEM_DEC, val - 1),
                  (SEM_ADD, bx + cx), (SEM_SUB, bx - cx),
                  (SEM_NAND, ~(bx & cx)), (SEM_POP, pop_val),
-                 (SEM_IO, value_in), (SEM_SWAP, val2)):
+                 (SEM_IO, value_in), (SEM_SWAP, val2),
+                 (SEM_ID_TH, st.main_tid)):
         res = torch.where(is_op(s), v, res)
         wrote = wrote | is_op(s)
     rsel = torch.arange(NR, device=dev)[None, :]
@@ -547,8 +605,11 @@ def micro_step(params, st, key, exec_mask, bits=None):
     new_read = torch.where(copy_m, _adjust(rp + 1, mlen), heads[:, HEAD_READ])
     new_write = torch.where(copy_m, _adjust(wp + 1, mlen),
                             heads[:, HEAD_WRITE])
-    # mov-head on IP suppresses the advance (cc:6809); a divide resets IP
-    ip_seq = _adjust(ip + consumed + skip.to(i32) + 1, mlen)
+    # mov-head on IP suppresses the advance (cc:6809); a divide resets IP;
+    # fork-th steps over the child's first instruction
+    fork_try = is_op(SEM_FORK_TH)
+    ip_seq = _adjust(ip + consumed + skip.to(i32) + 1 + fork_try.to(i32),
+                     mlen)
     jmp_tgt = _adjust(_adjust(ip + consumed + cx, mlen) + 1, mlen)
     ip_new = torch.where(jmp_m & (hsel0 == HEAD_IP), jmp_tgt, ip_seq)
     ip_new = torch.where(mov_m & (hsel0 == HEAD_IP), flow0, ip_new)
@@ -570,9 +631,23 @@ def micro_step(params, st, key, exec_mask, bits=None):
         ft_paid_lo = torch.where(div_m, 0, ft_paid_lo)
         ft_paid_hi = torch.where(div_m, 0, ft_paid_hi)
 
+    # ---- the energy model: the instruction's energy cost, as far as
+    # the store holds (SingleProcess_PayPreCosts energy branch,
+    # cHardwareBase.cc:1241; cPhenotype::ReduceEnergy cc:1974) ----
+    energy, energy_spent = st.energy, st.energy_spent
+    if params.energy_enabled and params.inst_energy_cost:
+        cost = torch.where(exec_mask, T["energy_cost"][cur_op], 0.0)
+        spent = torch.minimum(cost, energy)
+        energy = energy - spent
+        energy_spent = energy_spent + spent
+
     # ---- phenotype DivideReset (cPhenotype.cc:824) ----
     merit_base = _calc_size_merit(params, gsize, st.copied_size, exec_count)
     new_merit = merit_base * cur_bonus if params.inherit_merit else merit_base
+    if params.energy_enabled:
+        # merit = ConvertEnergyToMerit(energy) (cPhenotype.cc:2403); the
+        # parent's share goes to the child at the birth flush
+        new_merit = convert_energy_to_merit(params, energy)
     gestation = st.time_used + 1 - st.gestation_start
     new_fitness = new_merit / gestation.clamp(min=1).to(f32)
     merit = torch.where(div_m, new_merit, st.merit)
@@ -593,7 +668,8 @@ def micro_step(params, st, key, exec_mask, bits=None):
     num_divides = st.num_divides + div_m.to(i32)
 
     # ---- time accounting + death (SingleProcess tail, cc:1047-1051) ----
-    charge = exec_mask.to(i32)
+    charge = (exec_mask if charge_time else torch.zeros_like(exec_mask)
+              ).to(i32)
     time_used = st.time_used + charge
     if params.inst_addl_time_cost:
         time_used = time_used + torch.where(eff_exec, T["addl"][cur_op], 0)
@@ -604,9 +680,17 @@ def micro_step(params, st, key, exec_mask, bits=None):
         gestation_start = torch.where(div_m, 0, st.gestation_start)
     else:
         gestation_start = torch.where(div_m, time_used, st.gestation_start)
+    # mating-type transitions (Inst_SetMatingType*, cc:10896-10946):
+    # male <-> female fails, juvenile is always settable
+    mating_type = st.mating_type
+    mating_type = torch.where(is_op(SEM_SET_MATE_MALE) & (mating_type != 0),
+                              1, mating_type)
+    mating_type = torch.where(
+        is_op(SEM_SET_MATE_FEMALE) & (mating_type != 1), 0, mating_type)
+    mating_type = torch.where(is_op(SEM_SET_MATE_JUV), -1, mating_type)
     died = exec_mask & (st.max_executed > 0) & (time_used >= st.max_executed)
 
-    return st.replace(
+    new_st = st.replace(
         tape=tape, mem_len=mem_len, regs=regs, heads=heads, stacks=stacks,
         sp=sp, active_stack=active_stack, read_label=read_label,
         read_label_len=read_label_len, mal_active=mal_active,
@@ -626,7 +710,215 @@ def micro_step(params, st, key, exec_mask, bits=None):
         off_copied_size=torch.where(div_m, copied_count, st.off_copied_size),
         off_sex=torch.where(div_m, div_sex_try, st.off_sex),
         insts_executed=st.insts_executed + charge, cost_wait=cost_wait,
-        ft_paid_lo=ft_paid_lo, ft_paid_hi=ft_paid_hi, **pools)
+        ft_paid_lo=ft_paid_lo, ft_paid_hi=ft_paid_hi, energy=energy,
+        energy_spent=energy_spent, mating_type=mating_type, **pools)
+    if return_signals:
+        # the forked thread resumes at fork + 1 (the parent stepped to
+        # fork + 2)
+        return new_st, {"fork": fork_try, "kill": is_op(SEM_KILL_TH),
+                        "div": div_m, "child_ip": _adjust(ip + 1, mlen)}
+    return new_st
+
+
+# ---- threads (MAX_CPU_THREADS > 1) ----
+
+def thread_reps(params) -> int:
+    """Thread sub-steps a cycle: 1 under THREAD_SLICING_METHOD 0, every
+    slot under method 1 (cAvidaConfig.h:561)."""
+    return params.max_cpu_threads if params.thread_slicing_method == 1 \
+        else 1
+
+
+def draw_keys_threads(params, keys):
+    """micro_step_threads' draw keys: sub-step r's micro_step draws from
+    fold_in(cycle key, r), so its draw keys are draw_keys of those,
+    sub-step after sub-step -> int64[reps * D, K, 2]."""
+    return torch.cat([draw_keys(params, prng.fold_in_rows(keys, r))
+                      for r in range(thread_reps(params))])
+
+
+def micro_step_threads(params, st, key, exec_mask, bits=None):
+    """One scheduler cycle under MAX_CPU_THREADS > 1 (cHardwareCPU
+    SingleProcess thread loop, cc:930-1060): 1 (slicing method 0) or
+    MAX_CPU_THREADS (method 1) thread sub-steps, sub-step r keyed
+    fold_in(key, r).  Each advances cur_thread to the next live slot,
+    runs micro_step on that thread's view of the per-thread state, then
+    writes the results back and applies the fork-th / kill-th / divide
+    slot bookkeeping.  The live-thread count and the schedulable slots
+    are fixed at the top of the cycle (the reference fixes num_inst_exec
+    before its loop, cc:936): a thread forked this cycle first runs the
+    next one.
+
+    The reference's documented deviations from the dense thread array
+    are kept: slots do not move on a kill (except that killing slot 0
+    moves the last live extra thread into it), so the round-robin order
+    after a mid-stack kill can differ, and after any kill scheduling
+    resumes from slot 0.  No value is read back to the host."""
+    reps = thread_reps(params)
+    if bits is None:
+        keys = key[None] if key.dim() == 1 else key
+        bits = cycle_bits(draw_keys_threads, params, keys,
+                          st.alive.shape[0])
+    d = bits.shape[0] // reps
+    keys = key[None] if key.dim() == 1 else key
+    n_live = 1 + st.t_alive.sum(dim=1)
+    sched_alive = st.t_alive
+    for r in range(reps):
+        st = _thread_substep(params, st, prng.fold_in_rows(keys, r),
+                             exec_mask, bits[r * d:(r + 1) * d],
+                             charge_time=(r == 0), rep=r, n_live=n_live,
+                             sched_alive=sched_alive)
+    return st
+
+
+def _expand(mask, like):
+    """bool[N, Te] mask broadcast over `like`'s trailing axes."""
+    return mask.reshape(tuple(mask.shape) + (1,) * (like.ndim - 2))
+
+
+def _thread_substep(params, st, keys, exec_mask, bits, charge_time, rep,
+                    n_live, sched_alive):
+    from avida_tpu_torch.ops.birth import _where_rows
+    T = params.max_cpu_threads
+    Te = T - 1
+    dev = exec_mask.device
+    cols = torch.arange(Te, device=dev)[None, :]
+    # under slicing method 1, sub-step r runs only the lanes that had more
+    # than r threads at the top of the cycle
+    sub_mask = exec_mask & (n_live > rep) if rep else exec_mask
+
+    def slot_alive(cand):
+        extra = ((cols == (cand - 1)[:, None]) & st.t_alive
+                 & sched_alive).any(dim=1)
+        return (cand == 0) | extra
+
+    # advance cur_thread to the next live slot (m_cur_thread++ with wrap,
+    # cc:946-948; dead slots are skipped)
+    cur0 = st.cur_thread
+    cur = cur0
+    found = torch.zeros_like(exec_mask)
+    for k in range(1, T + 1):
+        cand = (cur0 + k) % T
+        al = slot_alive(cand)
+        cur = torch.where(~found & al, cand, cur)
+        found = found | al
+    cur = torch.where(sub_mask, cur, cur0)
+    onehot = (cols == (cur - 1)[:, None]) & (cur[:, None] > 0)
+    is_extra = cur > 0
+
+    def pick(main, extra):
+        """The active thread's view of a per-thread field (slot 0 is the
+        primary fields)."""
+        v = torch.where(_expand(onehot, extra), extra,
+                        torch.zeros_like(extra)).sum(dim=1)
+        return _where_rows(is_extra, v.to(main.dtype), main)
+
+    view = st.replace(
+        regs=pick(st.regs, st.t_regs), heads=pick(st.heads, st.t_heads),
+        stacks=torch.stack([pick(st.stacks[:, 0], st.t_stack),
+                            st.stacks[:, 1]], dim=1),
+        sp=torch.stack([pick(st.sp[:, 0], st.t_sp), st.sp[:, 1]], dim=1),
+        active_stack=pick(st.active_stack, st.t_active_stack),
+        read_label=pick(st.read_label, st.t_rlabel),
+        read_label_len=pick(st.read_label_len, st.t_rlabel_len),
+        main_tid=pick(st.main_tid, st.t_ids), cur_thread=cur)
+    nv, sig = micro_step(params, view, keys, sub_mask, bits,
+                         return_signals=True, charge_time=charge_time)
+
+    # ---- write the view's per-thread results back into slot `cur`; a
+    # divide from an extra slot resets the ORGANISM, so the reset view
+    # lands in slot 0 ----
+    div = sig["div"]
+    wrote_main = sub_mask & (~is_extra | div)
+    oh_w = onehot & (sub_mask & is_extra & ~div)[:, None]
+
+    def put_main(old, new):
+        return _where_rows(wrote_main, new.to(old.dtype), old)
+
+    def put_extra(old, new, mask=oh_w):
+        return torch.where(_expand(mask, old), new.unsqueeze(1).to(old.dtype),
+                           old)
+
+    st2 = nv.replace(
+        regs=put_main(st.regs, nv.regs), heads=put_main(st.heads, nv.heads),
+        stacks=torch.stack([put_main(st.stacks[:, 0], nv.stacks[:, 0]),
+                            nv.stacks[:, 1]], dim=1),
+        sp=torch.stack([put_main(st.sp[:, 0], nv.sp[:, 0]), nv.sp[:, 1]],
+                       dim=1),
+        active_stack=put_main(st.active_stack, nv.active_stack),
+        read_label=put_main(st.read_label, nv.read_label),
+        read_label_len=put_main(st.read_label_len, nv.read_label_len),
+        main_tid=st.main_tid, cur_thread=cur,
+        t_regs=put_extra(st.t_regs, nv.regs),
+        t_heads=put_extra(st.t_heads, nv.heads),
+        t_stack=put_extra(st.t_stack, nv.stacks[:, 0]),
+        t_sp=put_extra(st.t_sp, nv.sp[:, 0]),
+        t_active_stack=put_extra(st.t_active_stack, nv.active_stack),
+        t_rlabel=put_extra(st.t_rlabel, nv.read_label),
+        t_rlabel_len=put_extra(st.t_rlabel_len, nv.read_label_len),
+        t_alive=st.t_alive, t_ids=st.t_ids)
+
+    # ---- fork-th: the post-instruction active thread is copied into the
+    # lowest free slot under the lowest unused thread id (ForkThread
+    # cc:1505-1524); it fails silently at the cap ----
+    free = ~st2.t_alive
+    first_free = free & (torch.cumsum(free.to(torch.int32), dim=1) == 1)
+    put = first_free & (sig["fork"] & free.any(dim=1))[:, None]
+    new_id = torch.zeros_like(cur)
+    taken = torch.zeros_like(exec_mask)
+    for v in range(T):
+        used_v = (st2.main_tid == v) | ((st2.t_ids == v)
+                                        & st2.t_alive).any(dim=1)
+        new_id = torch.where(~taken & ~used_v, v, new_id)
+        taken = taken | ~used_v
+    child_heads = nv.heads.clone()
+    child_heads[:, HEAD_IP] = sig["child_ip"]
+    st2 = st2.replace(
+        t_alive=st2.t_alive | put,
+        t_ids=torch.where(put, new_id[:, None], st2.t_ids),
+        t_regs=put_extra(st2.t_regs, nv.regs, put),
+        t_heads=put_extra(st2.t_heads, child_heads, put),
+        t_stack=put_extra(st2.t_stack, nv.stacks[:, 0], put),
+        t_sp=put_extra(st2.t_sp, nv.sp[:, 0], put),
+        t_active_stack=put_extra(st2.t_active_stack, nv.active_stack, put),
+        t_rlabel=put_extra(st2.t_rlabel, nv.read_label, put),
+        t_rlabel_len=put_extra(st2.t_rlabel_len, nv.read_label_len, put))
+
+    # ---- kill-th: fails with one thread (cc:1595); killing slot 0 moves
+    # the last live extra thread into the primary fields, killing an
+    # extra slot frees it ----
+    can_kill = sig["kill"] & (1 + st2.t_alive.sum(dim=1) > 1)
+    kill_extra = can_kill & is_extra
+    kill0 = can_kill & ~is_extra
+    last = st2.t_alive & (torch.cumsum(
+        st2.t_alive.flip(1).to(torch.int32), dim=1).flip(1) == 1)
+
+    def move0(main, extra):
+        v = torch.where(_expand(last, extra), extra,
+                        torch.zeros_like(extra)).sum(dim=1)
+        return _where_rows(kill0, v.to(main.dtype), main)
+
+    dead = torch.where(kill_extra[:, None], onehot,
+                       torch.where(kill0[:, None], last,
+                                   torch.zeros_like(st2.t_alive)))
+    st2 = st2.replace(
+        regs=move0(st2.regs, st2.t_regs), heads=move0(st2.heads, st2.t_heads),
+        stacks=torch.stack([move0(st2.stacks[:, 0], st2.t_stack),
+                            st2.stacks[:, 1]], dim=1),
+        sp=torch.stack([move0(st2.sp[:, 0], st2.t_sp), st2.sp[:, 1]], dim=1),
+        active_stack=move0(st2.active_stack, st2.t_active_stack),
+        read_label=move0(st2.read_label, st2.t_rlabel),
+        read_label_len=move0(st2.read_label_len, st2.t_rlabel_len),
+        main_tid=move0(st2.main_tid, st2.t_ids),
+        t_alive=st2.t_alive & ~dead,
+        cur_thread=torch.where(can_kill, 0, st2.cur_thread))
+
+    # ---- divide: the parent resets to one thread (Divide_Main -> Reset:
+    # the extra slots die, the id chart resets) ----
+    return st2.replace(
+        t_alive=torch.where(div[:, None], False, st2.t_alive),
+        cur_thread=torch.where(div, 0, st2.cur_thread),
+        main_tid=torch.where(div, 0, st2.main_tid))
 
 
 def roll_right(plane, r, L):

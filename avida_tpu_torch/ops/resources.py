@@ -235,12 +235,23 @@ def _onehot(n_pools: int, res_idx, extra=None):
     return oh
 
 
-def _by_pool(cols, onehot):
-    """[..., G]: for each pool g, 0 + the columns cols[..., r] of its
-    reactions in reaction order (the reference's einsum over the
-    reaction axis, whose other terms are exact zeros)."""
+def _by_pool(cols, onehot, tree=False):
+    """[..., G]: for each pool g, the sum of the columns cols[..., r] of
+    its reactions (the reference's einsum over the reaction axis, whose
+    other terms are exact zeros): 0 + each in reaction order, or with
+    `tree` in the compiled IO block's tree over the first 16 reactions
+    (tasks.vector_fold's TREE), the form it takes with pools beside
+    processes bound to none."""
+    from avida_tpu_torch.ops.tasks import TREE, vector_fold
     out = []
     for row in onehot:
+        if tree:
+            zero = torch.zeros(cols.shape[:-1], dtype=_F32,
+                               device=cols.device)
+            out.append(vector_fold(
+                [cols[..., r] if row[r] else zero
+                 for r in range(cols.shape[-1])], torch.add, 0.0, TREE))
+            continue
         acc = torch.zeros(cols.shape[:-1], dtype=_F32, device=cols.device)
         for r in np.nonzero(row)[0]:
             acc = acc + cols[..., int(r)]
@@ -288,10 +299,18 @@ def _consume_tables(params, device):
         "oh_g": _onehot(params.num_global_res, res_idx),
         "oh_s": _onehot(params.num_spatial_res, res_idx),
         "oh_d": _onehot(params.num_deme_res, res_idx, is_deme),
+        # spatial demands and draws summed as the compiled IO block's
+        # tree (pools beside processes bound to none)
+        "tree": _reduces_as_tree(params),
         # the reactions each one-hot maps back to their pool's value
         "g_unscaled": _t(infinite | spatial | ~depl, device, torch.bool),
         "s_unscaled": _t(infinite | ~spatial | ~depl, device, torch.bool),
     }
+
+
+def _reduces_as_tree(params) -> bool:
+    from avida_tpu_torch.ops.tasks import TREE, vector_chunks
+    return vector_chunks(params)["add"] == TREE
 
 
 _CONSUME = {}          # params_cached store
@@ -355,12 +374,12 @@ def consume(params, rewarded, task_quality, resources, res_grid):
         is_s = (~inf & spatial)[None, :]
         want_s = torch.where(is_s, wanted, 0.0)
         want_depl = torch.where(depl[None, :], want_s, 0.0)
-        demand_s = _by_pool(want_depl, oh).T                      # [Rs, N]
+        demand_s = _by_pool(want_depl, oh, T["tree"]).T           # [Rs, N]
         scale_nr = _to_reactions(_scale(demand_s, res_grid).T, oh)
         scale_nr = torch.where(T["s_unscaled"][None, :], 1.0, scale_nr)
         got_s = want_s * scale_nr
         drawn_s = _by_pool(torch.where(is_s & depl[None, :], got_s, 0.0),
-                           oh).T
+                           oh, T["tree"]).T
         res_grid = (res_grid - drawn_s).clamp(min=0.0)
     else:
         got_s = torch.zeros_like(wanted)

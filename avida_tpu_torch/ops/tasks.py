@@ -200,14 +200,18 @@ def _build_env_tables(params, device) -> dict:
 
 
 # the reaction count from which the compiled engine vectorizes each
-# reduction (below it: in order)
+# reduction (below it: in order), with a requisite window (max_count) on
+# every logic reaction, and with none on any
 _VECTOR_FROM = {"pow": 17, "mult": 17, "add": 19}
+_VECTOR_FROM_OPEN = {"pow": 20, "mult": 20, "add": 23}
+_NO_WINDOW = 2**30          # max_task_count of a reaction with no window
 # vector_chunks' value for a tree over the first 16 reactions padded to a
 # power of two, the rest in order; the largest reaction count at which
-# that form was read
+# that form was read (11-17, and 18-23 with the reactions past the first
+# ten alternating pool-bound and unbound)
 TREE = -1
 _TREE_LANES = 16
-_TREE_UP_TO = 17
+_TREE_UP_TO = 23
 
 
 def vector_chunks(params) -> dict:
@@ -223,10 +227,13 @@ def vector_chunks(params) -> dict:
     fractional rewards of one type combine first: with logic-task
     reactions (logic-9's requisite max_count=1) and math-task reactions
     of all three process types, the products vectorize from 17 reactions
-    and the sum from 19.  With processes bound to pools beside processes
+    and the sum from 19; with no requisite window on any logic reaction,
+    the products from 20 and the sum from 23 (read at 17-32 reactions).
+    With processes bound to pools beside processes
     bound to none, all three reduce as a tree over the first 16
     reactions padded to a power of two, then the rest in order (TREE;
-    read from 11 to 17 reactions, wherever the unbound ones sit).  Other
+    read from 11 to 23 reactions, wherever the unbound ones sit; from 24
+    on the sum takes another form, ROADMAP.md Queue 3).  Other
     compositions compile other loops and are left in order (ROADMAP.md
     Queue 3)."""
     R = params.num_reactions
@@ -238,13 +245,20 @@ def vector_chunks(params) -> dict:
         return off
     names = params.task_math_name
     logic = np.asarray(params.task_logic_mask, bool).reshape(R, -1)
-    has_math = any(names)
-    has_logic = any(not nm and logic[r].any() for r, nm in enumerate(names))
-    if not (has_math and has_logic
+    logic_rows = [r for r, nm in enumerate(names)
+                  if not nm and logic[r].any()]
+    if not (any(names) and logic_rows
             and {PROCTYPE_ADD, PROCTYPE_MULT, PROCTYPE_POW}
             <= set(params.proc_type)):
         return off
-    return {k: (R // 8 if R >= v else 0) for k, v in _VECTOR_FROM.items()}
+    windows = [params.max_task_count[r] < _NO_WINDOW for r in logic_rows]
+    if all(windows):
+        start = _VECTOR_FROM
+    elif not any(windows):
+        start = _VECTOR_FROM_OPEN
+    else:
+        return off
+    return {k: (R // 8 if R >= v else 0) for k, v in start.items()}
 
 
 def vector_fold(cols, op, init, chunks):

@@ -34,9 +34,6 @@ import torch
 
 from avida_tpu_torch.core.state import (is_smt, stack_states,
                                         unstack_states)
-from avida_tpu_torch.models.heads import (
-    SEM_FORK_TH, SEM_ID_TH, SEM_IF_MATE_FEMALE, SEM_IF_MATE_MALE, SEM_KILL_TH,
-    SEM_SET_MATE_FEMALE, SEM_SET_MATE_JUV, SEM_SET_MATE_MALE)
 from avida_tpu_torch.ops import birth as birth_ops
 from avida_tpu_torch.ops import cycles
 from avida_tpu_torch.ops import resources as res_ops
@@ -102,12 +99,6 @@ def update_stats(params, st, alive_before, update_no):
 
 # ---- the per-update engine's phases, in update_step's order ----
 
-_THREAD_SEMS = frozenset((SEM_FORK_TH, SEM_KILL_TH, SEM_ID_TH))
-_MATING_SEMS = frozenset((SEM_SET_MATE_MALE, SEM_SET_MATE_FEMALE,
-                          SEM_SET_MATE_JUV, SEM_IF_MATE_MALE,
-                          SEM_IF_MATE_FEMALE))
-
-
 def engine_unported_reason(params) -> str | None:
     """What neither cycle engine of this package runs yet (None = one of
     them runs `params`); each reason names the ROADMAP.md item that owns
@@ -115,17 +106,6 @@ def engine_unported_reason(params) -> str | None:
     if params.hw_type not in (0, 1, 2):
         return ("experimental spatial hardware (ROADMAP.md Queue 1 item "
                 "12h)")
-    if params.max_cpu_threads > 1:
-        return "MAX_CPU_THREADS > 1 (threads: ROADMAP.md Queue 1 item 12f)"
-    # the semantic opcodes below are the heads hardware's numbering
-    sems = {int(x) for x in params.sem} if params.hw_type == 0 else set()
-    if sems & _THREAD_SEMS:
-        return ("thread instructions fork-th / kill-th / id-th (ROADMAP.md "
-                "Queue 1 item 12f)")
-    if sems & _MATING_SEMS:
-        return "mating-type instructions (ROADMAP.md Queue 1 item 12e)"
-    if params.energy_enabled:
-        return "the energy model (ROADMAP.md Queue 1 item 12f)"
     return None
 
 
@@ -203,6 +183,8 @@ def cycle_step_fn(params):
         from avida_tpu_torch.ops import interpreter_smt as smt
         return smt.micro_step_smt, smt.draw_keys
     from avida_tpu_torch.ops import interpreter
+    if params.max_cpu_threads > 1:
+        return interpreter.micro_step_threads, interpreter.draw_keys_threads
     return interpreter.micro_step, interpreter.draw_keys
 
 
@@ -301,10 +283,10 @@ def point_mutation_sweep(params, st, key):
     return st.replace(tape=torch.where(hit, mutated, st.tape))
 
 
-def birth_phase(params, st, k_birth, k_steps, update_no):
-    """The canonical birth flush, the demes' ageing (cDeme::IncAge), then
-    the point-mutation sweep."""
-    st = birth_ops.flush_births(params, st, k_birth, update_no)
+def birth_phase(params, st, k_birth, k_steps, update_no, neighbors=None):
+    """The canonical birth flush (on the world's neighbor table), the
+    demes' ageing (cDeme::IncAge), then the point-mutation sweep."""
+    st = birth_ops.flush_births(params, st, k_birth, update_no, neighbors)
     if params.num_demes > 1:
         st = st.replace(deme_age=st.deme_age + 1)
     if params.point_mut_prob > 0:
@@ -313,7 +295,7 @@ def birth_phase(params, st, k_birth, k_steps, update_no):
     return st
 
 
-def update_step(params, st, key, update_no):
+def update_step(params, st, key, update_no, neighbors=None):
     """One update of the per-update engine.  Returns (st',
     executed_this_update)."""
     ks = prng.split(key, 3)
@@ -325,14 +307,16 @@ def update_step(params, st, key, update_no):
     st = interpret_phase(params, st, k_steps, granted, static_cap(params),
                          max_k)
     st, executed = bank_phase(params, st, budgets, executed0)
-    st = birth_phase(params, st, k_birth, k_steps, update_no)
+    st = birth_phase(params, st, k_birth, k_steps, update_no, neighbors)
     return st, executed
 
 
-def update_scan(params, st, chunk, run_key, u0):
+def update_scan(params, st, chunk, run_key, u0, neighbors=None):
     """Run `chunk` consecutive updates from update u0.  The packed body
     (pack once, update, unpack once) when the configuration qualifies,
-    else update_step per update.  Returns the new state and per-update
+    else update_step per update; `neighbors` is the world's neighbor
+    table (the per-update flush places through it; None builds the
+    default-seed one).  Returns the new state and per-update
     vectors (executed, births, deaths, dt, ave_gen, n_alive), each of
     length `chunk`, on the state's device."""
     from avida_tpu_torch.ops import packed_chunk
@@ -341,7 +325,7 @@ def update_scan(params, st, chunk, run_key, u0):
         for i in range(chunk):
             k = prng.fold_in(run_key, u0 + i)
             alive_before = st.alive.sum().to(torch.int32)
-            st, executed = update_step(params, st, k, u0 + i)
+            st, executed = update_step(params, st, k, u0 + i, neighbors)
             outs.append((executed,) + update_stats(params, st, alive_before,
                                                    u0 + i))
         return st, tuple(torch.stack([o[j] for o in outs])
@@ -451,7 +435,7 @@ def mw_fold_cycles_xla(params, sts, k_steps, granted, max_k):
     return unfold_lanes(sts, folded)
 
 
-def batched_update_step(params, sts, keys, update_no):
+def batched_update_step(params, sts, keys, update_no, neighbors=None):
     """One update of W worlds (update_step's phase order, the cycles run
     once for the batch on the routed engine); `sts`, `keys` and `update_no` hold one entry per
     world.  Returns (sts', executed[W], trips[W]), trips being each
@@ -470,7 +454,7 @@ def batched_update_step(params, sts, keys, update_no):
     for w, st in enumerate(sts):
         st, ex = bank_phase(params, st, budgets[w], executed0[w])
         out.append(birth_phase(params, st, k_birth[w], k_steps[w],
-                               update_no[w]))
+                               update_no[w], neighbors))
         executed.append(ex)
     trips = torch.stack([m.to(torch.int32) for m in max_k])
     return out, torch.stack(executed), trips
@@ -487,7 +471,7 @@ def world_updates(u0, W: int) -> list:
     return u
 
 
-def update_scan_batched(params, bst, chunk, run_keys, u0):
+def update_scan_batched(params, bst, chunk, run_keys, u0, neighbors=None):
     """Run `chunk` updates of W stacked worlds (the engine behind
     parallel/multiworld.multiworld_scan).  `bst` is a batched state
     (core/state.stack_states), `run_keys` the [W, 2] stacked run keys, u0
@@ -519,7 +503,8 @@ def update_scan_batched(params, bst, chunk, run_keys, u0):
             un = [u + i for u in u0]
             keys = [prng.fold_in(run_keys[w], un[w]) for w in range(W)]
             alive_before = [st.alive.sum().to(torch.int32) for st in sts]
-            sts, executed, trips = batched_update_step(params, sts, keys, un)
+            sts, executed, trips = batched_update_step(params, sts, keys, un,
+                                                       neighbors)
             cols = [update_stats(params, st, ab, u)
                     for st, ab, u in zip(sts, alive_before, un)]
             outs.append((executed,) + tuple(

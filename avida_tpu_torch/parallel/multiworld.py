@@ -55,12 +55,13 @@ from avida_tpu_torch.utils import integrity, prng
 from avida_tpu_torch.world import World
 
 
-def multiworld_scan(params, bstate, chunk, run_keys, u0):
-    """Advance W stacked worlds by `chunk` updates: update_scan_batched.
-    Returns the batched state and the seven per-update vectors
-    (executed, births, deaths, dt, ave_gen, n_alive, trips), each
-    [W, chunk]."""
-    return update_scan_batched(params, bstate, chunk, run_keys, u0)
+def multiworld_scan(params, bstate, chunk, run_keys, u0, neighbors=None):
+    """Advance W stacked worlds by `chunk` updates: update_scan_batched
+    on their shared neighbor table.  Returns the batched state and the
+    seven per-update vectors (executed, births, deaths, dt, ave_gen,
+    n_alive, trips), each [W, chunk]."""
+    return update_scan_batched(params, bstate, chunk, run_keys, u0,
+                               neighbors)
 
 
 def _event_key(ev):
@@ -88,6 +89,11 @@ class MultiWorld:
                     "multi-world batch needs identical static configs "
                     "(WorldParams differ; only seeds and output dirs may "
                     "vary across a batch)")
+            if not torch.equal(w.neighbors, w0.neighbors):
+                raise ValueError(
+                    "multi-world batch needs one shared world topology "
+                    "(neighbor tables differ -- scale-free geometries "
+                    "draw per-seed graphs and cannot batch)")
             if [_event_key(e) for e in w.events] != ev0:
                 raise ValueError("multi-world batch needs one shared "
                                  "event schedule")
@@ -283,7 +289,8 @@ class MultiWorld:
                 pre = (clone_state(self.bstate), self.update)
         self.bstate, (executed, births, deaths, dts, ave_gens, n_alive,
                       trips) = multiworld_scan(
-            self.params, self.bstate, k, self._run_keys, self.update)
+            self.params, self.bstate, k, self._run_keys, self.update,
+            self.worlds[0].neighbors)
         self._avida_time = self._avida_time + torch.stack(
             [prng.xla_f32_sum(row) for row in dts])
         self._last_ave_gen = ave_gens[:, -1]
@@ -339,7 +346,7 @@ class MultiWorld:
         pre_b, u0 = pre
         integrity.note_scrub()
         shadow_b, _ = multiworld_scan(self.params, pre_b, k, self._run_keys,
-                                      u0)
+                                      u0, self.worlds[0].neighbors)
         t0 = _time.monotonic()
         live = d_live.tolist()
         shad = state_digest_batched(shadow_b).tolist()

@@ -420,9 +420,9 @@ def _btrs(k, count, prob):
     b = fma_f32(stddev, 2.53, 1.15)
     a = fma_f32(prob, 0.01, fma_f32(b, 0.0248, -0.0873))
     c = fma_f32(count, prob, 0.5)
-    v_r = 0.92 - 4.2 / b
+    v_r = 0.92 - _div(4.2, b)
     r = prob / (1 - prob)
-    alpha = (2.83 + 5.1 / b) * stddev
+    alpha = (2.83 + _div(5.1, b)) * stddev
     m = torch.floor((count + 1) * prob)
     k_out = torch.full_like(prob, -1.0)
     accepted = torch.zeros(prob.shape, dtype=torch.bool, device=prob.device)
@@ -511,3 +511,127 @@ def choice(k, n: int, shape, p) -> torch.Tensor:
     p_cuml = xla_cumsum(p.to(torch.float32))
     r = p_cuml[-1] * (1.0 - uniform(k, shape))
     return torch.searchsorted(p_cuml, r).to(torch.int32)
+
+
+# ---- poisson (jax.random's Knuth and transformed-rejection samplers) ----
+
+def _poisson_knuth(k, lam: float, shape, max_iters=None):
+    """Knuth's sampler (`_poisson_knuth`): each trip splits the carried key
+    once and multiplies in one uniform per lane, until no lane's running
+    log-product exceeds -lam.  Extra trips are harmless (a stopped lane
+    stays stopped), so the loop may read its condition every trip.
+    Returns (int32 samples, trips)."""
+    dev = k.device
+    neg_lam = -round_f32(lam)
+    count = torch.zeros(shape, dtype=torch.int32, device=dev)
+    log_prod = torch.zeros(shape, dtype=torch.float32, device=dev)
+    rng, trips = k, 0
+    while max_iters is None or trips < max_iters:
+        live = log_prod > neg_lam
+        if not bool(live.any()):
+            break
+        ks = split(rng)
+        rng, sub = ks[0], ks[1]
+        count = count + live.to(torch.int32)
+        log_prod = log_prod + xla_log(uniform(sub, shape))
+        trips += 1
+    return count - 1, trips
+
+
+def _f32np(x):
+    import numpy as np
+    return np.float32(x)
+
+
+def _rejection_constants(lam: float):
+    """The transformed-rejection sampler's per-rate constants.  With the
+    rate a compile-time constant, XLA folds them on the host one float32
+    operation at a time (std::sqrt and std::log, correctly rounded)."""
+    import numpy as np
+    f = _f32np
+    lam = f(lam)
+    b = f(f(0.931) + f(f(2.53) * np.sqrt(lam)))
+    a = f(f(-0.059) + f(f(0.02483) * b))
+    return {"lam": float(lam), "log_lam": float(f(math.log(lam))),
+            "b": float(b), "a": float(a), "two_a": float(f(2) * a),
+            "inv_alpha": float(f(f(1.1239) + f(f(1.1328) / f(b - f(3.4))))),
+            "v_r": float(f(f(0.9277) - f(f(3.6224) / f(b - f(2)))))}
+
+
+# XLA's Lanczos lgamma (gamma = 7): the float32 coefficients and the
+# folded constants log(7.5), 1 / 7.5 and log(sqrt(2 pi))
+_LANCZOS = tuple(float(_f32np(c)) for c in (
+    676.520368121885098567009190444019, -1259.13921672240287047156078755283,
+    771.3234287776530788486528258894, -176.61502916214059906584551354,
+    12.507343278686904814458936853, -0.13857109526572011689554707,
+    9.984369578019570859563e-6, 1.50563273514931155834e-7))
+_LOG_LANCZOS_G = float(_f32np(math.log(7.5)))
+_INV_LANCZOS_G = float(_f32np(1.0) / _f32np(7.5))
+_LOG_SQRT_2PI = float(_f32np((math.log(2) + math.log(math.pi)) / 2))
+
+
+def _div(c: float, x: torch.Tensor) -> torch.Tensor:
+    """float32 c / x, correctly rounded (torch computes a Python number
+    over a tensor as the tensor's reciprocal times the number)."""
+    return _f32(c, x) / x
+
+
+def xla_lgamma_of_succ(z: torch.Tensor) -> torch.Tensor:
+    """lgamma(z + 1) as the reference's compiled rejection loop computes
+    it for z >= 0 (the branch its accepted draws read): the Lanczos sum
+    in order, log(t) as log(7.5) + log1p(z * float32(1 / 7.5)), and
+    (z + 1/2 - t / log t) * log t + log(sqrt(2 pi)) as one fused
+    multiply-add, plus log of the sum."""
+    acc = _div(_LANCZOS[0], z + 1.0) + 1.0
+    for i, c in enumerate(_LANCZOS[1:], start=2):
+        acc = acc + _div(c, z + float(i))
+    log_t = xla_log1p(z * _INV_LANCZOS_G) + _LOG_LANCZOS_G
+    lead = (z + 0.5) - (z + 7.5) / log_t
+    return fma_f32(lead, log_t, _LOG_SQRT_2PI) + xla_log(acc)
+
+
+def _poisson_rejection(k, lam: float, shape, max_iters=None):
+    """Hormann's transformed rejection (`_poisson_rejection`), lam >= 10:
+    each trip splits the carried key in three, draws u and v over every
+    lane, and overwrites the sample of every lane that accepts -- lanes
+    accepted on an earlier trip included, so the loop stops at exactly
+    the reference's trip: the first on which every lane has accepted.
+    Each float32 operation is the reference's compiled one (its
+    multiply-adds fused).  Returns (int32 samples, trips)."""
+    c = _rejection_constants(lam)
+    dev = k.device
+    k_out = torch.full(shape, -1.0, dtype=torch.float32, device=dev)
+    accepted = torch.zeros(shape, dtype=torch.bool, device=dev)
+    rng, trips = k, 0
+    while (max_iters is None or trips < max_iters) \
+            and not bool(accepted.all()):
+        ks = split(rng, 3)
+        rng = ks[0]
+        u = uniform(ks[1], shape) - 0.5
+        v = uniform(ks[2], shape)
+        us = 0.5 - u.abs()
+        kk = torch.floor(fma_f32(_div(c["two_a"], us) + c["b"], u,
+                                 c["lam"]) + 0.43)
+        s = xla_log(v * c["inv_alpha"] / (_div(c["a"], us * us) + c["b"]))
+        t = fma_f32(kk, c["log_lam"], -c["lam"]) - xla_lgamma_of_succ(kk)
+        accept1 = (us >= 0.07) & (v <= c["v_r"])
+        reject = (kk < 0) | ((us < 0.013) & (v > us))
+        accept = accept1 | (~reject & (s <= t))
+        k_out = torch.where(accept, kk, k_out)
+        accepted = accepted | accept
+        trips += 1
+    return k_out.to(torch.int32), trips
+
+
+def poisson(k, lam: float, shape) -> torch.Tensor:
+    """`jax.random.poisson(k, lam, shape)` (int32) for a scalar rate: the
+    reference computes Knuth's sampler below lam = 10 and the
+    transformed-rejection one from 10 up, both from the same key, and
+    keeps one; only the kept one is computed here, from that key."""
+    shape = tuple(shape)
+    lam32 = round_f32(lam)
+    if lam32 == 0.0:
+        return torch.zeros(shape, dtype=torch.int32, device=k.device)
+    if math.isnan(lam32) or lam32 < 10.0:
+        return _poisson_knuth(k, lam32, shape)[0]
+    return _poisson_rejection(k, lam32, shape)[0]

@@ -12,8 +12,9 @@ pools and demes; the standard events (Inject, InjectAll, Exit,
 PrintAverageData, PrintCountData, PrintTasksData, PrintTimeData,
 PrintDominantData, PrintResourceData, SavePopulation, LoadPopulation,
 SetResource, CompeteDemes, ReplicateDemes,
-Pred_DemeResourceThresholdPredicate, InjectParasite) and their .dat
-files; persistence:
+Pred_DemeResourceThresholdPredicate, InjectParasite, KillProb,
+SerialTransfer) and their .dat files; every geometry the reference
+builds (its neighbor table, self.neighbors); persistence:
 native checkpoints (TPU_CKPT_DIR, TPU_CKPT_EVERY, TPU_CKPT_FINAL;
 save_checkpoint / resume, in the reference's on-disk format),
 SIGTERM/SIGINT preemption with a final checkpoint, the state digest and
@@ -46,6 +47,7 @@ from avida_tpu_torch.config.events import parse_event_line
 from avida_tpu_torch.config.schema import _parse_scalar
 from avida_tpu_torch.core.state import (clone_state, init_population,
                                         make_world_params, seed_organism)
+from avida_tpu_torch.ops import birth as birth_ops
 from avida_tpu_torch.ops import cycles, packed_chunk
 from avida_tpu_torch.ops import demes as deme_ops
 from avida_tpu_torch.ops import update as update_ops
@@ -226,6 +228,13 @@ class World:
                 else cfg.MIGRATION_FILE, cfg.NUM_DEMES, cfg.MIGRATION_FILE)
         self.params = make_world_params(cfg, self.instset, self.environment)
         self._check_engine()
+        # the world's topology, built once (random geometries from
+        # max(RANDOM_SEED, 0) and SCALE_FREE_*, as the reference's World)
+        self.neighbors = birth_ops.neighbors_on(
+            self.params, self.device, seed=max(cfg.RANDOM_SEED, 0),
+            scale_free_m=cfg.SCALE_FREE_M,
+            scale_free_alpha=cfg.SCALE_FREE_ALPHA,
+            scale_free_zero_appeal=cfg.SCALE_FREE_ZERO_APPEAL)
 
         seed = (cfg.RANDOM_SEED if cfg.RANDOM_SEED >= 0
                 else int.from_bytes(os.urandom(4), "little"))
@@ -298,7 +307,7 @@ class World:
                 "PrintDominantData", "PrintResourceData", "SavePopulation",
                 "LoadPopulation", "SetResource", "CompeteDemes",
                 "ReplicateDemes", "Pred_DemeResourceThresholdPredicate",
-                "InjectParasite")
+                "InjectParasite", "KillProb", "SerialTransfer")
 
     def _check_action(self, action):
         if action not in self._ACTIONS:
@@ -406,6 +415,30 @@ class World:
             parasite_active=st.parasite_active | sel,
             smt_head_pos=_set_thread(st.smt_head_pos, 1, sel, 0),
             smt_head_space=_set_thread(st.smt_head_space, 1, sel, 2))
+
+    def _action_KillProb(self, args):
+        """KillProb [prob]: each living organism dies with probability p
+        (cActionKillProb, actions/PopulationActions.cc): one uniform draw
+        a cell from a split of the world key."""
+        p = float(args[0]) if args else 0.9
+        die = prng.uniform(self._split_key(), (self.params.num_cells,)) \
+            < prng.round_f32(p)
+        self.state = self.state.replace(alive=self.state.alive & ~die)
+
+    def _action_SerialTransfer(self, args):
+        """SerialTransfer [transfer_size]: keep a uniform random sample of
+        transfer_size organisms and kill the rest (cActionSerialTransfer):
+        the living cells whose draw reaches the transfer_size-th largest
+        (ties keep more).  A size past the world keeps every organism:
+        the index clamps to the smallest score, as the reference's does."""
+        size = int(args[0]) if args else 1
+        st = self.state
+        n = self.params.num_cells
+        u = prng.uniform(self._split_key(), (n,))
+        score = torch.where(st.alive, u, -1.0)
+        at = -size + n if size > 0 else -size
+        kth = torch.sort(score).values[min(max(at, 0), n - 1)]
+        self.state = st.replace(alive=st.alive & (score >= kth))
 
     def _action_Exit(self, args):
         self._exit = True
@@ -681,7 +714,7 @@ class World:
                 pre = (clone_state(self.state), self.update)
         self.state, (executed, births, deaths, dts, ave_gens, n_alive) = \
             update_scan(self.params, self.state, k, self._run_key,
-                        self.update)
+                        self.update, self.neighbors)
         # avida time advances by 1/ave_gestation per update
         self._avida_time = self._avida_time + prng.xla_f32_sum(dts)
         self._last_ave_gen = ave_gens[-1]
@@ -745,7 +778,8 @@ class World:
             return
         pre_st, u0 = pre
         integrity.note_scrub()
-        shadow_st, _ = update_scan(self.params, pre_st, k, self._run_key, u0)
+        shadow_st, _ = update_scan(self.params, pre_st, k, self._run_key, u0,
+                                   self.neighbors)
         t0 = _time.monotonic()
         live, shad = int(d_live), int(state_digest(shadow_st))
         integrity.note_digest_ms((_time.monotonic() - t0) * 1e3)

@@ -40,7 +40,7 @@ configuration the kernel gate refuses), whose paths launch no kernel:
   xla_cross_device  card against CPU: a 24x24 math world and a W = 3
                     batch on the folded engine
   multiworld_fold   the 16 x 60x60 batch on the folded engine, members 0
-                    and 15 against their solo runs
+                    and 15 against their solo runs on the CPU
 
 and resource pools and demes (ROADMAP items 12a, 12b):
 
@@ -72,6 +72,33 @@ and TransSMT hardware with host-parasite coevolution (ROADMAP item
                     Val-Mod: one cycle, then 14 updates, identical
   smt_fold          16 TransSMT 60x60 worlds on the folded engine for
                     18 updates, members 0 and 15 against their solo runs
+                    on the CPU
+
+and the rest of the birth flush, the topologies, mating types, energy
+and threads (ROADMAP items 12d-12g):
+
+  dispersal_path    320x320, BIRTH_METHOD 11 (DISPERSAL_RATE 1.0) and
+                    POPULATION_CAP 80,000, KillProb 0.1 at update 10 and
+                    SerialTransfer 20000 at 20: the kernel route's
+                    per-update engine, 30 launches; K1 held against the
+                    plain version on its state
+  topology_path     a 320x320 hex world (20 launches, K1 held), random
+                    connected and scale-free 60x60 worlds and a 16x16
+                    clique (16 each): each table's width and build time
+  mating_path       320x320, MATING_TYPES 1, male and female ancestors:
+                    the micro-step engine until the first pairings, then
+                    one update timed; pairings, juvenile drops, the store
+  energy_path       320x320, ENERGY_ENABLED 1 (inject energy 1000,
+                    BIRTH_METHOD 10): until the first births, then one
+                    update timed; newborn merits from their energy
+  threads_path      320x320, MAX_CPU_THREADS 4, THREAD_SLICING_METHOD 1,
+                    a forking ancestor: 2 updates + 1 timed
+  slice10_cross_device  12x12 worlds of each of these (geometries 3, 4,
+                    7, 8; DISPERSAL_RATE 1.0 and 12.0 under both caps
+                    with KillProb and SerialTransfer; mating, energy,
+                    threads): the CPU alone to the first births, then
+                    card and CPU from the CPU's state, field by field
+                    after each update
 
 and persistence (native checkpoints in the reference's format):
 
@@ -93,8 +120,8 @@ and persistence (native checkpoints in the reference's format):
                     equal to the live chunk
   spop_path         SavePopulation / LoadPopulation on a 60x60 world: the
                     restore on the card equal to the one on the CPU
-  multiworld_persist  multiworld_path's batch saved at 15, resumed by a
-                    new batch to 30: every member equal, K3b once per
+  multiworld_persist  multiworld_path's batch saved at 8, resumed by a
+                    new batch to 16: every member equal, K3b once per
                     resumed update
 
 On each path's evolved state it holds both kernels bit for bit against
@@ -103,11 +130,12 @@ port, Hopper, Hopper, first port) and times the path's own phase
 functions; a batch's stacked launch is also held, world by world,
 against the solo launches, and two batch members against their solo
 runs; small worlds and a small batch run on the card and on the CPU
-must end identical; the geometry phase holds both kernels to the plain
-version at the launch shapes the paths do not reach (B = 128, 256, and
-L = 1024), and the size_range phase holds them at OFFSPRING_SIZE_RANGE
-1.1, where the divide's size limit rounds.  Each phase prints one JSON
-line; the last line is
+must end identical (the CPU halves run in worker processes that see no
+card, beside the card's phases: cpu_jobs); the geometry phase holds
+both kernels to the plain version at the launch shapes the paths do not
+reach (B = 128, 256, and L = 1024), and the size_range phase holds them
+at OFFSPRING_SIZE_RANGE 1.1, where the divide's size limit rounds.
+Each phase prints one JSON line; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that
 line.  Needs a CUDA device: without one it exits 2 and prints no result.
 """
@@ -315,7 +343,43 @@ def write_config_dir(cdir, env=False, instset=None):
     return cdir
 
 
-def phase_cross_device(tmp, devices=("cuda", "cpu")):
+def cross_side(tmp, dev):
+    """One device's half of cross_device: for each case, the state's
+    arrays, the .dat bodies, the engine (checked against the case's) and
+    the count of stretch boundaries holding a stored birth-chamber
+    entry."""
+    from avida_tpu_torch import convert
+    out = []
+    for name, side, updates, extra, custom_env, mixed, every in CROSS_CASES:
+        cdir = None
+        if custom_env or name == "costs":
+            cdir = write_config_dir(
+                os.path.join(tmp, f"cfg_{name}"), env=custom_env,
+                instset=COSTS_INSTSET if name == "costs" else None)
+        events = ["u begin InjectAll"] + (
+            [f"u 0:{every}:end {a}" for a in PRINTS] if every else [])
+        want = CROSS_ENGINES.get(name, ("packed", ""))
+        ddir = os.path.join(tmp, f"x_{name}_{dev}")
+        w = make_world(side, ddir, dev, events, extra, cdir)
+        w.process_events()
+        if mixed:
+            reseed_mixed(w)
+        n_stored = 0
+        for u in range(4, updates + 1, 4):
+            w.run(max_updates=u)
+            n_stored += int(w.state.bc_valid)
+        _sync(dev)
+        rep = w.engine_report()
+        if rep["engine"] != want[0] \
+                or want[1] not in rep.get("fallback_reason", ""):
+            raise AssertionError(f"{name}: engine {rep}, want {want}")
+        out.append((convert.state_to_arrays(w.state),
+                    dat_bodies(ddir) if every else {}, rep["engine"],
+                    n_stored))
+    return out
+
+
+def phase_cross_device(tmp, cpu=None, device="cuda"):
     """Small worlds run on the card and on the CPU (the plain versions)
     must end in identical states (and, where they print, identical .dat
     bytes): the whole update path, kernel included, against its plain
@@ -323,57 +387,30 @@ def phase_cross_device(tmp, devices=("cuda", "cpu")):
     configurations of the packed engine and the systematics, heads-sex
     and soup (BIRTH_METHOD 4 on a grid) worlds of the per-update engine.
     Each world runs in stretches of 4 updates; the sexual one must hold
-    a waiting birth-chamber entry at some stretch boundary."""
-    from avida_tpu_torch import convert
+    a waiting birth-chamber entry at some stretch boundary.  `cpu` is
+    the cpu_jobs job of cross_side's CPU half, else it runs here."""
+    card = cross_side(tmp, device)
+    host = cpu_half(cpu, cross_side, cpu_root(tmp), "cpu")
     results = []
-    for name, side, updates, extra, custom_env, mixed, every in CROSS_CASES:
-        cdir = None
-        if custom_env or name == "costs":
-            cdir = write_config_dir(
-                os.path.join(tmp, f"cfg_{name}"), env=custom_env,
-                instset=COSTS_INSTSET if name == "costs" else None)
-        states, dats, engines, stored = [], [], set(), []
-        events = ["u begin InjectAll"] + (
-            [f"u 0:{every}:end {a}" for a in PRINTS] if every else [])
-        want = CROSS_ENGINES.get(name, ("packed", ""))
-        for dev in devices:
-            ddir = os.path.join(tmp, f"x_{name}_{dev}")
-            w = make_world(side, ddir, dev, events, extra, cdir)
-            w.process_events()
-            if mixed:
-                reseed_mixed(w)
-            n_stored = 0
-            for u in range(4, updates + 1, 4):
-                w.run(max_updates=u)
-                n_stored += int(w.state.bc_valid)
-            _sync(dev)
-            states.append(convert.state_to_arrays(w.state))
-            dats.append(dat_bodies(ddir) if every else {})
-            rep = w.engine_report()
-            engines.add(rep["engine"])
-            stored.append(n_stored)
-            if rep["engine"] != want[0] \
-                    or want[1] not in rep.get("fallback_reason", ""):
-                raise AssertionError(f"{name}: engine {rep}, want {want}")
-        sa, sb = states
+    for case, (sa, da, ea, na), (sb, db, eb, _) in zip(CROSS_CASES, card,
+                                                        host):
+        name, side, updates, _, _, _, every = case
         bad = [k for k in sa if sa[k] is not None
                and sa[k].tobytes() != sb[k].tobytes()]
-        bad += [f for f in set(dats[0]) | set(dats[1])
-                if dats[0].get(f) != dats[1].get(f)]
+        bad += [f for f in set(da) | set(db) if da.get(f) != db.get(f)]
         births = int((sb["birth_update"] >= 0).sum())
         tasks = int((sb["task_exe_total"] > 0).any(axis=0).sum())
-        if bad or births == 0 or (every and "dominant.dat" not in dats[0]) \
-                or (name == "sex" and stored[0] == 0):
+        if bad or births == 0 or (every and "dominant.dat" not in da) \
+                or (name == "sex" and na == 0):
             raise AssertionError(f"{name}: cuda vs cpu differ in {bad} "
-                                 f"(births {births}, files "
-                                 f"{sorted(dats[0])}, boundaries with a "
-                                 f"stored entry {stored})")
+                                 f"(births {births}, files {sorted(da)}, "
+                                 f"boundaries with a stored entry {na})")
         res = {"case": name, "world": f"{side}x{side}",
-               "updates": updates, "engine": sorted(engines),
+               "updates": updates, "engine": sorted({ea, eb}),
                "births": births, "tasks_seen": tasks,
-               "dat_files_equal": sorted(dats[0])}
+               "dat_files_equal": sorted(da)}
         if name == "sex":
-            res["boundaries_with_stored_entry"] = stored[0]
+            res["boundaries_with_stored_entry"] = na
         results.append(res)
     return {"phase": "cross_device", "fields_equal": True, "cases": results}
 
@@ -970,6 +1007,50 @@ class one_thread:
         torch.set_num_threads(self.n)
 
 
+CPU_WORKERS = 3
+
+
+def _cpu_worker_init():
+    """A worker of cpu_jobs sees no card and runs torch on one intra-op
+    thread, as one_thread does."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+    torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def cpu_jobs(workers=CPU_WORKERS):
+    """Worker processes for the CPU halves of the cross-device phases,
+    which then run beside the card's phases instead of after them.  A
+    worker sees no card, so the card's kernels and timings share it with
+    nothing; workers are spawned, not forked, as this process holds a
+    CUDA context.  Leaving the block cancels the jobs not yet started and
+    waits for the rest: no worker outlives it."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(workers, multiprocessing.get_context("spawn"),
+                               initializer=_cpu_worker_init)
+    try:
+        yield pool
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def cpu_half(job, fn, *args):
+    """The CPU half of a cross-device phase: its cpu_jobs job's result, or
+    without a job fn(*args), run here on one thread."""
+    if job is not None:
+        return job.result()
+    with one_thread():
+        return fn(*args)
+
+
+def cpu_root(tmp):
+    """The directory the CPU halves write under: none of the card half's
+    paths, whatever device the card half is given."""
+    return os.path.join(tmp, "cpu_half")
+
+
 def phase_size_range(tmp):
     """OFFSPRING_SIZE_RANGE 1.1 on the kernel route: every lane of an 8x8
     world set to divide a 29- or 30-site child of a 33-site genome (the
@@ -1046,7 +1127,7 @@ def phase_multiworld(name, sysm, tmp, side, seeds, updates, device="cuda",
     from avida_tpu_torch.parallel.multiworld import MultiWorld
     # with checkpoints, a print every 5 updates puts a chunk boundary at
     # each save (every MW_UPDATES/2)
-    every = 5 if ckpt_root else 10
+    every = MW_CKPT_PRINTS if ckpt_root else 10
     mw = MultiWorld(mw_members(side, seeds, tmp, name, device, sysm, every,
                                ckpt_root))
     drains = [time_host_drain(w) for w in mw.worlds] if sysm else []
@@ -1271,30 +1352,31 @@ def phase_mw_breakdown(mw, run, name, updates=2):
 MW_CROSS_SEEDS = (3, 11, 29)
 
 
-def phase_mw_cross_device(tmp, devices=("cuda", "cpu")):
-    """A W = 3 batch of 8x8 worlds, 16 updates, on each engine, run on the
-    card and on the CPU (the plain versions): every member must end in
-    identical states and .dat bytes."""
+def mw_cross_side(tmp, dev):
+    """One device's half of multiworld_cross_device: for each engine, the
+    members' state arrays and .dat bodies, and the batch's engine."""
     from avida_tpu_torch import convert
     from avida_tpu_torch.parallel.multiworld import MultiWorld
-    results = []
+    out = []
     for sysm in (1, 0):
-        runs = []
-        for dev in devices:
-            tag = f"mwx{sysm}_{dev}"
-            mw = MultiWorld(mw_members(8, MW_CROSS_SEEDS, tmp, tag, dev, sysm,
-                                       4))
-            if dev == "cpu":
-                with one_thread():
-                    mw.run(max_updates=16)
-            else:
-                mw.run(max_updates=16)
-            _sync(dev)
-            runs.append(([convert.state_to_arrays(w.state)
-                          for w in mw.worlds],
-                         [dat_bodies(w.data_dir) for w in mw.worlds],
-                         mw.engine))
-        (sa, da, ea), (sb, db, eb) = runs
+        mw = MultiWorld(mw_members(8, MW_CROSS_SEEDS, tmp, f"mwx{sysm}_{dev}",
+                                   dev, sysm, 4))
+        mw.run(max_updates=16)
+        _sync(dev)
+        out.append(([convert.state_to_arrays(w.state) for w in mw.worlds],
+                    [dat_bodies(w.data_dir) for w in mw.worlds], mw.engine))
+    return out
+
+
+def phase_mw_cross_device(tmp, cpu=None, device="cuda"):
+    """A W = 3 batch of 8x8 worlds, 16 updates, on each engine, run on the
+    card and on the CPU (the plain versions): every member must end in
+    identical states and .dat bytes.  `cpu` is the cpu_jobs job of
+    mw_cross_side's CPU half, else it runs here."""
+    card = mw_cross_side(tmp, device)
+    host = cpu_half(cpu, mw_cross_side, cpu_root(tmp), "cpu")
+    results = []
+    for (sa, da, ea), (sb, db, eb) in zip(card, host):
         bad = [(k, f) for k in range(len(sa)) for f in sa[k]
                if sa[k][f] is not None
                and sa[k][f].tobytes() != sb[k][f].tobytes()]
@@ -1389,7 +1471,8 @@ def xla_breakdown(w, updates):
             st = timed("materialize", update.materialize_offspring, p, st,
                        pending)
         st, _ = timed("bank", update.bank_phase, p, st, budgets, executed0)
-        st = timed("flush", update.birth_phase, p, st, ks[2], ks[1], u)
+        st = timed("flush", update.birth_phase, p, st, ks[2], ks[1], u,
+                   w.neighbors)
         timed("stats", update.update_stats, p, st, alive_before, u)
     per = {k: v / updates for k, v in acc.items()}
     return {"updates": updates, "trips": trips,
@@ -1582,51 +1665,54 @@ def phase_engines_agree(side, updates, tmp):
 
 
 XLA_CROSS_SEEDS = (3, 11, 29)
+XLA_CROSS_UPDATES = 7
 
 
-def phase_xla_cross_device(tmp, devices=("cuda", "cpu"), updates=7):
-    """TPU_USE_PALLAS=2 on the card and on the CPU must end identical: a
-    24x24 world with mutations on, mixed programs and the math
-    environment, and a W = 3 batch of 8x8 worlds (the folded engine);
-    states and .dat bytes."""
+def xla_cross_side(tmp, dev, updates=XLA_CROSS_UPDATES):
+    """One device's half of xla_cross_device: the solo math world's state
+    arrays and .dat bodies, the batch members' arrays and .dat bodies,
+    and the batch's engine."""
     from avida_tpu_torch import convert
     from avida_tpu_torch.parallel.multiworld import MultiWorld
     cdir = math_config_dir(os.path.join(tmp, "cfg_xla_cross"))
     ev = ["u begin InjectAll"] + [f"u 0:4:end {a}" for a in XLA_PRINTS]
     extra = {"TPU_USE_PALLAS": 2, "AVE_TIME_SLICE": 60}
-    solo, batch = [], []
-    for dev in devices:
-        w = make_world(24, os.path.join(tmp, f"xla_x_{dev}"), dev, ev, extra,
-                       cdir)
-        w.process_events()
-        reseed_mixed(w)
-        mw = MultiWorld([make_world(
-            8, os.path.join(tmp, f"xla_mw_{dev}_{k}"), dev, ev,
-            dict(extra, RANDOM_SEED=s)) for k, s in enumerate(
-                XLA_CROSS_SEEDS)])
-        if dev == "cpu":
-            with one_thread():
-                w.run(max_updates=updates)
-                mw.run(max_updates=updates)
-        else:
-            w.run(max_updates=updates)
-            mw.run(max_updates=updates)
-        _sync(dev)
-        solo.append((convert.state_to_arrays(w.state), dat_bodies(w.data_dir)))
-        batch.append(([convert.state_to_arrays(x.state) for x in mw.worlds],
-                      [dat_bodies(x.data_dir) for x in mw.worlds], mw.engine))
-    (sa, da), (sb, db) = solo
+    w = make_world(24, os.path.join(tmp, f"xla_x_{dev}"), dev, ev, extra,
+                   cdir)
+    w.process_events()
+    reseed_mixed(w)
+    mw = MultiWorld([make_world(
+        8, os.path.join(tmp, f"xla_mw_{dev}_{k}"), dev, ev,
+        dict(extra, RANDOM_SEED=s)) for k, s in enumerate(XLA_CROSS_SEEDS)])
+    w.run(max_updates=updates)
+    mw.run(max_updates=updates)
+    _sync(dev)
+    return (convert.state_to_arrays(w.state), dat_bodies(w.data_dir),
+            [convert.state_to_arrays(x.state) for x in mw.worlds],
+            [dat_bodies(x.data_dir) for x in mw.worlds], mw.engine)
+
+
+def phase_xla_cross_device(tmp, cpu=None, device="cuda",
+                           updates=XLA_CROSS_UPDATES):
+    """TPU_USE_PALLAS=2 on the card and on the CPU must end identical: a
+    24x24 world with mutations on, mixed programs and the math
+    environment, and a W = 3 batch of 8x8 worlds (the folded engine);
+    states and .dat bytes.  `cpu` is the cpu_jobs job of xla_cross_side's
+    CPU half, else it runs here."""
+    sa, da, ma, mda, ea = xla_cross_side(tmp, device, updates)
+    sb, db, mb, mdb, eb = cpu_half(cpu, xla_cross_side, cpu_root(tmp), "cpu",
+                                   updates)
     bad = [k for k in sa if sa[k] is not None
            and sa[k].tobytes() != sb[k].tobytes()]
     if da != db:
         bad.append(".dat files")
-    (ma, mda, ea), (mb, mdb, eb) = batch
     bad += [(k, f) for k in range(len(ma)) for f in ma[k]
             if ma[k][f] is not None and ma[k][f].tobytes() != mb[k][f].tobytes()]
     bad += [(k, "dat") for k in range(len(mda)) if mda[k] != mdb[k]]
     births = int((sb["birth_update"] >= 0).sum())
     mw_births = sum(int((s["birth_update"] >= 0).sum()) for s in mb)
-    if bad or births == 0 or mw_births == 0 or ea != "per-update":
+    if bad or births == 0 or mw_births == 0 or ea != "per-update" \
+            or eb != ea:
         raise AssertionError(f"xla_cross_device: cuda vs cpu differ in "
                              f"{bad[:10]} (births {births}, {mw_births})")
     return {"phase": "xla_cross_device", "fields_equal": True,
@@ -1639,22 +1725,59 @@ def phase_xla_cross_device(tmp, devices=("cuda", "cpu"), updates=7):
                        "births": mw_births}]}
 
 
-def phase_multiworld_fold(tmp, side, seeds, updates, smi):
+def fold_member(kind, side, seed, updates, data_dir, device):
+    """A member of a folded batch: multiworld_fold's stock world with
+    TPU_USE_PALLAS=2 ("heads") or smt_fold's TransSMT host-parasite world
+    ("smt"), printing at `updates`."""
+    ev = [f"u 0:{updates}:end {a}" for a in XLA_PRINTS]
+    if kind == "smt":
+        return smt_world(side, data_dir, device, {"RANDOM_SEED": seed}, ev)
+    return make_world(side, data_dir, device, ["u begin InjectAll"] + ev,
+                      {"RANDOM_SEED": seed, "TPU_USE_PALLAS": 2})
+
+
+def fold_solo(tmp, kind, side, seed, updates, device="cpu"):
+    """A folded batch's member run alone: its state arrays and .dat
+    bodies after `updates`."""
+    from avida_tpu_torch import convert
+    w = fold_member(kind, side, seed, updates,
+                    os.path.join(tmp, f"{kind}_fold_solo_{seed}_{device}"),
+                    device)
+    w.run(max_updates=updates)
+    _sync(device)
+    return convert.state_to_arrays(w.state), dat_bodies(w.data_dir)
+
+
+def fold_members_equal(tmp, mw, kind, name, seeds, updates, cpu):
+    """Members FOLD_CHECKED of a folded batch on the card against their
+    solo runs on the CPU (`cpu`: their cpu_jobs jobs, else run here):
+    state arrays and .dat bytes; the members checked."""
+    from avida_tpu_torch import convert
+    side = mw.worlds[0].params.world_x
+    for j, k in enumerate(FOLD_CHECKED):
+        sb, db = cpu_half(None if cpu is None else cpu[j], fold_solo,
+                          cpu_root(tmp), kind, side, seeds[k], updates)
+        sa = convert.state_to_arrays(mw.worlds[k].state)
+        bad = [f for f in sa if sa[f] is not None
+               and sa[f].tobytes() != sb[f].tobytes()]
+        if dat_bodies(mw.worlds[k].data_dir) != db:
+            bad.append(".dat files")
+        if bad:
+            raise AssertionError(f"{name}: member {k} differs from its solo "
+                                 f"run on the CPU in {bad}")
+    return list(FOLD_CHECKED)
+
+
+def phase_multiworld_fold(tmp, side, seeds, updates, smi, cpu=None):
     """16 stock 60x60 worlds with TPU_USE_PALLAS=2: MultiWorld.run on the
     folded micro-step engine (one micro_step a cycle for the whole batch),
-    no launch; members 0 and 15 equal their solo runs on the card."""
+    no launch; members 0 and 15 equal their solo runs on the CPU."""
     import torch
-    from avida_tpu_torch import convert
     from avida_tpu_torch.ops import cycles
     from avida_tpu_torch.parallel.multiworld import MultiWorld
-    ev = ["u begin InjectAll"] + [f"u 0:{updates}:end {a}"
-                                  for a in XLA_PRINTS]
-
-    def member(k, tag):
-        return make_world(side, os.path.join(tmp, f"{tag}_{k:03d}"), "cuda",
-                          ev, {"RANDOM_SEED": seeds[k], "TPU_USE_PALLAS": 2})
-
-    mw = MultiWorld([member(k, "fold") for k in range(len(seeds))])
+    mw = MultiWorld([fold_member("heads", side, s, updates,
+                                 os.path.join(tmp, f"fold_{k:03d}"), "cuda")
+                     for k, s in enumerate(seeds)])
     torch.cuda.synchronize()
     cycles.reset_launches()
     t0 = time.perf_counter()
@@ -1662,17 +1785,8 @@ def phase_multiworld_fold(tmp, side, seeds, updates, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, stacked = cycles.LAUNCHES, cycles.STACKED_LAUNCHES
-    checked = []
-    for k in (0, len(seeds) - 1):
-        sw = member(k, "fold_solo")
-        sw.run(max_updates=updates)
-        bad = _fields_equal(sw.state, mw.worlds[k].state, skip=())
-        if dat_bodies(sw.data_dir) != dat_bodies(mw.worlds[k].data_dir):
-            bad.append(".dat files")
-        if bad:
-            raise AssertionError(f"multiworld_fold: member {k} differs from "
-                                 f"its solo run in {bad}")
-        checked.append(k)
+    checked = fold_members_equal(tmp, mw, "heads", "multiworld_fold", seeds,
+                                 updates, cpu)
     res = {"phase": "multiworld_fold", "worlds": len(seeds),
            "world": f"{side}x{side}", "engine": mw.engine,
            "engine_report": mw.engine_report, "updates": mw.update,
@@ -1822,14 +1936,14 @@ def plant_division(w):
     w.state = st.replace(tape=tape, smt_stacks=stacks)
 
 
-def phase_smt_cross_device(tmp, devices=("cuda", "cpu"), updates=14):
-    """TransSMT on the card and on the CPU must end identical: the smt_path
-    construction at 10x10 (the reference's TransSMT tests' world: 160
-    sites, time slices of 100), INT_MIN and -1 planted under Val-Div and
-    Val-Mod; first one micro_step_smt cycle (INT_MIN // -1 = INT_MIN and
-    INT_MIN % -1 = 0 on the BX stack, the same on both devices), then
-    World.run: states and .dat bytes after every update, births and
-    infections in the run."""
+SMT_CROSS_UPDATES = 14
+
+
+def smt_cross_side(tmp, dev, updates=SMT_CROSS_UPDATES):
+    """One device's half of smt_cross_device: the BX stack tops after the
+    planted divisions' cycle, the state arrays then and after every
+    update, the .dat bodies, the infections and births of the run and the
+    living hosts and parasites."""
     import torch
     from avida_tpu_torch import convert
     from avida_tpu_torch.ops.interpreter_smt import micro_step_smt
@@ -1837,27 +1951,37 @@ def phase_smt_cross_device(tmp, devices=("cuda", "cpu"), updates=14):
     extra = {"TPU_MAX_MEMORY": 160, "AVE_TIME_SLICE": 100,
              "TPU_MAX_STEPS_PER_UPDATE": 100, "RANDOM_SEED": 31}
     ev = [f"u 0:1:end {a}" for a in XLA_PRINTS]
-    runs = []
-    for dev in devices:
-        w = smt_world(10, os.path.join(tmp, f"smt_x_{dev}"), dev, extra, ev)
-        plant_division(w)
-        st = micro_step_smt(w.params, w.state, prng.key(5, w.device),
-                            w.state.alive)
-        sp = st.smt_sp[[1, 3, 5, 7], 0, 1].long()
-        tops = st.smt_stacks[[1, 3, 5, 7], 0, 1][torch.arange(4), sp]
-        first = convert.state_to_arrays(st)
-        per_update, infections = [], 0
-        with one_thread() if dev == "cpu" else contextlib.nullcontext():
-            for u in range(1, updates + 1):
-                before = w.state.parasite_active.clone()
-                w.run(max_updates=u)
-                infections += int((w.state.parasite_active & ~before).sum())
-                per_update.append(convert.state_to_arrays(w.state))
-        _sync(dev)
-        runs.append((tops.tolist(), first, per_update,
-                     dat_bodies(w.data_dir), infections,
-                     int(w._total_births), smt_counts(w.state)))
-    (ta, fa, ua, da, ia, ba, ca), (tb, fb, ub, db, ib, bb, cb) = runs
+    w = smt_world(10, os.path.join(tmp, f"smt_x_{dev}"), dev, extra, ev)
+    plant_division(w)
+    st = micro_step_smt(w.params, w.state, prng.key(5, w.device),
+                        w.state.alive)
+    sp = st.smt_sp[[1, 3, 5, 7], 0, 1].long()
+    tops = st.smt_stacks[[1, 3, 5, 7], 0, 1][torch.arange(4), sp]
+    first = convert.state_to_arrays(st)
+    per_update, infections = [], 0
+    for u in range(1, updates + 1):
+        before = w.state.parasite_active.clone()
+        w.run(max_updates=u)
+        infections += int((w.state.parasite_active & ~before).sum())
+        per_update.append(convert.state_to_arrays(w.state))
+    _sync(dev)
+    return (tops.tolist(), first, per_update, dat_bodies(w.data_dir),
+            infections, int(w._total_births), smt_counts(w.state))
+
+
+def phase_smt_cross_device(tmp, cpu=None, device="cuda",
+                           updates=SMT_CROSS_UPDATES):
+    """TransSMT on the card and on the CPU must end identical: the smt_path
+    construction at 10x10 (the reference's TransSMT tests' world: 160
+    sites, time slices of 100), INT_MIN and -1 planted under Val-Div and
+    Val-Mod; first one micro_step_smt cycle (INT_MIN // -1 = INT_MIN and
+    INT_MIN % -1 = 0 on the BX stack, the same on both devices), then
+    World.run: states and .dat bytes after every update, births and
+    infections in the run.  `cpu` is the cpu_jobs job of smt_cross_side's
+    CPU half, else it runs here."""
+    ta, fa, ua, da, ia, ba, ca = smt_cross_side(tmp, device, updates)
+    tb, fb, ub, db, ib, bb, cb = cpu_half(cpu, smt_cross_side, cpu_root(tmp),
+                                          "cpu", updates)
     bad = [k for k in fa if fa[k] is not None
            and fa[k].tobytes() != fb[k].tobytes()]
     bad += [(u + 1, k) for u in range(updates) for k in ua[u]
@@ -1875,20 +1999,17 @@ def phase_smt_cross_device(tmp, devices=("cuda", "cpu"), updates=14):
             "hosts_parasites": ca, "dat_files_equal": sorted(da)}
 
 
-def phase_smt_fold(tmp, side, seeds, updates, smi):
+def phase_smt_fold(tmp, side, seeds, updates, smi, cpu=None):
     """16 TransSMT host-parasite worlds of 60x60 (the fleet's seeds) on the
     folded micro-step engine: MultiWorld.run, no launch; members 0 and 15
-    equal their solo runs on the card."""
+    equal their solo runs on the CPU."""
     import torch
     from avida_tpu_torch.ops import cycles
     from avida_tpu_torch.parallel.multiworld import MultiWorld
-    ev = [f"u 0:{updates}:end {a}" for a in XLA_PRINTS]
-
-    def member(k, tag):
-        return smt_world(side, os.path.join(tmp, f"{tag}_{k:03d}"), "cuda",
-                         {"RANDOM_SEED": seeds[k]}, ev)
-
-    mw = MultiWorld([member(k, "smt_fold") for k in range(len(seeds))])
+    mw = MultiWorld([fold_member("smt", side, s, updates,
+                                 os.path.join(tmp, f"smt_fold_{k:03d}"),
+                                 "cuda")
+                     for k, s in enumerate(seeds)])
     torch.cuda.synchronize()
     cycles.reset_launches()
     t0 = time.perf_counter()
@@ -1896,17 +2017,8 @@ def phase_smt_fold(tmp, side, seeds, updates, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, stacked = cycles.LAUNCHES, cycles.STACKED_LAUNCHES
-    checked = []
-    for k in (0, len(seeds) - 1):
-        sw = member(k, "smt_fold_solo")
-        sw.run(max_updates=updates)
-        bad = _fields_equal(sw.state, mw.worlds[k].state, skip=())
-        if dat_bodies(sw.data_dir) != dat_bodies(mw.worlds[k].data_dir):
-            bad.append(".dat files")
-        if bad:
-            raise AssertionError(f"smt_fold: member {k} differs from its "
-                                 f"solo run in {bad}")
-        checked.append(k)
+    checked = fold_members_equal(tmp, mw, "smt", "smt_fold", seeds, updates,
+                                 cpu)
     counts = [smt_counts(w.state) for w in mw.worlds]
     res = {"phase": "smt_fold", "worlds": len(seeds),
            "world": f"{side}x{side}", "engine": mw.engine,
@@ -1924,8 +2036,10 @@ def phase_smt_fold(tmp, side, seeds, updates, smi):
     return res
 
 
-MW_SIDE, MW_UPDATES = 60, 30   # the fleet batch: 16 stock 60x60 worlds
+MW_SIDE, MW_UPDATES = 60, 16   # the fleet batch: 16 stock 60x60 worlds
+MW_CKPT_PRINTS = MW_UPDATES // 4   # the saving batch prints every 4
 MW_SEEDS = tuple(range(101, 117))  # TPU_FLEET_MAX_BATCH = 16 members
+FOLD_CHECKED = (0, len(MW_SEEDS) - 1)   # folded members held to solo runs
 
 SIDE, UPDATES = 320, 50        # the main path's full-width world
 DEFAULT_UPDATES = 30           # the default and sexual paths' depth
@@ -2218,39 +2332,52 @@ def phase_scrub_path(tmp, smi, updates=10):
     return res, launches
 
 
-def phase_spop_path(tmp, smi, side=MW_SIDE, updates=12):
-    """SavePopulation / LoadPopulation on a 60x60 world: the population
-    saved on the card, reloaded on the card and on the CPU (each organism
-    fast-forwarded its gestation offset with micro-steps): equal."""
-    from avida_tpu_torch import convert
+SPOP_AT = 12
+
+
+def spop_save(tmp, side=MW_SIDE, updates=SPOP_AT):
+    """A side x side world on the card saving its population with
+    SavePopulation at `updates`: the .spop file's path."""
     d = os.path.join(tmp, "spop")
     w = make_world(side, d, "cuda", ["u begin InjectAll",
                                      f"u {updates} SavePopulation"],
                    {"AVE_TIME_SLICE": 100})
     w.run(max_updates=updates + 1)
-    path = os.path.join(d, f"detail-{updates}.spop")
-    loaded = {}
-    for dev in ("cuda", "cpu"):
-        x = make_world(side, os.path.join(tmp, f"spop_{dev}"), dev, [],
-                       {"AVE_TIME_SLICE": 100})
-        x.inject()
-        _sync(dev)
-        t0 = time.perf_counter()
-        x._action_LoadPopulation([path])
-        _sync(dev)
-        loaded[dev] = (convert.state_to_arrays(x.state),
-                       1e3 * (time.perf_counter() - t0), x.num_organisms)
-    a, b = loaded["cuda"][0], loaded["cpu"][0]
+    return os.path.join(d, f"detail-{updates}.spop")
+
+
+def spop_load(path, tmp, dev, side=MW_SIDE):
+    """LoadPopulation of `path` into a fresh side x side world on dev (each
+    organism fast-forwarded its gestation offset with micro-steps): the
+    state's arrays, the load's ms and the organisms loaded."""
+    from avida_tpu_torch import convert
+    x = make_world(side, os.path.join(tmp, f"spop_{dev}"), dev, [],
+                   {"AVE_TIME_SLICE": 100})
+    x.inject()
+    _sync(dev)
+    t0 = time.perf_counter()
+    x._action_LoadPopulation([path])
+    _sync(dev)
+    return (convert.state_to_arrays(x.state),
+            1e3 * (time.perf_counter() - t0), x.num_organisms)
+
+
+def phase_spop_path(tmp, smi, path, cpu=None, side=MW_SIDE):
+    """SavePopulation / LoadPopulation on a 60x60 world: the population
+    spop_save saved on the card, reloaded on the card and on the CPU:
+    equal.  `cpu` is the cpu_jobs job of spop_load's CPU half, else it
+    runs here."""
+    a, card_ms, organisms = spop_load(path, tmp, "cuda", side)
+    b, cpu_ms, _ = cpu_half(cpu, spop_load, path, cpu_root(tmp), "cpu", side)
     bad = [k for k, v in a.items() if v is not None
            and v.tobytes() != b[k].tobytes()]
     with open(path) as f:
         genotypes = sum(1 for ln in f if ln.strip() and ln[0] != "#")
     res = {"phase": "spop_path", "nvidia_smi": smi, "world": f"{side}x{side}",
-           "saved_at": updates, "genotypes": genotypes,
-           "organisms": loaded["cuda"][2],
-           "load_ms_cuda": loaded["cuda"][1], "load_ms_cpu": loaded["cpu"][1],
-           "differs": bad}
-    if bad or loaded["cuda"][2] == 0 or genotypes < 2:
+           "saved_at": SPOP_AT, "genotypes": genotypes,
+           "organisms": organisms, "load_ms_cuda": card_ms,
+           "load_ms_cpu": cpu_ms, "differs": bad}
+    if bad or organisms == 0 or genotypes < 2:
         raise AssertionError(f"spop_path check failed: {res}")
     return res
 
@@ -2267,7 +2394,8 @@ def phase_multiworld_persist(tmp, smi, mw_a, ck_root):
     from avida_tpu_torch.parallel.multiworld import MultiWorld
     half = MW_UPDATES // 2
     d = os.path.join(tmp, "mwp")
-    members = mw_members(MW_SIDE, MW_SEEDS, d, "m", "cuda", 1, 5,
+    members = mw_members(MW_SIDE, MW_SEEDS, d, "m", "cuda", 1,
+                         MW_CKPT_PRINTS,
                          ckpt_root=os.path.join(tmp, "mwp_ck"))
     shutil.copytree(ck_root, os.path.join(tmp, "mwp_ck"))
     for w, src in zip(members, mw_a.worlds):
@@ -2370,7 +2498,8 @@ def pool_breakdown(w, updates):
         st = timed("cycles", update.interpret_phase, p, st, ks[1], granted,
                    update.static_cap(p), max_k)
         st, _ = timed("bank", update.bank_phase, p, st, budgets, executed0)
-        st = timed("flush", update.birth_phase, p, st, ks[2], ks[1], u)
+        st = timed("flush", update.birth_phase, p, st, ks[2], ks[1], u,
+                   w.neighbors)
         timed("stats", update.update_stats, p, st, alive_before, u)
     per = {k: v / updates for k, v in acc.items()}
     return {"updates": updates, "trips": trips, "ms_per_update": per,
@@ -2555,37 +2684,44 @@ POOL_CROSS_CASES = (
 # migration and the deme flush are the kernel-route case's
 
 
-def phase_resources_cross_device(tmp, devices=("cuda", "cpu")):
+def pool_cross_side(tmp, dev):
+    """One device's half of resources_cross_device: for each case, the
+    state arrays, the .dat bodies and the engine."""
+    from avida_tpu_torch import convert
+    out = []
+    for name, side, updates, extra, env, mixed, events in POOL_CROSS_CASES:
+        cdir = (math_config_dir(os.path.join(tmp, f"cfg_pc_{name}"), env)
+                if env else None)
+        ddir = os.path.join(tmp, f"pc_{name}_{dev}")
+        w = make_world(side, ddir, dev, ["u begin InjectAll"] + events,
+                       extra, cdir)
+        w.process_events()
+        if mixed:
+            reseed_mixed(w)
+        w.run(max_updates=updates)
+        _sync(dev)
+        out.append((convert.state_to_arrays(w.state),
+                    dat_bodies(ddir) if os.path.isdir(ddir) else {},
+                    w.engine_report()["engine"]))
+    return out
+
+
+def phase_resources_cross_device(tmp, cpu=None, device="cuda"):
     """Small worlds of the new paths run on the card and on the CPU (the
     plain versions) must end identical: a resource world on the
     micro-step engine (resource.dat included), a 4-deme world with
     germlines, migration, CompeteDemes and ReplicateDemes on the kernel
-    route, a deme-pool world with a predicate-triggered replication."""
-    from avida_tpu_torch import convert
+    route, a deme-pool world with a predicate-triggered replication.
+    `cpu` is the cpu_jobs job of pool_cross_side's CPU half, else it runs
+    here."""
+    card = pool_cross_side(tmp, device)
+    host = cpu_half(cpu, pool_cross_side, cpu_root(tmp), "cpu")
     results = []
-    for name, side, updates, extra, env, mixed, events in POOL_CROSS_CASES:
-        cdir = (math_config_dir(os.path.join(tmp, f"cfg_pc_{name}"), env)
-                if env else None)
-        states, dats = [], []
-        for dev in devices:
-            ddir = os.path.join(tmp, f"pc_{name}_{dev}")
-            w = make_world(side, ddir, dev, ["u begin InjectAll"] + events,
-                           extra, cdir)
-            w.process_events()
-            if mixed:
-                reseed_mixed(w)
-            if dev == "cpu":
-                with one_thread():
-                    w.run(max_updates=updates)
-            else:
-                w.run(max_updates=updates)
-            _sync(dev)
-            states.append(convert.state_to_arrays(w.state))
-            dats.append(dat_bodies(ddir) if os.path.isdir(ddir) else {})
-        sa, sb = states
+    for case, (sa, da, _), (sb, db, eb) in zip(POOL_CROSS_CASES, card, host):
+        name, side, updates, _, env, _, _ = case
         bad = [k for k in sa if sa[k] is not None
                and sa[k].tobytes() != sb[k].tobytes()]
-        if dats[0] != dats[1]:
+        if da != db:
             bad.append(".dat files")
         births = int((sb["birth_update"] >= 0).sum())
         rewards = int(sb["task_exe_total"].sum())
@@ -2595,10 +2731,585 @@ def phase_resources_cross_device(tmp, devices=("cuda", "cpu")):
                                  f"rewards {rewards})")
         results.append({"case": name, "world": f"{side}x{side}",
                         "updates": updates, "births": births,
-                        "rewards": rewards,
-                        "engine": w.engine_report()["engine"],
-                        "dat_files_equal": sorted(dats[0])})
+                        "rewards": rewards, "engine": eb,
+                        "dat_files_equal": sorted(da)})
     return {"phase": "resources_cross_device", "fields_equal": True,
+            "cases": results}
+
+
+# ---- slice 10: the rest of the birth flush and the topologies on the
+# kernel route (ROADMAP items 12d, 12g), mating types, energy and threads
+# on the micro-step engine (12e, 12f) ----
+
+DISPERSAL = dict(BIRTH_METHOD=11, DISPERSAL_RATE=1.0, POPULATION_CAP=80000)
+DISPERSAL_UPDATES = 30
+DISPERSAL_EVENTS = ["u begin InjectAll", "u 10 KillProb 0.1",
+                    "u 20 SerialTransfer 20000"]
+HEX_UPDATES = 20
+# (name, side, geometry, updates) of topology_path's small worlds
+SMALL_TOPOLOGIES = (("random_connected", 60, 7, 16),
+                    ("scale_free", 60, 8, 16), ("clique", 16, 3, 16))
+MATING_NAMES = ("set-mating-type-male", "set-mating-type-female",
+                "set-mating-type-juvenile", "if-mating-type-male",
+                "if-mating-type-female")
+THREAD_NAMES = ("fork-th", "kill-th", "id-th")
+ENERGY = dict(ENERGY_ENABLED=1, ENERGY_GIVEN_ON_INJECT=1000.0,
+              BIRTH_METHOD=10)
+THREADS = dict(MAX_CPU_THREADS=4, THREAD_SLICING_METHOD=1)
+THREAD_UPDATES = 2
+UNTIL_CAP = 40          # the most updates run waiting for births
+
+
+def instset_text(names):
+    """An instruction-set file of the heads hardware listing `names`."""
+    return "INSTSET heads_case:hw_type=0\n" + "".join(
+        f"INST {n}\n" for n in names)
+
+
+def feature_config_dir(cdir, names):
+    return write_config_dir(cdir, instset=instset_text(names))
+
+
+def with_inserted(genome, at, ops, drop_from):
+    """`genome` with `ops` inserted at `at` and as many filler nops
+    dropped from `drop_from` on (the length stays)."""
+    g = list(genome)
+    g[at:at] = ops
+    del g[drop_from:drop_from + len(ops)]
+    return g
+
+
+def mating_ancestors(names):
+    """The sexual ancestor set to male and to female: set-mating-type-*
+    right after h-alloc, one filler nop dropped.  (The first filler nop
+    itself never runs: the first h-search jumps over the filler.)"""
+    from avida_tpu_torch.config import heads_sex_instset
+    from avida_tpu_torch.world import default_ancestor
+    anc = default_ancestor(heads_sex_instset())
+    return [with_inserted(anc, 1, [names.index(f"set-mating-type-{t}")], 6)
+            for t in ("male", "female")]
+
+
+def thread_ancestor(names):
+    """The stock ancestor with fork-th and id-th right after h-alloc, two
+    filler nops dropped: the primary thread forks once a gestation and
+    skips id-th; the new thread runs id-th and the same copy loop one
+    cycle behind, until the primary divides and the organism resets to
+    one thread."""
+    from avida_tpu_torch.config import default_instset
+    from avida_tpu_torch.world import default_ancestor
+    anc = default_ancestor(default_instset())
+    return with_inserted(anc, 1, [names.index("fork-th"),
+                                  names.index("id-th")], 7)
+
+
+def reseed_alternating(w, genomes):
+    """Every cell c of a freshly InjectAll-ed world reseeded with
+    genomes[c % len(genomes)] in one pass (genome, tape, lengths, sizes,
+    merit and age limit; every other field is already fresh)."""
+    import numpy as np
+    import torch
+    from avida_tpu_torch.core.state import _max_executed
+    n, L = w.params.num_cells, w.params.max_memory
+    genome = np.zeros((n, L), np.int8)
+    glen = np.zeros(n, np.int32)
+    for c, g in enumerate(genomes):
+        genome[c::len(genomes), :len(g)] = g
+        glen[c::len(genomes)] = len(g)
+    st, dev = w.state, w.state.device
+    g = torch.from_numpy(genome).to(dev)
+    gl = torch.from_numpy(glen).to(dev)
+    max_exec = torch.tensor([_max_executed(w.params, int(x)) for x in glen],
+                            dtype=torch.int32, device=dev)
+    w.state = st.replace(genome=g, tape=g.to(torch.uint8) & 0x3F,
+                         genome_len=gl, mem_len=gl.clone(),
+                         executed_size=gl.clone(), copied_size=gl.clone(),
+                         merit=gl.to(torch.float32), max_executed=max_exec)
+
+
+def give_inject_energy(w):
+    """Every cell's energy set as Inject sets it (ENERGY_GIVEN_ON_INJECT;
+    InjectAll's blanket reseed gives none, in the reference too)."""
+    import torch
+    w.state = w.state.replace(energy=torch.full_like(
+        w.state.energy, float(w.params.energy_given_on_inject)))
+
+
+def watch_actions(w, actions):
+    """Wrap the world's `actions` so each firing records the update and
+    the organisms alive before and after it."""
+    marks = []
+    for act in actions:
+        orig = getattr(w, f"_action_{act}")
+
+        def wrapped(args, orig=orig, act=act):
+            before = int(w.state.alive.sum())
+            orig(args)
+            marks.append({"action": act, "update": w.update,
+                          "args": list(args), "alive_before": before,
+                          "alive_after": int(w.state.alive.sum())})
+        setattr(w, f"_action_{act}", wrapped)
+    return marks
+
+
+def timed_world(make):
+    """make() with the neighbor table's build timed: (world, seconds
+    spent in birth.neighbor_table, 0.0 for a cached table)."""
+    from avida_tpu_torch.ops import birth
+    orig, spent = birth.neighbor_table, []
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        spent.append(time.perf_counter() - t0)
+        return out
+    birth.neighbor_table = timed
+    try:
+        w = make()
+    finally:
+        birth.neighbor_table = orig
+    return w, sum(spent)
+
+
+def run_counted(w, updates, per_update=None):
+    """World.run one update at a time to `updates`, on the card with the
+    cycle kernel's launches counted: (instructions, wall s, launches,
+    [per_update(w) after each update])."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    torch.cuda.synchronize()
+    cycles.reset_launches()
+    insts, wall, rows = 0, 0.0, []
+    for u in range(w.update + 1, updates + 1):
+        t0 = time.perf_counter()
+        insts += w.run(max_updates=u)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        if per_update is not None:
+            rows.append(per_update(w))
+    return insts, wall, cycles.LAUNCHES, rows
+
+
+def run_until_births(w, name):
+    """World.run one update at a time until the first births land (at
+    most UNTIL_CAP updates): (instructions, wall s, launches)."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    torch.cuda.synchronize()
+    cycles.reset_launches()
+    insts, wall = 0, 0.0
+    while int(w._total_births) == 0:
+        if w.update >= UNTIL_CAP:
+            raise AssertionError(f"{name}: no birth in {UNTIL_CAP} updates")
+        t0 = time.perf_counter()
+        insts += w.run(max_updates=w.update + 1)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+    return insts, wall, cycles.LAUNCHES
+
+
+def update_breakdown(w, updates=1):
+    """Per-phase wall ms of one update on the world's state and its own
+    neighbor table: pool_breakdown on the kernel route, xla_breakdown on
+    the micro-step engine."""
+    from avida_tpu_torch.ops import cycles
+    if cycles.use_kernel(w.params):
+        return pool_breakdown(w, updates)
+    return xla_breakdown(w, updates)
+
+
+def dispersal_trips(w):
+    """The Poisson sampler's trip count in the next update's flush (the
+    flush's own key derivation, outside the run)."""
+    from avida_tpu_torch.utils import prng
+    k_birth = prng.split(prng.fold_in(w._run_key, w.update), 3)[2]
+    k11 = prng.fold_in(prng.split(k_birth, 4)[0], 11)
+    rate = w.params.dispersal_rate
+    draw = (prng._poisson_knuth if prng.round_f32(rate) < 10
+            else prng._poisson_rejection)
+    return draw(prng.fold_in(k11, 0), rate, (w.params.num_cells,))[1]
+
+
+def phase_dispersal_path(side, tmp, smi):
+    """The headline world with BIRTH_METHOD 11 (DISPERSAL_RATE 1.0) and
+    POPULATION_CAP 80,000 on the kernel route's per-update engine: the
+    InjectAll soup is cut to the cap at the first flush, KillProb 0.1 at
+    update 10 and SerialTransfer 20000 at update 20 fire through events;
+    one launch an update.  K1 is then held against the plain version on
+    the phase's own state (phase_default_kernel)."""
+    import torch
+    w = make_world(side, os.path.join(tmp, "dispersal"), "cuda",
+                   DISPERSAL_EVENTS + [f"u 0:10:end {a}"
+                                       for a in XLA_PRINTS], DISPERSAL)
+    marks = watch_actions(w, ("KillProb", "SerialTransfer"))
+    n = w.params.num_cells
+    insts, wall, launches, rows = run_counted(
+        w, DISPERSAL_UPDATES,
+        lambda w: (int(w.state.alive.sum()), int(w._total_births)))
+    alive = [r[0] for r in rows]
+    rep = w.engine_report()
+    trips = dispersal_trips(w)
+    res = {"phase": "dispersal_path", "world": f"{side}x{side}",
+           "config": DISPERSAL, "engine_report": rep, "updates": w.update,
+           "kernel_launches": launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / DISPERSAL_UPDATES, "wall_s": wall,
+           "cap_kills_first_flush": n - alive[0],
+           "births_first_update": rows[0][1],
+           "alive_per_update": alive, "events": marks,
+           "births_total": int(w._total_births),
+           "poisson_trips_next_flush": trips,
+           "breakdown": update_breakdown(w), "nvidia_smi": smi}
+    kp = [m for m in marks if m["action"] == "KillProb"]
+    stx = [m for m in marks if m["action"] == "SerialTransfer"]
+    ok = (launches == DISPERSAL_UPDATES and rep["engine"] == "per-update"
+          and "off the torus fast path" in rep["fallback_reason"]
+          and rows[0][1] == 0 and alive[0] == DISPERSAL["POPULATION_CAP"]
+          and max(alive) <= DISPERSAL["POPULATION_CAP"]
+          and len(kp) == 1 and kp[0]["update"] == 10
+          and 0 < kp[0]["alive_after"] < kp[0]["alive_before"]
+          and len(stx) == 1 and stx[0]["alive_after"]
+          == min(int(stx[0]["args"][0]), stx[0]["alive_before"])
+          and res["births_total"] > 0 and w.num_organisms > 0
+          and bool(torch.isfinite(w.state.merit).all()))
+    if not ok:
+        raise AssertionError(f"dispersal_path check failed: {res}")
+    return w, res
+
+
+def phase_topology_path(side, tmp, smi):
+    """Placement through other graphs on the kernel route's per-update
+    engine: a hex world (WORLD_GEOMETRY 4) at the headline width for
+    HEX_UPDATES updates, one launch each, then random connected (7) and
+    scale-free (8) worlds at 60x60 and a clique (3) at 16x16 (the
+    reference's builders are quadratic in the cells), each table's width
+    and build seconds reported.  The hex world's K1 is then held against
+    the plain version (phase_default_kernel)."""
+    import torch
+    events = ["u begin InjectAll"]
+    w, build_s = timed_world(lambda: make_world(
+        side, os.path.join(tmp, "hex"), "cuda",
+        events + [f"u 0:10:end {a}" for a in XLA_PRINTS],
+        {"WORLD_GEOMETRY": 4}))
+    insts, wall, launches, _ = run_counted(w, HEX_UPDATES)
+    rep = w.engine_report()
+    res = {"phase": "topology_path", "world": f"{side}x{side}",
+           "geometry": 4, "engine_report": rep, "updates": w.update,
+           "kernel_launches": launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / HEX_UPDATES, "wall_s": wall,
+           "table_width": int(w.neighbors.shape[1]),
+           "table_build_s": build_s,
+           "births_total": int(w._total_births),
+           "breakdown": update_breakdown(w), "nvidia_smi": smi}
+    ok = (launches == HEX_UPDATES and rep["engine"] == "per-update"
+          and "off the torus fast path" in rep["fallback_reason"]
+          and res["table_width"] == 8 and w.num_organisms > 0
+          and bool(torch.isfinite(w.state.merit).all()))
+    small, total = [], launches
+    for name, s, geo, ups in SMALL_TOPOLOGIES:
+        ws, bs = timed_world(lambda: make_world(
+            s, os.path.join(tmp, f"topo_{name}"), "cuda", events,
+            {"WORLD_GEOMETRY": geo}))
+        i2, wall2, l2, _ = run_counted(ws, ups)
+        total += l2
+        deg = (ws.neighbors >= 0).sum(dim=1)
+        small.append({"case": name, "world": f"{s}x{s}", "geometry": geo,
+                      "updates": ups, "kernel_launches": l2,
+                      "table_width": int(ws.neighbors.shape[1]),
+                      "degree_min": int(deg.min()),
+                      "degree_mean": float(deg.float().mean()),
+                      "table_build_s": bs, "ms_per_update": 1e3 * wall2 / ups,
+                      "births_total": int(ws._total_births),
+                      "live_organisms": ws.num_organisms})
+        ok = ok and l2 == ups and ws._total_births > 0 \
+            and ws.engine_report()["engine"] == "per-update"
+        del ws
+    res["small_worlds"] = small
+    res["kernel_launches_total"] = total
+    if not ok:
+        raise AssertionError(f"topology_path check failed: {res}")
+    return w, res
+
+
+def mating_world(side, ddir, device, tmp, tag, extra=None):
+    """A MATING_TYPES world of the heads-sex set plus the five mating
+    instructions, male ancestors in even cells and female ones in odd
+    cells."""
+    from avida_tpu_torch.config import heads_sex_instset
+    names = list(heads_sex_instset().inst_names) + list(MATING_NAMES)
+    cdir = feature_config_dir(os.path.join(tmp, f"cfg_mating_{tag}"), names)
+    w = make_world(side, ddir, device, ["u begin InjectAll"],
+                   dict({"MATING_TYPES": 1}, **(extra or {})), cdir)
+    w.process_events()
+    reseed_alternating(w, mating_ancestors(names))
+    return w
+
+
+def watch_pairing(acc):
+    """Wrap birth.recombine_sexual: each flush adds its sexual offspring
+    by parent type, its pairings (placeable rows) and its juvenile drops
+    to `acc`, as device tensors.  Returns the restore function."""
+    from avida_tpu_torch.ops import birth
+    orig = birth.recombine_sexual
+
+    def wrapped(params, st, key, off_mem, off_len, pending):
+        out = orig(params, st, key, off_mem, off_len, pending)
+        sexp = pending & st.off_sex
+        for k, v in (("juvenile_drops", sexp & (st.mating_type == -1)),
+                     ("male_offspring", sexp & (st.mating_type == 1)),
+                     ("female_offspring", sexp & (st.mating_type == 0)),
+                     ("paired", sexp & out[3])):
+            acc[k] = acc.get(k, 0) + v.sum()
+        return out
+    birth.recombine_sexual = wrapped
+
+    def restore():
+        birth.recombine_sexual = orig
+    return restore
+
+
+def phase_mating_path(side, tmp, smi):
+    """The headline world with MATING_TYPES 1 on the micro-step engine (no
+    launch): the heads-sex set plus the five mating instructions, male
+    ancestors in even cells and female ones in odd cells.  World.run
+    until the first pairings are born, then one update timed phase by
+    phase and run; pairings, juvenile drops and the birth chamber's
+    store reported."""
+    import torch
+    w = mating_world(side, os.path.join(tmp, "mating"), "cuda", tmp, "path")
+    acc = {}
+    restore = watch_pairing(acc)
+    try:
+        insts, wall, launches = run_until_births(w, "mating_path")
+        breakdown = update_breakdown(w)
+        t_insts, t_wall, t_launches, _ = run_counted(w, w.update + 1)
+    finally:
+        restore()
+    mt = w.state.mating_type
+    res = {"phase": "mating_path", "world": f"{side}x{side}",
+           "engine_report": w.engine_report(), "updates": w.update,
+           "kernel_launches": launches + t_launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / max(w.update - 1, 1),
+           "wall_s": wall,
+           "timed_update": {"update": w.update, "insts": t_insts,
+                            "ms": 1e3 * t_wall,
+                            "org_inst_per_s": t_insts / t_wall},
+           "breakdown": breakdown,
+           **{k: int(v) for k, v in acc.items()},
+           "store": {"valid": bool(w.state.bc_valid),
+                     "type": int(w.state.bc_type)},
+           "males": int((w.state.alive & (mt == 1)).sum()),
+           "females": int((w.state.alive & (mt == 0)).sum()),
+           "juveniles": int((w.state.alive & (mt == -1)).sum()),
+           "births_total": int(w._total_births), "nvidia_smi": smi}
+    _check_xla_world(w, "mating_path", res)
+    if res.get("paired", 0) == 0 or res["males"] == 0 or res["females"] == 0:
+        raise AssertionError(f"mating_path: no pairing: {res}")
+    return res
+
+
+def phase_energy_path(side, tmp, smi):
+    """The headline world with the energy model (ENERGY_ENABLED 1,
+    ENERGY_GIVEN_ON_INJECT 1000, BIRTH_METHOD 10: the reference's
+    tests/test_energy.py world) on the micro-step engine, every cell
+    given its inject energy: World.run until the first births, then one
+    update timed phase by phase and run.  Every newborn's merit is its
+    energy's (x 100 / NUM_CYCLES_EXC_BEFORE_0_ENERGY)."""
+    import torch
+    from avida_tpu_torch.ops.interpreter import convert_energy_to_merit
+    w = make_world(side, os.path.join(tmp, "energy"), "cuda",
+                   ["u begin InjectAll"], ENERGY)
+    w.process_events()
+    give_inject_energy(w)
+    e0 = float(w.state.energy.sum())
+    insts, wall, launches = run_until_births(w, "energy_path")
+    breakdown = update_breakdown(w)
+    t_insts, t_wall, t_launches, _ = run_counted(w, w.update + 1)
+    st = w.state
+    born = st.alive & (st.birth_update >= 0)
+    merit_ok = bool((st.merit[born] == convert_energy_to_merit(
+        w.params, st.energy[born])).all())
+    e = st.energy[st.alive]
+    res = {"phase": "energy_path", "world": f"{side}x{side}",
+           "engine_report": w.engine_report(), "updates": w.update,
+           "kernel_launches": launches + t_launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / max(w.update - 1, 1),
+           "wall_s": wall,
+           "timed_update": {"update": w.update, "insts": t_insts,
+                            "ms": 1e3 * t_wall,
+                            "org_inst_per_s": t_insts / t_wall},
+           "breakdown": breakdown, "births_total": int(w._total_births),
+           "newborns_alive": int(born.sum()), "energy_start": e0,
+           "energy_alive": float(e.sum()), "energy_min": float(e.min()),
+           "energy_max": float(e.max()), "newborn_merit_from_energy":
+           merit_ok, "nvidia_smi": smi}
+    _check_xla_world(w, "energy_path", res)
+    if not merit_ok or res["newborns_alive"] == 0 or res["energy_min"] <= 0:
+        raise AssertionError(f"energy_path check failed: {res}")
+    return res
+
+
+def thread_world(side, ddir, device, tmp, tag, extra=None):
+    """A MAX_CPU_THREADS world (THREADS) of the stock heads set plus
+    fork-th, kill-th and id-th, every cell seeded with the forking
+    ancestor."""
+    from avida_tpu_torch.config import default_instset
+    names = list(default_instset().inst_names) + list(THREAD_NAMES)
+    cdir = feature_config_dir(os.path.join(tmp, f"cfg_thr_{tag}"), names)
+    w = make_world(side, ddir, device, ["u begin InjectAll"],
+                   dict(THREADS, **(extra or {})), cdir)
+    w.process_events()
+    reseed_alternating(w, [thread_ancestor(names)])
+    return w
+
+
+def phase_threads_path(side, tmp, smi):
+    """The headline world with MAX_CPU_THREADS 4 and THREAD_SLICING_METHOD
+    1 on the micro-step engine (no launch), every cell seeded with the
+    forking ancestor: THREAD_UPDATES updates, then one timed phase by
+    phase and run; live threads an organism reported."""
+    import torch
+    w = thread_world(side, os.path.join(tmp, "threads"), "cuda", tmp, "path")
+
+    def threads(w):
+        st = w.state
+        live = (1 + st.t_alive.sum(dim=1))[st.alive]
+        return float(live.float().mean()), int(live.max())
+    insts, wall, launches, rows = run_counted(w, THREAD_UPDATES, threads)
+    breakdown = update_breakdown(w)
+    t_insts, t_wall, t_launches, t_rows = run_counted(
+        w, THREAD_UPDATES + 1, threads)
+    res = {"phase": "threads_path", "world": f"{side}x{side}",
+           "config": THREADS, "engine_report": w.engine_report(),
+           "updates": w.update, "kernel_launches": launches + t_launches,
+           "insts": insts, "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / THREAD_UPDATES, "wall_s": wall,
+           "timed_update": {"update": w.update, "insts": t_insts,
+                            "ms": 1e3 * t_wall,
+                            "org_inst_per_s": t_insts / t_wall},
+           "breakdown": breakdown,
+           "threads_per_organism": [r[0] for r in rows + t_rows],
+           "threads_max": max(r[1] for r in rows + t_rows),
+           "nvidia_smi": smi}
+    _check_xla_world(w, "threads_path", res,
+                     reason="non-heads hardware or multi-threaded")
+    if res["threads_max"] < 2 or min(res["threads_per_organism"]) <= 1.0:
+        raise AssertionError(f"threads_path: no forks: {res}")
+    return res
+
+
+# (name, side, extra config, events, builder) of slice10_cross_device;
+# the builder is make_world after InjectAll (None), mating_world or
+# thread_world; "energy" gives every cell its inject energy
+SLICE10_CROSS = (
+    ("clique", 12, dict(WORLD_GEOMETRY=3), (), None),
+    ("hex", 12, dict(WORLD_GEOMETRY=4), (), None),
+    ("random_connected", 12, dict(WORLD_GEOMETRY=7), (), None),
+    ("scale_free", 12, dict(WORLD_GEOMETRY=8), (), None),
+    ("dispersal", 12, dict(DISPERSAL, POPULATION_CAP=110),
+     ("u 12 KillProb 0.1", "u 13 SerialTransfer 70"), None),
+    ("dispersal_rejection", 12, dict(BIRTH_METHOD=11, DISPERSAL_RATE=12.0,
+                                     POP_CAP_ELDEST=120), (), None),
+    ("mating", 12, {}, (), "mating"),
+    ("energy", 12, ENERGY, (), "energy"),
+    ("threads", 12, dict(MAX_CPU_THREADS=2, THREAD_SLICING_METHOD=1), (),
+     "threads"),
+)
+# the CPU runs SLICE10_WARM updates alone (the ancestors' first births
+# land from update 11 at the default time slices of 30), then the card
+# and the CPU run SLICE10_COMPARED more from the CPU's state, compared
+# after each (short slices keep the CPU's plain versions cheap)
+SLICE10_WARM, SLICE10_COMPARED = 11, 3
+
+
+def slice10_world(name, side, extra, events, kind, ddir, device, tmp, tag):
+    if kind == "mating":
+        return mating_world(side, ddir, device, tmp, tag, extra)
+    if kind == "threads":
+        return thread_world(side, ddir, device, tmp, tag, extra)
+    w = make_world(side, ddir, device, ["u begin InjectAll"] + list(events),
+                   extra)
+    w.process_events()
+    if kind == "energy":
+        give_inject_energy(w)
+    return w
+
+
+def slice10_cpu_side(tmp, k):
+    """The CPU half of slice10_cross_device's case k: its world run alone
+    to SLICE10_WARM updates, the state's arrays, world key and update
+    then, its state arrays after each of SLICE10_COMPARED more updates,
+    and the seconds of each stretch."""
+    from avida_tpu_torch import convert
+    name, side, extra, events, kind = SLICE10_CROSS[k]
+    t0 = time.perf_counter()
+    w = slice10_world(name, side, extra, events, kind,
+                      os.path.join(tmp, f"s10_{name}_cpu"), "cpu", tmp,
+                      f"{name}_cpu")
+    w.run(max_updates=SLICE10_WARM)
+    warm = (convert.state_to_arrays(w.state), w.key.cpu().numpy(), w.update)
+    t1 = time.perf_counter()
+    after = []
+    for u in range(SLICE10_WARM + 1, SLICE10_WARM + SLICE10_COMPARED + 1):
+        w.run(max_updates=u)
+        after.append(convert.state_to_arrays(w.state))
+    return warm, after, t1 - t0, time.perf_counter() - t1
+
+
+def phase_slice10_cross_device(tmp, cpu=None, device="cuda"):
+    """Small worlds of the slice's paths, run on the card and on the CPU
+    (the plain versions), must be identical field by field after every
+    compared update: the clique, hex, random connected and scale-free
+    geometries and BIRTH_METHOD 11 (rates 1.0 and 12.0: Knuth's and the
+    rejection sampler) under both population caps, with KillProb and
+    SerialTransfer, on the kernel route; mating types, energy and threads
+    on the micro-step engine.  The CPU runs the first SLICE10_WARM
+    updates alone (to the first births); the card's world then takes the
+    CPU's state, world key and update, and both run SLICE10_COMPARED
+    updates.  `cpu` holds the cpu_jobs job of slice10_cpu_side for each
+    case, else they run here."""
+    import torch
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.ops import cycles
+    results = []
+    for k, (name, side, extra, events, kind) in enumerate(SLICE10_CROSS):
+        (warm, key, at), after, warm_s, cpu_s = cpu_half(
+            None if cpu is None else cpu[k], slice10_cpu_side,
+            cpu_root(tmp), k)
+        w = slice10_world(name, side, extra, events, kind,
+                          os.path.join(tmp, f"s10_{name}_{device}"), device,
+                          tmp, f"{name}_{device}")
+        w.state = convert.state_from_arrays(warm, device)
+        w.key = torch.from_numpy(key).to(device)
+        w.update = at
+        bad, births, card_s = [], 0, 0.0
+        for u, sb in zip(range(at + 1, at + SLICE10_COMPARED + 1), after):
+            t0 = time.perf_counter()
+            w.run(max_updates=u)
+            _sync(device)
+            card_s += time.perf_counter() - t0
+            sa = convert.state_to_arrays(w.state)
+            bad += [(u, f) for f in sa if sa[f] is not None
+                    and sa[f].tobytes() != sb[f].tobytes()]
+            births += int((sa["birth_update"] == u - 1).sum())
+        if bad or births == 0 or len(after) != SLICE10_COMPARED:
+            raise AssertionError(f"slice10_cross_device {name}: card vs cpu "
+                                 f"differ at (update, field) {bad[:8]} "
+                                 f"(births {births})")
+        results.append({"case": name, "world": f"{side}x{side}",
+                        "updates_warm": at,
+                        "updates_compared": SLICE10_COMPARED,
+                        "births_compared": births,
+                        "warm_s_cpu": warm_s,
+                        "compared_s": {"card": card_s, "cpu": cpu_s},
+                        "engine": w.engine_report()["engine"],
+                        "kernel_route": cycles.use_kernel(w.params),
+                        "alive": w.num_organisms})
+    return {"phase": "slice10_cross_device", "fields_equal": True,
+            "compared": "every field after every compared update",
             "cases": results}
 
 
@@ -2619,9 +3330,23 @@ def main() -> int:
           "library": os.path.relpath(lib), "flags": list(cycles.NVCC_FLAGS),
           "resources": cycles.resources()})
 
-    with tempfile.TemporaryDirectory() as tmp:
-        emit(phase_cross_device(tmp))
-        emit(phase_mw_cross_device(tmp))
+    with tempfile.TemporaryDirectory() as tmp, cpu_jobs() as pool:
+        # the CPU halves of the cross-device phases run in the workers
+        # beside the card's phases, queued in the order the phases need
+        # them
+        ctmp = cpu_root(tmp)
+        jobs = {key: pool.submit(fn, ctmp, "cpu") for key, fn in (
+            ("cross", cross_side), ("mw_cross", mw_cross_side),
+            ("xla_cross", xla_cross_side), ("pool_cross", pool_cross_side),
+            ("smt_cross", smt_cross_side))}
+        spop_file = spop_save(tmp)
+        jobs["spop"] = pool.submit(spop_load, spop_file, ctmp, "cpu")
+        for kind, n in (("heads", FOLD_UPDATES), ("smt", SMT_FOLD_UPDATES)):
+            jobs[f"{kind}_fold"] = [
+                pool.submit(fold_solo, ctmp, kind, MW_SIDE, MW_SEEDS[k], n)
+                for k in FOLD_CHECKED]
+        jobs["slice10"] = [pool.submit(slice10_cpu_side, ctmp, k)
+                           for k in range(len(SLICE10_CROSS))]
         emit(phase_geometry(tmp))
         emit(phase_size_range(tmp))
         w, main_res = phase_main(SIDE, UPDATES, os.path.join(tmp, "data"))
@@ -2645,6 +3370,8 @@ def main() -> int:
         del ws
         ckern = phase_costs_kernel(SIDE, COSTS_UPDATES, tmp)
         emit(dict(ckern, phase="costs_kernel"))
+        emit(phase_cross_device(tmp, jobs["cross"]))
+        emit(phase_mw_cross_device(tmp, jobs["mw_cross"]))
         # persistence: each resumed run counts its own launches
         pres, persist_gen = phase_persist_path(tmp, smi)
         emit(pres)
@@ -2653,7 +3380,7 @@ def main() -> int:
         emit(phase_preempt_cli(tmp, smi, persist_gen))
         scrub_res, scrub_launches = phase_scrub_path(tmp, smi)
         emit(scrub_res)
-        emit(phase_spop_path(tmp, smi))
+        emit(phase_spop_path(tmp, smi, spop_file, jobs["spop"]))
         persist_launches = (pres["kernel_launches_after_resume"]
                             + dres["kernel_launches_after_resume"]
                             + scrub_launches)
@@ -2679,9 +3406,9 @@ def main() -> int:
                             smi))
         emit(phase_math_path(SIDE, XLA_UPDATES, tmp, smi))
         emit(phase_engines_agree(SIDE, AGREE_UPDATES, tmp))
-        emit(phase_xla_cross_device(tmp))
+        emit(phase_xla_cross_device(tmp, jobs["xla_cross"]))
         emit(phase_multiworld_fold(tmp, MW_SIDE, MW_SEEDS, FOLD_UPDATES,
-                                   smi))
+                                   smi, jobs["heads_fold"]))
         # resource pools and demes
         emit(phase_resource_path(SIDE, XLA_UPDATES, tmp, smi))
         wdeme, deme_res = phase_deme_path(SIDE, tmp, smi)
@@ -2689,13 +3416,28 @@ def main() -> int:
         demek = phase_default_kernel(wdeme, name="deme_path")
         del wdeme
         emit(phase_deme_resource_path(SIDE, XLA_UPDATES, tmp, smi))
-        emit(phase_resources_cross_device(tmp))
+        emit(phase_resources_cross_device(tmp, jobs["pool_cross"]))
         # TransSMT hardware and host-parasite coevolution
         emit(phase_smt_path(SIDE, SMT_UPDATES, os.path.join(tmp, "smt"),
                             smi))
-        emit(phase_smt_cross_device(tmp))
+        emit(phase_smt_cross_device(tmp, jobs["smt_cross"]))
         emit(phase_smt_fold(tmp, MW_SIDE, MW_SEEDS, SMT_FOLD_UPDATES,
-                            smi))
+                            smi, jobs["smt_fold"]))
+        # slice 10: dispersal, population control and topologies on the
+        # kernel route; mating types, energy and threads on the
+        # micro-step engine
+        wdisp, disp_res = phase_dispersal_path(SIDE, tmp, smi)
+        emit(disp_res)
+        dispk = phase_default_kernel(wdisp, name="dispersal_path")
+        del wdisp
+        whex, topo_res = phase_topology_path(SIDE, tmp, smi)
+        emit(topo_res)
+        topok = phase_default_kernel(whex, name="topology_path")
+        del whex
+        emit(phase_mating_path(SIDE, tmp, smi))
+        emit(phase_energy_path(SIDE, tmp, smi))
+        emit(phase_threads_path(SIDE, tmp, smi))
+        emit(phase_slice10_cross_device(tmp, jobs["slice10"]))
     timing = ("max_abs_err", "ms", "simple_ms", "turns_ms", "reached",
               "plain_ms", "bound_ms", "bytes_read", "bytes_written")
     per_path = [
@@ -2704,13 +3446,16 @@ def main() -> int:
         dict(dkern, launches=def_res["kernel_launches"]),
         dict(skern, launches=sex_res["kernel_launches"]),
         {k: ckern[k] for k in ("path", "launches") + timing},
-        dict(demek, launches=deme_res["kernel_launches"])]
+        dict(demek, launches=deme_res["kernel_launches"]),
+        dict(dispk, launches=disp_res["kernel_launches"]),
+        dict(topok, launches=topo_res["kernel_launches_total"])]
     per_path += [dict({k: mwk[k] for k in ("path", "solo_ms_sum") + timing},
                       launches=mw_res["kernel_launches"], stacked=True)
                  for mw_res, mwk in mw_runs]
     emit({"phase": "kernel_paths", "nvidia_smi": smi, "paths": per_path})
-    # the kernels line: K1 with its solo launches (the five solo paths,
-    # deme_path included, and the resumed and scrubbed persistence runs),
+    # the kernels line: K1 with its solo launches (the seven solo paths,
+    # deme_path, dispersal_path and topology_path included, and the
+    # resumed and scrubbed persistence runs),
     # the worst error of all, times and bound at the sexual path; K3b,
     # the stacked launch, with its launches over the two batch paths and
     # the resumed batch, and

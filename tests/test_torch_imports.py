@@ -120,6 +120,33 @@ def test_xla_engine_cli_imports_no_jax_and_no_reference(tmp_path):
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+# slice 10 end to end: a 4x4 kernel-route world with dispersal at a rate
+# of 12 (the rejection sampler), a cap and the hex table, and a
+# micro-step world with energy and two threads, one update each
+_SLICE10_CLI = r"""
+import sys
+from avida_tpu_torch.__main__ import main
+base = ["-u", "1", "-set", "WORLD_X", "4", "-set", "WORLD_Y", "4",
+        "--device", "cpu"]
+assert main(base + ["-set", "BIRTH_METHOD", "11", "-set", "DISPERSAL_RATE",
+                    "12", "-set", "POPULATION_CAP", "10", "-set",
+                    "WORLD_GEOMETRY", "4", "-d", sys.argv[1] + "/a"]) == 0
+assert main(base + ["-set", "ENERGY_ENABLED", "1", "-set",
+                    "MAX_CPU_THREADS", "2", "-d", sys.argv[1] + "/b"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "avida_tpu" or m.startswith("avida_tpu."))
+assert not bad, bad
+"""
+
+
+def test_slice10_cli_imports_no_jax_and_no_reference(tmp_path):
+    res = subprocess.run([sys.executable, "-c", _SLICE10_CLI,
+                          str(tmp_path / "data")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_resume_cli_imports_no_jax_and_no_reference(tmp_path):
     res = subprocess.run([sys.executable, "-c", _RESUME_CLI,
                           str(tmp_path / "data"), str(tmp_path / "ck")],
@@ -222,16 +249,16 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("overrides,needle", [
-    ({"TPU_SYSTEMATICS": 1, "POPULATION_CAP": 10}, "per-update engine"),
-    ({"BIRTH_METHOD": 11}, "BIRTH_METHOD 11"),
-    ({"WORLD_GEOMETRY": 3}, "WORLD_GEOMETRY 3"),
+    ({"TPU_SYSTEMATICS": 1, "BIRTH_METHOD": 12}, "per-update engine"),
+    ({"WORLD_GEOMETRY": 0}, "WORLD_GEOMETRY 0"),
+    ({"WORLD_GEOMETRY": 5}, "WORLD_GEOMETRY 5"),
     ({"TPU_USE_PALLAS": 3}, "TPU_USE_PALLAS"),
-    ({"POINT_MUT_PROB": 0.01, "WORLD_GEOMETRY": 4}, "per-update engine"),
+    ({"POINT_MUT_PROB": 0.01, "BIRTH_METHOD": 13}, "per-update engine"),
     ({"TPU_PACKED_BITS": 1}, "TPU_PACKED_BITS"),
     ({"TPU_TRACE": 1}, "TPU_TRACE"),
     ({"REVERT_FATAL": 0.5}, "REVERT_FATAL"),
     ({"INST_SET": "instset-experimental.cfg"}, "INST_SET"),
-    ({"INST_SET": "heads_sex", "MATING_TYPES": 1}, "MATING_TYPES"),
+    ({"INST_SET": "heads_sex", "BIRTH_METHOD": -1}, "BIRTH_METHOD -1"),
     ({"TPU_KERNEL_SHARDS": 4}, "TPU_KERNEL_SHARDS"),
 ])
 def test_out_of_slice_configs_raise(overrides, needle):
@@ -246,6 +273,16 @@ def test_out_of_slice_configs_raise(overrides, needle):
     ({"INST_SET": "heads_sex"}, "divide-sex instruction set"),
     ({"BIRTH_METHOD": 4, "WORLD_GEOMETRY": 1}, "off the torus fast path"),
     ({"BIRTH_METHOD": 7}, "off the torus fast path"),
+    ({"BIRTH_METHOD": 11}, "off the torus fast path"),
+    ({"POPULATION_CAP": 10}, "off the torus fast path"),
+    ({"POP_CAP_ELDEST": 10}, "off the torus fast path"),
+    ({"WORLD_GEOMETRY": 4}, "off the torus fast path"),
+    ({"WORLD_GEOMETRY": 3}, "off the torus fast path"),
+    ({"WORLD_GEOMETRY": 8}, "off the torus fast path"),
+    ({"INST_SET": "heads_sex", "MATING_TYPES": 1},
+     "divide-sex instruction set"),
+    ({"ENERGY_ENABLED": 1}, "Pallas cycle kernel off"),
+    ({"MAX_CPU_THREADS": 2}, "non-heads hardware or multi-threaded"),
 ])
 def test_per_update_configs_route_and_report(overrides, reason):
     """Systematics (the reference's default), point mutations, divide-sex
@@ -262,15 +299,17 @@ def test_per_update_configs_route_and_report(overrides, reason):
 
 @pytest.mark.parametrize("use_pallas", [0, 2])
 @pytest.mark.parametrize("replace,needle", [
-    ({"max_cpu_threads": 2}, "item 12f"),
-    ({"energy_enabled": True}, "item 12f"),
-    ({"sem": "fork"}, "item 12f"),
-    ({"sem": "mating"}, "item 12e"),
+    ({"max_cpu_threads": 2}, None),
+    ({"energy_enabled": True}, None),
+    ({"sem": "fork"}, None),
+    ({"sem": "mating"}, None),
     ({"hw_type": 3}, "item 12h"),
 ])
 def test_engine_refusals_name_their_item(replace, needle, use_pallas):
     """What neither cycle engine runs is refused at World construction by
-    name, with the ROADMAP.md item that owns it, on either route."""
+    name, with the ROADMAP.md item that owns it, on either route; threads,
+    their instructions, the mating-type instructions and the energy model
+    (items 12e and 12f) run on the micro-step engine and pass."""
     from avida_tpu_torch.models.heads import SEM_FORK_TH, SEM_SET_MATE_MALE
     from avida_tpu_torch.world import World
     w = World(cfg=_cfg(TPU_USE_PALLAS=use_pallas), device="cpu")
@@ -279,6 +318,11 @@ def test_engine_refusals_name_their_item(replace, needle, use_pallas):
     elif replace.get("sem") == "mating":
         replace = {"sem": w.params.sem[:-1] + (SEM_SET_MATE_MALE,)}
     w.params = w.params.replace(**replace)
+    if needle is None:
+        from avida_tpu_torch.ops import cycles
+        w._check_engine()
+        assert not cycles.use_kernel(w.params)
+        return
     with pytest.raises(NotImplementedError, match=needle):
         w._check_engine()
 
@@ -420,11 +464,32 @@ def test_kernel_limits_refused_by_name_on_cuda():
     assert "64 instructions" in cycles.kernel_limit_reason(big, "cuda")
 
 
+@pytest.mark.parametrize("overrides", [
+    {"BIRTH_METHOD": 11, "DISPERSAL_RATE": 12.0}, {"POPULATION_CAP": 10},
+    {"POP_CAP_ELDEST": 10}, {"WORLD_GEOMETRY": 3}, {"WORLD_GEOMETRY": 4},
+    {"WORLD_GEOMETRY": 6}, {"WORLD_GEOMETRY": 7}, {"WORLD_GEOMETRY": 8},
+    {"INST_SET": "heads_sex", "MATING_TYPES": 1},
+    {"ENERGY_ENABLED": 1, "BIRTH_METHOD": 9},
+    {"MAX_CPU_THREADS": 4, "THREAD_SLICING_METHOD": 1}])
+def test_slice10_refusals_retired(overrides):
+    """ROADMAP items 12d-12g run: dispersal, population caps, every
+    geometry the reference builds, mating types, energy and threads
+    construct a World with no refusal, and neither the flush's gate nor
+    the engines' names them."""
+    from avida_tpu_torch.ops import birth, update
+    from avida_tpu_torch.world import World
+    w = World(cfg=_cfg(**overrides), device="cpu")
+    assert birth.canonical_unsupported_reason(w.params) is None
+    assert update.engine_unported_reason(w.params) is None
+
+
 def test_unported_event_action_raises():
     from avida_tpu_torch.world import World
     w = World(cfg=_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="KillProb"):
-        w.add_event("u 10 KillProb 0.5")
+    with pytest.raises(NotImplementedError, match="KillRectangle"):
+        w.add_event("u 10 KillRectangle 0 0 2 2")
+    for line in ("u 10 KillProb 0.5", "u 20 SerialTransfer 10"):
+        w.add_event(line)
 
 
 def test_wrapper_refuses_other_devices():

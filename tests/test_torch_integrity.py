@@ -220,8 +220,8 @@ def test_scrub_replay_equals_live_and_catches_divergence(tmp_path,
     real = world_mod.update_scan
     calls = []
 
-    def flaky(params, st, k, key, u0):
-        st, outs = real(params, st, k, key, u0)
+    def flaky(params, st, k, key, u0, *rest):
+        st, outs = real(params, st, k, key, u0, *rest)
         calls.append(u0)
         if len(calls) == 3:          # the second chunk's live run
             st = st.replace(merit=st.merit + 1.0)

@@ -48,6 +48,16 @@ from avida_tpu_torch.world import World  # noqa: E402
 from test_torch_world import (_assert_same_state,  # noqa: E402
                               _reseed_mixed)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: the engine's many tiny operations run
+    faster so, and beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # every pool kind: three global (one not depleted), a torus and a grid
 # spatial pool, a moving gradient, a deme pool; two reactions on glu and
 # on grd, by-products into a global and a spatial pool
@@ -509,3 +519,69 @@ def test_resource_world_equals_reference(tmp_path):
     assert float(port.state.res_grid[0].sum()) > 500
     dres = port.state.deme_resources[:, 0].numpy()
     assert len(set(dres.tolist())) > 1         # demes drew differently
+
+
+# ---- ROADMAP Queue 3: the compositions the port does not model ----
+
+_R21 = _BASE10 + [(None, "add"), ("suc", "pow"), ("fix", "mult"),
+                  ("tor", "add"), ("hill", "pow"), (None, "mult"),
+                  (None, "pow"), ("suc", "mult"), ("fix", "add"),
+                  ("tor", "pow"), (None, "add")]
+_GRD3 = _BASE10 + [("grd", "mult"), (None, "add")]
+
+
+def test_engine_cycle_pools_beside_unbound_21_reactions(tmp_path,
+                                                       monkeypatch):
+    """The second Queue 3 fault, repaired to 23 reactions: 21 reactions,
+    pool-bound ones beside four bound to no pool.  The compiled IO block
+    keeps the tree over the first 16 reactions with the rest in order
+    (TREE) past 17; every field equal after one engine cycle."""
+    monkeypatch.setattr(sys.modules[__name__], "_cycle_env",
+                        _mixed_env(_R21))
+    r_out, t_out, _ = _cycle_case(tmp_path, 2)
+    got = convert.state_to_arrays(t_out)
+    for k in rstate.state_field_names():
+        if getattr(r_out, k) is None:
+            continue
+        assert np.asarray(getattr(r_out, k)).tobytes() == got[k].tobytes(), k
+    assert ttasks.vector_chunks(_port_params(tmp_path)) == {
+        "pow": ttasks.TREE, "mult": ttasks.TREE, "add": ttasks.TREE}
+
+
+_R28 = _R21 + [("hill", "mult"), ("glu", "add"), ("dpool", "mult"),
+               (None, "pow"), ("suc", "add"), ("fix", "pow"),
+               ("tor", "mult")]
+
+
+@pytest.mark.xfail(strict=True, raises=AssertionError, reason=(
+    "ROADMAP Queue 3: pools beside unbound processes from 24 reactions -- "
+    "the reference's compiled IO block sums the bonus neither as the "
+    "16-lane tree nor as the port's in-order fold; not modelled"))
+def test_engine_cycle_pools_beside_unbound_past_23_reactions(
+        tmp_path, monkeypatch):
+    """The second Queue 3 fault where it stays open: 28 reactions,
+    pool-bound ones beside six bound to no pool: cur_bonus equal."""
+    monkeypatch.setattr(sys.modules[__name__], "_cycle_env",
+                        _mixed_env(_R28))
+    r_out, t_out, _ = _cycle_case(tmp_path, 2)
+    assert _same(r_out.cur_reaction_count, t_out.cur_reaction_count)
+    assert _same(r_out.cur_bonus, t_out.cur_bonus)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_engine_cycle_three_reactions_on_one_spatial_pool(tmp_path,
+                                                          monkeypatch, seed):
+    """The third Queue 3 fault (fixed): `grd` bound by three reactions
+    beside one unbound add process, 12x12.  The compiled consume sums each
+    cell's spatial demand and draw over the reactions as the IO block's
+    tree (tasks.vector_fold's TREE) in this composition; every field,
+    res_grid included, equal after one engine cycle."""
+    monkeypatch.setattr(sys.modules[__name__], "_cycle_env",
+                        _mixed_env(_GRD3))
+    r_out, t_out, st = _cycle_case(tmp_path, seed)
+    got = convert.state_to_arrays(t_out)
+    for k in rstate.state_field_names():
+        if getattr(r_out, k) is None:
+            continue
+        assert np.asarray(getattr(r_out, k)).tobytes() == got[k].tobytes(), k
+    assert (got["res_grid"] != st["res_grid"]).any()

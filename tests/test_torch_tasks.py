@@ -10,6 +10,8 @@ equal.
 
 from types import SimpleNamespace
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -21,6 +23,17 @@ from avida_tpu.ops import tasks as rtasks  # noqa: E402
 
 from avida_tpu_torch.ops import tasks as ttasks  # noqa: E402
 from avida_tpu_torch.utils import prng  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """torch on one intra-op thread: the engine's many tiny operations run
+    faster so, and beside other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 I32_MIN, I32_MAX = -2**31, 2**31 - 1
 
@@ -509,3 +522,36 @@ def test_smt_engine_reaction_order_equals_reference(tmp_path, R):
     assert ttasks.vector_chunks(params) == want
     differs = (np.asarray(r_out.cur_bonus) != t_in_order.cur_bonus.numpy())
     assert differs.any() == (R >= 17)
+
+
+# ---- ROADMAP Queue 3: the order outside the probed families ----
+
+_order_env_windows = _order_env
+
+
+def _order_env_no_windows(R, rng):
+    """_order_env without logic-9's requisite max_count=1 on the three
+    logic reactions."""
+    env, ptypes = _order_env_windows(R, rng)
+    return env.replace(" requisite:max_count=1", ""), ptypes
+
+
+@pytest.mark.parametrize("R", [17, 19, 22, 23])
+def test_engine_reaction_order_without_requisite_windows(tmp_path,
+                                                         monkeypatch, R):
+    """The first Queue 3 fault (fixed): _order_case's cycle with the logic
+    reactions' requisite windows removed.  The compiled engine then keeps
+    the products in order to 19 reactions and the sum to 22 (read by
+    probing, as the other orders were); every field, cur_bonus included,
+    equal to the reference's engine."""
+    monkeypatch.setattr(sys.modules[__name__], "_order_env",
+                        _order_env_no_windows)
+    from avida_tpu_torch import convert
+    r_out, t_out, _, params = _order_case(tmp_path, R)
+    got = convert.state_to_arrays(t_out)
+    for k, v in got.items():
+        if v is not None:
+            assert np.asarray(getattr(r_out, k)).tobytes() == v.tobytes(), k
+    want = {k: (R // 8 if R >= v else 0)
+            for k, v in (("pow", 20), ("mult", 20), ("add", 23))}
+    assert ttasks.vector_chunks(params) == want
