@@ -288,6 +288,33 @@ def _pk_shift_l1(plane):
     return (plane >> 8) | ((down << 24) & _M32)
 
 
+def _pk5_prefix_mask(L5, hi):
+    """int32[L5, N] mask of positions [0, hi) of a 5-bit word plane
+    (cycles.pack_words5's layout, transposed): _pk_range_mask(LP, 0, hi)
+    under the codec.  Six fields a word fill 30 bits, so no shift
+    reaches the sign bit."""
+    m = (hi[None, :] - torch.arange(L5, dtype=torch.int32,
+                                    device=hi.device)[:, None] * 6
+         ).clamp(0, 6)
+    return (1 << (5 * m)) - 1
+
+
+def _pk_to_plane5(plane, L5):
+    """A byte word plane ([LP, N] uint32 patterns, opcodes < 32 in every
+    byte) -> the 5-bit word plane int32[L5, N]: the flush's bridge from
+    the kernel's offspring plane to the 5-bit genome shadow."""
+    LP, n = plane.shape
+    b = torch.stack([(plane >> (8 * k)) & 0x1F for k in range(4)],
+                    dim=1).reshape(LP * 4, n)
+    pad = L5 * 6 - LP * 4
+    if pad > 0:
+        b = torch.cat([b, b.new_zeros((pad, n))])
+    g = b[:L5 * 6].reshape(L5, 6, n)
+    sh = (torch.arange(6, dtype=torch.int64, device=plane.device) * 5)[
+        None, :, None]
+    return (g << sh).sum(dim=1).to(torch.int32)
+
+
 def _to_i32(x):
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
@@ -418,8 +445,19 @@ def flush_births_packed(params, st, key, planes, update_no):
     pending, births, parent_idx, won, dir_idx = fast_torus_placement(
         params, k_place, pending, alive, ivec[pc.IV_TIME_USED], merit)
 
-    diff = (off_w ^ (gen_t.to(torch.int64) & _M32)) & _pk_range_mask(
-        LP, zeros_n, off_len, dev)
+    # breed-true: the offspring against the parent's birth genome, word
+    # by word over the offspring's positions; under the 5-bit codec the
+    # offspring plane is bridged into the codec first (opcodes < 32, so
+    # the 5-bit compare decides the byte compare), and the bridged plane
+    # is the newborn genome written below
+    from avida_tpu_torch.ops.packed_chunk import bits_active
+    bits5 = bits_active(params)
+    if bits5:
+        off_w5 = _pk_to_plane5(off_w, gen_t.shape[0])
+        diff = (off_w5 ^ gen_t) & _pk5_prefix_mask(gen_t.shape[0], off_len)
+    else:
+        diff = (off_w ^ (gen_t.to(torch.int64) & _M32)) & _pk_range_mask(
+            LP, zeros_n, off_len, dev)
     is_breed_true = (off_len == genome_len) & ~(diff != 0).any(dim=0)
 
     if params.death_method == 2:
@@ -493,7 +531,8 @@ def flush_births_packed(params, st, key, planes, update_no):
                                               fvec[pc.FV_LAST_MERIT_BASE])
 
     tape_t = torch.where(b[None], mv_plane, tape_t)
-    gen_t = torch.where(b[None], mv_plane, gen_t)
+    gen_t = torch.where(b[None], by_parent(off_w5) if bits5 else mv_plane,
+                        gen_t)
     off_t = torch.where(b[None], 0, off_t)
 
     # newborns are ALIVE only; winners and dead parents resume; the
@@ -575,12 +614,9 @@ def has_divide_sex(params) -> bool:
 
 def canonical_unsupported_reason(params) -> str | None:
     """Why this package's canonical flush cannot run `params` (None = it
-    can): every branch of the reference's flush but experimental
-    hardware's.  The geometries the reference builds no table for raise
-    in neighbor_table, in its words."""
-    if params.hw_type not in (0, 1, 2):
-        return ("experimental spatial hardware in the birth flush "
-                "(ROADMAP.md Queue 1 item 12h)")
+    can): every branch of the reference's flush is ported.  The
+    geometries the reference builds no table for raise in
+    neighbor_table, in its words."""
     if not 0 <= params.birth_method <= 11:
         return f"BIRTH_METHOD {params.birth_method}"
     return None
@@ -810,15 +846,18 @@ def neighbors_on(params, device, seed: int = 0, scale_free_m: int = 3,
 
 
 def general_placement(params, k_place, pending, alive, time_used, merit,
-                      neighbors, energy_spent=None):
+                      neighbors, energy_spent=None, facing=None):
     """Target selection and conflict resolution through the neighbor
     table (the reference's general branch, PositionOffspring cc:5185,
     BIRTH_METHOD 0-11): candidate cells with padding, the empty-first
     lexicographic pick, the method's target, then the lowest pending
     parent index claims each cell (a scatter-min).  `energy_spent` is
     the energy model's used energy (BIRTH_METHOD 9 and 10 read time used
-    without it).  Returns (pending, births, parent_idx, won, cand, u,
-    choice, occupied); the last four feed the sexual second birth."""
+    without it); `facing` is experimental hardware's facing, which
+    BIRTH_METHOD 7 follows (a parent facing off a bounded grid leaves
+    `pending`: its offspring is dropped).  Returns (pending, births,
+    parent_idx, won, cand, u, choice, occupied); the last four feed the
+    sexual second birth."""
     n = alive.shape[0]
     dev = alive.device
     rows = torch.arange(n, dtype=torch.int32, device=dev)
@@ -878,6 +917,14 @@ def general_placement(params, k_place, pending, alive, time_used, merit,
     elif bm == 6:              # DEME_RANDOM
         r = prng.randint(prng.fold_in(k_place, 6), (n,), 0, cpd)
         target = (rows // cpd) * cpd + r
+    elif bm == 7 and facing is not None:    # PARENT_FACING on
+        #                        experimental hardware: one step along the
+        #                        parent's real facing
+        from avida_tpu_torch.ops.interpreter import facing_step
+        ftgt, fvalid = facing_step(params, rows, facing,
+                                   torch.ones_like(rows))
+        target = torch.where(fvalid, ftgt, rows)
+        pending = pending & fvalid
     elif bm == 7:              # PARENT_FACING: heads hardware faces
         #                        connection 0
         target = torch.where(neighbors[:, 0] < 0, rows,
@@ -1006,6 +1053,10 @@ def newborn_fields(params, st, births, by_parent, off_mem, off_len,
     is_breed_true = (off_len == st.genome_len) & same_site.all(dim=1)
     parent_updates = _parent_fields(params, st, off_mem, off_len,
                                     child_merit, is_breed_true)
+    if params.hw_type == 3:
+        # experimental hardware: the offspring inherits the forage target
+        # (cPhenotype::SetupOffspring)
+        parent_updates["forage_target"] = st.forage_target
     if params.energy_enabled:
         # the child's share of the parent's energy lands with the birth;
         # merit follows the energy (ConvertEnergyToMerit)
@@ -1170,9 +1221,12 @@ def flush_births(params, st, key, update_no, neighbors=None):
                                   out)
             return out
     else:
+        facing = st.facing if params.hw_type == 3 else None
+        pending_in = pending
         (pending, births, parent_idx, won, *placement) = general_placement(
             params, k_place, pending, st.alive, st.time_used, st.merit,
-            neighbors, st.energy_spent if params.energy_enabled else None)
+            neighbors, st.energy_spent if params.energy_enabled else None,
+            facing)
         pl = parent_idx.long()
 
         def by_parent(x):
@@ -1180,6 +1234,11 @@ def flush_births(params, st, key, update_no, neighbors=None):
 
     new = newborn_fields(params, st, births, by_parent, off_mem, off_len,
                          child_merit, fresh_inputs, update_no)
+    if params.hw_type == 3:
+        # newborns face a random ring direction (cPopulationCell's random
+        # rotation at activation)
+        new["facing"] = torch.where(births, prng.randint(
+            prng.fold_in(key, 0xFACE), (n,), 0, 8), st.facing)
     if sexual:
         b2 = dual_births(params, st, new, births, won, placement, dual,
                          dual_mem, dual_len, dual_merit, fresh_inputs,
@@ -1192,6 +1251,11 @@ def flush_births(params, st, key, update_no, neighbors=None):
             params.num_demes, -1).sum(dim=1).to(torch.int32)
     st = st.replace(**new)
     resumes = won | ~st.alive
+    if params.hw_type == 3 and params.birth_method == 7:
+        # a parent facing off a bounded grid drops its offspring and
+        # resumes: the birth can never land, and a waiting parent runs no
+        # rotate-x (the reference's fix of the livelock, ADVICE.md)
+        resumes = resumes | (pending_in & ~pending)
     if sexual:
         # transactional store: when the dual row's store child found no
         # cell, the waiting entry is not consumed -- unless a new

@@ -120,8 +120,8 @@ MAX_R = 32
 def unsupported_reason(params) -> str | None:
     """Why the cycle kernel cannot run `params` (None = it can): the
     reference's kernel gate, gate for gate -- heads hardware
-    (update.use_pallas_path) and pallas_cycles.eligible.  What neither
-    engine runs is update.engine_unported_reason."""
+    (update.use_pallas_path) and pallas_cycles.eligible; the micro-step
+    engine runs the rest."""
     if params.hw_type != 0:
         return "non-heads hardware"
     if params.max_cpu_threads > 1:

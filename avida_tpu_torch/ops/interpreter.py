@@ -22,9 +22,10 @@ wraparound.
 The IO block carries the resource pools (global, spatial, deme) through
 tasks.apply_reactions when a reaction binds or produces into one.
 
-Not ported here, refused by name (ops/update.engine_unported_reason):
-threads and their signals (`return_signals`, `charge_time`), mating-type
-instructions, the energy model and experimental spatial hardware.
+Experimental spatial hardware (hw_type 3: 8 registers, facing, movement,
+look-ahead, predation) runs through the same micro_step, its spatial
+instructions in _exp_spatial and the kills and moves applied after the
+cycle's state merge (_apply_attacks, _apply_moves).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from avida_tpu_torch.models.heads import (
     SEM_SET_MATE_MALE, SEM_SHIFT_L, SEM_SHIFT_R, SEM_SUB, SEM_SWAP,
     SEM_SWAP_STK,
 )
+from avida_tpu_torch.models.experimental import SEM_IF_EQU_0, SEM_IF_NOT_0
 from avida_tpu_torch.ops import resources as res_ops
 from avida_tpu_torch.ops import tasks as tasks_ops
 from avida_tpu_torch.ops.cycles import params_cached, uniform_mutation
@@ -465,6 +467,9 @@ def micro_step(params, st, key, exec_mask, bits=None, return_signals=False,
             | (is_op(SEM_IF_LABEL) & ~rl_match)
             | (is_op(SEM_IF_MATE_MALE) & (st.mating_type != 1))
             | (is_op(SEM_IF_MATE_FEMALE) & (st.mating_type != 0)))
+    if params.hw_type == 3:
+        skip = (skip | (is_op(SEM_IF_NOT_0) & (val == 0))
+                | (is_op(SEM_IF_EQU_0) & (val != 0)))
 
     # ---- h-alloc (Inst_MaxAlloc cc:3294 + Allocate_Main cc:1707) ----
     osr = fconst(params.offspring_size_range)
@@ -561,10 +566,12 @@ def micro_step(params, st, key, exec_mask, bits=None, return_signals=False,
     # ---- register writes ----
     res = val
     wrote = torch.zeros_like(exec_mask)
+    # experimental hardware's math reads ?BX? and the register after it
+    a1m, a2m = (val, val2) if params.hw_type == 3 else (bx, cx)
     for s, v in ((SEM_SHIFT_R, val >> 1), (SEM_SHIFT_L, val << 1),
                  (SEM_INC, val + 1), (SEM_DEC, val - 1),
-                 (SEM_ADD, bx + cx), (SEM_SUB, bx - cx),
-                 (SEM_NAND, ~(bx & cx)), (SEM_POP, pop_val),
+                 (SEM_ADD, a1m + a2m), (SEM_SUB, a1m - a2m),
+                 (SEM_NAND, ~(a1m & a2m)), (SEM_POP, pop_val),
                  (SEM_IO, value_in), (SEM_SWAP, val2),
                  (SEM_ID_TH, st.main_tid)):
         res = torch.where(is_op(s), v, res)
@@ -591,6 +598,10 @@ def micro_step(params, st, key, exec_mask, bits=None, return_signals=False,
     regs = setreg_c(regs, 1, search_bx, srch)
     regs = setreg_c(regs, 2, label_len, srch)
     regs = torch.where(div_m[:, None], 0, regs)
+    facing, forage_target = st.facing, st.forage_target
+    if params.hw_type == 3:
+        (regs, facing, forage_target, move_won, move_tgt, atk_ok,
+         atk_tgt) = _exp_spatial(params, st, sem, operand, val, regs)
 
     # ---- head writes ----
     heads = st.heads
@@ -711,13 +722,177 @@ def micro_step(params, st, key, exec_mask, bits=None, return_signals=False,
         off_sex=torch.where(div_m, div_sex_try, st.off_sex),
         insts_executed=st.insts_executed + charge, cost_wait=cost_wait,
         ft_paid_lo=ft_paid_lo, ft_paid_hi=ft_paid_hi, energy=energy,
-        energy_spent=energy_spent, mating_type=mating_type, **pools)
+        energy_spent=energy_spent, mating_type=mating_type,
+        facing=facing, forage_target=forage_target, **pools)
+    if params.hw_type == 3:
+        if params.pred_prey_switch >= 0:
+            new_st = _apply_attacks(params, new_st, st, atk_ok, atk_tgt)
+        new_st = _apply_moves(new_st, move_won, move_tgt)
     if return_signals:
         # the forked thread resumes at fork + 1 (the parent stepped to
         # fork + 2)
         return new_st, {"fork": fork_try, "kill": is_op(SEM_KILL_TH),
                         "div": div_m, "child_ip": _adjust(ip + 1, mlen)}
     return new_st
+
+
+# ---- experimental spatial hardware (hw_type 3) ----
+
+# ring of facing directions, clockwise from north (the reference's
+# cPopulationCell connection-list rotation order)
+_RING = ((-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1),
+         (-1, -1))
+
+
+def facing_step(params, rows, facing, dist):
+    """The cell `dist` steps from each row's cell in its facing direction
+    (the reference's _facing_step).  Returns (cell int32, valid bool): a
+    torus wraps; a bounded grid clips the cell and invalidates a ray that
+    leaves the world."""
+    wx, wy = params.world_x, params.world_y
+    y0 = rows // wx
+    x0 = rows % wx
+    dy = torch.zeros_like(facing)
+    dx = torch.zeros_like(facing)
+    for k, (ky, kx) in enumerate(_RING):
+        dy = torch.where(facing == k, ky, dy)
+        dx = torch.where(facing == k, kx, dx)
+    y = y0 + dy * dist
+    x = x0 + dx * dist
+    if params.geometry == 2:
+        return (y % wy) * wx + (x % wx), torch.ones_like(y, dtype=torch.bool)
+    valid = (y >= 0) & (y < wy) & (x >= 0) & (x < wx)
+    return y.clamp(0, wy - 1) * wx + x.clamp(0, wx - 1), valid
+
+
+def _exp_spatial(params, st, sem, operand, val, regs):
+    """Experimental hardware's spatial instructions (the reference's
+    _exp_spatial, from cHardwareExperimental.cc): rotate-x (cc:3441:
+    facing += ?BX? mod 8, echoed to the register), rotate-org-id
+    (cc:3489: face the neighbour whose cell index is ?BX?),
+    set-forage-target, zero, look-ahead (GoLook cc:3895: the first
+    organism on the facing ray, eight sensor fields into ?BX?..?BX?+7),
+    the move intents (cc:3138: the lowest mover index claims the faced
+    empty cell) and attack-prey's targets (cc:5407).  The ray and the
+    claims run for every lane: the reference's any-lane conds select the
+    same values, and no cycle reads a flag back to the host.  Returns
+    (regs, facing, forage_target, move_won, move_tgt, atk_ok, atk_tgt)."""
+    from avida_tpu_torch.models.experimental import (
+        SEM_ATTACK_PREY, SEM_LOOK_AHEAD, SEM_MOVE, SEM_ROTATE_ORG_ID,
+        SEM_ROTATE_X, SEM_SET_FORAGE, SEM_ZERO)
+    n = st.alive.shape[0]
+    dev = st.alive.device
+    i32 = torch.int32
+    rows = torch.arange(n, dtype=i32, device=dev)
+    NR = params.num_registers
+    rsel = torch.arange(NR, device=dev)[None, :]
+    one = torch.ones_like(rows)
+
+    def setreg(regs, idx, v, m):
+        return torch.where((rsel == idx[:, None]) & m[:, None], v[:, None],
+                           regs)
+
+    def is_op(x):
+        return sem == x
+
+    rotx = is_op(SEM_ROTATE_X)
+    facing = torch.where(rotx, (st.facing + val) % 8, st.facing)
+    regs = setreg(regs, operand, torch.where(rotx, val % 8, 0), rotx)
+
+    rotid = is_op(SEM_ROTATE_ORG_ID)
+    for k in range(8):
+        nb, valid = facing_step(params, rows, torch.full_like(rows, k), one)
+        hit = rotid & valid & st.alive[nb.long()] & (nb == val)
+        facing = torch.where(hit, k, facing)
+
+    forage_target = torch.where(is_op(SEM_SET_FORAGE), val,
+                                st.forage_target)
+    regs = setreg(regs, operand, torch.zeros_like(rows), is_op(SEM_ZERO))
+
+    # look-ahead: the [N, D] ray along the (new) facing
+    look = is_op(SEM_LOOK_AHEAD)
+    D = max(params.world_x, params.world_y)
+    dists = torch.arange(1, D + 1, dtype=i32, device=dev)[None, :]
+    cells, valid = facing_step(params, rows[:, None], facing[:, None], dists)
+    occ = st.alive[cells.long()] & valid & (cells != rows[:, None])
+    found = occ.any(dim=1)
+    first = occ.to(torch.uint8).argmax(dim=1)       # the first organism
+    tgt_cell = cells.gather(1, first[:, None]).squeeze(1)
+    dist = torch.where(found, first.to(i32) + 1, -1)
+    tgt_ft = torch.where(found, st.forage_target[tgt_cell.long()], -9)
+    look_out = (torch.full_like(rows, -2), dist, torch.zeros_like(rows),
+                torch.where(found, tgt_cell, -1), found.to(i32),
+                torch.zeros_like(rows), torch.full_like(rows, -9), tgt_ft)
+    for j, ov in enumerate(look_out):
+        regs = setreg(regs, (operand + j) % NR, ov, look)
+
+    # move: the lowest mover index claims the faced empty cell
+    move = is_op(SEM_MOVE)
+    mtgt, mvalid = facing_step(params, rows, facing, one)
+    intend = move & mvalid & ~st.alive[mtgt.long()] & st.alive
+    BIG = 2**30
+    claim = torch.full((n,), BIG, dtype=i32, device=dev).scatter_reduce(
+        0, torch.where(intend, mtgt, rows).long(),
+        torch.where(intend, rows, BIG), "amin", include_self=True)
+    won = intend & (claim[mtgt.long()] == rows)
+    regs = setreg(regs, operand, won.to(i32), move)
+
+    # attack-prey: the faced living prey (forage target > -2)
+    atk = is_op(SEM_ATTACK_PREY)
+    if params.pred_prey_switch >= 0:
+        atgt, avalid = facing_step(params, rows, facing, one)
+        atk_ok = (atk & avalid & st.alive[atgt.long()]
+                  & (st.forage_target[atgt.long()] > -2) & (atgt != rows))
+    else:
+        atgt, atk_ok = rows, torch.zeros_like(atk)
+    regs = setreg(regs, operand, atk_ok.to(i32), atk)
+    return regs, facing, forage_target, won, mtgt, atk_ok, atgt
+
+
+def _apply_attacks(params, st, pre, atk_ok, atk_tgt):
+    """This cycle's kills (ExecuteAttack cc:7001): prey stats from the
+    pre-cycle state `pre`; the prey dies; every successful attacker gains
+    PRED_EFFICIENCY x the prey's merit and bonus and turns predator
+    (forage target -2)."""
+    n = st.alive.shape[0]
+    eff = float(params.pred_efficiency)
+    t = atk_tgt.long()
+    killed = torch.zeros(n + 1, dtype=torch.bool, device=st.alive.device)
+    killed[torch.where(atk_ok, t, n)] = True
+    # XLA's CPU backend contracts the gain into a fused multiply-add
+    return st.replace(
+        merit=torch.where(atk_ok, prng.fma_f32(pre.merit[t], eff, st.merit),
+                          st.merit),
+        cur_bonus=torch.where(atk_ok, prng.fma_f32(pre.cur_bonus[t], eff,
+                                                   st.cur_bonus),
+                              st.cur_bonus),
+        forage_target=torch.where(atk_ok, -2, st.forage_target),
+        alive=st.alive & ~killed[:n])
+
+
+def _apply_moves(st, won, target):
+    """Move winners into their target cells: one permutation gather over
+    every organism-bound field.  The cell's input stream and every
+    world-level field (pools, deme state, the lane permutation, the
+    rings) stay where they are."""
+    from avida_tpu_torch.core.state import WORLD_LEVEL_FIELDS
+    n = st.alive.shape[0]
+    rows = torch.arange(n, dtype=torch.long, device=st.alive.device)
+    t = target.long()
+    # a winner and its (empty) target swap rows; slot n takes the rest
+    ext = torch.arange(n + 1, dtype=torch.long, device=rows.device)
+    ext[torch.where(won, t, n)] = rows
+    ext[torch.where(won, rows, n)] = torch.where(won, t, rows)
+    perm = ext[:n]
+    updates = {}
+    for name in st.__dataclass_fields__:
+        if name == "inputs" or name in WORLD_LEVEL_FIELDS:
+            continue
+        v = getattr(st, name)
+        if v is None or v.dim() == 0 or v.shape[0] != n:
+            continue
+        updates[name] = v[perm]
+    return st.replace(**updates)
 
 
 # ---- threads (MAX_CPU_THREADS > 1) ----
@@ -943,13 +1118,20 @@ def extract_offspring(params, st, key):
     extract_offspring with use_off_tape=True, draw for draw.  The cycle
     kernel has already written every fresh offspring to st.off_tape;
     TransSMT hardware divides off the host write buffer, smt_aux[:, 0]
-    (Divide_Main, cHardwareTransSMT.cc:438).  Returns (off int8[N, L],
-    off_len int32[N])."""
+    (Divide_Main, cHardwareTransSMT.cc:438); experimental hardware, whose
+    engine keeps no off_tape, off its tape from off_start on (the
+    reference's use_off_tape=False).  Returns (off int8[N, L], off_len
+    int32[N])."""
     n, L = st.tape.shape
     dev = st.tape.device
     cols = torch.arange(L, device=dev)[None, :]
     off_len = st.off_len
-    src = st.smt_aux[:, 0] if is_smt(params) else st.off_tape
+    if is_smt(params):
+        src = st.smt_aux[:, 0]
+    elif params.hw_type == 3:
+        src = barrel_shift_left(tape_ops(st.tape), st.off_start, L)
+    else:
+        src = st.off_tape
     off = torch.where(cols < off_len[:, None], src.to(torch.int8),
                       torch.zeros((), dtype=torch.int8, device=dev))
 

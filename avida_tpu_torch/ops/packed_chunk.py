@@ -42,6 +42,7 @@ class PackedChunk:
     tape_t: torch.Tensor     # int32[LP, N] opcode word plane
     off_t: torch.Tensor      # int32[LP, N] extracted-offspring plane
     gen_t: torch.Tensor      # int32[LP, N] birth-genome plane
+    #                          (int32[ceil(L/6), N] under the 5-bit codec)
     ivec: torch.Tensor       # int32[NI, N] per-organism scalars
     fvec: torch.Tensor       # f32[NF, N]  float phenotype scalars
 
@@ -96,25 +97,48 @@ def batch_active(params, bst) -> bool:
 
 def unported_reason(params) -> str | None:
     """Why the packed route of an eligible configuration is not ported
-    (None = it is): only the fused row-space body with the 8-bit genome
-    plane is."""
+    (None = it is): the fused row-space body is, with the 8-bit or the
+    5-bit genome plane."""
     if int(params.packed_fused) == 0:
         return "TPU_PACKED_FUSED=0 (the row-space body is not ported)"
     if int(params.trace_cap):
         return "flight recorder (TPU_TRACE)"
-    if int(params.packed_bits):
-        return "TPU_PACKED_BITS=1 (the 5-bit genome plane is not ported)"
     return None
+
+
+def bits_ineligible_reason(params) -> str | None:
+    """Why the genome shadow plane cannot ride the 5-bit codec (None =
+    it does; meaningful only when the packed chunk is active): the codec
+    keeps 5 bits of each opcode, so the whole set must fit."""
+    if int(params.packed_bits) == 0:
+        return "TPU_PACKED_BITS=0"
+    if int(params.num_insts) > 32:
+        return ("opcode count > packable width (num_insts=%d does not "
+                "fit 5-bit codes)" % int(params.num_insts))
+    return None
+
+
+def bits_active(params) -> bool:
+    """Does the genome shadow plane use the 5-bit codec
+    (TPU_PACKED_BITS=1: ceil(L/6) words a lane, 6 opcodes a word, in
+    place of L/4)?  The kernel never reads the plane."""
+    return bits_ineligible_reason(params) is None
 
 
 def engine_report(params, nb_ring: bool = False) -> dict:
     """Which engine this configuration routes to, in the reference's
-    vocabulary: {'engine': 'packed', 'sub_path', 'packed_bits'} or
+    vocabulary: {'engine': 'packed', 'sub_path', 'packed_bits'} (with
+    'bits_fallback_reason' when TPU_PACKED_BITS=1 is refused) or
     {'engine': 'per-update', 'fallback_reason'}."""
     reason = ineligible_reason(params, nb_ring)
     if reason is not None:
         return {"engine": "per-update", "fallback_reason": reason}
-    return {"engine": "packed", "sub_path": "fused", "packed_bits": 0}
+    rep = {"engine": "packed", "sub_path": "fused"}
+    breason = bits_ineligible_reason(params)
+    rep["packed_bits"] = 0 if breason else 1
+    if breason and int(params.packed_bits):
+        rep["bits_fallback_reason"] = breason
+    return rep
 
 
 def alive_rows(ivec):
@@ -148,7 +172,11 @@ def pack_chunk(params, st) -> PackedChunk:
     L = tape_t.shape[0] * 4
     genp = torch.zeros((n, L), dtype=torch.uint8, device=st.device)
     genp[:, :L0] = st.genome.to(torch.uint8)
-    gen_t = cycles.pack_words(genp, L).T.contiguous()
+    if bits_active(params):
+        # lossless: every genome byte is an opcode < num_insts <= 32
+        gen_t = cycles.pack_words5(genp, L).T.contiguous()
+    else:
+        gen_t = cycles.pack_words(genp, L).T.contiguous()
     return PackedChunk(st=st, tape_t=tape_t, off_t=off_t, gen_t=gen_t,
                        ivec=ivec, fvec=fvec)
 
@@ -158,8 +186,11 @@ def unpack_chunk(params, pc: PackedChunk):
     n, L0 = pc.st.tape.shape
     st = cycles.unpack_state(params, pc.st, (pc.tape_t, pc.off_t, pc.ivec,
                                              pc.fvec), restore_ro=True)
-    L = pc.tape_t.shape[0] * 4
-    genome = cycles.unpack_words(pc.gen_t.T, L)[:, :L0]
+    L = pc.tape_t.shape[0] * 4      # gen_t's rows differ under the codec
+    if bits_active(params):
+        genome = cycles.unpack_words5(pc.gen_t.T.contiguous(), L)[:, :L0]
+    else:
+        genome = cycles.unpack_words(pc.gen_t.T, L)[:, :L0]
     return st.replace(genome=genome.to(torch.int8).contiguous())
 
 

@@ -235,28 +235,60 @@ def _onehot(n_pools: int, res_idx, extra=None):
     return oh
 
 
-def _by_pool(cols, onehot, tree=False):
+def _by_pool(cols, onehot, form=0):
     """[..., G]: for each pool g, the sum of the columns cols[..., r] of
     its reactions (the reference's einsum over the reaction axis, whose
-    other terms are exact zeros): 0 + each in reaction order, or with
-    `tree` in the compiled IO block's tree over the first 16 reactions
-    (tasks.vector_fold's TREE), the form it takes with pools beside
-    processes bound to none."""
-    from avida_tpu_torch.ops.tasks import TREE, vector_fold
+    other terms are exact zeros): 0 + each in reaction order, or with a
+    `form` of tasks.vector_fold (TREE, one_acc) in the compiled IO
+    block's order, the form it takes with pools beside processes bound
+    to none."""
+    from avida_tpu_torch.ops.tasks import vector_fold
     out = []
     for row in onehot:
-        if tree:
+        if form == DOT4:
+            out.append(_dot4_sum([cols[..., r] if row[r] else None
+                                  for r in range(cols.shape[-1])]))
+            continue
+        if form:
             zero = torch.zeros(cols.shape[:-1], dtype=_F32,
                                device=cols.device)
             out.append(vector_fold(
                 [cols[..., r] if row[r] else zero
-                 for r in range(cols.shape[-1])], torch.add, 0.0, TREE))
+                 for r in range(cols.shape[-1])], torch.add, 0.0, form))
             continue
         acc = torch.zeros(cols.shape[:-1], dtype=_F32, device=cols.device)
         for r in np.nonzero(row)[0]:
             acc = acc + cols[..., int(r)]
         out.append(acc)
     return torch.stack(out, dim=-1)
+
+
+# _by_pool's form for the CPU backend's dot: from 24 reactions, with pools
+# beside processes bound to none, the compiled IO block takes the spatial
+# sums out of its fused loop into a dot (the reference's einsum over the
+# reaction axis), which sums each output's reactions in 4-lane vectors
+# through one accumulator, adds the 4 lanes pairwise ((l0 + l1) + (l2 +
+# l3)), then the reactions past the last full vector in order
+DOT4 = "dot4"
+
+
+def _dot4_sum(cols):
+    """The dot's sum over `cols` (None = a reaction of another pool, an
+    exact zero)."""
+    lanes = [None] * 4
+    full = len(cols) // 4 * 4
+    for r in range(full):
+        c = cols[r]
+        if c is not None:
+            j = r % 4
+            lanes[j] = c if lanes[j] is None else lanes[j] + c
+    like = next(c for c in cols if c is not None)
+    lanes = [torch.zeros_like(like) if v is None else v for v in lanes]
+    acc = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+    for c in cols[full:]:
+        if c is not None:
+            acc = acc + c
+    return acc
 
 
 def _to_reactions(per_pool, onehot):
@@ -299,18 +331,25 @@ def _consume_tables(params, device):
         "oh_g": _onehot(params.num_global_res, res_idx),
         "oh_s": _onehot(params.num_spatial_res, res_idx),
         "oh_d": _onehot(params.num_deme_res, res_idx, is_deme),
-        # spatial demands and draws summed as the compiled IO block's
-        # tree (pools beside processes bound to none)
-        "tree": _reduces_as_tree(params),
+        # the order of the spatial demands' and draws' sums (pools
+        # beside processes bound to none: the IO block's tree, the dot)
+        "form": _spatial_sum_form(params),
         # the reactions each one-hot maps back to their pool's value
         "g_unscaled": _t(infinite | spatial | ~depl, device, torch.bool),
         "s_unscaled": _t(infinite | ~spatial | ~depl, device, torch.bool),
     }
 
 
-def _reduces_as_tree(params) -> bool:
+def _spatial_sum_form(params) -> int | str:
+    """The order of the spatial demand and draw sums over the reactions
+    where pools sit beside processes bound to none: the IO block's tree
+    (TREE) up to 23 reactions, the dot's (DOT4) from 24; else in order
+    (0)."""
     from avida_tpu_torch.ops.tasks import TREE, vector_chunks
-    return vector_chunks(params)["add"] == TREE
+    form = vector_chunks(params)["add"]
+    if form < TREE:
+        return DOT4
+    return form if form < 0 else 0
 
 
 _CONSUME = {}          # params_cached store
@@ -374,12 +413,12 @@ def consume(params, rewarded, task_quality, resources, res_grid):
         is_s = (~inf & spatial)[None, :]
         want_s = torch.where(is_s, wanted, 0.0)
         want_depl = torch.where(depl[None, :], want_s, 0.0)
-        demand_s = _by_pool(want_depl, oh, T["tree"]).T           # [Rs, N]
+        demand_s = _by_pool(want_depl, oh, T["form"]).T           # [Rs, N]
         scale_nr = _to_reactions(_scale(demand_s, res_grid).T, oh)
         scale_nr = torch.where(T["s_unscaled"][None, :], 1.0, scale_nr)
         got_s = want_s * scale_nr
         drawn_s = _by_pool(torch.where(is_s & depl[None, :], got_s, 0.0),
-                           oh, T["tree"]).T
+                           oh, T["form"]).T
         res_grid = (res_grid - drawn_s).clamp(min=0.0)
     else:
         got_s = torch.zeros_like(wanted)

@@ -204,6 +204,9 @@ def _build_env_tables(params, device) -> dict:
 # every logic reaction, and with none on any
 _VECTOR_FROM = {"pow": 17, "mult": 17, "add": 19}
 _VECTOR_FROM_OPEN = {"pow": 20, "mult": 20, "add": 23}
+# a window on some logic reactions only (R = 16 excepted: ROADMAP.md
+# Queue 3)
+_VECTOR_FROM_SOME = {"pow": 17, "mult": 17, "add": 22}
 _NO_WINDOW = 2**30          # max_task_count of a reaction with no window
 # vector_chunks' value for a tree over the first 16 reactions padded to a
 # power of two, the rest in order; the largest reaction count at which
@@ -214,12 +217,18 @@ _TREE_LANES = 16
 _TREE_UP_TO = 23
 
 
+def one_acc(k: int) -> int:
+    """vector_chunks' value for k chunks of 8 lanes folded lane-wise into
+    ONE accumulator (then the lane tree, the rest in order)."""
+    return TREE - k
+
+
 def vector_chunks(params) -> dict:
     """How the reference's compiled micro-step engine combines the pow
     and mult products and the add sum over the R reactions (XLA marks
     these reductions reassociable and LLVM vectorizes them): for each of
-    "pow", "mult", "add", 0 = in order, k > 0 = k chunks of 8 lanes
-    (vector_fold).
+    "pow", "mult", "add", 0 = in order, k > 0 = k chunks of 8 lanes in
+    two accumulators, TREE, or one_acc(k) (vector_fold).
 
     Read off the reference's engine (the while_loop of interpret_phase,
     solo, and of _mw_fold_cycles_xla, folded: both the same) on an
@@ -228,36 +237,40 @@ def vector_chunks(params) -> dict:
     reactions (logic-9's requisite max_count=1) and math-task reactions
     of all three process types, the products vectorize from 17 reactions
     and the sum from 19; with no requisite window on any logic reaction,
-    the products from 20 and the sum from 23 (read at 17-32 reactions).
+    the products from 20 and the sum from 23 (read at 17-32 reactions);
+    the same with logic reactions only or math reactions only; with a
+    window on some logic reactions only, the products from 17 and the
+    sum from 22 (at 16 the compiled loop's last parallel partition of
+    organisms takes another form: ROADMAP.md Queue 3).
     With processes bound to pools beside processes
     bound to none, all three reduce as a tree over the first 16
     reactions padded to a power of two, then the rest in order (TREE;
-    read from 11 to 23 reactions, wherever the unbound ones sit; from 24
-    on the sum takes another form, ROADMAP.md Queue 3).  Other
-    compositions compile other loops and are left in order (ROADMAP.md
-    Queue 3)."""
+    read from 11 to 23 reactions, wherever the unbound ones sit); from 24
+    on as 8-lane chunks folded into one accumulator (one_acc), read off
+    the IO block's LLVM IR.  Without all three process types the
+    reductions stay in order."""
     R = params.num_reactions
     off = {k: 0 for k in _VECTOR_FROM}
     bound = [r >= 0 for r in params.proc_res_idx]
     if any(bound) and not all(bound):
-        return {k: TREE for k in off} if R <= _TREE_UP_TO else off
+        form = TREE if R <= _TREE_UP_TO else one_acc(R // 8)
+        return {k: form for k in off}
     if R < min(_VECTOR_FROM.values()):
         return off
     names = params.task_math_name
     logic = np.asarray(params.task_logic_mask, bool).reshape(R, -1)
     logic_rows = [r for r, nm in enumerate(names)
                   if not nm and logic[r].any()]
-    if not (any(names) and logic_rows
-            and {PROCTYPE_ADD, PROCTYPE_MULT, PROCTYPE_POW}
-            <= set(params.proc_type)):
+    if not {PROCTYPE_ADD, PROCTYPE_MULT, PROCTYPE_POW} \
+            <= set(params.proc_type):
         return off
     windows = [params.max_task_count[r] < _NO_WINDOW for r in logic_rows]
-    if all(windows):
+    if not (any(names) and logic_rows) or not any(windows):
+        start = _VECTOR_FROM_OPEN      # one task family, or no window
+    elif all(windows):
         start = _VECTOR_FROM
-    elif not any(windows):
-        start = _VECTOR_FROM_OPEN
     else:
-        return off
+        start = _VECTOR_FROM_SOME
     return {k: (R // 8 if R >= v else 0) for k, v in start.items()}
 
 
@@ -266,10 +279,10 @@ def vector_fold(cols, op, init, chunks):
     in order from `init`; with chunks == TREE as a tree over the first 16
     columns padded with `init` to a power of two lanes (lane j with lane
     j + half, halving), the rest in order; else chunk k (columns
-    8k..8k+7) folds lane-wise
-    into accumulator k % 2, the two accumulators combine lane-wise, the
-    8 lanes reduce as a tree (lane j with lane j+4, then j+2, then j+1),
-    and the columns past the chunks follow in order."""
+    8k..8k+7) folds lane-wise into accumulator k % 2 (into the one
+    accumulator under one_acc), the two accumulators combine lane-wise,
+    the 8 lanes reduce as a tree (lane j with lane j+4, then j+2, then
+    j+1), and the columns past the chunks follow in order."""
     if chunks == TREE:
         head = cols[:_TREE_LANES]
         width = 1 << max(len(head) - 1, 0).bit_length()
@@ -287,13 +300,17 @@ def vector_fold(cols, op, init, chunks):
         for c in cols:
             acc = op(acc, c)
         return acc
+    n_acc = 1 if chunks < TREE else 2
+    if n_acc == 1:
+        chunks = TREE - chunks
     accs = [None, None]
     for k in range(chunks):
         part = cols[8 * k:8 * k + 8]
-        a = accs[k % 2]
-        accs[k % 2] = part if a is None else [op(x, y)
-                                              for x, y in zip(a, part)]
-    lanes = [op(x, y) for x, y in zip(accs[0], accs[1])]
+        a = accs[k % n_acc]
+        accs[k % n_acc] = part if a is None else [op(x, y)
+                                                  for x, y in zip(a, part)]
+    lanes = accs[0] if n_acc == 1 else [op(x, y)
+                                        for x, y in zip(accs[0], accs[1])]
     while len(lanes) > 1:
         h = len(lanes) // 2
         lanes = [op(lanes[j], lanes[j + h]) for j in range(h)]

@@ -99,16 +99,6 @@ def update_stats(params, st, alive_before, update_no):
 
 # ---- the per-update engine's phases, in update_step's order ----
 
-def engine_unported_reason(params) -> str | None:
-    """What neither cycle engine of this package runs yet (None = one of
-    them runs `params`); each reason names the ROADMAP.md item that owns
-    it.  The cycle kernel's own gate is cycles.unsupported_reason."""
-    if params.hw_type not in (0, 1, 2):
-        return ("experimental spatial hardware (ROADMAP.md Queue 1 item "
-                "12h)")
-    return None
-
-
 def per_update_unported_reason(params) -> str | None:
     """Why the per-update engine cannot run `params` in this package
     (None = it can).  The cycle kernel's own gaps are
@@ -211,11 +201,12 @@ def xla_cycles(params, st, k_steps, granted, max_k):
     s), for s below max_k; then the offspring extraction.  `k_steps` is
     one key (int64[2]) or, for W worlds folded onto the organism axis,
     int64[W, 2] with max_k the largest of their trip counts (a world past
-    its own grants runs masked, which is the identity).  TransSMT
-    offspring wait in the host write buffer instead: no extraction."""
+    its own grants runs masked, which is the identity).  The extraction
+    is heads hardware's: TransSMT offspring wait in the host write
+    buffer, and the experimental flush reads the tape itself."""
     pending_before = st.divide_pending
     st = run_micro_steps(params, st, k_steps, granted, max_k)
-    if is_smt(params):
+    if params.hw_type != 0:
         return st
     return materialize_offspring(params, st, pending_before)
 
@@ -544,9 +535,14 @@ def summarize(params, st, update_no=-1):
         "ave_copied_size": avg(st.copied_size),
         "ave_executed_size": avg(st.executed_size),
         "ave_generation": avg(st.generation),
+        "ave_age": avg(st.time_used),
+        "max_fitness": torch.where(alive, st.fitness, 0.0).max(),
         "births_this_update": (alive & (update_no >= 0)
                                & (st.birth_update == update_no)).sum(),
         "num_breed_true": (alive & st.breed_true).sum(),
         "num_no_birth": (alive & (st.num_divides == 0)).sum(),
         "task_counts": (alive[:, None] & (st.last_task_count > 0)).sum(dim=0),
+        # lifetime per-cell totals, dead cells included: tasks_exe.dat
+        # diffs consecutive rows on the host
+        "task_exe_totals": st.task_exe_total.sum(dim=0),
     }

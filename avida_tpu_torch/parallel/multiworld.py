@@ -137,6 +137,12 @@ class MultiWorld:
                 "batch members with resource pools or demes: the batched "
                 "engines carry no per-world pools or deme state "
                 "(ROADMAP.md Queue 1 item 14); run each world solo")
+        if self.params.hw_type == 3:
+            raise NotImplementedError(
+                "batch members on experimental spatial hardware: the "
+                "folded organism axis would carry facing rays and moves "
+                "across world borders (ROADMAP.md Queue 1 item 14); run "
+                "each world solo")
         self._exit = False
         self._preempt = False
         self.preempted = False

@@ -4,7 +4,9 @@ Reproduces the reference's data-file format (Avida::Output::File,
 avida-core/source/output/File.cc:102-212: `#` header with numbered column
 descriptions, then space-separated rows) for the standard print actions
 (PrintAverageData / PrintCountData / PrintTasksData / PrintTimeData /
-PrintDominantData / PrintResourceData, from the
+PrintDominantData / PrintResourceData / PrintFitnessData /
+PrintStatsData, and the DatFile under PrintData, the histograms,
+tasks_exe.dat and tasks_quality.dat, from the
 244-action print library, avida-core/source/actions/PrintActions.cc); the
 counterpart of avida_tpu/utils/output.py.
 """
@@ -145,6 +147,21 @@ def open_tasks_dat(data_dir: str, task_names: list, append: bool = False) -> Dat
         preamble=["First column gives the current update, next columns give the number",
                   "of organisms that have the particular task as a component of their merit"],
         append=append)
+
+
+def open_fitness_dat(data_dir: str, append: bool = False) -> DatFile:
+    return DatFile(
+        os.path.join(data_dir, "fitness.dat"), "Avida Fitness Data",
+        ["Update", "Avg Generation", "Average Fitness", "Maximum Fitness",
+         "Number of organisms"], append=append)
+
+
+def open_stats_dat(data_dir: str, append: bool = False) -> DatFile:
+    return DatFile(
+        os.path.join(data_dir, "stats.dat"), "Generic Statistics Data",
+        ["Update", "Average creature age", "Genotype entropy",
+         "Average gestation time", "Number of genotypes",
+         "Dominant genotype abundance"], append=append)
 
 
 def open_resource_dat(data_dir: str, resource_names: list,

@@ -1,8 +1,10 @@
 """World: the host-side composition root and update driver.
 
 Counterpart of avida_tpu/world.py for the main path: one solo world of
-heads-CPU organisms, or of TransSMT hosts and their parasites
-(INST_SET transsmt, on the micro-step engine), run by the
+heads-CPU organisms, of TransSMT hosts and their parasites
+(INST_SET transsmt), or of experimental spatial hardware's predators and
+prey (INST_SET pred_look / experimental; these two on the micro-step
+engine), run by the
 packed-resident engine or, when the
 reference would not take it (systematics on, its default; a run off the
 cycle kernel, on the micro-step engine), the per-update engine
@@ -13,7 +15,11 @@ PrintAverageData, PrintCountData, PrintTasksData, PrintTimeData,
 PrintDominantData, PrintResourceData, SavePopulation, LoadPopulation,
 SetResource, CompeteDemes, ReplicateDemes,
 Pred_DemeResourceThresholdPredicate, InjectParasite, KillProb,
-SerialTransfer) and their .dat files; every geometry the reference
+SerialTransfer, and the print actions PrintFitnessData, PrintStatsData,
+PrintData through the data provider registry (utils/data_registry.py),
+the instruction, depth and genotype-abundance histograms,
+PrintTasksExeData and PrintTasksQualData) and their .dat files; every
+geometry the reference
 builds (its neighbor table, self.neighbors); persistence:
 native checkpoints (TPU_CKPT_DIR, TPU_CKPT_EVERY, TPU_CKPT_FINAL;
 save_checkpoint / resume, in the reference's on-disk format),
@@ -43,6 +49,8 @@ from avida_tpu_torch.config import (AvidaConfig, default_instset,
                                     load_instset, load_organism,
                                     transsmt_instset)
 from avida_tpu_torch.config.environment import default_logic9_environment
+from avida_tpu_torch.config.instset import (experimental_instset,
+                                            pred_look_instset)
 from avida_tpu_torch.config.events import parse_event_line
 from avida_tpu_torch.config.schema import _parse_scalar
 from avida_tpu_torch.core.state import (clone_state, init_population,
@@ -56,6 +64,11 @@ from avida_tpu_torch.systematics import GenotypeArbiter
 from avida_tpu_torch.utils import integrity
 from avida_tpu_torch.utils import output as output_mod
 from avida_tpu_torch.utils import prng
+from avida_tpu_torch.utils.data_registry import (DataManager, DatRecorder,
+                                                 abundance_histogram,
+                                                 depth_histogram,
+                                                 instruction_abundance,
+                                                 register_standard_providers)
 
 # Reference default ancestor (support/config/default-heads.org)
 _DEFAULT_ANCESTOR_NAMES = (
@@ -63,6 +76,17 @@ _DEFAULT_ANCESTOR_NAMES = (
     + ["nop-C"] * 86
     + ["h-search", "h-copy", "if-label", "nop-C", "nop-A", "h-divide",
        "mov-head", "nop-A", "nop-B"]
+)
+
+# Reference experimental ancestor (support/config/experimental.org): the
+# copy loop's label is nop-D nop-A (the complement under Rotate(1, 8)
+# lands past the 3-nop space) and the end label A,B is addressed through
+# the `label` marker instruction.
+_EXPERIMENTAL_ANCESTOR_NAMES = (
+    ["h-alloc", "h-search", "nop-D", "nop-A", "mov-head", "nop-C", "add"]
+    + ["nop-C"] * 81
+    + ["h-search", "h-copy", "if-label", "nop-D", "nop-A", "h-divide",
+       "mov-head", "nop-A", "add", "label", "nop-A", "nop-B"]
 )
 
 # Reference transsmt ancestor (support/config/default-transsmt.org): search
@@ -105,6 +129,8 @@ def default_ancestor(instset) -> np.ndarray:
     name_to_op = {n: i for i, n in enumerate(instset.inst_names)}
     if "Divide" in name_to_op or "Divide-Erase" in name_to_op:
         names = _TRANSSMT_ANCESTOR_NAMES       # transsmt hardware
+    elif "nop-D" in name_to_op and "h-divide" in name_to_op:
+        names = _EXPERIMENTAL_ANCESTOR_NAMES   # 4+-nop experimental
     elif "h-divide" not in name_to_op and "divide-sex" in name_to_op:
         # the sexual ancestor: the same replicator with divide-sex
         # (ref support/config/default-heads-sex.org)
@@ -189,11 +215,10 @@ class World:
                                                      cfg.INST_SET))
         elif "transsmt" in cfg.INST_SET or "smt" in cfg.INST_SET:
             self.instset = transsmt_instset()
-        elif "pred" in cfg.INST_SET or "experimental" in cfg.INST_SET:
-            raise NotImplementedError(
-                f"INST_SET {cfg.INST_SET!r}: experimental spatial hardware "
-                f"(ROADMAP.md Queue 1 item 12h) is not ported to "
-                f"avida_tpu_torch")
+        elif "pred" in cfg.INST_SET:
+            self.instset = pred_look_instset()
+        elif "experimental" in cfg.INST_SET:
+            self.instset = experimental_instset()
         elif "sex" in cfg.INST_SET:
             self.instset = heads_sex_instset()
         else:
@@ -266,6 +291,10 @@ class World:
         # live phylogeny (ref Systematics::GenotypeArbiter)
         self.systematics = (GenotypeArbiter(self.params.num_cells)
                             if cfg.get("TPU_SYSTEMATICS", 1) else None)
+        # the data provider registry (ref avida/data/Manager.h): PrintData
+        # resolves its IDs through it
+        self.data = DataManager(self)
+        register_standard_providers(self.data)
         self._preempt = False        # SIGTERM/SIGINT tripwire (run loop)
         self.preempted = False       # last run() ended via preemption
         # the integrity plane (ops/digest.py, utils/integrity.py): off by
@@ -283,9 +312,7 @@ class World:
         chosen engine does not port and what the CUDA kernel cannot
         hold."""
         p = self.params
-        reason = update_ops.engine_unported_reason(p)
-        if reason is None:
-            reason = cycles.kernel_limit_reason(p, self.device.type)
+        reason = cycles.kernel_limit_reason(p, self.device.type)
         if reason is None:
             fallback = packed_chunk.ineligible_reason(p, p.nb_cap > 0)
             if fallback is None:
@@ -307,7 +334,11 @@ class World:
                 "PrintDominantData", "PrintResourceData", "SavePopulation",
                 "LoadPopulation", "SetResource", "CompeteDemes",
                 "ReplicateDemes", "Pred_DemeResourceThresholdPredicate",
-                "InjectParasite", "KillProb", "SerialTransfer")
+                "InjectParasite", "KillProb", "SerialTransfer",
+                "PrintFitnessData", "PrintStatsData", "PrintData",
+                "PrintInstructionAbundanceHistogram", "PrintDepthHistogram",
+                "PrintGenotypeAbundanceHistogram", "PrintTasksExeData",
+                "PrintTasksQualData")
 
     def _check_action(self, action):
         if action not in self._ACTIONS:
@@ -669,6 +700,123 @@ class World:
         self._time_prev = total
         f.write_row([self.update, float(self._avida_time),
                      float(s["ave_generation"]), insts])
+
+    def _action_PrintFitnessData(self, args):
+        """fitness.dat (ref cActionPrintFitnessData,
+        actions/PrintActions.cc:1380): update, generation, average and
+        maximum fitness, organism count."""
+        s = self._summary()
+        f = self._file("fitness", output_mod.open_fitness_dat)
+        f.write_row([self.update, float(s["ave_generation"]),
+                     float(s["ave_fitness"]), float(s["max_fitness"]),
+                     int(s["num_organisms"])])
+
+    def _action_PrintStatsData(self, args):
+        """stats.dat (ref cActionPrintStatsData): population age, the
+        live genotypes' Shannon entropy, gestation, genotype counts
+        (zeros without systematics)."""
+        import math
+        s = self._summary()
+        f = self._file("stats", output_mod.open_stats_dat)
+        sysm = self.systematics
+        entropy, num_gt, dom_abund = 0.0, 0, 0
+        if sysm is not None and sysm.num_genotypes:
+            counts = [g.num_units for g in sysm.live_genotypes()]
+            total = sum(counts) or 1
+            entropy = -sum((c / total) * math.log(c / total)
+                           for c in counts if c > 0)
+            num_gt = sysm.num_genotypes
+            dom = sysm.dominant()
+            dom_abund = dom.num_units if dom else 0
+        f.write_row([self.update, float(s["ave_age"]), entropy,
+                     float(s["ave_gestation"]), num_gt, dom_abund])
+
+    def _action_PrintData(self, args):
+        """`PrintData <file> <id,id,...>` (ref cActionPrintData,
+        actions/PrintActions.cc:389): the registered data IDs as the
+        columns of a .dat file."""
+        if len(args) < 2:
+            return
+        fname, fmt = args[0], args[1]
+        key = f"printdata:{fname}"
+        if key not in self._files:
+            ids = [i.strip() for i in fmt.split(",") if i.strip()]
+            specs = [(i, self.data.describe(i) if i != "core.update"
+                      else "Update") for i in ids]
+            self._files[key] = DatRecorder(self.data_dir, fname,
+                                           "Avida data", specs,
+                                           append=self._dat_append)
+        self._files[key].record(self.update, self.data)
+
+    def _dat(self, name, fname, title, cols, preamble=None):
+        """The named DatFile in the data dir, opened on first use."""
+        return self._file(name, lambda d, append: output_mod.DatFile(
+            os.path.join(d, fname), title, cols, preamble=preamble,
+            append=append))
+
+    def _action_PrintInstructionAbundanceHistogram(self, args):
+        """instruction_histogram.dat: per-opcode counts across the live
+        genomes (cActionPrintInstructionAbundanceHistogram)."""
+        f = self._dat("inst_hist", args[0] if args
+                      else "instruction_histogram.dat",
+                      "Avida instruction abundance histogram",
+                      ["Update"] + list(self.instset.inst_names))
+        f.write_row([self.update] + [int(x)
+                                     for x in instruction_abundance(self)])
+
+    def _action_PrintDepthHistogram(self, args):
+        """depth_histogram.dat rows: update, depth, genotype count."""
+        f = self._dat("depth_hist", args[0] if args
+                      else "depth_histogram.dat", "Avida depth histogram",
+                      ["Update", "Depth", "Number of genotypes"])
+        for depth, count in depth_histogram(self).items():
+            f.write_row([self.update, depth, count])
+
+    def _action_PrintGenotypeAbundanceHistogram(self, args):
+        """genotype_abundance_histogram.dat rows: update, abundance,
+        genotype count."""
+        f = self._dat("abund_hist", args[0] if args
+                      else "genotype_abundance_histogram.dat",
+                      "Avida genotype abundance histogram",
+                      ["Update", "Abundance", "Number of genotypes"])
+        for ab, count in abundance_histogram(self).items():
+            f.write_row([self.update, ab, count])
+
+    def _action_PrintTasksExeData(self, args):
+        """tasks_exe.dat (cActionPrintTasksExeData): each task's
+        executions this update, the host diff of the per-cell lifetime
+        totals against the last row's (reset on a reload)."""
+        s = self._summary()
+        f = self._dat(
+            "tasks_exe", "tasks_exe.dat", "Avida tasks execution data",
+            ["Update"] + [t.capitalize()
+                          for t in self.environment.task_names()],
+            preamble=["First column gives the current update, all "
+                      "further columns give the number",
+                      "of times the particular task has been executed "
+                      "this update."])
+        totals = np.asarray(s["task_exe_totals"], np.int64)
+        prev = (self._task_exe_prev if self._task_exe_prev is not None
+                else np.zeros_like(totals))
+        self._task_exe_prev = totals
+        f.write_row([self.update] + [int(x) for x in (totals - prev)])
+
+    def _action_PrintTasksQualData(self, args):
+        """tasks_quality.dat (cActionPrintTasksQualData): average and max
+        task quality, binary as in the reference (1 when any organism's
+        last gestation performed the task)."""
+        s = self._summary()
+        f = self._dat(
+            "tasks_qual", "tasks_quality.dat", "Avida tasks quality data",
+            ["Update"] + [f"{t.capitalize()} {m}"
+                          for t in self.environment.task_names()
+                          for m in ("Average", "Max")],
+            preamble=["First column gives the current update, rest "
+                      "give average and max task quality"])
+        row = [self.update]
+        for c in s["task_counts"]:
+            row += [1 if c else 0, 1 if c else 0]
+        f.write_row(row)
 
     def _dispatch(self, ev):
         getattr(self, f"_action_{ev.action}")(ev.args)

@@ -100,6 +100,29 @@ and threads (ROADMAP items 12d-12g):
                     card and CPU from the CPU's state, field by field
                     after each update
 
+and experimental hardware, the remaining print actions and the 5-bit
+genome plane (ROADMAP items 12h, 12j, 12i):
+
+  experimental_path  320x320 predator-prey world on experimental
+                    hardware (hw_type 3: the pred_look set plus
+                    attack-prey and the replication instructions), the
+                    experimental ancestor everywhere and a predator in
+                    every sixteenth cell, PRED_PREY_SWITCH 0: the
+                    micro-step engine (no launch), 2 updates, then one
+                    timed phase by phase; attacks, kills and moves
+  experimental_cross_device  the same construction at 12x12 built and
+                    run on the card and on the CPU: every field after
+                    each update and the .dat files equal, with kills and
+                    moves
+  print_actions     a 60x60 kernel-route world with systematics on, the
+                    eight new print actions and PrintData each update
+                    for 10 updates on the card and on the CPU: every
+                    .dat file byte for byte
+  packed_bits_path  main_path's evolved world continued for 10 updates
+                    with TPU_PACKED_BITS=1, births among them,
+                    field-equal at each chunk boundary to the 8-bit run;
+                    K1 held against the plain version on its state
+
 and persistence (native checkpoints in the reference's format):
 
   persist_path      the 320x320 packed world saving every 10 updates
@@ -2760,9 +2783,10 @@ THREAD_UPDATES = 2
 UNTIL_CAP = 40          # the most updates run waiting for births
 
 
-def instset_text(names):
-    """An instruction-set file of the heads hardware listing `names`."""
-    return "INSTSET heads_case:hw_type=0\n" + "".join(
+def instset_text(names, hw_type=0):
+    """An instruction-set file of hardware `hw_type` (heads by default)
+    listing `names`."""
+    return f"INSTSET case:hw_type={hw_type}\n" + "".join(
         f"INST {n}\n" for n in names)
 
 
@@ -3313,6 +3337,273 @@ def phase_slice10_cross_device(tmp, cpu=None, device="cuda"):
             "cases": results}
 
 
+# ---- slice 11: experimental hardware, the print actions, the 5-bit
+# genome plane ----
+
+PRED = dict(PRED_PREY_SWITCH=0, PRED_EFFICIENCY=1.0)
+# a stock predator: look, attack the faced prey, step into its cell, turn
+PREDATOR = ("look-ahead", "nop-C", "attack-prey", "nop-B", "move", "nop-B",
+            "inc", "nop-C", "rotate-x", "nop-C", "attack-prey", "nop-B",
+            "move", "nop-B")
+PREDATOR_EVERY = 16
+EXP_UPDATES = 2                 # experimental_path: 2 updates + 1 timed
+#                                 phase by phase
+EXP_CROSS_SIDE, EXP_CROSS_UPDATES = 12, 2
+PRINT_SIDE, PRINT_UPDATES = 60, 10
+BITS_UPDATES, BITS_EVERY = 10, 5
+NEW_PRINTS = ("PrintFitnessData", "PrintStatsData",
+              "PrintInstructionAbundanceHistogram", "PrintDepthHistogram",
+              "PrintGenotypeAbundanceHistogram", "PrintTasksExeData",
+              "PrintTasksQualData")
+PRINT_DATA = ("PrintData mydata.dat core.update,core.world.organisms,"
+              "core.world.ave_fitness,core.world.ave_merit,"
+              "core.world.ave_gestation_time,core.world.ave_generation,"
+              "core.world.ave_age,core.world.max_fitness,"
+              "core.world.births,core.world.genotypes")
+
+
+def avatars_names():
+    """The avatars set: pred_look's sensing set plus attack-prey (as
+    tests/test_experimental.py:166-176 builds it), then the experimental
+    set's replication instructions, so the experimental ancestor runs."""
+    from avida_tpu_torch.config.instset import (experimental_instset,
+                                                pred_look_instset)
+    pl = list(pred_look_instset().inst_names)
+    return pl + ["attack-prey"] + [n for n in experimental_instset().inst_names
+                                   if n not in pl]
+
+
+def experimental_world(side, ddir, device, tmp, tag, events=()):
+    """A predator-prey world (PRED) of the avatars set: the experimental
+    ancestor in every cell (InjectAll), and the predator with forage
+    target -2 in every PREDATOR_EVERY-th."""
+    from avida_tpu_torch.world import default_ancestor
+    names = avatars_names()
+    cdir = write_config_dir(os.path.join(tmp, f"cfg_exp_{tag}"),
+                            instset=instset_text(names, hw_type=3))
+    w = make_world(side, ddir, device, ["u begin InjectAll"] + list(events),
+                   PRED, cdir)
+    w.process_events()
+    anc = list(default_ancestor(w.instset))
+    reseed_alternating(w, [[names.index(x) for x in PREDATOR]]
+                       + [anc] * (PREDATOR_EVERY - 1))
+    ft = w.state.forage_target.clone()
+    ft[::PREDATOR_EVERY] = -2
+    w.state = w.state.replace(forage_target=ft)
+    return w
+
+
+@contextlib.contextmanager
+def watch_predation(acc):
+    """Add each cycle's successful attacks, kills and moves to `acc` as
+    device tensors (no host read): wraps interpreter._apply_attacks and
+    _apply_moves, which micro_step calls after the cycle's merge."""
+    from avida_tpu_torch.ops import interpreter
+    orig_a, orig_m = interpreter._apply_attacks, interpreter._apply_moves
+
+    def attacks(params, st, pre, atk_ok, atk_tgt):
+        out = orig_a(params, st, pre, atk_ok, atk_tgt)
+        acc["attacks"] = acc.get("attacks", 0) + atk_ok.sum()
+        acc["kills"] = acc.get("kills", 0) + (st.alive & ~out.alive).sum()
+        return out
+
+    def moves(st, won, target):
+        acc["moves"] = acc.get("moves", 0) + won.sum()
+        return orig_m(st, won, target)
+    interpreter._apply_attacks, interpreter._apply_moves = attacks, moves
+    try:
+        yield acc
+    finally:
+        interpreter._apply_attacks, interpreter._apply_moves = orig_a, orig_m
+
+
+def predation(w):
+    st = w.state
+    pred = st.alive & (st.forage_target == -2)
+    return {"predators": int(pred.sum()),
+            "prey": int((st.alive & ~pred).sum())}
+
+
+def phase_experimental_path(side, tmp, smi):
+    """The headline world on experimental hardware (hw_type 3, the
+    micro-step engine, no launch): the avatars set, the experimental
+    ancestor everywhere and a predator in every sixteenth cell,
+    PRED_PREY_SWITCH 0, PRED_EFFICIENCY 1.0.  World.run for EXP_UPDATES
+    updates, then the next update timed phase by phase (on the world's
+    state; the world stays where it is); attacks, kills and moves
+    counted on the device in each."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    w = experimental_world(side, os.path.join(tmp, "experimental"), "cuda",
+                           tmp, "path")
+    start = predation(w)
+    acc = {}
+    with watch_predation(acc):
+        insts, wall, launches, _ = run_counted(w, EXP_UPDATES)
+    run_counts = {k: int(v) for k, v in acc.items()}
+    acc = {}
+    cycles.reset_launches()
+    with watch_predation(acc):
+        breakdown = update_breakdown(w)
+    torch.cuda.synchronize()
+    t_launches = cycles.LAUNCHES
+    t_counts = {k: int(v) for k, v in acc.items()}
+    res = {"phase": "experimental_path", "world": f"{side}x{side}",
+           "config": PRED, "inst_set": len(w.instset.inst_names),
+           "engine_report": w.engine_report(), "updates": w.update,
+           "kernel_launches": launches + t_launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / EXP_UPDATES, "wall_s": wall,
+           "timed_update": {"update": w.update + 1,
+                            "ms": breakdown["ms_per_update_total"],
+                            **t_counts},
+           "breakdown": breakdown,
+           "ms_per_cycle": breakdown["ms_per_cycle"],
+           "trips": breakdown["trips"], "run": run_counts,
+           "start": start, "end": predation(w),
+           "births_total": int(w._total_births), "nvidia_smi": smi}
+    _check_xla_world(w, "experimental_path", res,
+                     reason="non-heads hardware")
+    if (run_counts["kills"] + t_counts["kills"] == 0
+            or run_counts["moves"] + t_counts["moves"] == 0):
+        raise AssertionError(f"experimental_path: no kill or move: {res}")
+    return res
+
+
+def exp_cross_side(tmp, dev, updates=EXP_CROSS_UPDATES):
+    """One half of experimental_cross_device: the 12x12 predator-prey
+    world built on `dev`, its state arrays at the start and after each
+    update, each update's kills and moves, its .dat files, the seconds."""
+    from avida_tpu_torch import convert
+    t0 = time.perf_counter()
+    w = experimental_world(
+        EXP_CROSS_SIDE, os.path.join(tmp, f"exp_cross_{dev}"), dev, tmp,
+        f"cross_{dev}", [f"u 0:1:end {a}" for a in PRINTS[:4]])
+    arrays = [convert.state_to_arrays(w.state)]
+    counts = []
+    for u in range(1, updates + 1):
+        acc = {}
+        with watch_predation(acc):
+            w.run(max_updates=u)
+        counts.append({k: int(v) for k, v in acc.items()})
+        arrays.append(convert.state_to_arrays(w.state))
+    return arrays, counts, dat_bodies(w.data_dir), time.perf_counter() - t0
+
+
+def phase_experimental_cross_device(tmp, cpu=None, device="cuda"):
+    """The 12x12 predator-prey world built and run on the card and on the
+    CPU (`cpu`: its cpu_jobs job): every field equal at the start and
+    after each of EXP_CROSS_UPDATES updates, the .dat files byte for
+    byte, with kills and moves inside the compared updates."""
+    a_cpu, c_cpu, d_cpu, s_cpu = cpu_half(cpu, exp_cross_side,
+                                          cpu_root(tmp), "cpu")
+    a_dev, c_dev, d_dev, s_dev = exp_cross_side(tmp, device)
+    bad = [(u, f) for u, (x, y) in enumerate(zip(a_dev, a_cpu)) for f in x
+           if x[f] is not None and x[f].tobytes() != y[f].tobytes()]
+    kills = sum(c.get("kills", 0) for c in c_dev)
+    moves = sum(c.get("moves", 0) for c in c_dev)
+    res = {"phase": "experimental_cross_device",
+           "world": f"{EXP_CROSS_SIDE}x{EXP_CROSS_SIDE}",
+           "updates_compared": EXP_CROSS_UPDATES, "per_update": c_dev,
+           "kills": kills, "moves": moves, "dat_files": sorted(d_dev),
+           "seconds": {"card": s_dev, "cpu": s_cpu},
+           "fields_equal": not bad, "dat_equal": d_dev == d_cpu,
+           "counts_equal": c_dev == c_cpu}
+    if bad or d_dev != d_cpu or c_dev != c_cpu or not kills or not moves \
+            or len(a_dev) != EXP_CROSS_UPDATES + 1:
+        raise AssertionError(f"experimental_cross_device: {res} "
+                             f"(update, field) {bad[:8]}")
+    return res
+
+
+def print_side(tmp, dev):
+    """One half of print_actions: a PRINT_SIDE world on the kernel route
+    with systematics on, every new print action and PrintData each update
+    for PRINT_UPDATES updates: (.dat files, kernel launches, seconds)."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    t0 = time.perf_counter()
+    w = make_world(PRINT_SIDE, os.path.join(tmp, f"prints_{dev}"), dev,
+                   ["u begin InjectAll"]
+                   + [f"u 0:1:end {a}" for a in NEW_PRINTS + (PRINT_DATA,)],
+                   {"TPU_SYSTEMATICS": 1})
+    cycles.reset_launches()
+    w.run(max_updates=PRINT_UPDATES)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    return dat_bodies(w.data_dir), cycles.LAUNCHES, time.perf_counter() - t0
+
+
+def phase_print_actions(tmp, smi, cpu=None, device="cuda"):
+    """The eight print actions (ROADMAP 12j) on the card and on the CPU
+    (`cpu`: its cpu_jobs job): every .dat file byte for byte."""
+    d_cpu, _, s_cpu = cpu_half(cpu, print_side, cpu_root(tmp), "cpu")
+    d_dev, launches, s_dev = print_side(tmp, device)
+    want = sorted(["fitness.dat", "stats.dat", "instruction_histogram.dat",
+                   "depth_histogram.dat", "genotype_abundance_histogram.dat",
+                   "tasks_exe.dat", "tasks_quality.dat", "mydata.dat"])
+    rows = {f: sum(1 for ln in v if ln.strip() and not ln.startswith("#"))
+            for f, v in d_dev.items()}
+    res = {"phase": "print_actions", "world": f"{PRINT_SIDE}x{PRINT_SIDE}",
+           "updates": PRINT_UPDATES, "kernel_launches": launches,
+           "rows": rows, "seconds": {"card": s_dev, "cpu": s_cpu},
+           "dat_equal": d_dev == d_cpu, "nvidia_smi": smi}
+    if d_dev != d_cpu or sorted(d_dev) != want \
+            or min(rows.values()) < PRINT_UPDATES:
+        raise AssertionError(f"print_actions check failed: {res}")
+    return res
+
+
+def phase_packed_bits_path(side, tmp, smi, start):
+    """The main path with the 5-bit genome shadow plane (TPU_PACKED_BITS
+    =1, ROADMAP 12i): from `start`, main_path's evolved (state, world
+    key, update), BITS_UPDATES more updates on the packed engine (births
+    among them), one K1 launch each, the state at each chunk boundary
+    field-equal to the same run's with the 8-bit plane (run beside it;
+    its launches are the comparison's and not counted)."""
+    import torch
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.core.state import clone_state
+    from avida_tpu_torch.ops import cycles
+    ev = [f"u 0:{BITS_EVERY}:end {a}" for a in PRINTS[:4]]
+    w5 = make_world(side, os.path.join(tmp, "bits5"), "cuda", ev,
+                    {"TPU_PACKED_BITS": 1})
+    w8 = make_world(side, os.path.join(tmp, "bits8"), "cuda", ev)
+    state, key, u0 = start
+    for w in (w5, w8):
+        w.state, w.key, w.update = clone_state(state), key.clone(), u0
+    launches, insts, wall, bad = 0, 0, 0.0, []
+    for u in range(u0 + BITS_EVERY, u0 + BITS_UPDATES + 1, BITS_EVERY):
+        torch.cuda.synchronize()
+        cycles.reset_launches()
+        t0 = time.perf_counter()
+        insts += w5.run(max_updates=u)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        launches += cycles.LAUNCHES
+        w8.run(max_updates=u)
+        a, b = convert.state_to_arrays(w5.state), convert.state_to_arrays(
+            w8.state)
+        bad += [(u, f) for f in a if a[f] is not None
+                and a[f].tobytes() != b[f].tobytes()]
+    rep = w5.engine_report()
+    res = {"phase": "packed_bits_path", "world": f"{side}x{side}",
+           "engine_report": rep, "updates": w5.update - u0,
+           "kernel_launches": launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / BITS_UPDATES, "wall_s": wall,
+           "gen_plane_rows": {"bits5": -(-w5.params.max_memory // 6),
+                              "bits8": -(-w5.params.max_memory // 4)},
+           "equal_8_bit_run": not bad, "updates_from": u0,
+           "births_total": int(w5._total_births), "nvidia_smi": smi}
+    if bad or launches != BITS_UPDATES or rep.get("packed_bits") != 1 \
+            or w8.engine_report()["packed_bits"] != 0 \
+            or w5.num_organisms == 0 or res["births_total"] == 0:
+        raise AssertionError(f"packed_bits_path check failed: {res} "
+                             f"{bad[:8]}")
+    return w5, res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3347,12 +3638,17 @@ def main() -> int:
                 for k in FOLD_CHECKED]
         jobs["slice10"] = [pool.submit(slice10_cpu_side, ctmp, k)
                            for k in range(len(SLICE10_CROSS))]
+        jobs["exp_cross"] = pool.submit(exp_cross_side, ctmp, "cpu")
+        jobs["prints"] = pool.submit(print_side, ctmp, "cpu")
         emit(phase_geometry(tmp))
         emit(phase_size_range(tmp))
         w, main_res = phase_main(SIDE, UPDATES, os.path.join(tmp, "data"))
         emit(main_res)
         kern = phase_kernel(w)
         emit(phase_breakdown(w))
+        # packed_bits_path continues the evolved main path
+        from avida_tpu_torch.core.state import clone_state
+        main_end = (clone_state(w.state), w.key.clone(), w.update)
         del w
         wd, def_res = phase_default_path(SIDE, DEFAULT_UPDATES,
                                          os.path.join(tmp, "default"))
@@ -3438,6 +3734,16 @@ def main() -> int:
         emit(phase_energy_path(SIDE, tmp, smi))
         emit(phase_threads_path(SIDE, tmp, smi))
         emit(phase_slice10_cross_device(tmp, jobs["slice10"]))
+        # slice 11: experimental hardware on the micro-step engine, the
+        # print actions, the 5-bit genome plane on the packed engine
+        emit(phase_experimental_path(SIDE, tmp, smi))
+        emit(phase_experimental_cross_device(tmp, jobs["exp_cross"]))
+        emit(phase_print_actions(tmp, smi, jobs["prints"]))
+        wbits, bits_res = phase_packed_bits_path(SIDE, tmp, smi, main_end)
+        del main_end
+        emit(bits_res)
+        bitsk = phase_kernel(wbits, n_launch=2)
+        del wbits
     timing = ("max_abs_err", "ms", "simple_ms", "turns_ms", "reached",
               "plain_ms", "bound_ms", "bytes_read", "bytes_written")
     per_path = [
@@ -3448,14 +3754,16 @@ def main() -> int:
         {k: ckern[k] for k in ("path", "launches") + timing},
         dict(demek, launches=deme_res["kernel_launches"]),
         dict(dispk, launches=disp_res["kernel_launches"]),
-        dict(topok, launches=topo_res["kernel_launches_total"])]
+        dict(topok, launches=topo_res["kernel_launches_total"]),
+        dict({k: bitsk[k] for k in timing}, path="packed_bits_path",
+             launches=bits_res["kernel_launches"])]
     per_path += [dict({k: mwk[k] for k in ("path", "solo_ms_sum") + timing},
                       launches=mw_res["kernel_launches"], stacked=True)
                  for mw_res, mwk in mw_runs]
     emit({"phase": "kernel_paths", "nvidia_smi": smi, "paths": per_path})
     # the kernels line: K1 with its solo launches (the seven solo paths,
-    # deme_path, dispersal_path and topology_path included, and the
-    # resumed and scrubbed persistence runs),
+    # deme_path, dispersal_path, topology_path and packed_bits_path
+    # included, and the resumed and scrubbed persistence runs),
     # the worst error of all, times and bound at the sexual path; K3b,
     # the stacked launch, with its launches over the two batch paths and
     # the resumed batch, and

@@ -38,7 +38,9 @@ assert {"avida_tpu_torch.systematics",
         "avida_tpu_torch.ops.demes",
         "avida_tpu_torch.ops.interpreter_smt",
         "avida_tpu_torch.models.transsmt",
+        "avida_tpu_torch.models.experimental",
         "avida_tpu_torch.models.registry",
+        "avida_tpu_torch.utils.data_registry",
         "avida_tpu_torch.utils.checkpoint",
         "avida_tpu_torch.utils.integrity",
         "avida_tpu_torch.utils.audit",
@@ -145,6 +147,37 @@ def test_slice10_cli_imports_no_jax_and_no_reference(tmp_path):
                           str(tmp_path / "data")], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# slice 11 end to end: a 4x4 predator-prey world on experimental
+# hardware and a packed world on the 5-bit genome plane, two updates each
+_SLICE11_CLI = r"""
+import sys
+from avida_tpu_torch.__main__ import main
+base = ["-u", "2", "-set", "WORLD_X", "4", "-set", "WORLD_Y", "4",
+        "--device", "cpu"]
+assert main(base + ["-set", "INST_SET", "experimental",
+                    "-set", "PRED_PREY_SWITCH", "0",
+                    "-d", sys.argv[1] + "/exp"]) == 0
+assert main(base + ["-set", "TPU_SYSTEMATICS", "0",
+                    "-set", "TPU_PACKED_BITS", "1",
+                    "-d", sys.argv[1] + "/bits"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "avida_tpu" or m.startswith("avida_tpu."))
+for m in ("avida_tpu_torch.models.experimental",
+          "avida_tpu_torch.utils.data_registry"):
+    assert m in sys.modules, m
+assert not bad, bad
+"""
+
+
+def test_slice11_cli_imports_no_jax_and_no_reference(tmp_path):
+    res = subprocess.run([sys.executable, "-c", _SLICE11_CLI,
+                          str(tmp_path / "data")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert os.path.exists(tmp_path / "data" / "exp" / "average.dat")
 
 
 def test_resume_cli_imports_no_jax_and_no_reference(tmp_path):
@@ -254,10 +287,10 @@ def _cfg(**kw):
     ({"WORLD_GEOMETRY": 5}, "WORLD_GEOMETRY 5"),
     ({"TPU_USE_PALLAS": 3}, "TPU_USE_PALLAS"),
     ({"POINT_MUT_PROB": 0.01, "BIRTH_METHOD": 13}, "per-update engine"),
-    ({"TPU_PACKED_BITS": 1}, "TPU_PACKED_BITS"),
+    ({"TPU_PACKED_FUSED": 0}, "TPU_PACKED_FUSED"),
     ({"TPU_TRACE": 1}, "TPU_TRACE"),
     ({"REVERT_FATAL": 0.5}, "REVERT_FATAL"),
-    ({"INST_SET": "instset-experimental.cfg"}, "INST_SET"),
+    ({"TPU_PROFILE": 1}, "TPU_PROFILE"),
     ({"INST_SET": "heads_sex", "BIRTH_METHOD": -1}, "BIRTH_METHOD -1"),
     ({"TPU_KERNEL_SHARDS": 4}, "TPU_KERNEL_SHARDS"),
 ])
@@ -303,13 +336,14 @@ def test_per_update_configs_route_and_report(overrides, reason):
     ({"energy_enabled": True}, None),
     ({"sem": "fork"}, None),
     ({"sem": "mating"}, None),
-    ({"hw_type": 3}, "item 12h"),
+    ({"hw_type": 3}, None),
 ])
 def test_engine_refusals_name_their_item(replace, needle, use_pallas):
     """What neither cycle engine runs is refused at World construction by
     name, with the ROADMAP.md item that owns it, on either route; threads,
-    their instructions, the mating-type instructions and the energy model
-    (items 12e and 12f) run on the micro-step engine and pass."""
+    their instructions, the mating-type instructions, the energy model
+    (items 12e and 12f) and experimental hardware (item 12h) run on the
+    micro-step engine and pass."""
     from avida_tpu_torch.models.heads import SEM_FORK_TH, SEM_SET_MATE_MALE
     from avida_tpu_torch.world import World
     w = World(cfg=_cfg(TPU_USE_PALLAS=use_pallas), device="cpu")
@@ -390,18 +424,19 @@ def test_transsmt_cost_columns_refused_by_name(tmp_path, column):
 
 
 def test_experimental_hardware_refused_by_name(tmp_path):
-    """HARDWARE_TYPE 3 (experimental spatial hardware, ROADMAP.md item 12h)
-    stays refused by name: by its instruction-set names and by a file's
-    hw_type."""
+    """HARDWARE_TYPE 3 (experimental spatial hardware, ROADMAP.md item
+    12h) is no longer refused: its instruction-set names and a file's
+    hw_type build an 8-register world on the micro-step engine."""
+    from avida_tpu_torch.ops import cycles
     from avida_tpu_torch.world import World
     for inst_set in ("experimental", "pred_look"):
-        with pytest.raises(NotImplementedError, match="item 12h"):
-            World(cfg=_cfg(INST_SET=inst_set), device="cpu")
+        w = World(cfg=_cfg(INST_SET=inst_set), device="cpu")
+        assert w.params.hw_type == 3 and w.params.num_registers == 8
+        assert not cycles.use_kernel(w.params)
     (tmp_path / "instset.cfg").write_text(
         "INSTSET exp:hw_type=3\nINST nop-A\nINST nop-B\nINST h-divide\n")
     (tmp_path / "avida.cfg").write_text("INST_SET instset.cfg\n")
-    with pytest.raises(NotImplementedError, match="item 12h"):
-        World(config_dir=str(tmp_path), device="cpu")
+    assert World(config_dir=str(tmp_path), device="cpu").params.hw_type == 3
 
 
 @pytest.mark.parametrize("use_pallas", [0, 2])
@@ -480,7 +515,7 @@ def test_slice10_refusals_retired(overrides):
     from avida_tpu_torch.world import World
     w = World(cfg=_cfg(**overrides), device="cpu")
     assert birth.canonical_unsupported_reason(w.params) is None
-    assert update.engine_unported_reason(w.params) is None
+    assert update.per_update_unported_reason(w.params) is None
 
 
 def test_unported_event_action_raises():

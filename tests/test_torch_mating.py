@@ -127,8 +127,8 @@ def test_mating_pairing_flush_equals_reference(case):
 
 # ---- worlds, shared by the energy and thread tests ----
 
-def _instset_text(names, energy_cost=None):
-    lines = ["INSTSET heads_case:hw_type=0"]
+def _instset_text(names, energy_cost=None, hw_type=0):
+    lines = [f"INSTSET heads_case:hw_type={hw_type}"]
     for name in names:
         ec = (energy_cost or {}).get(name, 0.0)
         lines.append(f"INST {name}:energy_cost={ec!r}")
@@ -136,21 +136,24 @@ def _instset_text(names, energy_cost=None):
 
 
 def feature_world(tmp_path, names, vals, seed_fn, stop, resume_at,
-                  energy_cost=None):
+                  energy_cost=None, hw_type=0, events=(), dats=DATS):
     """A 10x10 world of instruction set `names` in both packages, seeded
     by seed_fn(port) after InjectAll: the port runs alongside the
     reference to `resume_at`, the reference writes a generation there,
     and a second port world resumes it and runs on to `stop`; the state
     is compared after every update, and the .dat files at the end.
-    Returns (ref, port, resumed port)."""
+    `hw_type` is the instruction set's hardware; `events` are more
+    event lines and `dats` the .dat files compared (names without the
+    suffix).  Returns (ref, port, resumed port)."""
     from avida_tpu.world import World as RefWorld
     from avida_tpu_torch.world import World
     cdir = tmp_path / "cfg"
     cdir.mkdir()
-    (cdir / "instset-case.cfg").write_text(_instset_text(names, energy_cost))
+    (cdir / "instset-case.cfg").write_text(_instset_text(names, energy_cost,
+                                                         hw_type))
     (cdir / "avida.cfg").write_text("INST_SET instset-case.cfg\n")
     events = ["u begin InjectAll"] + [
-        f"u 0:1:end Print{d.capitalize()}Data" for d in DATS]
+        f"u 0:1:end Print{d.capitalize()}Data" for d in DATS] + list(events)
     (cdir / "events.cfg").write_text("\n".join(events) + "\n")
     base = dict(WORLD_X=10, WORLD_Y=10, AVE_TIME_SLICE=100,
                 TPU_MAX_STEPS_PER_UPDATE=120,
@@ -181,7 +184,7 @@ def feature_world(tmp_path, names, vals, seed_fn, stop, resume_at,
     for u in range(resume_at + 1, stop + 1):
         assert resumed.run(max_updates=u) == ref.run(max_updates=u)
         assert_states_equal(ref.state, resumed.state, ("resumed", u))
-    for name in DATS:
+    for name in dats:
         a = open(os.path.join(tmp_path, "ref", f"{name}.dat")).read()
         a_l = a.splitlines()
         for other in ("port", "res"):

@@ -45,6 +45,7 @@ from avida_tpu_torch.ops import tasks as ttasks  # noqa: E402
 from avida_tpu_torch.utils import prng  # noqa: E402
 from avida_tpu_torch.world import World  # noqa: E402
 
+from test_torch_tasks import cpu_flags  # noqa: E402
 from test_torch_world import (_assert_same_state,  # noqa: E402
                               _reseed_mixed)
 
@@ -551,21 +552,32 @@ def test_engine_cycle_pools_beside_unbound_21_reactions(tmp_path,
 _R28 = _R21 + [("hill", "mult"), ("glu", "add"), ("dpool", "mult"),
                (None, "pow"), ("suc", "add"), ("fix", "pow"),
                ("tor", "mult")]
+_R32 = _R28 + [(None, "add"), ("grd", "mult"), ("suc", "pow"),
+               (None, "mult")]
 
 
-@pytest.mark.xfail(strict=True, raises=AssertionError, reason=(
-    "ROADMAP Queue 3: pools beside unbound processes from 24 reactions -- "
-    "the reference's compiled IO block sums the bonus neither as the "
-    "16-lane tree nor as the port's in-order fold; not modelled"))
+@pytest.mark.parametrize("R,seed", [(24, 2), (28, 1), (32, 1)])
 def test_engine_cycle_pools_beside_unbound_past_23_reactions(
-        tmp_path, monkeypatch):
-    """The second Queue 3 fault where it stays open: 28 reactions,
-    pool-bound ones beside six bound to no pool: cur_bonus equal."""
+        tmp_path, monkeypatch, R, seed):
+    """The second Queue 3 fault, repaired from 24 reactions (read off the
+    reference's dumped update program, the IO block's LLVM IR and its
+    dot): 24, 28 and 32 reactions, pool-bound ones beside four to seven
+    bound to no pool.  The bonus's products and sum fold 8-lane chunks
+    into one accumulator, a lane tree, the rest in order
+    (tasks.one_acc); the spatial demand and draw leave the fused loop
+    for a dot that sums in 4-lane vectors (resources.DOT4).  Every field
+    equal after one engine cycle."""
     monkeypatch.setattr(sys.modules[__name__], "_cycle_env",
-                        _mixed_env(_R28))
-    r_out, t_out, _ = _cycle_case(tmp_path, 2)
-    assert _same(r_out.cur_reaction_count, t_out.cur_reaction_count)
-    assert _same(r_out.cur_bonus, t_out.cur_bonus)
+                        _mixed_env(_R32[:R]))
+    r_out, t_out, _ = _cycle_case(tmp_path, seed)
+    got = convert.state_to_arrays(t_out)
+    for k in rstate.state_field_names():
+        if getattr(r_out, k) is None:
+            continue
+        assert np.asarray(getattr(r_out, k)).tobytes() == got[k].tobytes(), \
+            (k, cpu_flags())
+    assert ttasks.vector_chunks(_port_params(tmp_path)) == {
+        k: ttasks.one_acc(R // 8) for k in ("pow", "mult", "add")}
 
 
 @pytest.mark.parametrize("seed", [1, 2])

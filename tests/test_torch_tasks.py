@@ -275,6 +275,25 @@ def test_row_key_draws_equal_jax():
 
 # ---- the reaction reductions' order inside the micro-step engine ----
 
+def cpu_flags() -> str:
+    """This CPU's model and whether it has AVX-512, for the order tests'
+    failure messages: the compiled orders were read on an x86-64 CPU
+    with AVX-512, and another ISA compiles another order."""
+    model, flags = "?", set()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name") and model == "?":
+                    model = line.split(":", 1)[1].strip()
+                elif line.startswith("flags"):
+                    flags = set(line.split(":", 1)[1].split())
+                    break
+    except OSError:
+        pass
+    avx = sorted(x for x in flags if x.startswith("avx"))
+    return f"cpu {model!r}, {' '.join(avx) or 'no avx'}"
+
+
 _LOGIC3 = ("not", "nand", "and")
 
 
@@ -378,7 +397,8 @@ def _assert_order_holds(tmp_path, R):
     for k in state_field_names():
         if getattr(r_out, k) is None:
             continue
-        assert np.asarray(getattr(r_out, k)).tobytes() == got[k].tobytes(), k
+        assert np.asarray(getattr(r_out, k)).tobytes() == got[k].tobytes(), \
+            (k, cpu_flags())
     if R >= 12:
         assert all((v >= 3).sum() > 10 for v in per_type.values())
     return params
@@ -551,7 +571,8 @@ def test_engine_reaction_order_without_requisite_windows(tmp_path,
     got = convert.state_to_arrays(t_out)
     for k, v in got.items():
         if v is not None:
-            assert np.asarray(getattr(r_out, k)).tobytes() == v.tobytes(), k
+            assert np.asarray(getattr(r_out, k)).tobytes() == v.tobytes(), \
+                (k, cpu_flags())
     want = {k: (R // 8 if R >= v else 0)
             for k, v in (("pow", 20), ("mult", 20), ("add", 23))}
     assert ttasks.vector_chunks(params) == want

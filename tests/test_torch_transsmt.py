@@ -134,13 +134,11 @@ def test_semantic_tables_and_registry_equal_reference():
     assert want.keys() == got.keys()
     for k in want:
         assert np.array_equal(np.asarray(want[k]), np.asarray(got[k])), k
-    for hw in (0, 1, 2):
+    for hw in (0, 1, 2, 3):
         assert tregistry.get_hardware(hw)["name"] == \
             rregistry.get_hardware(hw)["name"]
         assert tregistry.get_hardware(hw)["default_instset"] == \
             rregistry.get_hardware(hw)["default_instset"]
-    with pytest.raises(NotImplementedError, match="item 12h"):
-        tregistry.get_hardware(3)
     with pytest.raises(ValueError, match="HARDWARE_TYPE 9"):
         tregistry.get_hardware(9)
     _, tp = _both_params()

@@ -272,19 +272,19 @@ def test_flush_births_equals_reference(pending, variant, ring):
 
 def test_flush_refuses_unported_branches():
     """Every branch the canonical flush does not run raises by name: a
-    BIRTH_METHOD outside 0-11, experimental hardware (ROADMAP item 12h)
-    and the geometries with no table in the reference either (GLOBAL 0,
-    PARTIAL 5)."""
+    BIRTH_METHOD outside 0-11 and the geometries with no table in the
+    reference either (GLOBAL 0, PARTIAL 5).  Experimental hardware (ROADMAP
+    item 12h) is ported and flushes."""
     for extra, word in ((dict(BIRTH_METHOD=12), "BIRTH_METHOD 12"),
                         (dict(WORLD_GEOMETRY=0), "WORLD_GEOMETRY 0"),
                         (dict(WORLD_GEOMETRY=5), "WORLD_GEOMETRY 5"),
-                        ("hw3", "item 12h")):
-        hw3 = extra == "hw3"
-        _, tp = _params(dict(VALS, **({} if hw3 else extra)))
+                        ("bm-1", "BIRTH_METHOD -1")):
+        neg = extra == "bm-1"
+        _, tp = _params(dict(VALS, **({} if neg else extra)))
         st = tstate.init_population(tp, np.arange(40, dtype=np.int8) % 26,
                                     prng.key(0))
-        if hw3:
-            tp = tp.replace(hw_type=3)
+        if neg:
+            tp = tp.replace(birth_method=-1)
         with pytest.raises(NotImplementedError, match=word):
             tbirth.flush_births(tp, st, prng.key(1), 0)
 
