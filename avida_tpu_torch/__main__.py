@@ -1,6 +1,6 @@
 """Command line: `python -m avida_tpu_torch [-u N] [-s SEED] [-d DIR]
 [-c CONFIG_DIR] [-set NAME VALUE ...] [--device cuda|cpu]
-[--worlds SEEDS|MANIFEST]`.
+[--worlds SEEDS|MANIFEST] [-a [CKPT_DIR]] [-v]`.
 
 Runs one world and writes its .dat files, with the reference's defaults
 (systematics on: the per-update engine; -set TPU_SYSTEMATICS 0 takes the
@@ -21,6 +21,13 @@ TPU_CKPT_DIR); an empty directory starts fresh.  With --worlds, --resume
 common update.  Exit codes as the reference's: 66 no valid generation,
 65 an invariant audit failed, 67 a scrub found a divergence.
 --serve-worlds is not ported and exits 2.
+
+Analysis: bare -a runs ANALYZE_FILE (analyze.cfg, in the config dir)
+through the analyze VM (analyze/analyzer.py) instead of an evolution
+run; -a CKPT_DIR / --analyze CKPT_DIR runs the checkpoint analytics
+(analyze/pipeline.py: census, knockouts and dominant lineage of the
+newest valid generation, written under DATA_DIR/analysis/); a CKPT_DIR
+that is not a directory exits 2.  The Test CPU runs on --device.
 """
 
 from __future__ import annotations
@@ -147,6 +154,11 @@ def main(argv=None) -> int:
                         "DIR (default TPU_CKPT_DIR); empty: start fresh")
     p.add_argument("--serve-worlds", default=None, metavar="CONTROL",
                    help="not ported (the serving batch)")
+    p.add_argument("-a", "--analyze", nargs="?", const=True, default=None,
+                   metavar="CKPT_DIR",
+                   help="bare: run ANALYZE_FILE through the analyze VM; "
+                        "with CKPT_DIR: checkpoint analytics")
+    p.add_argument("-v", "--verbose", action="store_true")
     args = p.parse_args(argv)
 
     if args.serve_worlds is not None:
@@ -157,6 +169,21 @@ def main(argv=None) -> int:
     overrides = list(args.overrides)
     if args.seed is not None:
         overrides.append(("RANDOM_SEED", str(args.seed)))
+    if isinstance(args.analyze, str):
+        # checkpoint analytics over an archived run; argparse also takes
+        # a bundled flag such as -av as analyze='v', so a token that is
+        # not a directory fails loudly instead of being rerouted
+        if not os.path.isdir(args.analyze):
+            print(f"[avida_tpu_torch] --analyze: {args.analyze!r} is not a "
+                  f"checkpoint directory (bare -a runs the analyze VM; "
+                  f"-a/--analyze CKPT_DIR runs checkpoint analytics -- "
+                  f"note bundled short flags like -av no longer parse)",
+                  file=sys.stderr)
+            return 2
+        from avida_tpu_torch.analyze.pipeline import cli_main
+        return cli_main(args.analyze, config_dir=args.config_dir,
+                        overrides=overrides, data_dir=args.data_dir,
+                        verbose=args.verbose, device=args.device)
     if args.worlds is not None:
         return _worlds_main(args, overrides)
 
@@ -168,6 +195,13 @@ def main(argv=None) -> int:
     from avida_tpu_torch.world import World
     w = World(config_dir=args.config_dir, overrides=overrides,
               data_dir=args.data_dir, device=args.device)
+    if args.analyze:
+        from avida_tpu_torch.analyze.analyzer import Analyzer
+        az = Analyzer(w.params, w.instset, data_dir=w.data_dir,
+                      verbose=args.verbose, device=w.device)
+        az.run_file(os.path.join(args.config_dir, w.cfg.ANALYZE_FILE)
+                    if args.config_dir else w.cfg.ANALYZE_FILE)
+        return 0
     if args.resume is not None:
         # a first boot with an empty checkpoint directory starts fresh;
         # generations that exist but all fail verification exit 66

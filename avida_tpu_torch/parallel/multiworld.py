@@ -107,6 +107,11 @@ class MultiWorld:
                     "multi-world batching requires chunkable runs: no "
                     "telemetry, no offspring reversion tests, no "
                     "generation/births event triggers")
+            if w.analytics is not None:
+                raise ValueError(
+                    "multi-world batching does not slice the flight "
+                    "recorder, live analytics or fault-injection host "
+                    "pipelines; run those workloads solo")
         if len({id(w.cfg) for w in self.worlds}) != len(self.worlds) \
                 and len(self.worlds) > 1:
             raise ValueError("each batch member needs its own config "

@@ -26,10 +26,12 @@ save_checkpoint / resume, in the reference's on-disk format),
 SIGTERM/SIGINT preemption with a final checkpoint, the state digest and
 the scrub's shadow replay
 (TPU_STATE_DIGEST, TPU_SCRUB_EVERY) and the invariant audit
-(TPU_AUDIT_EVERY, TPU_CKPT_AUDIT).  Anything outside that (telemetry,
-tracing, fault injection, other hardware, ...) raises
-NotImplementedError naming the feature instead of running something
-else.
+(TPU_AUDIT_EVERY, TPU_CKPT_AUDIT); the offspring reversion test
+(REVERT_* / STERILIZE_*, through the batched Test CPU of analyze/) and
+the in-run analytics (TPU_ANALYTICS, analyze/pipeline.py).  Anything
+outside that (telemetry, tracing, fault injection, other hardware, ...)
+raises NotImplementedError naming the feature instead of running
+something else.
 
 Runs on `cuda` unless the caller passes device="cpu"; with neither a GPU
 nor an explicit device it raises.
@@ -114,15 +116,9 @@ _TRANSSMT_PARASITE_NAMES = (
 _OFF_SWITCHES = (
     ("TPU_TELEMETRY", 0, (0,)),
     ("TPU_TRACE", 0, (0,)), ("TPU_METRICS", 0, (0,)),
-    ("TPU_PROFILE", 0, (0,)), ("TPU_ANALYTICS", 0, (0,)),
+    ("TPU_PROFILE", 0, (0,)),
     ("TPU_FAULT", "", ("", "-")),
     ("TPU_USE_PALLAS", 0, (0, 1, 2)), ("TPU_KERNEL_SHARDS", 0, (0, 1)),
-    ("REVERT_FATAL", 0.0, (0.0,)), ("REVERT_DETRIMENTAL", 0.0, (0.0,)),
-    ("REVERT_NEUTRAL", 0.0, (0.0,)), ("REVERT_BENEFICIAL", 0.0, (0.0,)),
-    ("STERILIZE_FATAL", 0.0, (0.0,)),
-    ("STERILIZE_DETRIMENTAL", 0.0, (0.0,)),
-    ("STERILIZE_NEUTRAL", 0.0, (0.0,)),
-    ("STERILIZE_BENEFICIAL", 0.0, (0.0,)),
 )
 
 def default_ancestor(instset) -> np.ndarray:
@@ -305,6 +301,34 @@ class World:
         self._digest_pending = None     # (update, device digest) deferred
         self.state_digest = None        # (update, value) last resolved
         self._last_verified_update = 0  # newest scrub-verified update
+        # in-run analytics (analyze/pipeline.LiveAnalytics): with
+        # TPU_ANALYTICS=1 run() refreshes the phenotype census and the
+        # dominant lineage at checkpoint boundaries and at exit; a pure
+        # read of the state, so the trajectory is the same on or off
+        self.analytics = None
+        if int(cfg.get("TPU_ANALYTICS", 0)):
+            from avida_tpu_torch.analyze.pipeline import LiveAnalytics
+            self.analytics = LiveAnalytics(self)
+        # offspring reversion / sterilization through the batched Test CPU
+        # (cHardwareBase::Divide_TestFitnessMeasures cc:866); sandbox
+        # records are memoized per genotype (systematics/test_metrics.py)
+        self._revert = {
+            "fatal": (cfg.REVERT_FATAL, cfg.STERILIZE_FATAL),
+            "neg": (cfg.REVERT_DETRIMENTAL, cfg.STERILIZE_DETRIMENTAL),
+            "neut": (cfg.REVERT_NEUTRAL, cfg.STERILIZE_NEUTRAL),
+            "pos": (cfg.REVERT_BENEFICIAL, cfg.STERILIZE_BENEFICIAL),
+        }
+        self._revert_on = any(p > 0 for pair in self._revert.values()
+                              for p in pair)
+        self._neut_min = 1.0 - cfg.get("NEUTRAL_MIN", 0.0)
+        self._neut_max = 1.0 + cfg.get("NEUTRAL_MAX", 0.0)
+        self.last_reversion = None   # the last reversion step's counts
+        if self._revert_on:
+            from avida_tpu_torch.systematics.test_metrics import \
+                GenomeTestMetrics
+            self.test_metrics = GenomeTestMetrics(self.params,
+                                                  device=self.device)
+            self._revert_rng = np.random.default_rng(seed ^ 0x5EED)
 
     def _check_engine(self):
         """Route as the reference does (cycles.use_kernel, then
@@ -962,16 +986,119 @@ class World:
         return executed
 
     def run_update(self):
-        """ONE update plus the synchronous systematics feed (does not
-        advance self.update; the caller does)."""
+        """ONE update, then the reversion test and the synchronous
+        systematics feed (does not advance self.update; the caller
+        does)."""
         executed = self._scan_updates(1)
+        if self._revert_on:
+            self._apply_reversion()
         if self.systematics is not None:
             self._feed_systematics()
         return executed
 
+    def _apply_reversion(self):
+        """Offspring fitness test (Divide_TestFitnessMeasures,
+        cHardwareBase.cc:866; the reference's World._apply_reversion):
+        each newborn of this update is classified fatal / detrimental /
+        neutral / beneficial by its sandbox fitness against its parent's
+        (thresholds from NEUTRAL_MIN/MAX), then reverted to its parent's
+        genome or sterilized (it lives but never divides) with the
+        REVERT_* / STERILIZE_* probabilities.  A newborn whose parent
+        cell was overwritten this update cannot be reverted: a fatal one
+        is killed, others are admitted as they are.  Only the newborn and
+        parent rows are read from the device.  `last_reversion` gets the
+        step's counts and host times."""
+        import time as _time
+        from avida_tpu_torch.ops.interpreter import pack_tape
+
+        def host(x):
+            return x.detach().cpu().numpy()
+
+        t0 = _time.perf_counter()
+        st = self.state
+        dev = self.device
+        alive = host(st.alive)
+        born = (host(st.birth_update) == self.update) & alive
+        cells = np.nonzero(born)[0]
+        rec = {"newborns": int(cells.size), "reverted": 0, "sterilized": 0,
+               "killed": 0}
+        self.last_reversion = rec
+        if not cells.size:
+            return
+        idx = torch.from_numpy(cells).to(dev)
+        parents = host(st.parent_id[idx])
+        pidx = torch.from_numpy(np.clip(parents, 0, None)).to(dev)
+        child_g = host(st.genome[idx])
+        child_l = host(st.genome_len[idx])
+        par_g = host(st.genome[pidx])
+        par_l = host(st.genome_len[pidx])
+        parent_ok = ((parents >= 0) & alive[np.clip(parents, 0, None)]
+                     & (host(st.birth_update[pidx]) != self.update))
+        t1 = _time.perf_counter()
+        child_fit = self.test_metrics.get_fitness(child_g, child_l)
+        rec["child"] = dict(self.test_metrics.last_stats)
+        t2 = _time.perf_counter()
+        parent_fit = self.test_metrics.get_fitness(par_g, par_l)
+        rec["parent"] = dict(self.test_metrics.last_stats)
+        t3 = _time.perf_counter()
+        rec["child"]["ms"] = (t2 - t1) * 1e3
+        rec["parent"]["ms"] = (t3 - t2) * 1e3
+        neut_min = parent_fit * self._neut_min
+        neut_max = parent_fit * self._neut_max
+        cat = np.where(child_fit == 0.0, 0,
+                       np.where(child_fit < neut_min, 1,
+                                np.where(child_fit <= neut_max, 2, 3)))
+        probs = np.asarray([self._revert["fatal"], self._revert["neg"],
+                            self._revert["neut"], self._revert["pos"]],
+                           np.float64)                      # [4, 2]
+        u = self._revert_rng.random((2, cells.size))
+        want_revert = u[0] < probs[cat, 0]
+        revert = want_revert & parent_ok
+        sterilize = u[1] < probs[cat, 1]
+        # fatal reversions with no parent genome left are refused outright
+        kill_fallback = want_revert & ~parent_ok & (cat == 0)
+        # (the reference's flight-recorder events for these firings wait
+        # for TPU_TRACE, ROADMAP.md Queue 1 item 15)
+        rec.update(reverted=int(revert.sum()),
+                   sterilized=int(sterilize.sum()),
+                   killed=int(kill_fallback.sum()),
+                   cells=cells, revert=revert, sterilize=sterilize,
+                   kill=kill_fallback, parents=parents, category=cat)
+        if revert.any() or sterilize.any() or kill_fallback.any():
+            new = {}
+            if revert.any():
+                rc = torch.from_numpy(cells[revert]).to(dev)
+                rp = torch.from_numpy(parents[revert]).to(dev)
+                pg = st.genome[rp]
+                pl = st.genome_len[rp]
+                for name, val in (("genome", pg), ("tape", pack_tape(pg)),
+                                  ("genome_len", pl), ("mem_len", pl),
+                                  ("breed_true", True)):
+                    new[name] = getattr(st, name).clone()
+                    new[name][rc] = val
+            if sterilize.any():
+                # the offspring lives (occupying its cell, competing for
+                # space) but can never divide
+                new["sterile"] = st.sterile.clone()
+                new["sterile"][torch.from_numpy(cells[sterilize]).to(dev)] \
+                    = True
+            if kill_fallback.any():
+                new["alive"] = st.alive.clone()
+                new["alive"][torch.from_numpy(cells[kill_fallback]).to(dev)] \
+                    = False
+            self.state = st.replace(**new)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        rec["apply_ms"] = (_time.perf_counter() - t3) * 1e3
+        rec["gather_ms"] = (t1 - t0) * 1e3
+
     def _chunkable(self) -> bool:
-        return not any(ev.trigger in ("generation", "births")
-                       for ev in self.events)
+        """May event-free stretches run as one chunk?  The reversion test
+        needs the host after every update, as do generation / births
+        event triggers (the reference's rule; MultiWorld refuses what is
+        not chunkable)."""
+        return not self._revert_on and not any(
+            ev.trigger in ("generation", "births") for ev in self.events)
 
     def _plan_stretch(self, max_updates, max_stretch: int) -> int:
         """Length of the next event-free stretch: power-of-two buckets up
@@ -1259,6 +1386,9 @@ class World:
                         and self.update - last_ckpt >= ckpt_every:
                     self.save_checkpoint(ckpt_base)
                     last_ckpt = self.update
+                    if self.analytics is not None:
+                        # a checkpoint boundary is a census boundary
+                        self.analytics.refresh(self)
             # orderly exit (normal or preempted); neither the drain nor the
             # final checkpoint runs after an exception
             self._flush_newborn_drain()
@@ -1270,6 +1400,9 @@ class World:
                     and self.update != last_ckpt:
                 self.save_checkpoint(ckpt_base)
             self.preempted = self._preempt
+            if self.analytics is not None and self.state is not None:
+                # the exit census (durable: the run's last word)
+                self.analytics.refresh(self, durable=True)
         finally:
             import signal as _signal
             for sig, h in handlers.items():

@@ -123,6 +123,35 @@ genome plane (ROADMAP items 12h, 12j, 12i):
                     field-equal at each chunk boundary to the 8-bit run;
                     K1 held against the plain version on its state
 
+and the Test CPU, offspring reversion and the analyze toolchain
+(ROADMAP item 13):
+
+  revert_path       main_path's evolved world continued for one update
+                    with REVERT_FATAL 1.0, REVERT_DETRIMENTAL 0.5 and
+                    STERILIZE_DETRIMENTAL 0.5: un-chunkable, one update a
+                    host step (K1 once, held against the plain version),
+                    then the reversion test's two Test CPU batches on the
+                    card; newborns, batch widths, cycles, the reverted,
+                    sterilized and killed, the update's split; the
+                    reverted carry their parents' genomes, sterile is set
+                    exactly on the sterilized
+  revert_cpu        the child batch's first 256 lanes as their own batch
+                    in a CPU worker, lane for lane equal to the card's
+  testcpu_graph     one generation of those lanes on the card with the
+                    Test CPU's blocks replayed from one CUDA graph and
+                    run op by op, in turns: every field equal, ms a
+                    cycle of each
+  analyze_cross_device  an analyze.cfg (the default ancestor: RECALCULATE,
+                    DETAIL, ANALYZE_KNOCKOUTS, TRACE) through `python -m
+                    avida_tpu_torch -a` on the card and on the CPU: every
+                    file byte for byte; the ancestor reads 389 / 97 /
+                    97/389 on the card
+  analytics_cli     `python -m avida_tpu_torch --analyze CKPT_DIR` over
+                    multiworld_path member 0's last generation (update
+                    12, 60x60: the first births, 146 genotypes), on
+                    the card and on the CPU: the census, knockout and
+                    lineage tables byte for byte, the journal record
+
 and persistence (native checkpoints in the reference's format):
 
   persist_path      the 320x320 packed world saving every 10 updates
@@ -143,8 +172,9 @@ and persistence (native checkpoints in the reference's format):
                     equal to the live chunk
   spop_path         SavePopulation / LoadPopulation on a 60x60 world: the
                     restore on the card equal to the one on the CPU
-  multiworld_persist  multiworld_path's batch saved at 8, resumed by a
-                    new batch to 16: every member equal, K3b once per
+  multiworld_persist  multiworld_path's batch saved every 3 updates,
+                    resumed at 6 by a new batch to 12: every member
+                    equal, K3b once per
                     resumed update
 
 On each path's evolved state it holds both kernels bit for bit against
@@ -1122,11 +1152,13 @@ def mw_members(side, seeds, tmp, tag, device, sysm, every, ckpt_root=None):
     """One World per seed, each seeded everywhere with the ancestor and
     printing every `every` updates into its own directory (dominant.dat
     with systematics); with ckpt_root, each saving a generation every
-    MW_UPDATES/2 updates into its own directory under it."""
+    MW_UPDATES/4 updates into its own directory under it (the one at
+    MW_UPDATES/2 is multiworld_persist's resume point, the one at
+    ANALYTICS_AT analytics_cli's input)."""
     ev = ["u begin InjectAll"] + [f"u 0:{every}:end {a}" for a in PRINTS
                                   if sysm or a != "PrintDominantData"]
     ck = ({} if ckpt_root is None
-          else {"TPU_CKPT_EVERY": MW_UPDATES // 2, "TPU_CKPT_KEEP": 4})
+          else {"TPU_CKPT_EVERY": MW_UPDATES // 4, "TPU_CKPT_KEEP": 4})
     return [make_world(side, os.path.join(tmp, f"{tag}_{k:03d}"), device, ev,
                        dict(ck, RANDOM_SEED=s, TPU_SYSTEMATICS=sysm,
                             **({} if ckpt_root is None else {
@@ -1148,8 +1180,8 @@ def phase_multiworld(name, sysm, tmp, side, seeds, updates, device="cuda",
     from avida_tpu_torch import convert
     from avida_tpu_torch.ops import cycles
     from avida_tpu_torch.parallel.multiworld import MultiWorld
-    # with checkpoints, a print every 5 updates puts a chunk boundary at
-    # each save (every MW_UPDATES/2)
+    # with checkpoints, a print every MW_CKPT_PRINTS updates puts a chunk
+    # boundary at each save (every MW_UPDATES/4)
     every = MW_CKPT_PRINTS if ckpt_root else 10
     mw = MultiWorld(mw_members(side, seeds, tmp, name, device, sysm, every,
                                ckpt_root))
@@ -2059,8 +2091,10 @@ def phase_smt_fold(tmp, side, seeds, updates, smi, cpu=None):
     return res
 
 
-MW_SIDE, MW_UPDATES = 60, 16   # the fleet batch: 16 stock 60x60 worlds
-MW_CKPT_PRINTS = MW_UPDATES // 4   # the saving batch prints every 4
+# the fleet batch: 16 stock 60x60 worlds, 12 updates (the first births
+# land in update 12)
+MW_SIDE, MW_UPDATES = 60, 12
+MW_CKPT_PRINTS = MW_UPDATES // 4   # the saving batch prints every 3
 MW_SEEDS = tuple(range(101, 117))  # TPU_FLEET_MAX_BATCH = 16 members
 FOLD_CHECKED = (0, len(MW_SEEDS) - 1)   # folded members held to solo runs
 
@@ -2069,7 +2103,7 @@ DEFAULT_UPDATES = 30           # the default and sexual paths' depth
 COSTS_UPDATES = 10             # the costs world's depth
 XLA_UPDATES = 3                # the micro-step paths' depth at 320x320
 AGREE_UPDATES = 6              # engines_agree: the first divides land
-FOLD_UPDATES = 6               # the folded batch's depth
+FOLD_UPDATES = 4               # the folded batch's depth
 # the TransSMT paths' depth: at time slices of 30 the first divides and
 # injections land from about update 16 (a 12x12 CPU run, seed 11; the
 # 320x320 world's first infections at 16); the batch stops at 18
@@ -2407,7 +2441,7 @@ def phase_spop_path(tmp, smi, path, cpu=None, side=MW_SIDE):
 
 def phase_multiworld_persist(tmp, smi, mw_a, ck_root):
     """The 16 x 60x60 batch of multiworld_path (systematics on), which
-    saved per-world generations every MW_UPDATES/2 updates: a new batch
+    saved per-world generations every MW_UPDATES/4 updates: a new batch
     resumes them at the midpoint and runs to MW_UPDATES; every member
     equals the uninterrupted batch's, with one stacked launch (K3b) per
     resumed update."""
@@ -3604,6 +3638,389 @@ def phase_packed_bits_path(side, tmp, smi, start):
     return w5, res
 
 
+# ---- slice 12: the Test CPU, offspring reversion and the analyze
+# toolchain (ROADMAP item 13) ----
+REVERT = dict(REVERT_FATAL=1.0, REVERT_DETRIMENTAL=0.5,
+              STERILIZE_DETRIMENTAL=0.5)
+REVERT_CPU_LANES = 256     # child-batch lanes held against a CPU batch
+ANALYZE_CFG = """LOAD_SEQUENCE {seq}
+RECALCULATE
+DETAIL detail.dat id viable fitness merit gestation_time copied_size \
+executed_size length sequence
+ANALYZE_KNOCKOUTS knockouts.dat
+TRACE trace
+"""
+# `python -m avida_tpu_torch` with the .dat header's date line pinned, so
+# the card's and the CPU's files can be compared byte for byte
+PINNED_MAIN = ("import runpy, time; "
+               "time.asctime = lambda *a: 'Thu Jan  1 00:00:00 1970'; "
+               "runpy.run_module('avida_tpu_torch', run_name='__main__', "
+               "alter_sys=True)")
+ANALYTICS_AT = MW_UPDATES   # the multiworld member generation analyzed
+
+
+def tree_bytes(root):
+    """{relative path: bytes} of every file under root."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def run_cli(args, dev, timeout=900):
+    """`python -m avida_tpu_torch ARGS --device DEV` (date line pinned) as
+    a child process from the repository root: (exit code, seconds, the
+    end of its stderr).  A CPU run gets one torch thread."""
+    env = dict(os.environ)
+    if dev == "cpu":
+        env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", PINNED_MAIN] + list(args)
+                         + ["--device", dev], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    return res.returncode, time.perf_counter() - t0, res.stderr[-2000:]
+
+
+def revert_cpu_side(genomes, lens):
+    """The CPU half of revert_path's comparison: the child batch's first
+    lanes evaluated as their own batch on the CPU (a 320x320 world's
+    parameters, as on the card): {field: array}, seconds."""
+    import dataclasses
+
+    from avida_tpu_torch.analyze.testcpu import evaluate_genomes
+    t0 = time.perf_counter()
+    w = make_world(SIDE, os.path.join(tempfile.gettempdir(), "unused"),
+                   "cpu", [], REVERT)
+    r = evaluate_genomes(w.params, genomes, lens, device="cpu")
+    return dataclasses.asdict(r), time.perf_counter() - t0
+
+
+def phase_revert_path(side, tmp, smi, start, pool=None):
+    """The slice's full-width path: main_path's evolved 320x320 world (from
+    `start`, a copy of its state, key and update, so packed_bits_path
+    still gets the world it gets) continued for ONE update with
+    REVERT_FATAL 1.0, REVERT_DETRIMENTAL 0.5 and STERILIZE_DETRIMENTAL
+    0.5: un-chunkable, so World.run takes one update per host step
+    (update_scan of one update: here the packed chunk of one update, K1
+    once) and then the reversion test, whose two Test CPU batches (the
+    newborns, then the uncached parents) run on the card.  That update's
+    K1 launch is held against the plain version first (not counted);
+    the update's phases are timed on a copy of its state.  Checked on the
+    card: every reverted newborn carries its parent's genome, length and
+    breed_true; sterile is set exactly on the sterilized newborns; the
+    killed are dead; no other field moved; the fatal reverted newborns'
+    new genomes' records.  The child batch's first REVERT_CPU_LANES lanes
+    go to a CPU worker (`pool`) as their own batch; phase_revert_cpu
+    holds them against the card's lanes.  Returns (the world, the
+    kernel hold, the result, the CPU job, the card's lanes)."""
+    import numpy as np
+    import torch
+
+    from avida_tpu_torch.analyze import testcpu
+    from avida_tpu_torch.core.state import clone_state
+    from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.ops.interpreter import pack_tape
+    w = make_world(side, os.path.join(tmp, "revert"), "cuda", [], REVERT)
+    state, key, u0 = start
+    w.state, w.key, w.update = clone_state(state), key.clone(), u0
+    kern = phase_kernel(w, n_launch=1)
+    brk = phase_breakdown(w, updates=1)
+    batches, pre = [], {}
+    evaluate = testcpu.evaluate_genomes
+
+    def traced(params, genomes, lens, **kw):
+        r = evaluate(params, genomes, lens, **kw)
+        batches.append((np.asarray(genomes).copy(), np.asarray(lens).copy(),
+                        r))
+        return r
+
+    apply = w._apply_reversion
+
+    def kept():
+        pre["state"] = clone_state(w.state)
+        apply()
+
+    testcpu.evaluate_genomes = traced
+    w._apply_reversion = kept
+    try:
+        torch.cuda.synchronize()
+        cycles.reset_launches()
+        t0 = time.perf_counter()
+        w.run(max_updates=u0 + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cycles.LAUNCHES
+    finally:
+        testcpu.evaluate_genomes = evaluate
+        del w._apply_reversion
+    rec, st, ps = w.last_reversion, w.state, pre["state"]
+    cells, par, cat = rec["cells"], rec["parents"], rec["category"]
+    rv, sv, kv = rec["revert"], rec["sterilize"], rec["kill"]
+    dev = st.alive.device
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    c, p = on(cells[rv]), on(par[rv])
+    bad = []
+    if not (torch.equal(st.genome[c], st.genome[p])
+            and torch.equal(st.genome_len[c], st.genome_len[p])
+            and torch.equal(st.mem_len[c], st.genome_len[p])
+            and torch.equal(st.tape[c], pack_tape(st.genome[p]))
+            and bool(st.breed_true[c].all())):
+        bad.append("a reverted newborn lacks its parent's genome")
+    sterile = ps.sterile.clone()
+    sterile[on(cells[sv])] = True
+    if not torch.equal(st.sterile, sterile):
+        bad.append("sterile is not set exactly on the sterilized cells")
+    if bool(st.alive[on(cells[kv])].any()):
+        bad.append("a killed newborn lives")
+    moved = {"genome", "tape", "genome_len", "mem_len", "breed_true",
+             "sterile", "alive"}
+    for f, v in vars(st).items():
+        if f not in moved and v is not None \
+                and not torch.equal(v, getattr(ps, f)):
+            bad.append(f"field {f} moved")
+    # the fatal reverted newborns' new genomes: cached (no evaluation)
+    fr = on(cells[rv & (cat == 0)])
+    ev = w.test_metrics.evaluations
+    recs = w.test_metrics.get_records(st.genome[fr].cpu().numpy(),
+                                      st.genome_len[fr].cpu().numpy())
+    if w.test_metrics.evaluations != ev:
+        bad.append("a reverted genome had no cached record")
+    child, parent = rec.get("child", {}), rec.get("parent", {})
+    for b in (child, parent):
+        if b.get("cycles"):
+            b["ms_per_cycle"] = b["ms"] / b["cycles"]
+    res = {"phase": "revert_path", "world": f"{side}x{side}",
+           "updates_from": u0, "engine_report": w.engine_report(),
+           "chunkable": w._chunkable(), "kernel_launches": launches,
+           "newborns": rec["newborns"], "child_batch": child,
+           "parent_batch": parent, "reverted": rec["reverted"],
+           "sterilized": rec["sterilized"], "killed": rec["killed"],
+           "categories": {k: int((cat == i).sum()) for i, k in enumerate(
+               ("fatal", "detrimental", "neutral", "beneficial"))},
+           "fatal_reverted": len(recs),
+           "fatal_reverted_viable": sum(r["viable"] for r in recs),
+           "update_ms": 1e3 * wall,
+           "split_ms": dict(brk["ms_per_update"],
+                            pack=brk["pack_ms"], unpack=brk["unpack_ms"],
+                            gather=rec["gather_ms"],
+                            test_cpu_children=child.get("ms", 0.0),
+                            test_cpu_parents=parent.get("ms", 0.0),
+                            apply=rec["apply_ms"]),
+           "invariants_hold": not bad, "nvidia_smi": smi}
+    if bad or launches != 1 or res["chunkable"] or rec["newborns"] == 0 \
+            or rec["reverted"] == 0 or not batches:
+        raise AssertionError(f"revert_path check failed: {bad} {res}")
+    g, ln, r = batches[0]
+    n = min(REVERT_CPU_LANES, len(ln))
+    job = (pool.submit(revert_cpu_side, g[:n], ln[:n]) if pool is not None
+           else None)
+    card = {f: np.asarray(getattr(r, f))[:n]
+            for f in r.__dataclass_fields__}
+    return w, kern, res, job, (g[:n], ln[:n], card)
+
+
+def phase_revert_cpu(card, job=None):
+    """revert_path's child batch against the CPU: its first lanes,
+    evaluated on the CPU as their own batch (`job`, else here), must
+    equal the card's lanes of the full batch field by field (the sandbox
+    inputs are lane-indexed, and with the mutations off no per-cycle
+    draw is read, so a lane's record does not depend on the width)."""
+    import numpy as np
+    genomes, lens, dev = card
+    host, seconds = cpu_half(job, revert_cpu_side, genomes, lens)
+    bad = [f for f in dev if np.asarray(dev[f]).tobytes()
+           != np.asarray(host[f])[:len(lens)].tobytes()]
+    res = {"phase": "revert_cpu", "lanes": len(lens),
+           "fields_equal": not bad, "differs": bad, "cpu_s": seconds,
+           "viable": int(np.asarray(dev["viable"]).sum())}
+    if bad:
+        raise AssertionError(f"revert_cpu: the card's child lanes differ "
+                             f"from the CPU's batch in {bad}")
+    return res
+
+
+def phase_testcpu_graph(card, smi, time_mod=2):
+    """The Test CPU's CUDA graph held against its plain form: one
+    generation of revert_path's first child lanes (`card`) on the card,
+    each block of cycles replayed from one captured graph and run op by
+    op, in turns (op by op, graph, graph, op by op; the graph captured
+    before the first turn) at TEST_CPU_TIME_MOD `time_mod` (a shorter
+    gestation, the same code): the state and offspring equal; ms a cycle
+    of each."""
+    import torch
+
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.analyze import testcpu
+    from avida_tpu_torch.utils import prng
+    genomes, lens, _ = card
+    p = make_world(SIDE, os.path.join(tempfile.gettempdir(), "unused"),
+                   "cuda", [], REVERT).params.replace(
+        copy_mut_prob=0.0, divide_mut_prob=0.0, divide_ins_prob=0.0,
+        divide_del_prob=0.0, point_mut_prob=0.0)
+    g = torch.from_numpy(genomes).cuda()
+    ln = torch.from_numpy(lens).cuda()
+    key = prng.key(0, "cuda")
+    graph = testcpu._GraphBlocks()
+    t0 = time.perf_counter()
+    testcpu._run_gestation(p, g, ln, time_mod, key, None, graph)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    out, ms = {}, {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        st = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = testcpu._run_gestation(
+            p, g, ln, time_mod, key, st,
+            graph if name == "graph" else testcpu._block)
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / st["cycles"])
+        out[name] = (convert.state_to_arrays(r[0]),
+                     [x.cpu().numpy() for x in r[1:]])
+    (sa, xa), (sb, xb) = out["graph"], out["eager"]
+    bad = [f for f in sa if sa[f] is not None
+           and sa[f].tobytes() != sb[f].tobytes()]
+    bad += [k for k, (a, b) in enumerate(zip(xa, xb))
+            if a.tobytes() != b.tobytes()]
+    res = {"phase": "testcpu_graph", "lanes": len(lens),
+           "time_mod": time_mod, "cycles": st["cycles"],
+           "ms_per_cycle": ms, "first_generation_s": first_s,
+           "speedup": sum(ms["eager"]) / sum(ms["graph"]),
+           "fields_equal": not bad, "nvidia_smi": smi}
+    if bad:
+        raise AssertionError(f"testcpu_graph: the graph differs from the "
+                             f"op-by-op run in {bad}")
+    return res
+
+
+def analyze_side(tmp, dev):
+    """One half of analyze_cross_device: ANALYZE_CFG (the default
+    ancestor) through `python -m avida_tpu_torch -a` on `dev`: (exit
+    code, seconds, stderr tail, {file: bytes})."""
+    from avida_tpu_torch.config import default_instset
+    from avida_tpu_torch.utils.spop import _seq_to_string
+    from avida_tpu_torch.world import default_ancestor
+    cdir = write_config_dir(os.path.join(tmp, f"az_cfg_{dev}"))
+    with open(os.path.join(cdir, "analyze.cfg"), "w") as f:
+        f.write(ANALYZE_CFG.format(
+            seq=_seq_to_string(default_ancestor(default_instset()))))
+    out = os.path.join(tmp, f"az_{dev}")
+    rc, secs, err = run_cli(["-a", "-c", cdir, "-d", out], dev)
+    return rc, secs, err, tree_bytes(out) if rc == 0 else {}
+
+
+def phase_analyze_cross_device(tmp, smi, cpu=None):
+    """An analyze.cfg -- LOAD_SEQUENCE of the default ancestor,
+    RECALCULATE, DETAIL, ANALYZE_KNOCKOUTS, TRACE -- through `python -m
+    avida_tpu_torch -a` on the card and in a CPU worker (`cpu`): every
+    output file byte for byte (date lines pinned), and the ancestor's
+    record on the card the reference's golden one: gestation 389, merit
+    97, fitness 97/389."""
+    rc_d, s_d, err_d, f_d = analyze_side(tmp, "cuda")
+    rc_c, s_c, err_c, f_c = cpu_half(cpu, analyze_side, cpu_root(tmp),
+                                     "cpu")
+    row = []
+    if "detail.dat" in f_d:
+        row = [ln.split() for ln in f_d["detail.dat"].decode().splitlines()
+               if ln.strip() and not ln.startswith("#")][0]
+    golden = row[:5] == ["1", "1", f"{97 / 389:g}", "97", "389"]
+    ko = []
+    if "knockouts.dat" in f_d:
+        ko = [ln.split() for ln in f_d["knockouts.dat"].decode().splitlines()
+              if ln.strip() and not ln.startswith("#")][0]
+    res = {"phase": "analyze_cross_device", "files": sorted(f_d),
+           "files_equal": f_d == f_c, "ancestor_record": row[:5],
+           "golden": golden, "knockouts": ko,
+           "seconds": {"card": s_d, "cpu": s_c}, "nvidia_smi": smi}
+    if rc_d or rc_c or f_d != f_c or not golden \
+            or sorted(f_d) != ["detail.dat", "knockouts.dat",
+                               "trace/org-1.trace"]:
+        res["stderr"] = (err_d, err_c)
+        raise AssertionError(f"analyze_cross_device check failed: {res}")
+    return res
+
+
+def analytics_side(tmp, ck, dev):
+    """One half of analytics_cli: `python -m avida_tpu_torch --analyze
+    CK` with the saving batch's configuration: (exit code, seconds,
+    stderr tail, {file: bytes} of the data dir)."""
+    out = os.path.join(tmp, f"ana_{dev}")
+    rc, secs, err = run_cli(
+        ["--analyze", ck, "-d", out, "-s", str(MW_SEEDS[0]),
+         "-set", "WORLD_X", str(MW_SIDE), "-set", "WORLD_Y", str(MW_SIDE),
+         "-set", "TPU_SYSTEMATICS", "1"], dev)
+    return rc, secs, err, tree_bytes(out) if rc == 0 else {}
+
+
+def analytics_ckpt(tmp, mw_ck):
+    """A copy of multiworld_path member 0's checkpoint directory holding
+    its generations up to ANALYTICS_AT (the first with more than one
+    genotype), so the analytics land on that one."""
+    import shutil
+
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    src = os.path.join(mw_ck, "w000")
+    ck = os.path.join(tmp, "ana_ck")
+    os.makedirs(ck)
+    for g in ckpt_mod.list_generations(src):
+        if ckpt_mod.generation_update(g) <= ANALYTICS_AT:
+            shutil.copytree(g, os.path.join(ck, os.path.basename(g)))
+    return ck
+
+
+def phase_analytics_cli(tmp, smi, ck, cpu=None):
+    """`python -m avida_tpu_torch --analyze CKPT_DIR` on the card over
+    multiworld_path member 0's generation at ANALYTICS_AT (a 60x60 world,
+    systematics on: census, knockout sweeps of the dominant and
+    threshold genotypes, the dominant lineage) and in a CPU worker
+    (`cpu`): census.dat, knockout.dat, lineage.dat, analytics.prom and
+    analysis/analytics.jsonl exist, and the tables are byte-equal and
+    the journal record equal apart from its wall-clock fields."""
+    rc_d, s_d, err_d, f_d = analytics_side(tmp, ck, "cuda")
+    rc_c, s_c, err_c, f_c = cpu_half(cpu, analytics_side, cpu_root(tmp),
+                                     ck, "cpu")
+    tables = ("analysis/census.dat", "analysis/knockout.dat",
+              "analysis/lineage.dat")
+    clock = ("time", "census_ms", "knockout_ms", "lineage_ms")
+
+    def journal(files):
+        recs = [json.loads(ln) for ln in files.get(
+            "analysis/analytics.jsonl", b"").decode().splitlines()]
+        return [{k: v for k, v in r.items() if k not in clock}
+                for r in recs]
+
+    def prom(files):
+        return [ln for ln in files.get("analytics.prom", b"").decode()
+                .splitlines() if "heartbeat_timestamp" not in ln]
+
+    rec = (journal(f_d) or [{}])[0]
+    res = {"phase": "analytics_cli", "world": f"{MW_SIDE}x{MW_SIDE}",
+           "update": rec.get("update"), "organisms": rec.get("organisms"),
+           "genotypes": rec.get("genotypes"),
+           "knockout_sweeps": rec.get("knockout_sweeps"),
+           "lineage_depth": rec.get("lineage_depth"),
+           "files": sorted(f_d),
+           "tables_equal": all(f_d.get(t) == f_c.get(t) for t in tables),
+           "journal_equal": journal(f_d) == journal(f_c),
+           "prom_equal": prom(f_d) == prom(f_c),
+           "seconds": {"card": s_d, "cpu": s_c}, "nvidia_smi": smi}
+    want = set(tables) | {"analysis/analytics.jsonl", "analytics.prom"}
+    if rc_d or rc_c or not want <= set(f_d) or not res["tables_equal"] \
+            or not res["journal_equal"] or not res["prom_equal"] \
+            or rec.get("update") != ANALYTICS_AT \
+            or (rec.get("genotypes") or 0) < 2:
+        res["stderr"] = (err_d, err_c)
+        raise AssertionError(f"analytics_cli check failed: {res}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3640,16 +4057,21 @@ def main() -> int:
                            for k in range(len(SLICE10_CROSS))]
         jobs["exp_cross"] = pool.submit(exp_cross_side, ctmp, "cpu")
         jobs["prints"] = pool.submit(print_side, ctmp, "cpu")
+        jobs["analyze"] = pool.submit(analyze_side, ctmp, "cpu")
         emit(phase_geometry(tmp))
         emit(phase_size_range(tmp))
         w, main_res = phase_main(SIDE, UPDATES, os.path.join(tmp, "data"))
         emit(main_res)
         kern = phase_kernel(w)
         emit(phase_breakdown(w))
-        # packed_bits_path continues the evolved main path
+        # revert_path and packed_bits_path continue the evolved main path
         from avida_tpu_torch.core.state import clone_state
         main_end = (clone_state(w.state), w.key.clone(), w.update)
         del w
+        wrev, revk, rev_res, jobs["revert"], rev_card = phase_revert_path(
+            SIDE, tmp, smi, main_end, pool)
+        del wrev
+        emit(rev_res)
         wd, def_res = phase_default_path(SIDE, DEFAULT_UPDATES,
                                          os.path.join(tmp, "default"))
         emit(def_res)
@@ -3694,6 +4116,9 @@ def main() -> int:
                 mres, mw_resumed = phase_multiworld_persist(tmp, smi, mw,
                                                             mw_ck)
                 emit(mres)
+                ana_ck = analytics_ckpt(tmp, mw_ck)
+                jobs["analytics"] = pool.submit(analytics_side, ctmp,
+                                                ana_ck, "cpu")
             del mw
             mw_runs.append((mw_res, mwk))
         # the micro-step engine (no kernel launch on its paths)
@@ -3744,6 +4169,12 @@ def main() -> int:
         emit(bits_res)
         bitsk = phase_kernel(wbits, n_launch=2)
         del wbits
+        # slice 12: the Test CPU and the analyze toolchain (their CPU
+        # halves queued last, so they come last)
+        emit(phase_testcpu_graph(rev_card, smi))
+        emit(phase_analyze_cross_device(tmp, smi, jobs["analyze"]))
+        emit(phase_analytics_cli(tmp, smi, ana_ck, jobs["analytics"]))
+        emit(phase_revert_cpu(rev_card, jobs["revert"]))
     timing = ("max_abs_err", "ms", "simple_ms", "turns_ms", "reached",
               "plain_ms", "bound_ms", "bytes_read", "bytes_written")
     per_path = [
@@ -3756,14 +4187,16 @@ def main() -> int:
         dict(dispk, launches=disp_res["kernel_launches"]),
         dict(topok, launches=topo_res["kernel_launches_total"]),
         dict({k: bitsk[k] for k in timing}, path="packed_bits_path",
-             launches=bits_res["kernel_launches"])]
+             launches=bits_res["kernel_launches"]),
+        dict({k: revk[k] for k in timing}, path="revert_path",
+             launches=rev_res["kernel_launches"])]
     per_path += [dict({k: mwk[k] for k in ("path", "solo_ms_sum") + timing},
                       launches=mw_res["kernel_launches"], stacked=True)
                  for mw_res, mwk in mw_runs]
     emit({"phase": "kernel_paths", "nvidia_smi": smi, "paths": per_path})
     # the kernels line: K1 with its solo launches (the seven solo paths,
-    # deme_path, dispersal_path, topology_path and packed_bits_path
-    # included, and the resumed and scrubbed persistence runs),
+    # deme_path, dispersal_path, topology_path, packed_bits_path and
+    # revert_path included, and the resumed and scrubbed persistence runs),
     # the worst error of all, times and bound at the sexual path; K3b,
     # the stacked launch, with its launches over the two batch paths and
     # the resumed batch, and

@@ -46,7 +46,14 @@ assert {"avida_tpu_torch.systematics",
         "avida_tpu_torch.utils.audit",
         "avida_tpu_torch.utils.spop",
         "avida_tpu_torch.observability",
-        "avida_tpu_torch.observability.runlog"} <= set(names), names
+        "avida_tpu_torch.observability.runlog",
+        "avida_tpu_torch.observability.exporter",
+        "avida_tpu_torch.systematics.test_metrics",
+        "avida_tpu_torch.analyze",
+        "avida_tpu_torch.analyze.testcpu",
+        "avida_tpu_torch.analyze.trace",
+        "avida_tpu_torch.analyze.analyzer",
+        "avida_tpu_torch.analyze.pipeline"} <= set(names), names
 """
 
 # a checkpointed run and its resume end to end (a 4x4 world, 2 + 2
@@ -180,6 +187,62 @@ def test_slice11_cli_imports_no_jax_and_no_reference(tmp_path):
     assert os.path.exists(tmp_path / "data" / "exp" / "average.dat")
 
 
+# slice 12 end to end: a checkpointed 4x4 run with the reversion test and
+# live analytics (its exit census runs the Test CPU), then bare -a over an
+# analyze.cfg that recalculates the ancestor
+_SLICE12_CLI = r"""
+import os, sys
+from avida_tpu_torch.__main__ import main
+from avida_tpu_torch.config import default_instset
+from avida_tpu_torch.utils.spop import _seq_to_string
+from avida_tpu_torch.world import default_ancestor
+d, cdir = sys.argv[1], sys.argv[2]
+assert main(["-u", "2", "-set", "WORLD_X", "4", "-set", "WORLD_Y", "4",
+             "-set", "REVERT_FATAL", "1", "-set", "STERILIZE_NEUTRAL", "0.5",
+             "-set", "TPU_ANALYTICS", "1", "-set", "TPU_CKPT_DIR", d + "/ck",
+             "--device", "cpu", "-d", d + "/run"]) == 0
+os.makedirs(cdir)
+open(cdir + "/avida.cfg", "w").write("WORLD_X 4\nWORLD_Y 4\n")
+seq = _seq_to_string(default_ancestor(default_instset()))
+open(cdir + "/analyze.cfg", "w").write(
+    f"LOAD_SEQUENCE {seq}\nRECALCULATE\nDETAIL d.dat id fitness\n")
+assert main(["-c", cdir, "-a", "-d", d + "/az", "--device", "cpu"]) == 0
+assert main(["-a", cdir + "/analyze.cfg", "--device", "cpu"]) == 2
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "avida_tpu" or m.startswith("avida_tpu."))
+for m in ("avida_tpu_torch.analyze.testcpu",
+          "avida_tpu_torch.analyze.analyzer",
+          "avida_tpu_torch.analyze.pipeline",
+          "avida_tpu_torch.systematics.test_metrics",
+          "avida_tpu_torch.observability.exporter"):
+    assert m in sys.modules, m
+assert not bad, bad
+"""
+
+
+def test_slice12_cli_imports_no_jax_and_no_reference(tmp_path):
+    res = subprocess.run([sys.executable, "-c", _SLICE12_CLI,
+                          str(tmp_path / "data"), str(tmp_path / "cfg")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    d = tmp_path / "data"
+    assert (d / "run" / "analytics.prom").exists()
+    assert "0.249357" in (d / "az" / "d.dat").read_text()
+
+
+def test_multiworld_refuses_reversion_and_live_analytics():
+    """A batch member with the reversion test or live analytics is
+    refused with the reference's reasons."""
+    from avida_tpu_torch.parallel.multiworld import MultiWorld
+    for name, needle in (("REVERT_FATAL", "chunkable"),
+                         ("TPU_ANALYTICS", "live analytics")):
+        with pytest.raises(ValueError, match=needle):
+            MultiWorld.from_seeds([1, 2], overrides=[(name, 1)],
+                                  data_dir="/nonexistent", device="cpu")
+
+
 def test_resume_cli_imports_no_jax_and_no_reference(tmp_path):
     res = subprocess.run([sys.executable, "-c", _RESUME_CLI,
                           str(tmp_path / "data"), str(tmp_path / "ck")],
@@ -289,7 +352,7 @@ def _cfg(**kw):
     ({"POINT_MUT_PROB": 0.01, "BIRTH_METHOD": 13}, "per-update engine"),
     ({"TPU_PACKED_FUSED": 0}, "TPU_PACKED_FUSED"),
     ({"TPU_TRACE": 1}, "TPU_TRACE"),
-    ({"REVERT_FATAL": 0.5}, "REVERT_FATAL"),
+    ({"TPU_TELEMETRY": 1, "TPU_SYSTEMATICS": 0}, "TPU_TELEMETRY"),
     ({"TPU_PROFILE": 1}, "TPU_PROFILE"),
     ({"INST_SET": "heads_sex", "BIRTH_METHOD": -1}, "BIRTH_METHOD -1"),
     ({"TPU_KERNEL_SHARDS": 4}, "TPU_KERNEL_SHARDS"),

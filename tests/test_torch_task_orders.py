@@ -15,6 +15,17 @@ a window on some logic reactions, the products from 17 and the sum from
 each failure message carries this CPU's flags, since another ISA
 compiles another order.
 
+A window on some logic reactions at 16 reactions holds on this 8x8
+state, where the reference compiles the IO block as one loop.  On a
+16x16 state it does not: there XLA's CPU backend splits the block's 256
+organisms into parallel partitions (outer_dimension_partitions 3 on 8
+schedulable CPUs, partitions of 86 organisms) and compiles the last
+one, from organism 172, to a loop of its own whose reductions the port
+does not follow (first diverging organism 174).  The partition count
+comes from XLA's cost model over the fused block's flop and byte counts
+(ROADMAP.md Queue 3), which the port cannot compute, so that case is
+left out.
+
 Tolerance: exact -- every state field byte for byte.
 """
 
@@ -77,10 +88,10 @@ def _env(comp):
 _FROM = {"logic": (20, 23), "math": (20, 23), "some": (17, 22)}
 
 
-@pytest.mark.parametrize("comp,R", [("some", 12), ("some", 17), ("some", 21),
-                                    ("some", 24), ("logic", 24),
-                                    ("logic", 32), ("math", 19),
-                                    ("math", 24)])
+@pytest.mark.parametrize("comp,R", [("some", 12), ("some", 16), ("some", 17),
+                                    ("some", 21), ("some", 24),
+                                    ("logic", 24), ("logic", 32),
+                                    ("math", 19), ("math", 24)])
 def test_engine_reaction_order_by_composition(tmp_path, monkeypatch, comp,
                                               R):
     """Every field, cur_bonus included, equal to the reference's engine

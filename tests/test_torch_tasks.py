@@ -322,9 +322,9 @@ def _order_env(R, rng):
     return "\n".join(lines) + "\n", ptypes
 
 
-def _order_case(tmp_path, R, in_order=False):
+def _order_case(tmp_path, R, in_order=False, side=8):
     """One cycle of each package's micro-step engine (TPU_USE_PALLAS=2) on
-    the same populated 8x8 state: every organism's first instruction is
+    the same populated side x side state (8x8 by default): every organism's first instruction is
     IO, outputting a copy of its positive input, and it is inside the
     requisite window of a random 70% of the reactions.  Returns both
     states, the reward counts per organism and type, and the port world's
@@ -342,7 +342,7 @@ def _order_case(tmp_path, R, in_order=False):
     env, ptypes = _order_env(R, rng)
     (tmp_path / "environment.cfg").write_text(env)
     (tmp_path / "avida.cfg").write_text("")
-    ov = [("WORLD_X", 8), ("WORLD_Y", 8), ("TPU_USE_PALLAS", 2),
+    ov = [("WORLD_X", side), ("WORLD_Y", side), ("TPU_USE_PALLAS", 2),
           ("TPU_SYSTEMATICS", 0), ("TPU_KERNEL_SHARDS", 1),
           ("TPU_COMPILE_CACHE", 0), ("RANDOM_SEED", R)]
     ref = RefWorld(config_dir=str(tmp_path), overrides=ov,
