@@ -1,6 +1,7 @@
 """Command line: `python -m avida_tpu_torch [-u N] [-s SEED] [-d DIR]
 [-c CONFIG_DIR] [-set NAME VALUE ...] [--device cuda|cpu]
-[--worlds SEEDS|MANIFEST] [-a [CKPT_DIR]] [-v]`.
+[--worlds SEEDS|MANIFEST] [-a [CKPT_DIR]] [--telemetry] [--profile-dir DIR]
+[--trace] [--status DIR [--max-age SEC]] [-v]`.
 
 Runs one world and writes its .dat files, with the reference's defaults
 (systematics on: the per-update engine; -set TPU_SYSTEMATICS 0 takes the
@@ -28,6 +29,16 @@ run; -a CKPT_DIR / --analyze CKPT_DIR runs the checkpoint analytics
 (analyze/pipeline.py: census, knockouts and dominant lineage of the
 newest valid generation, written under DATA_DIR/analysis/); a CKPT_DIR
 that is not a directory exits 2.  The Test CPU runs on --device.
+
+Observability (observability/): --telemetry (-set TPU_TELEMETRY 1) runs
+every update phase-fenced and writes DATA_DIR/telemetry.jsonl;
+--profile-dir DIR adds a torch.profiler trace of the first
+TPU_PROFILE_UPDATES updates into DIR/trace.json; --trace (-set TPU_TRACE
+1) arms the flight recorder ({"record": "trace"} lines in
+telemetry.jsonl, and the metrics.prom heartbeat).  --status DIR prints
+the last heartbeat of the run writing DIR/metrics.prom and exits (0
+present, 1 no metrics file, 2 older than --max-age SEC) without
+importing torch.
 """
 
 from __future__ import annotations
@@ -159,7 +170,26 @@ def main(argv=None) -> int:
                    help="bare: run ANALYZE_FILE through the analyze VM; "
                         "with CKPT_DIR: checkpoint analytics")
     p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--telemetry", action="store_true",
+                   help="phase-fenced updates and telemetry.jsonl "
+                        "(-set TPU_TELEMETRY 1)")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="with telemetry: a torch.profiler trace of the "
+                        "first updates into DIR")
+    p.add_argument("--trace", action="store_true",
+                   help="the flight recorder (-set TPU_TRACE 1)")
+    p.add_argument("--status", default=None, metavar="DIR",
+                   help="print the last heartbeat of the run writing to "
+                        "DIR and exit")
+    p.add_argument("--max-age", type=float, default=None, metavar="SEC",
+                   help="with --status: exit 2 when the heartbeat is "
+                        "missing or older than SEC seconds")
     args = p.parse_args(argv)
+
+    if args.status is not None:
+        # read the metrics.prom heartbeat only: no World, no torch
+        from avida_tpu_torch.observability.exporter import status_main
+        return status_main(args.status, max_age=args.max_age)
 
     if args.serve_worlds is not None:
         print("[avida_tpu_torch] --serve-worlds: the serving batch "
@@ -169,6 +199,13 @@ def main(argv=None) -> int:
     overrides = list(args.overrides)
     if args.seed is not None:
         overrides.append(("RANDOM_SEED", str(args.seed)))
+    if args.telemetry:
+        overrides.append(("TPU_TELEMETRY", "1"))
+    if args.trace:
+        overrides.append(("TPU_TRACE", "1"))
+    if args.profile_dir:
+        overrides.append(("TPU_TELEMETRY", "1"))
+        overrides.append(("TPU_PROFILE_DIR", args.profile_dir))
     if isinstance(args.analyze, str):
         # checkpoint analytics over an archived run; argparse also takes
         # a bundled flag such as -av as analyze='v', so a token that is

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from avida_tpu_torch.utils import prng
+from avida_tpu_torch.utils import faultinject, prng
 
 
 @dataclass(frozen=True)
@@ -185,8 +185,9 @@ def _migration_cdf(cfg):
 
 def make_world_params(cfg, instset, environment) -> WorldParams:
     """Build WorldParams from parsed config objects (host side).  The
-    reference's validation is kept; fault injection is outside this
-    package and refused by World.  A MIGRATION_FILE matrix (demes,
+    reference's validation is kept, and the device fault kinds of
+    TPU_FAULT (utils/faultinject.py) ride fault_nan / fault_bitflip.  A
+    MIGRATION_FILE matrix (demes,
     method 4) is read by World and attached to cfg as
     `_migration_matrix`."""
     tables = instset_tables(instset)
@@ -326,6 +327,8 @@ def make_world_params(cfg, instset, environment) -> WorldParams:
         trace_cap=int(cfg.get("TPU_TRACE_CAP", 4096))
         if int(cfg.get("TPU_TRACE", 0)) else 0,
         trace_stall_util=float(cfg.get("TPU_TRACE_STALL_UTIL", 0.25)),
+        fault_nan=faultinject.nan_param(cfg),
+        fault_bitflip=faultinject.bitflip_param(cfg),
         generation_inc_method=cfg.GENERATION_INC_METHOD,
         num_reactions=len(environment.reactions),
         task_logic_mask=tt(env_tables["task_logic_mask"]),

@@ -412,12 +412,17 @@ def pk_extract_offspring(params, key, off_t, off_len, genome_len,
     return off, off_len
 
 
-def flush_births_packed(params, st, key, planes, update_no):
-    """The reference's flush_births_packed (fused body: the canonical
-    mirrors that unpack rebuilds are left stale) on the five resident
-    planes (tape_t, off_t, gen_t, ivec, fvec), cell-ordered.  Updates the
-    canonical columns unpack cannot rebuild on `st`.  Returns
-    (planes', st')."""
+def flush_births_packed(params, st, key, planes, update_no,
+                        fresh_mirrors=False):
+    """The reference's flush_births_packed on the five resident planes
+    (tape_t, off_t, gen_t, ivec, fvec), cell-ordered.  Always updates
+    the canonical columns unpack cannot rebuild on `st`;
+    `fresh_mirrors=True` (the row-space body, ops/packed_chunk.py) also
+    refreshes the plane-backed mirrors (alive, merit, gestation_time,
+    generation, and under TPU_TRACE mem_len, heads and task_exe_total)
+    that its canonical-state phases read mid-chunk; the fused body
+    leaves them stale until unpack rebuilds them.  Returns (planes',
+    st')."""
     from avida_tpu_torch.ops import cycles as pc
     tape_t, off_t, gen_t, ivec, fvec = planes
     LP, n = tape_t.shape
@@ -546,7 +551,7 @@ def flush_births_packed(params, st, key, planes, update_no):
     off_sex_b = torch.where(b, 0, ivec[pc.IV_OFF_SEX])
     ivec[pc.IV_OFF_SEX] = torch.where(cleared, off_sex_b, 0)
 
-    st = st.replace(
+    upd = dict(
         breed_true=torch.where(b, mvi[6] != 0, st.breed_true),
         parent_id=torch.where(b, parent_idx, st.parent_id),
         birth_update=torch.where(b, int(update_no), st.birth_update),
@@ -555,10 +560,24 @@ def flush_births_packed(params, st, key, planes, update_no):
         mating_type=torch.where(b, -1, st.mating_type),
         energy_spent=torch.where(b, 0.0, st.energy_spent),
     )
+    if fresh_mirrors:
+        upd.update(alive=alive_post, merit=fvec[pc.FV_MERIT].clone(),
+                   gestation_time=ivec[pc.IV_GEST_TIME].clone(),
+                   generation=ivec[pc.IV_GENERATION].clone())
+    if int(params.trace_cap):
+        # the trace emission reads these canonical fields mid-chunk
+        upd.update(
+            mem_len=ivec[pc.IV_MEM_LEN].clone(),
+            heads=torch.stack([ivec[pc.IV_HEADS + k] for k in range(4)],
+                              dim=1),
+            task_exe_total=torch.stack(
+                [ivec[IV_DYN + 3 * R + r] for r in range(R)], dim=1))
+    st = st.replace(**upd)
     return (tape_t, off_t, gen_t, ivec, fvec), st
 
 
-def flush_births_packed_worlds(params, sts, keys, planes, update_no):
+def flush_births_packed_worlds(params, sts, keys, planes, update_no,
+                               fresh_mirrors=False):
     """The world-blocked packed flush of a stacked batch (the reference's
     flush_births_packed_worlds, birth.py:1448).  `planes` carry lanes
     split [rows, W, N]; `sts`, `keys` and `update_no` hold one entry per
@@ -571,7 +590,7 @@ def flush_births_packed_worlds(params, sts, keys, planes, update_no):
     for w, st in enumerate(sts):
         pl, st = flush_births_packed(params, st, keys[w],
                                      tuple(p[:, w] for p in planes),
-                                     update_no[w])
+                                     update_no[w], fresh_mirrors)
         outs.append(pl)
         new_sts.append(st)
     return (tuple(torch.stack([o[j] for o in outs], dim=1)

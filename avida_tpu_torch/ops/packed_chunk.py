@@ -1,17 +1,25 @@
 """Packed-resident update chunk: the main path's update body.
 
-Counterpart of avida_tpu/ops/packed_chunk.py (its fused row-space body).
-The population stays in the cycle kernel's plane layout for a whole chunk:
+Counterpart of avida_tpu/ops/packed_chunk.py.  The population stays in
+the cycle kernel's plane layout for a whole chunk:
 
   pack ONCE -> per update { schedule -> kernel launch -> bank -> birth
-                            flush -> stats }, all in row space
+                            flush -> stats }
             -> unpack ONCE at the chunk boundary
 
 The canonical state rides along as a carrier (`PackedChunk.st`): its
-[N, L] planes and the mirrors unpack rebuilds (alive, merit, gestation
-time, generation) are stale mid-chunk; the columns unpack cannot rebuild
+[N, L] planes are stale mid-chunk; the columns unpack cannot rebuild
 (birth_update, parent_id, genotype_id, breed_true, budget_carry, ...)
-stay fresh, maintained by the flush.
+stay fresh, maintained by the flush.  Two bodies, as in the reference
+(fused_ineligible_reason picks):
+
+  fused      schedule, bank and stats read the resident rows, and the
+             mirrors unpack rebuilds (alive, merit, gestation time,
+             generation) go stale mid-chunk -- the main path
+  row-space  resources and schedule run on the canonical carrier, whose
+             mirrors the flush refreshes every update, with the flight
+             recorder's two halves around the launch (TPU_TRACE, or
+             TPU_PACKED_FUSED=0); the same trajectory as the fused body
 
 A batch of W static-equal worlds (parallel/multiworld.py) stays resident
 the same way in `PackedWorlds`: every plane grows a world axis in the
@@ -97,13 +105,26 @@ def batch_active(params, bst) -> bool:
 
 def unported_reason(params) -> str | None:
     """Why the packed route of an eligible configuration is not ported
-    (None = it is): the fused row-space body is, with the 8-bit or the
-    5-bit genome plane."""
-    if int(params.packed_fused) == 0:
-        return "TPU_PACKED_FUSED=0 (the row-space body is not ported)"
-    if int(params.trace_cap):
-        return "flight recorder (TPU_TRACE)"
+    (None = it is): both bodies are, fused and row-space, with the 8-bit
+    or the 5-bit genome plane, so nothing is refused here."""
     return None
+
+
+def fused_ineligible_reason(params) -> str | None:
+    """Why the packed body cannot run its cheap phases on the resident
+    rows with stale canonical mirrors (None = it can; meaningful only
+    when the packed chunk is active), in the reference's words."""
+    if int(params.packed_fused) == 0:
+        return "TPU_PACKED_FUSED=0"
+    if int(params.trace_cap):
+        return ("flight recorder armed (TPU_TRACE: trace emission reads "
+                "the canonical mirrors mid-chunk)")
+    return None
+
+
+def fused_active(params) -> bool:
+    """Does the packed chunk run its fused body?"""
+    return fused_ineligible_reason(params) is None
 
 
 def bits_ineligible_reason(params) -> str | None:
@@ -127,13 +148,20 @@ def bits_active(params) -> bool:
 
 def engine_report(params, nb_ring: bool = False) -> dict:
     """Which engine this configuration routes to, in the reference's
-    vocabulary: {'engine': 'packed', 'sub_path', 'packed_bits'} (with
+    vocabulary: {'engine': 'packed', 'sub_path': 'fused' | 'row-space'
+    (+ 'fused_fallback_reason'), 'packed_bits'} (with
     'bits_fallback_reason' when TPU_PACKED_BITS=1 is refused) or
     {'engine': 'per-update', 'fallback_reason'}."""
     reason = ineligible_reason(params, nb_ring)
     if reason is not None:
         return {"engine": "per-update", "fallback_reason": reason}
-    rep = {"engine": "packed", "sub_path": "fused"}
+    rep = {"engine": "packed"}
+    freason = fused_ineligible_reason(params)
+    if freason is None:
+        rep["sub_path"] = "fused"
+    else:
+        rep["sub_path"] = "row-space"
+        rep["fused_fallback_reason"] = freason
     breason = bits_ineligible_reason(params)
     rep["packed_bits"] = 0 if breason else 1
     if breason and int(params.packed_bits):
@@ -155,7 +183,9 @@ def schedule_rows(params, ivec, fvec, budget_carry, k_budget):
 
 
 def stats_rows(pc: PackedChunk, alive_before, update_no):
-    """(births, deaths, dt, ave_gen, n_alive) from the resident rows."""
+    """(births, deaths, dt, ave_gen, n_alive) from the resident rows
+    (the values equal the canonical state's: the row-space body's fresh
+    mirrors are copies of these rows)."""
     from avida_tpu_torch.ops import update
     vals = update.light_stats_vals(
         alive_rows(pc.ivec), pc.ivec[cycles.IV_GEST_TIME],
@@ -226,13 +256,23 @@ def bank_rows(params, st, ivec, budgets, executed0):
 
 # ---- the update body's phases, in order (update_step_packed) ----
 
-def schedule_phase(params, pc: PackedChunk, k_budget):
-    """Draw this update's budgets and write the grant row (in place).
-    Returns (budgets, executed0): what bank_phase needs."""
-    budgets, granted, _ = schedule_rows(params, pc.ivec, pc.fvec,
-                                        pc.st.budget_carry, k_budget)
+def schedule_phase(params, pc: PackedChunk, k_budget, key=None,
+                   update_no=None):
+    """Draw this update's budgets and write the grant row (in place):
+    off the resident rows (fused body) or, on the row-space body,
+    resources and schedule on the canonical carrier (`key` and
+    `update_no` are the update's).  Returns (pc', budgets, granted,
+    executed0): what bank_phase and the trace need."""
+    from avida_tpu_torch.ops import update
+    if fused_active(params):
+        budgets, granted, _ = schedule_rows(params, pc.ivec, pc.fvec,
+                                            pc.st.budget_carry, k_budget)
+    else:
+        pc = pc.replace(st=update.resource_phase(params, pc.st, key,
+                                                 update_no))
+        budgets, granted, _ = update.schedule_phase(params, pc.st, k_budget)
     pc.ivec[cycles.IV_GRANTED] = granted
-    return budgets, pc.ivec[cycles.IV_INSTS_EXEC].clone()
+    return pc, budgets, granted, pc.ivec[cycles.IV_INSTS_EXEC].clone()
 
 
 def kernel_phase(params, pc: PackedChunk, k_steps):
@@ -249,24 +289,34 @@ def bank_phase(params, pc: PackedChunk, budgets, executed0):
 
 
 def flush_phase(params, pc: PackedChunk, k_birth, update_no):
-    """The packed birth flush.  Returns pc'."""
+    """The packed birth flush (the row-space body refreshes the
+    carrier's mirrors).  Returns pc'."""
     planes, st = birth_ops.flush_births_packed(
         params, pc.st, k_birth,
-        (pc.tape_t, pc.off_t, pc.gen_t, pc.ivec, pc.fvec), update_no)
+        (pc.tape_t, pc.off_t, pc.gen_t, pc.ivec, pc.fvec), update_no,
+        fresh_mirrors=not fused_active(params))
     tape_t, off_t, gen_t, ivec, fvec = planes
     return pc.replace(st=st, tape_t=tape_t, off_t=off_t, gen_t=gen_t,
                       ivec=ivec, fvec=fvec)
 
 
 def update_step_packed(params, pc: PackedChunk, key, update_no):
-    """One update on resident planes (schedule -> kernel -> bank ->
-    birth), consuming the reference's PRNG splits.  Returns
-    (pc', executed_this_update)."""
+    """One update on resident planes (schedule -> [trace_pre] -> kernel
+    -> bank -> birth -> [trace_post]), consuming the reference's PRNG
+    splits.  Returns (pc', executed_this_update)."""
+    from avida_tpu_torch.ops import update
     ks = prng.split(key, 3)
-    budgets, executed0 = schedule_phase(params, pc, ks[0])
+    pc, budgets, granted, executed0 = schedule_phase(params, pc, ks[0], key,
+                                                     update_no)
+    if params.trace_cap:         # implies the row-space body
+        st, tsnap = update.trace_pre_phase(params, pc.st, granted, update_no)
+        pc = pc.replace(st=st)
     kernel_phase(params, pc, ks[1])
     pc, executed_this = bank_phase(params, pc, budgets, executed0)
     pc = flush_phase(params, pc, ks[2], update_no)
+    if params.trace_cap:
+        pc = pc.replace(st=update.trace_post_phase(params, pc.st, tsnap,
+                                                   update_no))
     return pc, executed_this.sum().to(torch.int32)
 
 
@@ -347,20 +397,31 @@ def stats_rows_worlds(pw: PackedWorlds, alive_before, update_no):
 # ---- the batched update body's phases, in update_step_packed_worlds'
 # order; keys and update numbers are per-world sequences ----
 
-def schedule_phase_worlds(params, pw: PackedWorlds, k_budget):
-    """Each world's budgets and grant row (in place).  Returns (budgets
-    per world, executed0[W, N], trips[W]): trips is each world's own trip
-    count max_k, what its solo launch runs."""
-    budgets, trips = [], []
+def schedule_phase_worlds(params, pw: PackedWorlds, k_budget, keys=None,
+                          update_no=None):
+    """Each world's budgets and grant row (in place), from its rows or,
+    on the row-space body, from its canonical carrier after resources.
+    Returns (pw', budgets per world, grants per world, executed0[W, N],
+    trips[W]): trips is each world's own trip count max_k, what its solo
+    launch runs."""
+    from avida_tpu_torch.ops import update
+    fused = fused_active(params)
+    budgets, grants, trips, sts = [], [], [], []
     for w, st in enumerate(pw.sts):
-        b, granted, max_k = schedule_rows(params, pw.ivec[:, w],
-                                          pw.fvec[:, w], st.budget_carry,
-                                          k_budget[w])
+        if fused:
+            b, granted, max_k = schedule_rows(params, pw.ivec[:, w],
+                                              pw.fvec[:, w], st.budget_carry,
+                                              k_budget[w])
+        else:
+            st = update.resource_phase(params, st, keys[w], update_no[w])
+            b, granted, max_k = update.schedule_phase(params, st, k_budget[w])
         pw.ivec[cycles.IV_GRANTED, w] = granted
+        sts.append(st)
         budgets.append(b)
+        grants.append(granted)
         trips.append(max_k.to(torch.int32))
-    return (budgets, pw.ivec[cycles.IV_INSTS_EXEC].clone(),
-            torch.stack(trips))
+    return (pw.replace(sts=tuple(sts)), budgets, grants,
+            pw.ivec[cycles.IV_INSTS_EXEC].clone(), torch.stack(trips))
 
 
 def kernel_phase_worlds(params, pw: PackedWorlds, k_steps):
@@ -385,7 +446,7 @@ def flush_phase_worlds(params, pw: PackedWorlds, k_birth, update_no):
     """The world-blocked packed birth flush.  Returns pw'."""
     planes, sts = birth_ops.flush_births_packed_worlds(
         params, pw.sts, k_birth, tuple(getattr(pw, n) for n in _PLANES),
-        update_no)
+        update_no, fresh_mirrors=not fused_active(params))
     return pw.replace(sts=tuple(sts), **dict(zip(_PLANES, planes)))
 
 
@@ -394,10 +455,19 @@ def update_step_packed_worlds(params, pw: PackedWorlds, keys, update_no):
     for phase, one launch for the batch), each world consuming its own
     key's splits and stamping its own update number.  Returns (pw',
     executed[W], trips[W])."""
+    from avida_tpu_torch.ops import update
     ks = [prng.split(k, 3) for k in keys]
-    budgets, executed0, trips = schedule_phase_worlds(
-        params, pw, [k[0] for k in ks])
+    pw, budgets, grants, executed0, trips = schedule_phase_worlds(
+        params, pw, [k[0] for k in ks], keys, update_no)
+    if params.trace_cap:
+        pairs = [update.trace_pre_phase(params, st, g, u)
+                 for st, g, u in zip(pw.sts, grants, update_no)]
+        pw = pw.replace(sts=tuple(p[0] for p in pairs))
     kernel_phase_worlds(params, pw, [k[1] for k in ks])
     pw, executed = bank_phase_worlds(params, pw, budgets, executed0)
     pw = flush_phase_worlds(params, pw, [k[2] for k in ks], update_no)
+    if params.trace_cap:
+        pw = pw.replace(sts=tuple(
+            update.trace_post_phase(params, st, p[1], u)
+            for st, p, u in zip(pw.sts, pairs, update_no)))
     return pw, executed, trips

@@ -73,3 +73,26 @@ def block_utilization(granted, block: int):
     statistic)."""
     ceil = block_ceiling(granted, block)
     return prng.xla_f32_sum(granted.to(torch.float32)) / ceil.clamp(min=1.0)
+
+
+def block_budget_histogram(granted, block: int):
+    """Per-block (block_max int32[nb], block_sum int32[nb]) summary of a
+    granted vector under `block`-wide blocking: block_max * block -
+    block_sum is each block's budget-tail waste in lane-cycles."""
+    n = granted.shape[0]
+    g = torch.zeros(n + (-n) % block, dtype=torch.int32,
+                    device=granted.device)
+    g[:n] = granted
+    gb = g.reshape(-1, block)
+    return gb.max(dim=1).values, gb.sum(dim=1).to(torch.int32)
+
+
+def block_skip_fraction(granted, block: int):
+    """Fraction of lockstep lane-cycles the per-block early exit skips
+    against one global loop running every block to the global max:
+    1 - block_ceiling / (global_max * lanes), float32 throughout."""
+    n = granted.shape[0]
+    pad = (-n) % block
+    gmax = granted.max().clamp(min=1).to(torch.float32)
+    total = gmax * float(n + pad)
+    return 1.0 - block_ceiling(granted, block) / total.clamp(min=1.0)

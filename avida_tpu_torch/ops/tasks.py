@@ -22,6 +22,7 @@ conversion (NaN -> 0).
 from __future__ import annotations
 
 import itertools
+import os
 
 import numpy as np
 import torch
@@ -196,6 +197,7 @@ def _build_env_tables(params, device) -> dict:
         "is_deme": t(params.proc_res_deme if params.num_deme_res
                      else [False] * R, torch.bool),
         "chunks": vector_chunks(params),
+        "tail_chunks": tail_forms(params),
     }
 
 
@@ -257,21 +259,87 @@ def vector_chunks(params) -> dict:
         return {k: form for k in off}
     if R < min(_VECTOR_FROM.values()):
         return off
+    comp = _composition(params)
+    if comp is None:
+        return off
+    start = {"open": _VECTOR_FROM_OPEN, "all": _VECTOR_FROM,
+             "some": _VECTOR_FROM_SOME}[comp]
+    return {k: (R // 8 if R >= v else 0) for k, v in start.items()}
+
+
+def _composition(params) -> str | None:
+    """Which of vector_chunks' read compositions the environment is:
+    "open" (one task family, or no requisite window), "all" (a window on
+    every logic reaction), "some" (a window on some logic reactions
+    only); None without all three process types."""
+    R = params.num_reactions
     names = params.task_math_name
     logic = np.asarray(params.task_logic_mask, bool).reshape(R, -1)
     logic_rows = [r for r, nm in enumerate(names)
                   if not nm and logic[r].any()]
     if not {PROCTYPE_ADD, PROCTYPE_MULT, PROCTYPE_POW} \
             <= set(params.proc_type):
-        return off
+        return None
     windows = [params.max_task_count[r] < _NO_WINDOW for r in logic_rows]
     if not (any(names) and logic_rows) or not any(windows):
-        start = _VECTOR_FROM_OPEN      # one task family, or no window
-    elif all(windows):
-        start = _VECTOR_FROM
-    else:
-        start = _VECTOR_FROM_SOME
-    return {k: (R // 8 if R >= v else 0) for k, v in start.items()}
+        return "open"
+    return "all" if all(windows) else "some"
+
+
+# XLA's CPU backend runs a fused block in parallel tasks when its cost
+# says so (ParallelTaskAssignment's DefaultCostModel): p = min(schedulable
+# CPUs, cost / 100,000) partitions of ceil(N / p) organisms, cost = flops
+# + 2 x transcendentals + 10 x bytes of the fused computation
+# (HloCostAnalysis), where flops > bytes.  The last partition, when it is
+# shorter than the others, compiles to a loop of its own, with its own
+# reduction forms.
+_MIN_TASK_COST = 100_000          # 100 us of work on a 2 GHz core
+# the last partition's forms, by reaction count, where they were read
+# (a window on some logic reactions; ROADMAP.md Queue 3)
+_TAIL_FORMS = {16: {"pow": TREE, "mult": 2, "add": 0}}
+
+
+def io_block_cost(params, n) -> tuple:
+    """(flops, transcendentals, bytes) of the IO block's fused reward
+    reduction over n organisms (the `reduce_add_fusion` computing the new
+    bonus), as HloCostAnalysis counts them on its after-optimizations
+    HLO: per organism and reaction 14 elementwise ops (the window, the
+    rewarded and typed masks, the selects, the exp2 scaling) and 3
+    reduction steps less one per organism, plus 3 ops per organism (17 n
+    R flops in all); one exp per organism and reaction; the inputs read
+    once (the reward mask 1 byte and the task counts 4 bytes per
+    organism and reaction, the bonus 4 bytes per organism, 11 bytes of
+    tables per reaction) and the new bonus written (4 bytes per
+    organism)."""
+    R = int(params.num_reactions)
+    return 17 * n * R, n * R, 8 * n + 5 * n * R + 11 * R
+
+
+def io_block_tail(params, n, cpus=None) -> int:
+    """First organism of the IO block's last parallel partition when that
+    partition compiles a loop of its own (it is shorter than the
+    others), else n.  `cpus`: the schedulable CPUs XLA sees
+    (os.sched_getaffinity)."""
+    flops, trans, nbytes = io_block_cost(params, n)
+    if flops <= nbytes:           # I/O bound: no partition at these sizes
+        return n
+    if cpus is None:
+        cpus = len(os.sched_getaffinity(0))
+    p = min(cpus, n, max(1, (flops + 2 * trans + 10 * nbytes)
+                         // _MIN_TASK_COST))
+    size = -(-n // p)
+    return n if p <= 1 or n - size * (p - 1) == size else size * (p - 1)
+
+
+def tail_forms(params) -> dict | None:
+    """The last partition's reduction forms (io_block_tail), where the
+    composition and reaction count were read: a window on some logic
+    reactions, in-order forms for the rest (vector_chunks), R = 16."""
+    R = params.num_reactions
+    if vector_chunks(params) != {k: 0 for k in _VECTOR_FROM} \
+            or _composition(params) != "some":
+        return None
+    return _TAIL_FORMS.get(R)
 
 
 def vector_fold(cols, op, init, chunks):
@@ -371,13 +439,8 @@ def apply_reactions(params, tables, io_mask, logic_id, cur_bonus,
     mult_f = torch.where(rewarded & (ptype == PROCTYPE_MULT) & (va != 0),
                          va, one)
     add_f = torch.where(rewarded & (ptype == PROCTYPE_ADD), va, zero)
-    chunks = tables["chunks"]
-    pow_mult = vector_fold([pow_f[:, r] for r in range(R)], torch.mul, 1.0,
-                           chunks["pow"])
-    mult_mult = vector_fold([mult_f[:, r] for r in range(R)], torch.mul,
-                            1.0, chunks["mult"])
-    add_sum = vector_fold([add_f[:, r] for r in range(R)], torch.add, 0.0,
-                          chunks["add"])
+    pow_mult, mult_mult, add_sum = _fold_rewards(params, tables, pow_f,
+                                                 mult_f, add_f)
     # XLA's CPU code generator fuses the last multiply and the add; with
     # no mult process the product over them folds to 1 and drops out, so
     # the pow product is the last multiply
@@ -388,6 +451,28 @@ def apply_reactions(params, tables, io_mask, logic_id, cur_bonus,
     return (new_bonus, cur_task_count + performed.to(torch.int32),
             cur_reaction_count + rewarded.to(torch.int32),
             rewarded.any(dim=1), resources, res_grid, deme_resources)
+
+
+def _fold_rewards(params, tables, pow_f, mult_f, add_f):
+    """The pow and mult products and the add sum over the reactions, each
+    organism in its compiled loop's form: vector_chunks', or from
+    io_block_tail on, the last parallel partition's (tail_forms)."""
+    R = params.num_reactions
+    n = pow_f.shape[0]
+    parts = [(slice(0, n), tables["chunks"])]
+    if tables["tail_chunks"] is not None:
+        t = io_block_tail(params, n)
+        if t < n:
+            parts = [(slice(0, t), tables["chunks"]),
+                     (slice(t, n), tables["tail_chunks"])]
+    out = []
+    for f, op, init, kind in ((pow_f, torch.mul, 1.0, "pow"),
+                              (mult_f, torch.mul, 1.0, "mult"),
+                              (add_f, torch.add, 0.0, "add")):
+        folds = [vector_fold([f[rows, r] for r in range(R)], op, init,
+                             forms[kind]) for rows, forms in parts]
+        out.append(folds[0] if len(folds) == 1 else torch.cat(folds))
+    return out
 
 
 def _by_products(params, rewarded, amount, resources, res_grid):

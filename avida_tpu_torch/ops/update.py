@@ -165,6 +165,118 @@ def perm_phase(params, st, granted, update_no):
     return st.replace(lane_perm=p, lane_inv=inv)
 
 
+def _trace_append(params, st, mask, cells, code, payloads, update_no):
+    """Append one event per True lane of `mask` to the flight-recorder
+    ring (st.tr_*).  Slot = event_number % trace_cap, so overflow
+    overwrites the OLDEST events; the monotone tr_count cursor lets the
+    host recover the drop count -- no early sync, ever.  Masked-off lanes
+    write a scratch slot at index `cap` that is cut off afterwards (the
+    reference's mode="drop"), so no lane indexes out of range and the
+    mask is never read back to the host.  A batch wider than the ring is
+    pre-dropped to its newest `cap` events, so the kept slots are unique
+    (duplicate indices in one scatter have no defined winner).  Pure
+    append-only side state: nothing downstream reads the ring."""
+    cap = int(params.trace_cap)
+    m = mask.to(torch.int32)
+    offs = torch.cumsum(m, 0) - 1
+    total = m.sum().to(torch.int32)
+    keep = mask & (offs >= total - cap)
+    pos = torch.where(keep, (st.tr_count + offs) % cap, cap).long()
+
+    def put(ring, vals):
+        buf = torch.cat([ring, ring.new_zeros(1)])
+        buf[pos] = torch.broadcast_to(
+            torch.as_tensor(vals, dtype=torch.int32, device=ring.device),
+            pos.shape)
+        return buf[:cap]
+
+    return st.replace(
+        tr_update=put(st.tr_update, int(update_no)),
+        tr_cell=put(st.tr_cell, cells),
+        tr_code=put(st.tr_code, int(code)),
+        tr_payload=put(st.tr_payload, payloads.to(torch.int32)),
+        tr_count=st.tr_count + total,
+    )
+
+
+def trace_pre_phase(params, st, granted, update_no):
+    """Flight recorder, first half (after schedule and the lane
+    permutation, before the cycles): the scheduler-stall event and the
+    snapshot the post-update emission diffs against.  Returns (st,
+    snapshot dict).  Run only when params.trace_cap > 0.  On the kernel
+    route the stall statistic bins `granted`, in lane order, at the
+    reference kernel's block width (cycles.dims' B); on the micro-step
+    engine the population is one block."""
+    from avida_tpu_torch.observability import tracer
+    from avida_tpu_torch.ops.interpreter import anomaly_masks
+    n = granted.shape[0]
+    if cycles.use_kernel(params):
+        block = cycles.dims(params, n, params.max_memory)[0]
+        g = granted[st.lane_perm.long()] if int(params.lane_perm_k) > 0 \
+            else granted
+    else:
+        block = n
+        g = granted
+    util = scheduler.block_utilization(g, block)
+    st = _trace_append(
+        params, st, (util < params.trace_stall_util)[None],
+        torch.full((1,), -1, dtype=torch.int32, device=granted.device),
+        tracer.EV_SCHED_STALL, torch.round(util * 1e4)[None], update_no)
+    bad_merit, bad_head, _ = anomaly_masks(params, st)
+    snap = {"alive": st.alive, "genotype_id": st.genotype_id,
+            "task_seen": st.task_exe_total > 0,
+            "bad_merit": bad_merit, "bad_head": bad_head}
+    return st, snap
+
+
+def trace_post_phase(params, st, snap, update_no):
+    """Flight recorder, second half (after the birth flush): births and
+    deaths with their ancestry payloads, first-time task triggers at the
+    cell, and the anomalies' rising edges."""
+    from avida_tpu_torch.observability import tracer
+    from avida_tpu_torch.ops.interpreter import anomaly_masks
+    n = st.alive.shape[0]
+    dev = st.alive.device
+    cells = torch.arange(n, dtype=torch.int32, device=dev)
+    born, died = birth_ops.birth_death_masks(snap["alive"], st, update_no)
+    st = _trace_append(params, st, born, cells, tracer.EV_BIRTH,
+                       st.parent_id, update_no)
+    st = _trace_append(params, st, died, cells, tracer.EV_DEATH,
+                       snap["genotype_id"], update_no)
+    # first execution of a task at this cell: payload = bitmask of the
+    # newly first-executed task columns (capped at 31 bits)
+    new_task = (st.task_exe_total > 0) & ~snap["task_seen"]
+    R = min(int(params.num_reactions), 31)
+    bits = (new_task[:, :R].to(torch.int32)
+            * (1 << torch.arange(R, dtype=torch.int32, device=dev))[None, :]
+            ).sum(dim=1).to(torch.int32)
+    st = _trace_append(params, st, new_task[:, :R].any(dim=1), cells,
+                       tracer.EV_TASK_FIRST, bits, update_no)
+    # rising edge only: a persistent anomaly is one event at its onset
+    bad_merit, bad_head, ip = anomaly_masks(params, st)
+    st = _trace_append(params, st, bad_merit & ~snap["bad_merit"], cells,
+                       tracer.EV_ANOM_MERIT,
+                       torch.ones(n, dtype=torch.int32, device=dev),
+                       update_no)
+    st = _trace_append(params, st, bad_head & ~snap["bad_head"], cells,
+                       tracer.EV_ANOM_HEAD, ip, update_no)
+    return st
+
+
+def fault_phase(params, st, update_no):
+    """The device fault kinds of TPU_FAULT (utils/faultinject.py), after
+    the birth flush and before the trace emission, so the flight recorder
+    sees an anomaly's onset in its own update.  The identity unless
+    params.fault_nan / fault_bitflip is set."""
+    if params.fault_nan or params.fault_bitflip:
+        from avida_tpu_torch.utils import faultinject
+        if params.fault_nan:
+            st = faultinject.nan_phase(params, st, update_no)
+        if params.fault_bitflip:
+            st = faultinject.bitflip_phase(params, st, update_no)
+    return st
+
+
 def cycle_step_fn(params):
     """The hardware's micro-step and the derivation of its cycle draws:
     one dispatch shared by the solo cycle loop and the folded batch (the
@@ -194,7 +306,7 @@ def materialize_offspring(params, st, pending_before):
                                            st.off_tape))
 
 
-def xla_cycles(params, st, k_steps, granted, max_k):
+def xla_cycles(params, st, k_steps, granted, max_k, counters=None):
     """The micro-step engine's update (the reference's XLA while_loop):
     cycle s runs interpreter.micro_step on the organisms alive, granted
     more than s cycles and not waiting on a birth, keyed fold_in(k_steps,
@@ -203,9 +315,11 @@ def xla_cycles(params, st, k_steps, granted, max_k):
     int64[W, 2] with max_k the largest of their trip counts (a world past
     its own grants runs masked, which is the identity).  The extraction
     is heads hardware's: TransSMT offspring wait in the host write
-    buffer, and the experimental flush reads the tape itself."""
+    buffer, and the experimental flush reads the tape itself.
+    `counters`: the telemetry dispatch-mix accumulator (int32[num_insts],
+    observability/counters.dispatch_init), added to in place."""
     pending_before = st.divide_pending
-    st = run_micro_steps(params, st, k_steps, granted, max_k)
+    st = run_micro_steps(params, st, k_steps, granted, max_k, counters)
     if params.hw_type != 0:
         return st
     return materialize_offspring(params, st, pending_before)
@@ -216,12 +330,13 @@ def xla_cycles(params, st, k_steps, granted, max_k):
 _BITS_BLOCK = 32
 
 
-def run_micro_steps(params, st, k_steps, granted, max_k):
+def run_micro_steps(params, st, k_steps, granted, max_k, counters=None):
     """xla_cycles' cycle loop, without the offspring extraction.  max_k
     is read to the host once, here; no cycle reads a value back.  Cycle
     s is keyed fold_in(k_steps, s); the draws of _BITS_BLOCK cycles are
-    made at once."""
-    from avida_tpu_torch.ops.interpreter import cycle_bits
+    made at once.  With `counters`, each cycle adds every scheduled
+    lane's opcode under its IP (interpreter.fetch_opcode) to it."""
+    from avida_tpu_torch.ops.interpreter import cycle_bits, fetch_opcode
     micro_step, draw_keys = cycle_step_fn(params)
     keys = k_steps.reshape(-1, 2)
     n = st.alive.shape[0]
@@ -234,6 +349,9 @@ def run_micro_steps(params, st, k_steps, granted, max_k):
         bits = cycle_bits(draw_keys, params, ck, n)
         for j in range(b):
             exec_mask = st.alive & (s0 + j < granted) & ~st.divide_pending
+            if counters is not None:
+                counters.index_add_(0, fetch_opcode(params, st).long(),
+                                    exec_mask.to(torch.int32))
             st = micro_step(params, st, ck[j], exec_mask, bits[:, j])
     return st
 
@@ -288,17 +406,23 @@ def birth_phase(params, st, k_birth, k_steps, update_no, neighbors=None):
 
 def update_step(params, st, key, update_no, neighbors=None):
     """One update of the per-update engine.  Returns (st',
-    executed_this_update)."""
+    executed_this_update).  The flight recorder's two halves
+    (TPU_TRACE) and the device faults (TPU_FAULT) run only when armed."""
     ks = prng.split(key, 3)
     k_budget, k_steps, k_birth = ks[0], ks[1], ks[2]
     st = resource_phase(params, st, key, update_no)
     budgets, granted, max_k = schedule_phase(params, st, k_budget)
     st = perm_phase(params, st, granted, update_no)
+    if params.trace_cap:
+        st, tsnap = trace_pre_phase(params, st, granted, update_no)
     executed0 = st.insts_executed
     st = interpret_phase(params, st, k_steps, granted, static_cap(params),
                          max_k)
     st, executed = bank_phase(params, st, budgets, executed0)
     st = birth_phase(params, st, k_birth, k_steps, update_no, neighbors)
+    st = fault_phase(params, st, update_no)
+    if params.trace_cap:
+        st = trace_post_phase(params, st, tsnap, update_no)
     return st, executed
 
 
@@ -435,6 +559,12 @@ def batched_update_step(params, sts, keys, update_no, neighbors=None):
            for st, k, u in zip(sts, keys, update_no)]
     sts = [p[0] for p in pre]
     budgets, granted, max_k, k_steps, k_birth = zip(*[p[1] for p in pre])
+    tsnaps = None
+    if params.trace_cap:
+        pairs = [trace_pre_phase(params, st, g, u)
+                 for st, g, u in zip(sts, granted, update_no)]
+        sts = [p[0] for p in pairs]
+        tsnaps = [p[1] for p in pairs]
     executed0 = [st.insts_executed for st in sts]
     if cycles.use_kernel(params):
         sts = mw_stack_kernel_cycles(params, sts, k_steps, granted,
@@ -444,8 +574,12 @@ def batched_update_step(params, sts, keys, update_no, neighbors=None):
     out, executed = [], []
     for w, st in enumerate(sts):
         st, ex = bank_phase(params, st, budgets[w], executed0[w])
-        out.append(birth_phase(params, st, k_birth[w], k_steps[w],
-                               update_no[w], neighbors))
+        st = birth_phase(params, st, k_birth[w], k_steps[w], update_no[w],
+                         neighbors)
+        st = fault_phase(params, st, update_no[w])
+        if tsnaps is not None:
+            st = trace_post_phase(params, st, tsnaps[w], update_no[w])
+        out.append(st)
         executed.append(ex)
     trips = torch.stack([m.to(torch.int32) for m in max_k])
     return out, torch.stack(executed), trips
@@ -541,8 +675,19 @@ def summarize(params, st, update_no=-1):
                                & (st.birth_update == update_no)).sum(),
         "num_breed_true": (alive & st.breed_true).sum(),
         "num_no_birth": (alive & (st.num_divides == 0)).sum(),
+        "total_insts_words": torch.stack([
+            (st.insts_executed & 0x7FF).sum(),
+            ((st.insts_executed >> 11) & 0x7FF).sum(),
+            (st.insts_executed >> 22).sum()]),
         "task_counts": (alive[:, None] & (st.last_task_count > 0)).sum(dim=0),
         # lifetime per-cell totals, dead cells included: tasks_exe.dat
         # diffs consecutive rows on the host
         "task_exe_totals": st.task_exe_total.sum(dim=0),
     }
+
+
+def total_insts_exact(words) -> int:
+    """Exact lifetime executed-instruction total from summarize()'s
+    total_insts_words (host side, Python ints)."""
+    w = [int(x) for x in words]
+    return w[0] + (w[1] << 11) + (w[2] << 22)

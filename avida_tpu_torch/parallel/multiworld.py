@@ -32,11 +32,13 @@ run writes at the same boundary, so a member resumes solo (or in either
 package) and the reverse.  resume() re-aligns the members on the newest
 update every one of them retains.  The integrity plane runs batched:
 [W] digests at every chunk boundary and a whole-batch shadow replay on
-every TPU_SCRUB_EVERY-th chunk.
+every TPU_SCRUB_EVERY-th chunk.  TPU_METRICS publishes the batch
+heartbeat through MultiWorldExporter (metrics.prom + multiworld.prom);
+TPU_PROFILE attributes the batch's chunks.  A member with a flight
+recorder or a fault plan is refused, as in the reference.
 
 Not ported here, raised by name: the serving batch ServeBatch (item 16)
-and TPU_KERNEL_SHARDS > 1.  The exporter and profiler (item 15) are
-refused by the members' World.
+and TPU_KERNEL_SHARDS > 1.
 """
 
 from __future__ import annotations
@@ -107,7 +109,8 @@ class MultiWorld:
                     "multi-world batching requires chunkable runs: no "
                     "telemetry, no offspring reversion tests, no "
                     "generation/births event triggers")
-            if w.analytics is not None:
+            if w.tracer is not None or w.analytics is not None \
+                    or w.faults is not None:
                 raise ValueError(
                     "multi-world batching does not slice the flight "
                     "recorder, live analytics or fault-injection host "
@@ -175,6 +178,21 @@ class MultiWorld:
         self._digest_pending = None    # (update, device [W]) deferred
         self.state_digests = None      # (update, [W] values) last resolved
         self._last_verified_update = self.update
+        # the batch heartbeat (TPU_METRICS): metrics.prom with the batch's
+        # aggregates and multiworld.prom with a row per world
+        # (observability/exporter.MultiWorldExporter)
+        self.exporter = None
+        if int(self.cfg.get("TPU_METRICS", 0)):
+            from avida_tpu_torch.observability.exporter import \
+                MultiWorldExporter
+            self.exporter = MultiWorldExporter(self)
+        # the performance attribution plane (observability/profiler.py)
+        self.profiler = None
+        from avida_tpu_torch.observability import profiler as _profiler
+        if _profiler.enabled(self.cfg):
+            self.profiler = _profiler.ChunkProfiler(
+                self.data_dir, self.cfg, kind="multiworld",
+                device=self.device)
 
     # ---- construction helpers ----
 
@@ -294,6 +312,8 @@ class MultiWorld:
         accumulator updates per world (each world's avida-time increment
         summed in the solo order) and its integrity boundary."""
         pre = None
+        if self.profiler is not None:
+            self.profiler.chunk_begin(k)
         if self._scrub_every > 0:
             self._chunk_no += 1
             if self._chunk_no % self._scrub_every == 0:
@@ -318,6 +338,8 @@ class MultiWorld:
         self.update += k
         for w in self.worlds:
             w.update = self.update
+        if self.profiler is not None:
+            self.profiler.chunk_end_batched(self, k, names=self.names)
         if self._digest_on or pre is not None:
             self._integrity_boundary(k, pre)
 
@@ -443,6 +465,18 @@ class MultiWorld:
         self._sync_worlds()
         for w in self.worlds:
             w.save_checkpoint()
+            if self._world_exports(w):
+                # a member's own heartbeat, refreshed at its save
+                w.exporter.export(w)
+
+    def _world_exports(self, w) -> bool:
+        """Does member `w` publish its own metrics.prom?  Not when that
+        path is the batch aggregate's."""
+        if w.exporter is None:
+            return False
+        return (self.exporter is None
+                or os.path.abspath(w.exporter.path)
+                != os.path.abspath(self.exporter.path))
 
     def resume(self, at_update: int | None = None) -> int:
         """Restore every member from its own checkpoint dir, aligned on
@@ -541,6 +575,8 @@ class MultiWorld:
                 if sysm_on and self.update % 100 == 0:
                     for w in self.worlds:
                         w.systematics.prune_extinct(keep_ancestry=True)
+                if self.exporter is not None:
+                    self.exporter.export_deferred(self)
                 audit_due = (audit_every
                              and self.update - last_audit >= audit_every)
                 ckpt_due = (self._ckpt_on and ckpt_every
@@ -571,6 +607,10 @@ class MultiWorld:
                     w.save_checkpoint()
             for w in self.worlds:
                 w.preempted = self._preempt
+                if self._world_exports(w) and w.state is not None:
+                    w.exporter.export(w)
+            if self.exporter is not None:
+                self.exporter.export_final(self)
         finally:
             import signal as _signal
             for sig, h in handlers.items():

@@ -328,11 +328,11 @@ _STATE_PREFIX = "state."
 def _host_snapshot(world) -> dict:
     """Everything trajectory- or output-relevant that lives on the host:
     update counter, event cursors, the accumulators, the .dat diff
-    baselines -- the reference's host block, key for key and type for
-    type (its reversion RNG, telemetry and tracer entries belong to
-    features this package refuses, so they never appear)."""
+    baselines, the reversion RNG, the telemetry cursor and the flight
+    recorder's counters -- the reference's host block, key for key and
+    type for type."""
     world._flush_exec()
-    return {
+    host = {
         "update": int(world.update),
         "seed": int(world.cfg.RANDOM_SEED),
         "avida_time": float(world._avida_time),
@@ -354,6 +354,17 @@ def _host_snapshot(world) -> dict:
             np.asarray(world._task_exe_prev, np.int64).tolist()
             if world._task_exe_prev is not None else None),
     }
+    if world._revert_on:
+        host["revert_rng"] = world._revert_rng.bit_generator.state
+    tel = world.telemetry
+    if tel is not None and tel._task_prev is not None:
+        host["telemetry"] = {
+            "task_prev": np.asarray(tel._task_prev, np.int64).tolist(),
+            "updates_run": int(tel._updates_run),
+        }
+    if world.tracer is not None:
+        host["tracer"] = world.tracer.to_snapshot()
+    return host
 
 
 def _host_restore(world, host: dict):
@@ -381,6 +392,22 @@ def _host_restore(world, host: dict):
     world._summary_cache_update = None
     if host.get("task_exe_prev") is not None:
         world._task_exe_prev = np.asarray(host["task_exe_prev"], np.int64)
+    if "revert_rng" in host and world._revert_on:
+        world._revert_rng.bit_generator.state = host["revert_rng"]
+    tel = world.telemetry
+    if tel is not None:
+        if host.get("telemetry"):
+            tel.seed_task_totals(np.asarray(host["telemetry"]["task_prev"],
+                                            np.int64))
+            tel._updates_run = int(host["telemetry"]["updates_run"])
+        # resume continuity: the preempted run's telemetry.jsonl in the
+        # same data_dir is appended to, not truncated
+        if os.path.exists(os.path.join(world.data_dir, "telemetry.jsonl")):
+            tel._log_opened = True
+    if world.tracer is not None:
+        # the drain counters, and the runlog opened for append
+        world.tracer.from_snapshot(host.get("tracer") or {})
+        world._trace_pending = None
 
 
 def key_data(key) -> np.ndarray:

@@ -193,6 +193,26 @@ def counters() -> dict:
     return dict(_counters)
 
 
+def prom_families() -> list:
+    """The avida_integrity_* families, render_families shaped.  Empty
+    when the integrity plane never ran, so digest-off processes publish
+    byte-identical metrics files."""
+    c = _counters
+    if not (c["scrubs"] or c["mismatches"] or c["digest_ms"]):
+        return []
+    return [
+        ("avida_integrity_scrubs_total", "counter",
+         "shadow re-executions (sampled chunk replays) completed",
+         c["scrubs"]),
+        ("avida_integrity_mismatches_total", "counter",
+         "scrub digest mismatches -- detected silent data corruption",
+         c["mismatches"]),
+        ("avida_integrity_digest_ms_total", "counter",
+         "milliseconds of host wall spent dispatching and reading "
+         "state digests", round(c["digest_ms"], 1)),
+    ]
+
+
 def append_integrity_record(data_dir: str, event: str,
                             max_bytes: int = 16 << 20, **fields):
     """One {"record": "integrity"} line in DATA_DIR/integrity.jsonl

@@ -28,10 +28,14 @@ the scrub's shadow replay
 (TPU_STATE_DIGEST, TPU_SCRUB_EVERY) and the invariant audit
 (TPU_AUDIT_EVERY, TPU_CKPT_AUDIT); the offspring reversion test
 (REVERT_* / STERILIZE_*, through the batched Test CPU of analyze/) and
-the in-run analytics (TPU_ANALYTICS, analyze/pipeline.py).  Anything
-outside that (telemetry, tracing, fault injection, other hardware, ...)
-raises NotImplementedError naming the feature instead of running
-something else.
+the in-run analytics (TPU_ANALYTICS, analyze/pipeline.py); the
+observability plane (observability/): phase-fenced telemetry
+(TPU_TELEMETRY, telemetry.jsonl), the flight recorder (TPU_TRACE,
+{"record": "trace"} lines), the metrics.prom heartbeat (TPU_METRICS),
+the chunk profiler (TPU_PROFILE, perf.jsonl), and deterministic fault
+injection (TPU_FAULT, utils/faultinject.py).  Anything outside that
+(TPU_KERNEL_SHARDS > 1, ...) raises NotImplementedError naming the
+feature instead of running something else.
 
 Runs on `cuda` unless the caller passes device="cpu"; with neither a GPU
 nor an explicit device it raises.
@@ -114,10 +118,6 @@ _TRANSSMT_PARASITE_NAMES = (
 # config switches whose features this package does not run yet:
 # (name, the reference's default, values that keep the feature off)
 _OFF_SWITCHES = (
-    ("TPU_TELEMETRY", 0, (0,)),
-    ("TPU_TRACE", 0, (0,)), ("TPU_METRICS", 0, (0,)),
-    ("TPU_PROFILE", 0, (0,)),
-    ("TPU_FAULT", "", ("", "-")),
     ("TPU_USE_PALLAS", 0, (0, 1, 2)), ("TPU_KERNEL_SHARDS", 0, (0, 1)),
 )
 
@@ -202,9 +202,6 @@ class World:
                 raise NotImplementedError(
                     f"{name}={v!r}: not ported to avida_tpu_torch yet "
                     f"(set {name} {off[0]!r})")
-        if os.environ.get("TPU_FAULT"):
-            raise NotImplementedError(
-                "TPU_FAULT fault injection: not ported to avida_tpu_torch")
 
         if config_dir and cfg.INST_SET not in ("-", ""):
             self.instset = load_instset(os.path.join(config_dir,
@@ -320,6 +317,7 @@ class World:
         }
         self._revert_on = any(p > 0 for pair in self._revert.values()
                               for p in pair)
+        self._init_observability()
         self._neut_min = 1.0 - cfg.get("NEUTRAL_MIN", 0.0)
         self._neut_max = 1.0 + cfg.get("NEUTRAL_MAX", 0.0)
         self.last_reversion = None   # the last reversion step's counts
@@ -329,6 +327,52 @@ class World:
             self.test_metrics = GenomeTestMetrics(self.params,
                                                   device=self.device)
             self._revert_rng = np.random.default_rng(seed ^ 0x5EED)
+
+    def _init_observability(self):
+        """The observability plane's hosts, each None unless armed:
+        telemetry (TPU_TELEMETRY: the update runs phase-fenced through
+        StagedUpdate, records in telemetry.jsonl; TPU_PROFILE_DIR takes a
+        torch.profiler trace of its first TPU_PROFILE_UPDATES updates),
+        the flight recorder (TPU_TRACE: the device ring drained to
+        {"record": "trace"} lines at chunk boundaries), the metrics.prom
+        heartbeat (TPU_METRICS, implied by TPU_TRACE), the chunk profiler
+        (TPU_PROFILE, off under telemetry, which fences every phase
+        already) and the fault plan (TPU_FAULT).  None of them changes
+        the trajectory."""
+        cfg = self.cfg
+        self.telemetry = None
+        if int(cfg.get("TPU_TELEMETRY", 0)):
+            from avida_tpu_torch.observability.runlog import \
+                TelemetryRecorder
+            pdir = str(cfg.get("TPU_PROFILE_DIR", "-") or "-")
+            self.telemetry = TelemetryRecorder(
+                self, profile_dir=(pdir if pdir not in ("-", "") else None),
+                profile_updates=int(cfg.get("TPU_PROFILE_UPDATES", 3)))
+        self.tracer = None
+        self._trace_pending = None   # deferred ring snapshot (run loop)
+        if self.params.trace_cap:
+            from avida_tpu_torch.observability.tracer import FlightRecorder
+            self.tracer = FlightRecorder(self)
+        self.exporter = None
+        if int(cfg.get("TPU_METRICS", 0)) or self.tracer is not None:
+            from avida_tpu_torch.observability.exporter import \
+                MetricsExporter
+            self.exporter = MetricsExporter(self)
+        self.profiler = None
+        from avida_tpu_torch.observability import profiler as _profiler
+        if _profiler.enabled(cfg) and self.telemetry is None:
+            self.profiler = _profiler.ChunkProfiler(
+                self.data_dir, cfg, kind="solo", device=self.device)
+        from avida_tpu_torch.utils.faultinject import plan_from_config
+        self.faults = plan_from_config(cfg)
+        if (self._digest_on or self._scrub_every) \
+                and self.telemetry is not None:
+            # telemetry steps update by update through StagedUpdate: no
+            # chunk to digest or replay, so say so instead of pretending
+            print("[avida_tpu_torch] warning: TPU_STATE_DIGEST/"
+                  "TPU_SCRUB_EVERY are no-ops under TPU_TELEMETRY (the "
+                  "integrity plane rides the chunk path); run telemetry OR "
+                  "scrubbing, not both", file=sys.stderr)
 
     def _check_engine(self):
         """Route as the reference does (cycles.use_kernel, then
@@ -607,6 +651,8 @@ class World:
         self._summary_cache_update = None
         self._task_exe_prev = self.state.task_exe_total.sum(
             dim=0).cpu().numpy().astype(np.int64)
+        if self.telemetry is not None:
+            self.telemetry.seed_task_totals(self._task_exe_prev)
 
     def _action_SavePopulation(self, args):
         from avida_tpu_torch.utils import spop
@@ -878,6 +924,8 @@ class World:
         on every TPU_SCRUB_EVERY-th chunk, its shadow replay) follows."""
         if self.state is None:
             raise RuntimeError("no population injected")
+        if self.profiler is not None:
+            self.profiler.chunk_begin(k)
         pre = None
         if self._scrub_every > 0:
             self._chunk_no += 1
@@ -893,11 +941,23 @@ class World:
         self._deaths_this = deaths[-1]
         self._prev_alive = n_alive[-1]
         self._total_births = self._total_births + births.sum()
+        if self.profiler is not None:
+            # probe chunks fence and stage a phase probe on a copy
+            self.profiler.chunk_end_solo(self, k)
         if self._digest_on or pre is not None:
             self._integrity_boundary(k, pre)
         return executed
 
     # ---- the integrity plane: state digests and the scrub ----
+
+    def _shadow_params(self):
+        """Params for the shadow replay: without the injected device
+        faults (nan / bitflip model a transient hardware event, which
+        fires in the live execution only)."""
+        p = self.params
+        if p.fault_nan or p.fault_bitflip:
+            return p.replace(fault_nan=(), fault_bitflip=())
+        return p
 
     def _engine_name(self) -> str:
         """The chunk engine just run, named in divergence errors."""
@@ -950,8 +1010,8 @@ class World:
             return
         pre_st, u0 = pre
         integrity.note_scrub()
-        shadow_st, _ = update_scan(self.params, pre_st, k, self._run_key, u0,
-                                   self.neighbors)
+        shadow_st, _ = update_scan(self._shadow_params(), pre_st, k,
+                                   self._run_key, u0, self.neighbors)
         t0 = _time.monotonic()
         live, shad = int(d_live), int(state_digest(shadow_st))
         integrity.note_digest_ms((_time.monotonic() - t0) * 1e3)
@@ -988,7 +1048,19 @@ class World:
     def run_update(self):
         """ONE update, then the reversion test and the synchronous
         systematics feed (does not advance self.update; the caller
-        does)."""
+        does).  Under telemetry the update runs phase-fenced through the
+        recorder and an update record lands in telemetry.jsonl."""
+        tel = self.telemetry
+        if tel is not None:
+            executed = tel.update(self)
+            if self._revert_on:
+                with tel.timeline.phase("host_revert"):
+                    self._apply_reversion()
+            if self.systematics is not None:
+                with tel.timeline.phase("host_systematics"):
+                    self._feed_systematics()
+            tel.emit(self)
+            return executed
         executed = self._scan_updates(1)
         if self._revert_on:
             self._apply_reversion()
@@ -1057,8 +1129,17 @@ class World:
         sterilize = u[1] < probs[cat, 1]
         # fatal reversions with no parent genome left are refused outright
         kill_fallback = want_revert & ~parent_ok & (cat == 0)
-        # (the reference's flight-recorder events for these firings wait
-        # for TPU_TRACE, ROADMAP.md Queue 1 item 15)
+        if self.tracer is not None:
+            # the firings as host events of the flight recorder, merged
+            # into the next drain's per-update records
+            from avida_tpu_torch.observability.tracer import (EV_REVERT,
+                                                              EV_STERILIZE)
+            for c, pc in zip(cells[revert], parents[revert]):
+                self.tracer.record_host_event(self.update, int(c),
+                                              EV_REVERT, int(pc))
+            for c, cc in zip(cells[sterilize], cat[sterilize]):
+                self.tracer.record_host_event(self.update, int(c),
+                                              EV_STERILIZE, int(cc))
         rec.update(reverted=int(revert.sum()),
                    sterilized=int(sterilize.sum()),
                    killed=int(kill_fallback.sum()),
@@ -1094,11 +1175,12 @@ class World:
 
     def _chunkable(self) -> bool:
         """May event-free stretches run as one chunk?  The reversion test
-        needs the host after every update, as do generation / births
-        event triggers (the reference's rule; MultiWorld refuses what is
-        not chunkable)."""
-        return not self._revert_on and not any(
-            ev.trigger in ("generation", "births") for ev in self.events)
+        and telemetry's phase fencing need the host after every update,
+        as do generation / births event triggers (the reference's rule;
+        MultiWorld refuses what is not chunkable)."""
+        return (not self._revert_on and self.telemetry is None
+                and not any(ev.trigger in ("generation", "births")
+                            for ev in self.events))
 
     def _plan_stretch(self, max_updates, max_stretch: int) -> int:
         """Length of the next event-free stretch: power-of-two buckets up
@@ -1239,6 +1321,19 @@ class World:
                     genomes[start:i], lens[start:i], parents[start:i])
                 start = i
 
+    def _flush_trace(self):
+        """Drain the deferred flight-recorder snapshot AND the live ring
+        now (a host sync point: run exit, checkpoint save), so the runlog
+        holds every event up to the boundary before the state, with its
+        zeroed cursor, is saved or the process exits."""
+        if self.tracer is None:
+            return
+        prev, self._trace_pending = self._trace_pending, None
+        if prev is not None:
+            self.tracer.drain(prev)
+        if self.state is not None:
+            self.tracer.drain(self.tracer.snapshot(self))
+
     # ---- persistence: native checkpoints and preemption ----
 
     def _ckpt_base(self) -> str | None:
@@ -1282,14 +1377,21 @@ class World:
         if base is None:
             raise ValueError(
                 "no checkpoint directory (set TPU_CKPT_DIR or pass one)")
-        # the phylogeny must be current before it is serialized
+        # the phylogeny must be current before it is serialized, and the
+        # flight recorder's ring drained (the saved cursor is then 0)
         self._flush_newborn_drain()
+        self._flush_trace()
         self._flush_digest()
         if self._audit_on(audit):
             from avida_tpu_torch.utils.audit import check_invariants
             check_invariants(self.params, self.state,
                              where=f"checkpoint save (update {self.update})")
-        return ckpt_mod.save_checkpoint(base, self)
+        path = ckpt_mod.save_checkpoint(base, self)
+        if self.faults is not None:
+            # corrupt-ckpt / torn-manifest / corrupt-digest damage the
+            # generation just published
+            self.faults.at_save(self, path)
+        return path
 
     def resume(self, ckpt_dir: str | None = None,
                audit: bool | None = None,
@@ -1352,7 +1454,13 @@ class World:
                 if self._nb_pending is not None and self._events_fire_now():
                     # the phylogeny must be current before a Print reads it
                     self._flush_newborn_drain()
-                self.process_events()
+                if self.telemetry is not None:
+                    # the .dat writes and their readbacks: the "host I/O"
+                    # share of the next record
+                    with self.telemetry.timeline.phase("events_io"):
+                        self.process_events()
+                else:
+                    self.process_events()
                 if self._exit:
                     break
                 stretch = (self._plan_stretch(max_updates, max_stretch)
@@ -1371,6 +1479,16 @@ class World:
                     self._flush_newborn_drain()
                     self._pending_exec.append(self.run_update())
                     self.update += 1
+                if self.tracer is not None:
+                    # the ring's deferred drain: snapshot this boundary's
+                    # ring (device copies), ingest the previous one's
+                    prev_t, self._trace_pending = (self._trace_pending,
+                                                   self.tracer.snapshot(self))
+                    if prev_t is not None:
+                        self.tracer.drain(prev_t)
+                if self.exporter is not None:
+                    # publishes the PREVIOUS boundary's values (no fence)
+                    self.exporter.export_deferred(self)
                 if len(self._pending_exec) >= 256:
                     self._flush_exec()
                 if self.systematics is not None and self.update % 100 == 0:
@@ -1389,9 +1507,14 @@ class World:
                     if self.analytics is not None:
                         # a checkpoint boundary is a census boundary
                         self.analytics.refresh(self)
+                if self.faults is not None:
+                    # injected failures fire at chunk boundaries, after
+                    # any auto-save due at the same boundary
+                    self.faults.at_boundary(self)
             # orderly exit (normal or preempted); neither the drain nor the
             # final checkpoint runs after an exception
             self._flush_newborn_drain()
+            self._flush_trace()
             self._flush_digest()
             if self._preempt and ckpt_base and self.state is not None:
                 self.save_checkpoint(ckpt_base)
@@ -1403,6 +1526,12 @@ class World:
             if self.analytics is not None and self.state is not None:
                 # the exit census (durable: the run's last word)
                 self.analytics.refresh(self, durable=True)
+            if self.profiler is not None and self.state is not None:
+                # the closing footprint, before the final heartbeat
+                self.profiler.final(self.state, self.update,
+                                    params=self.params)
+            if self.exporter is not None and self.state is not None:
+                self.exporter.export(self)    # final heartbeat (preempted=1)
         finally:
             import signal as _signal
             for sig, h in handlers.items():
@@ -1417,6 +1546,14 @@ class World:
                     print(f"[avida_tpu_torch] warning: closing {f.path}: "
                           f"{e}", file=sys.stderr)
             self._files = {}
+            # the run logs are closed on any exit path, so a crash never
+            # loses the buffered tail of telemetry.jsonl
+            for host in (self.telemetry, self.tracer):
+                if host is not None:
+                    try:
+                        host.close()
+                    except Exception:
+                        pass
             # a second run() on this world extends its .dat files
             self._dat_append = True
         return self._flush_exec() - start_insts

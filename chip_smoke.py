@@ -71,7 +71,7 @@ and TransSMT hardware with host-parasite coevolution (ROADMAP item
                     the CPU, INT_MIN and -1 planted under Val-Div and
                     Val-Mod: one cycle, then 14 updates, identical
   smt_fold          16 TransSMT 60x60 worlds on the folded engine for
-                    18 updates, members 0 and 15 against their solo runs
+                    17 updates, members 0 and 15 against their solo runs
                     on the CPU
 
 and the rest of the birth flush, the topologies, mating types, energy
@@ -152,6 +152,32 @@ and the Test CPU, offspring reversion and the analyze toolchain
                     the card and on the CPU: the census, knockout and
                     lineage tables byte for byte, the journal record
 
+and the observability plane (ROADMAP item 15):
+
+  trace_path        main_path's evolved world continued for 10 updates
+                    with TPU_TRACE=1 (the flight recorder, a ring of
+                    2^18 events: the packed chunk's row-space body, K1
+                    once an update, held against the plain version)
+                    beside the same updates on the fused body: every
+                    field but the ring equal, the drained birth events
+                    equal to the run's births, none dropped; events per
+                    code, ms an update of each
+  telemetry_path    the same world 5 updates with TPU_TELEMETRY=1,
+                    TPU_METRICS=1 and TPU_PROFILE=1 (StagedUpdate: pack,
+                    K1, unpack as fenced phases; K1 held), then 5 with
+                    TPU_PROFILE=1 on the fused body (the chunk profiler:
+                    CUDA-event chunk time, allocator counters): both
+                    field-equal to the fused run; telemetry.jsonl,
+                    metrics.prom and perf.jsonl written; a
+                    `--status DIR --max-age 600` child exits 0 and a
+                    12x12 world with what `--profile-dir` sets leaves a
+                    torch.profiler trace file
+  trace_cross_device  a 12x12 kernel-route world with TPU_TRACE=1 and
+                    TPU_FAULT=nan:merit@update=3 for 6 updates on the
+                    card and on the CPU: the drained trace records line
+                    for line and every field equal, the merit anomaly
+                    at update 3
+
 and persistence (native checkpoints in the reference's format):
 
   persist_path      the 320x320 packed world saving every 10 updates
@@ -173,7 +199,7 @@ and persistence (native checkpoints in the reference's format):
   spop_path         SavePopulation / LoadPopulation on a 60x60 world: the
                     restore on the card equal to the one on the CPU
   multiworld_persist  multiworld_path's batch saved every 3 updates,
-                    resumed at 6 by a new batch to 12: every member
+                    resumed at 9 by a new batch to 12: every member
                     equal, K3b once per
                     resumed update
 
@@ -543,8 +569,10 @@ def phase_kernel(w, n_launch=3, time_it=True):
         return (pc.tape_t, pc.off_t, pc.ivec, pc.fvec)
 
     for i in range(n_launch):
-        ks = prng.split(prng.fold_in(w._run_key, u + i), 3)
-        budgets, executed0 = packed_chunk.schedule_phase(p, pc, ks[0])
+        key = prng.fold_in(w._run_key, u + i)
+        ks = prng.split(key, 3)
+        pc, budgets, _, executed0 = packed_chunk.schedule_phase(
+            p, pc, ks[0], key, u + i)
         seeds = cycles.block_seeds(ks[1], n_pad, B)
         kern, err, plain_ms = hold_both(
             p, tuple(padded(t) for t in planes()), seeds, cap, B,
@@ -566,8 +594,9 @@ def phase_kernel(w, n_launch=3, time_it=True):
         return res
 
     # timing at the next launch's inputs, on copies of them
-    ks = prng.split(prng.fold_in(w._run_key, u + n_launch), 3)
-    packed_chunk.schedule_phase(p, pc, ks[0])
+    key = prng.fold_in(w._run_key, u + n_launch)
+    ks = prng.split(key, 3)
+    packed_chunk.schedule_phase(p, pc, ks[0], key, u + n_launch)
     seeds = cycles.block_seeds(ks[1], n_pad, B)
     base = tuple(padded(t) for t in planes())
     work = tuple(t.clone() for t in base)
@@ -694,8 +723,8 @@ def phase_breakdown(w, updates=5):
         u = w.update + i
         ks = prng.split(prng.fold_in(w._run_key, u), 3)
         alive_before = packed_chunk.alive_rows(pc.ivec).sum().to(torch.int32)
-        budgets, executed0 = timed("schedule", packed_chunk.schedule_phase,
-                                   p, pc, ks[0])
+        pc, budgets, _, executed0 = timed(
+            "schedule", packed_chunk.schedule_phase, p, pc, ks[0])
         timed("kernel", packed_chunk.kernel_phase, p, pc, ks[1])
         pc, _ = timed("bank", packed_chunk.bank_phase, p, pc, budgets,
                       executed0)
@@ -1153,7 +1182,7 @@ def mw_members(side, seeds, tmp, tag, device, sysm, every, ckpt_root=None):
     printing every `every` updates into its own directory (dominant.dat
     with systematics); with ckpt_root, each saving a generation every
     MW_UPDATES/4 updates into its own directory under it (the one at
-    MW_UPDATES/2 is multiworld_persist's resume point, the one at
+    3 MW_UPDATES/4 is multiworld_persist's resume point, the one at
     ANALYTICS_AT analytics_cli's input)."""
     ev = ["u begin InjectAll"] + [f"u 0:{every}:end {a}" for a in PRINTS
                                   if sysm or a != "PrintDominantData"]
@@ -1358,9 +1387,9 @@ def phase_mw_breakdown(mw, run, name, updates=2):
         if pw is not None:
             ks = [prng.split(k, 3) for k in ukeys]
             ab = packed_chunk.alive_rows(pw.ivec).sum(dim=1).to(torch.int32)
-            budgets, e0, _ = timed("schedule",
-                                   packed_chunk.schedule_phase_worlds, p, pw,
-                                   [k[0] for k in ks])
+            pw, budgets, _, e0, _ = timed(
+                "schedule", packed_chunk.schedule_phase_worlds, p, pw,
+                [k[0] for k in ks])
             timed("kernel", packed_chunk.kernel_phase_worlds, p, pw,
                   [k[1] for k in ks])
             pw, _ = timed("bank", packed_chunk.bank_phase_worlds, p, pw,
@@ -2106,8 +2135,8 @@ AGREE_UPDATES = 6              # engines_agree: the first divides land
 FOLD_UPDATES = 4               # the folded batch's depth
 # the TransSMT paths' depth: at time slices of 30 the first divides and
 # injections land from about update 16 (a 12x12 CPU run, seed 11; the
-# 320x320 world's first infections at 16); the batch stops at 18
-SMT_UPDATES, SMT_FOLD_UPDATES = 20, 18
+# 320x320 world's first infections at 16); the batch stops at 17
+SMT_UPDATES, SMT_FOLD_UPDATES = 20, 17
 
 
 # ---- persistence (native checkpoints, resume, preemption, the digest
@@ -2442,14 +2471,15 @@ def phase_spop_path(tmp, smi, path, cpu=None, side=MW_SIDE):
 def phase_multiworld_persist(tmp, smi, mw_a, ck_root):
     """The 16 x 60x60 batch of multiworld_path (systematics on), which
     saved per-world generations every MW_UPDATES/4 updates: a new batch
-    resumes them at the midpoint and runs to MW_UPDATES; every member
+    resumes them at the last save before MW_UPDATES and runs to
+    MW_UPDATES (the first births among the resumed updates); every member
     equals the uninterrupted batch's, with one stacked launch (K3b) per
     resumed update."""
     import shutil
 
     from avida_tpu_torch.ops import cycles
     from avida_tpu_torch.parallel.multiworld import MultiWorld
-    half = MW_UPDATES // 2
+    at_u = MW_UPDATES - MW_CKPT_PRINTS
     d = os.path.join(tmp, "mwp")
     members = mw_members(MW_SIDE, MW_SEEDS, d, "m", "cuda", 1,
                          MW_CKPT_PRINTS,
@@ -2458,7 +2488,7 @@ def phase_multiworld_persist(tmp, smi, mw_a, ck_root):
     for w, src in zip(members, mw_a.worlds):
         shutil.copytree(src.data_dir, w.data_dir, dirs_exist_ok=True)
     mw = MultiWorld(members)
-    at = mw.resume(at_update=half)
+    at = mw.resume(at_update=at_u)
     cycles.reset_launches()
     _sync("cuda")
     t0 = time.perf_counter()
@@ -2478,9 +2508,9 @@ def phase_multiworld_persist(tmp, smi, mw_a, ck_root):
            "resumed_at": at, "updates": mw.update,
            "stacked_launches_after_resume": stacked,
            "kernel_launches_after_resume": launches,
-           "ms_per_update": 1e3 * wall / (MW_UPDATES - half),
+           "ms_per_update": 1e3 * wall / (MW_UPDATES - at_u),
            "members_equal": len(MW_SEEDS) - len(bad), "differs": bad}
-    if bad or at != half or stacked != MW_UPDATES - half:
+    if bad or at != at_u or stacked != MW_UPDATES - at_u:
         raise AssertionError(f"multiworld_persist check failed: {res}")
     return res, stacked
 
@@ -4021,6 +4051,225 @@ def phase_analytics_cli(tmp, smi, ck, cpu=None):
     return res
 
 
+# ---- slice 13: the observability plane (ROADMAP item 15) ----
+TRACE_UPDATES = 10        # trace_path: main_path's world, 10 more updates
+# the ring holds a whole chunk's events at 320x320 (~13k births and deaths
+# an update, chunks of up to 8 updates), so none drops
+TRACE_CAP = 1 << 18
+TEL_UPDATES = 5           # telemetry_path: 5 of them, phase-fenced
+TRACE_CROSS_SIDE, TRACE_CROSS_UPDATES = 12, 6
+TRACE_FAULT = "nan:merit@update=3"
+
+
+def run_records(data_dir, kinds=("trace",)):
+    """The telemetry.jsonl records of `kinds` under data_dir, in order."""
+    path = os.path.join(data_dir, "telemetry.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r.get("record") in kinds]
+
+
+def continued_world(side, ddir, extra, start):
+    """A fresh card world holding `start` (state, world key, update), with
+    an empty flight-recorder ring when `extra` arms one."""
+    import torch
+    from avida_tpu_torch.core.state import TRACE_RING_FIELDS, clone_state
+    w = make_world(side, ddir, "cuda", [], extra)
+    state, key, u0 = start
+    state = clone_state(state)
+    if w.params.trace_cap:
+        state = state.replace(**{
+            f: torch.zeros(() if f == "tr_count" else w.params.trace_cap,
+                           dtype=torch.int32, device=w.device)
+            for f in TRACE_RING_FIELDS})
+    w.state, w.key, w.update = state, key.clone(), u0
+    return w
+
+
+def counted_run(w, until):
+    """w.run to `until`: (insts, wall seconds, K1 launches)."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    torch.cuda.synchronize()
+    cycles.reset_launches()
+    t0 = time.perf_counter()
+    insts = w.run(max_updates=until)
+    torch.cuda.synchronize()
+    return insts, time.perf_counter() - t0, cycles.LAUNCHES
+
+
+def phase_trace_path(side, tmp, smi, start):
+    """The flight recorder on the main path (TPU_TRACE=1, the packed
+    chunk's row-space body): main_path's evolved world (`start`) for
+    TRACE_UPDATES more updates, one K1 launch each, beside the same
+    updates on the fused body without the recorder.  Every state field
+    but the ring equal at the end; the drained births equal the run's
+    birth count.  Returns (traced world, result, the fused run's state
+    at TEL_UPDATES for telemetry_path)."""
+    from avida_tpu_torch.core.state import TRACE_RING_FIELDS, clone_state
+    from avida_tpu_torch.observability.tracer import EVENT_CODES
+    wt = continued_world(side, os.path.join(tmp, "trace"),
+                         {"TPU_TRACE": 1, "TPU_TRACE_CAP": TRACE_CAP}, start)
+    wf = continued_world(side, os.path.join(tmp, "fused"), {}, start)
+    u0 = start[2]
+    insts, wall, launches = counted_run(wt, u0 + TRACE_UPDATES)
+    _, wall5, flaunches5 = counted_run(wf, u0 + TEL_UPDATES)
+    fused5 = clone_state(wf.state)
+    _, wall10, flaunches = counted_run(wf, u0 + TRACE_UPDATES)
+    flaunches += flaunches5
+    bad = _fields_equal(wt.state, wf.state, skip=TRACE_RING_FIELDS)
+    recs = run_records(wt.data_dir)
+    per_code = {name: 0 for name in EVENT_CODES.values()}
+    for r in recs:
+        for _, code, _ in r["events"]:
+            per_code[EVENT_CODES[code]] += 1
+    births = int(wt._total_births)
+    res = {"phase": "trace_path", "world": f"{side}x{side}",
+           "engine_report": wt.engine_report(), "updates": TRACE_UPDATES,
+           "updates_from": u0, "kernel_launches": launches,
+           "fused_kernel_launches": flaunches, "insts": insts,
+           "ms_per_update": 1e3 * wall / TRACE_UPDATES,
+           "fused_ms_per_update": 1e3 * (wall5 + wall10) / TRACE_UPDATES,
+           "trace_cap": TRACE_CAP, "trace_records": len(recs),
+           "events_per_code": per_code,
+           "events_total": wt.tracer.events_total,
+           "dropped_total": wt.tracer.dropped_total,
+           "births_total": births, "equal_fused_run": not bad,
+           "nvidia_smi": smi}
+    if bad or launches != TRACE_UPDATES or flaunches != TRACE_UPDATES \
+            or wt.engine_report().get("sub_path") != "row-space" \
+            or births == 0 or per_code["birth"] != births \
+            or wt.tracer.code_totals["birth"] != births \
+            or wt.tracer.dropped_total:
+        raise AssertionError(f"trace_path check failed: {res} {bad[:8]}")
+    return wt, res, fused5
+
+
+def phase_telemetry_path(side, tmp, smi, start, fused5):
+    """Telemetry, metrics and the profiler on main_path's evolved world:
+    TEL_UPDATES updates with TPU_TELEMETRY=1, TPU_METRICS=1 and
+    TPU_PROFILE=1 (StagedUpdate: pack, K1, unpack as fenced phases, one
+    launch an update), the state equal to the fused run's (`fused5`);
+    then the same updates with TPU_PROFILE=1 and TPU_METRICS=1 alone on
+    the fused body (the chunk profiler; telemetry already fences every
+    phase, so it leaves the profiler unbuilt).  telemetry.jsonl,
+    metrics.prom and perf.jsonl written; `--status DIR --max-age 600`
+    exits 0 in a child; a 12x12 world with what `--profile-dir` sets
+    leaves a trace file.  Returns (the telemetry world, result)."""
+    from avida_tpu_torch.observability import profiler
+    ddir = os.path.join(tmp, "telemetry")
+    wt = continued_world(side, ddir, {"TPU_TELEMETRY": 1, "TPU_METRICS": 1,
+                                      "TPU_PROFILE": 1}, start)
+    u0 = start[2]
+    insts, wall, launches = counted_run(wt, u0 + TEL_UPDATES)
+    bad = _fields_equal(wt.state, fused5)
+    ups = run_records(ddir, ("update",))
+    phases = {}
+    for r in ups:
+        for k, v in r["phases"].items():
+            phases[k] = phases.get(k, 0.0) + v / len(ups)
+    pdir = os.path.join(tmp, "profiled")
+    wp = continued_world(side, pdir, {"TPU_PROFILE": 1, "TPU_METRICS": 1},
+                         start)
+    _, pwall, plaunches = counted_run(wp, u0 + TEL_UPDATES)
+    pbad = _fields_equal(wp.state, fused5)
+    perf = profiler.read_perf_records(pdir)
+    st_rc, st_s, st_err = run_status(ddir)
+    # what `--profile-dir DIR` sets (TPU_TELEMETRY=1, TPU_PROFILE_DIR):
+    # a torch.profiler capture of the first update of a 12x12 world
+    cdir = os.path.join(tmp, "profile_dir")
+    t0 = time.perf_counter()
+    wc = make_world(12, cdir, "cuda", ["u begin InjectAll"], {
+        "TPU_TELEMETRY": 1, "TPU_PROFILE_DIR": os.path.join(cdir, "prof"),
+        "TPU_PROFILE_UPDATES": 1})
+    wc.run(max_updates=2)
+    cli_s = time.perf_counter() - t0
+    trace_file = os.path.join(cdir, "prof", "trace.json")
+    res = {"phase": "telemetry_path", "world": f"{side}x{side}",
+           "updates": TEL_UPDATES, "updates_from": u0,
+           "kernel_launches": launches, "insts": insts,
+           "ms_per_update": 1e3 * wall / TEL_UPDATES,
+           "phase_ms_per_update": phases,
+           "update_records": len(ups), "equal_fused_run": not bad,
+           "files": sorted(f for f in os.listdir(ddir)
+                           if f.endswith((".jsonl", ".prom"))),
+           "profiled_kernel_launches": plaunches,
+           "profiled_ms_per_update": 1e3 * pwall / TEL_UPDATES,
+           "profiled_equal_fused_run": not pbad,
+           "perf_records": len(perf),
+           "perf_phases_ms": perf[0]["phases"] if perf else None,
+           "perf_chunk_device_ms": perf[0].get("chunk_device_ms")
+           if perf else None,
+           "perf_device_memory": perf[0].get("device_memory")
+           if perf else None,
+           "status_rc": st_rc, "status_s": st_s, "profile_dir_s": cli_s,
+           "profile_trace_bytes": (os.path.getsize(trace_file)
+                                   if os.path.exists(trace_file) else 0),
+           "nvidia_smi": smi}
+    if bad or pbad or launches != TEL_UPDATES or len(ups) != TEL_UPDATES \
+            or "kernel" not in phases or not perf or st_rc != 0 \
+            or not os.path.exists(os.path.join(ddir, "metrics.prom")) \
+            or not os.path.exists(os.path.join(pdir, "metrics.prom")) \
+            or not res["profile_trace_bytes"]:
+        raise AssertionError(f"telemetry_path check failed: {res} {bad[:8]} "
+                             f"{pbad[:8]} {st_err}")
+    return wt, res
+
+
+def run_status(data_dir):
+    """`python -m avida_tpu_torch --status DIR --max-age 600` as a child:
+    (exit code, seconds, its output)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "avida_tpu_torch", "--status",
+                          data_dir, "--max-age", "600"], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    return (res.returncode, time.perf_counter() - t0,
+            (res.stdout + res.stderr)[-2000:])
+
+
+def trace_cross_side(tmp, dev):
+    """One half of trace_cross_device: a TRACE_CROSS_SIDE kernel-route
+    world with TPU_TRACE=1 and TPU_FAULT=TRACE_FAULT (the per-update
+    engine: an armed device fault keeps the packed chunk off) for
+    TRACE_CROSS_UPDATES updates on `dev`: its trace records, its state
+    arrays and its K1 launches."""
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.ops import cycles
+    ddir = os.path.join(tmp, f"trace_cross_{dev}")
+    w = make_world(TRACE_CROSS_SIDE, ddir, dev, ["u begin InjectAll"],
+                   {"TPU_TRACE": 1, "TPU_FAULT": TRACE_FAULT})
+    cycles.reset_launches()
+    w.run(max_updates=TRACE_CROSS_UPDATES)
+    return (run_records(ddir), convert.state_to_arrays(w.state),
+            cycles.LAUNCHES)
+
+
+def phase_trace_cross_device(tmp, cpu=None, device="cuda"):
+    """The traced, fault-injected world on the card and on the CPU (`cpu`:
+    its cpu_jobs job): the drained trace records equal line for line,
+    the merit anomaly at update 3, every state field equal."""
+    import torch
+    recs, arrays, launches = trace_cross_side(tmp, device)
+    crecs, carrays, _ = cpu_half(cpu, trace_cross_side, cpu_root(tmp), "cpu")
+    bad = [f for f in arrays if arrays[f] is not None
+           and arrays[f].tobytes() != carrays[f].tobytes()]
+    anom = [r["update"] for r in recs
+            if any(code == 5 for _, code, _ in r["events"])]
+    res = {"phase": "trace_cross_device",
+           "world": f"{TRACE_CROSS_SIDE}x{TRACE_CROSS_SIDE}",
+           "updates": TRACE_CROSS_UPDATES, "fault": TRACE_FAULT,
+           "trace_records": len(recs), "records_equal": recs == crecs,
+           "anom_merit_updates": anom, "fields_equal": not bad,
+           "kernel_launches": launches}
+    want = TRACE_CROSS_UPDATES if torch.device(device).type == "cuda" else 0
+    if recs != crecs or bad or anom != [3] or launches != want:
+        raise AssertionError(f"trace_cross_device check failed: {res} "
+                             f"{bad[:8]}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4058,6 +4307,7 @@ def main() -> int:
         jobs["exp_cross"] = pool.submit(exp_cross_side, ctmp, "cpu")
         jobs["prints"] = pool.submit(print_side, ctmp, "cpu")
         jobs["analyze"] = pool.submit(analyze_side, ctmp, "cpu")
+        jobs["trace_cross"] = pool.submit(trace_cross_side, ctmp, "cpu")
         emit(phase_geometry(tmp))
         emit(phase_size_range(tmp))
         w, main_res = phase_main(SIDE, UPDATES, os.path.join(tmp, "data"))
@@ -4165,10 +4415,21 @@ def main() -> int:
         emit(phase_experimental_cross_device(tmp, jobs["exp_cross"]))
         emit(phase_print_actions(tmp, smi, jobs["prints"]))
         wbits, bits_res = phase_packed_bits_path(SIDE, tmp, smi, main_end)
-        del main_end
         emit(bits_res)
         bitsk = phase_kernel(wbits, n_launch=2)
         del wbits
+        # slice 13: the observability plane on the same evolved world
+        wtr, trace_res, fused5 = phase_trace_path(SIDE, tmp, smi, main_end)
+        emit(trace_res)
+        tracek = phase_kernel(wtr, n_launch=1)
+        del wtr
+        wtel, tel_res = phase_telemetry_path(SIDE, tmp, smi, main_end,
+                                             fused5)
+        del main_end, fused5
+        emit(tel_res)
+        telk = phase_kernel(wtel, n_launch=1)
+        del wtel
+        emit(phase_trace_cross_device(tmp, jobs["trace_cross"]))
         # slice 12: the Test CPU and the analyze toolchain (their CPU
         # halves queued last, so they come last)
         emit(phase_testcpu_graph(rev_card, smi))
@@ -4189,14 +4450,20 @@ def main() -> int:
         dict({k: bitsk[k] for k in timing}, path="packed_bits_path",
              launches=bits_res["kernel_launches"]),
         dict({k: revk[k] for k in timing}, path="revert_path",
-             launches=rev_res["kernel_launches"])]
+             launches=rev_res["kernel_launches"]),
+        dict({k: tracek[k] for k in timing}, path="trace_path",
+             launches=trace_res["kernel_launches"]),
+        dict({k: telk[k] for k in timing}, path="telemetry_path",
+             launches=tel_res["kernel_launches"]
+             + tel_res["profiled_kernel_launches"])]
     per_path += [dict({k: mwk[k] for k in ("path", "solo_ms_sum") + timing},
                       launches=mw_res["kernel_launches"], stacked=True)
                  for mw_res, mwk in mw_runs]
     emit({"phase": "kernel_paths", "nvidia_smi": smi, "paths": per_path})
     # the kernels line: K1 with its solo launches (the seven solo paths,
-    # deme_path, dispersal_path, topology_path, packed_bits_path and
-    # revert_path included, and the resumed and scrubbed persistence runs),
+    # deme_path, dispersal_path, topology_path, packed_bits_path,
+    # revert_path, trace_path and telemetry_path included, and the resumed
+    # and scrubbed persistence runs),
     # the worst error of all, times and bound at the sexual path; K3b,
     # the stacked launch, with its launches over the two batch paths and
     # the resumed batch, and

@@ -48,6 +48,15 @@ assert {"avida_tpu_torch.systematics",
         "avida_tpu_torch.observability",
         "avida_tpu_torch.observability.runlog",
         "avida_tpu_torch.observability.exporter",
+        "avida_tpu_torch.observability.tracer",
+        "avida_tpu_torch.observability.counters",
+        "avida_tpu_torch.observability.timeline",
+        "avida_tpu_torch.observability.staged",
+        "avida_tpu_torch.observability.history",
+        "avida_tpu_torch.observability.alerts",
+        "avida_tpu_torch.observability.profiler",
+        "avida_tpu_torch.observability.harness",
+        "avida_tpu_torch.utils.faultinject",
         "avida_tpu_torch.systematics.test_metrics",
         "avida_tpu_torch.analyze",
         "avida_tpu_torch.analyze.testcpu",
@@ -269,9 +278,15 @@ def test_persistence_switches_accepted(name, value):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("TPU_TELEMETRY", 1), ("TPU_METRICS", 1), ("TPU_FAULT", "nan@update=3")])
+    ("TPU_KERNEL_SHARDS", 2), ("TPU_KERNEL_SHARDS", 8),
+    ("TPU_USE_PALLAS", 3)])
 def test_observability_switches_still_refused(name, value):
-    from avida_tpu_torch.world import World
+    """The observability plane retired five of the switches World
+    refused (TPU_TELEMETRY, TPU_TRACE, TPU_METRICS, TPU_PROFILE,
+    TPU_FAULT); the two left still raise by name."""
+    from avida_tpu_torch.world import _OFF_SWITCHES, World
+    assert [n for n, _, _ in _OFF_SWITCHES] == ["TPU_USE_PALLAS",
+                                                "TPU_KERNEL_SHARDS"]
     with pytest.raises(NotImplementedError, match=name):
         World(cfg=_cfg(**{name: value}), device="cpu")
 
@@ -350,10 +365,10 @@ def _cfg(**kw):
     ({"WORLD_GEOMETRY": 5}, "WORLD_GEOMETRY 5"),
     ({"TPU_USE_PALLAS": 3}, "TPU_USE_PALLAS"),
     ({"POINT_MUT_PROB": 0.01, "BIRTH_METHOD": 13}, "per-update engine"),
-    ({"TPU_PACKED_FUSED": 0}, "TPU_PACKED_FUSED"),
-    ({"TPU_TRACE": 1}, "TPU_TRACE"),
-    ({"TPU_TELEMETRY": 1, "TPU_SYSTEMATICS": 0}, "TPU_TELEMETRY"),
-    ({"TPU_PROFILE": 1}, "TPU_PROFILE"),
+    ({"TPU_KERNEL_SHARDS": 2}, "TPU_KERNEL_SHARDS"),
+    ({"TPU_KERNEL_SHARDS": 2, "TPU_SYSTEMATICS": 0}, "TPU_KERNEL_SHARDS"),
+    ({"TPU_KERNEL_SHARDS": 2, "TPU_TRACE": 1}, "TPU_KERNEL_SHARDS"),
+    ({"TPU_USE_PALLAS": 4, "TPU_TELEMETRY": 1}, "TPU_USE_PALLAS"),
     ({"INST_SET": "heads_sex", "BIRTH_METHOD": -1}, "BIRTH_METHOD -1"),
     ({"TPU_KERNEL_SHARDS": 4}, "TPU_KERNEL_SHARDS"),
 ])

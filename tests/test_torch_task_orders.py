@@ -15,16 +15,15 @@ a window on some logic reactions, the products from 17 and the sum from
 each failure message carries this CPU's flags, since another ISA
 compiles another order.
 
-A window on some logic reactions at 16 reactions holds on this 8x8
-state, where the reference compiles the IO block as one loop.  On a
-16x16 state it does not: there XLA's CPU backend splits the block's 256
-organisms into parallel partitions (outer_dimension_partitions 3 on 8
-schedulable CPUs, partitions of 86 organisms) and compiles the last
-one, from organism 172, to a loop of its own whose reductions the port
-does not follow (first diverging organism 174).  The partition count
-comes from XLA's cost model over the fused block's flop and byte counts
-(ROADMAP.md Queue 3), which the port cannot compute, so that case is
-left out.
+A window on some logic reactions at 16 reactions runs on 8x8 states,
+where the reference compiles the IO block as one loop, and on 16x16,
+17x17 and 20x20 ones, where XLA's CPU backend splits the block's
+organisms into parallel partitions (outer_dimension_partitions 3, 3 and
+4 on 8 schedulable CPUs) and compiles a last partition shorter than the
+others (from organism 172 of 256, 194 of 289) to a loop of its own, with
+the pow product as a 16-lane tree and the mult product as two 8-lane
+chunks (ops/tasks.io_block_tail, from the fused block's HloCostAnalysis
+counts; ROADMAP.md Queue 3).
 
 Tolerance: exact -- every state field byte for byte.
 """
@@ -88,21 +87,29 @@ def _env(comp):
 _FROM = {"logic": (20, 23), "math": (20, 23), "some": (17, 22)}
 
 
-@pytest.mark.parametrize("comp,R", [("some", 12), ("some", 16), ("some", 17),
-                                    ("some", 21), ("some", 24),
-                                    ("logic", 24), ("logic", 32),
-                                    ("math", 19), ("math", 24)])
+@pytest.mark.parametrize("comp,R,side", [
+    pytest.param(c, r, 8, id=f"{c}-{r}")
+    for c, r in (("some", 12), ("some", 16), ("some", 17), ("some", 21),
+                 ("some", 24), ("logic", 24), ("logic", 32), ("math", 19),
+                 ("math", 24))] + [
+    # partitioned IO blocks: 3 tasks of 86, 86, 84 organisms (16x16), 3
+    # of 97, 97, 95 (17x17), 4 of 100 (20x20)
+    pytest.param("some", 16, 16, id="some-16-16x16"),
+    pytest.param("some", 16, 17, id="some-16-17x17"),
+    pytest.param("some", 16, 20, id="some-16-20x20")])
 def test_engine_reaction_order_by_composition(tmp_path, monkeypatch, comp,
-                                              R):
+                                              R, side):
     """Every field, cur_bonus included, equal to the reference's engine
     after one cycle in which organisms collect several fractional rewards
-    of each process type; vector_chunks names the form."""
+    of each process type; vector_chunks names the form, and on a
+    partitioned IO block io_block_tail the last partition's first
+    organism."""
     from avida_tpu.core.state import state_field_names
 
     from avida_tpu_torch import convert
     monkeypatch.setattr(sys.modules["test_torch_tasks"], "_order_env",
                         _env(comp))
-    r_out, t_out, per_type, params = _order_case(tmp_path, R)
+    r_out, t_out, per_type, params = _order_case(tmp_path, R, side=side)
     got = convert.state_to_arrays(t_out)
     for k in state_field_names():
         if getattr(r_out, k) is None:
@@ -116,3 +123,6 @@ def test_engine_reaction_order_by_composition(tmp_path, monkeypatch, comp,
         "pow": R // 8 if R >= p_from else 0,
         "mult": R // 8 if R >= p_from else 0,
         "add": R // 8 if R >= s_from else 0}
+    if side > 8:
+        tail = {16: 172, 17: 194, 20: 400}[side]
+        assert ttasks.io_block_tail(params, side * side, cpus=8) == tail
