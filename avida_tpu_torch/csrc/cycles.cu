@@ -1,6 +1,6 @@
 // The cycle interpreter for Hopper: every CPU cycle of one update in one
 // launch, one thread per organism, each organism's tape and dynamically
-// indexed state staged in shared memory.
+// indexed state staged in shared memory where it fits (note 7).
 //
 // Replaces the Pallas kernel of avida_tpu/ops/pallas_cycles.py
 // (_make_kernel and its inner kernel, :382 / :415, launched by
@@ -25,7 +25,7 @@
 // Design, against what held the first port back:
 // 1. A CTA takes C lanes (a template argument: 32, 64 or 128), a divisor
 //    of the reference's B-lane block, chosen by the wrapper
-//    (ops/cycles.py::cta_lanes) so that two CTAs share an SM wherever the
+//    (ops/cycles.py::cta_plan) so that two CTAs share an SM wherever the
 //    tile allows; the first port ran one 512-thread block an SM, 1.5
 //    waves at 320x320.  The B/C CTAs of one reference block form a
 //    thread block cluster.  The block's two maxima -- the grant that sets
@@ -54,20 +54,47 @@
 //    the same tile, loaded with it and written back once; registers, heads
 //    and the label under decode are scalars selected without local arrays
 //    (ptxas reports no stack frame).
-// 5. The opcode and reaction tables and the nop decode (1,088 ints) come
-//    into shared memory with the tile, as one more bulk copy.
+// 5. The opcode and reaction tables and the nop decode come into shared
+//    memory with the tile, as two more bulk copies (ops/cycles.py
+//    _build_tables gives the layout; the reaction block is sized by R).
 // 6. Running a CTA's organisms in order of their grant was measured on
 //    the six paths of chip_smoke.py and dropped: the tile column must stay
 //    the organism's own, so sorted threads' columns collide in banks, and
 //    the ranking costs a pass over the CTA; it was slower on five paths
 //    and within 1% on the sixth (PERF.md, section 6).  Thread t runs
 //    lane t.
+// 7. Any tape height and any reaction count.  Where the whole tile does
+//    not fit a CTA's shared memory, the wrapper's plan (ops/cycles.py
+//    cta_plan, the template argument S) keeps row groups in device
+//    memory and the kernel reads and writes them there in place, through
+//    the same accessors: from S = 1 the 4R reaction counters (touched
+//    only at IO and divide), from S = 2 the tape words too (a read at a
+//    head position is then one sector a lane, and h-search's pass reads
+//    the tape from L2 or device memory), from S = 3 the site-flag
+//    bitplanes and the reaction table as well.  The read label, the
+//    stacks, the opcode tables and the nop decode are staged at every
+//    level.  Rows kept in device memory are neither bulk-copied nor
+//    counted on an mbarrier, nor written back.  Past 32 reactions
+//    (cycles_kernel_wide, held by the second compilation of this
+//    source: AVIDA_CYCLES_WIDE, at the end) the reactions are decided 32
+//    at a time: the paid bits of reactions 32j..32j+31 are one word, word 0
+//    in a register and the rest in a scratch plane the wrapper
+//    allocates; each requisite word is read off the counters as they
+//    stood at the start of the cycle, and the bonus is then applied
+//    reaction by reaction in order.  Up to 32 (cycles_kernel) the IO
+//    block is one word of bits and the parameters are those the kernel
+//    took before it held any reaction count (PERF.md, section 6,
+//    measured both).
 //
 // Built with -fmad=false: merit and fitness are float32 products that
 // must round exactly as the reference's do.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#ifndef AVIDA_CYCLES_WIDE
+#define AVIDA_CYCLES_WIDE 0
+#endif
 
 #include <cstdint>
 
@@ -103,31 +130,31 @@ constexpr int SEM_IF_N_EQU = 3, SEM_IF_LESS = 4, SEM_IF_LABEL = 5,
               SEM_H_DIVIDE_SEX = 26;
 constexpr int HEAD_IP = 0, HEAD_READ = 1, HEAD_WRITE = 2, HEAD_FLOW = 3;
 constexpr int MAX_LABEL = 10;
-constexpr int MAX_LW = 32;      // tape height <= 1024
-constexpr int MAX_R = 32;       // reactions
 constexpr int TAB_INSTS = 64;   // table slots per opcode table
-constexpr int RX = 16;          // table ints per reaction
+constexpr int RX = 16;          // table ints per reaction entry
 // opcode tables, TAB_INSTS slots each, in this order (csrc/cycles_simple.cu
 // documents the layout); tables 6 and 7, is_nop and nop_mod, reach this
-// kernel folded into the nop decode below
+// kernel folded into the nop decode.  Then the reaction block: RX ints a
+// reaction (min, max, type, value, the requisite and no-requisite masks'
+// first words, 8 words of logic-id mask), then past 32 reactions each
+// reaction's further mask words (RW - 1 requisite, RW - 1 no-requisite),
+// padded to 4 ints; then the nop decode: a nop's register, -1 for any
+// other opcode
 constexpr int T_META = 0, T_COST = 1, T_FT_COST = 2, T_ADDL = 3,
               T_PROB_FAIL = 4, T_MUT_CDF = 5, T_REACTIONS = 8;
-constexpr int TAB_INTS = T_REACTIONS * TAB_INSTS + RX * MAX_R;
-// after the reaction tables, the nop decode: a nop's register, -1 for
-// any other opcode; the whole table is one bulk copy
-constexpr int T_NOP_DECODE = TAB_INTS;
-constexpr uint32_t TAB_BYTES = 4 * (TAB_INTS + TAB_INSTS);
-// shared memory: the tile's rows, then the tables with the nop decode,
-// 8 ints of reductions and mbarriers, and the cluster's 8 slots
+constexpr int T_OPS = T_REACTIONS * TAB_INSTS;   // the opcode tables' ints
+// shared memory: the staged rows, then the staged tables, 8 ints of
+// reductions and mbarriers, and the cluster's 8 slots
 constexpr int MAX_C = 128;         // lanes per CTA
 constexpr int MAX_CLUSTER = 8;     // the portable cluster size
+constexpr int MAX_STAGE = 3;       // staging levels 0-3 (see note 7)
 constexpr int LBL_ROWS = 30;       // ivec rows 38-67: read label, stacks
+constexpr int SMEM_PER_CTA = 232448;
 static_assert(IV_STACKS == IV_READ_LABEL + MAX_LABEL
               && IV_PW_POS == IV_STACKS + 20, "rows 38-67 are one range");
 // the staged ivec row groups, as bits of a written-groups mask (the
 // site-flag bitplanes are always written back)
 constexpr unsigned I_LABEL = 1, I_STACK = 2, I_DYN = 4;
-constexpr int FIXED_INTS = TAB_INTS + TAB_INSTS + 24;
 
 struct Params {
   int n_pad, LP, LW, L0, ni, R, iv_copied, iv_dyn, num_steps;
@@ -138,9 +165,24 @@ struct Params {
   float default_bonus, const_merit;
   float size_range_inv;     // float32 1 / size_range: XLA's CPU compiler
                             // divides by the constant as this product
-  int C, K, rows, gshift;   // CTA lanes, cluster CTAs, tile rows, log2
+  int C, K, rows, gshift;   // CTA lanes, cluster CTAs, staged rows, log2
                             // tape rows per dirty-mask bit
 };
+
+// the reaction block's layout for R reactions (ops/cycles.py mask_words,
+// reaction_ints, reaction_smem_ints): 32-bit words of a requisite mask,
+// the block's ints in the table, its room in shared memory
+__host__ __device__ __forceinline__ int mask_words(int R) {
+  return (R + 31) / 32;
+}
+
+__host__ __device__ __forceinline__ int reaction_ints(int R) {
+  return (RX * R + 2 * R * (mask_words(R) - 1) + 3) & ~3;
+}
+
+__host__ __device__ __forceinline__ int reaction_smem_ints(int R) {
+  return reaction_ints(R) > RX * 32 ? reaction_ints(R) : RX * 32;
+}
 
 __device__ __forceinline__ unsigned hash24(unsigned seed, int s, int tag,
                                            unsigned lane) {
@@ -273,34 +315,55 @@ __device__ __forceinline__ void cta_max(int v, int* slot) {
   if ((threadIdx.x & 31) == 0) atomicMax(slot, v);
 }
 
-// C, the CTA's lanes, is a template argument: every tile address is then
-// a shift and an add
-template <int C>
-__global__ void __launch_bounds__(MAX_C)
-cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
-              int32_t* __restrict__ ivec, float* __restrict__ fvec,
-              const int32_t* __restrict__ seeds,
-              const int32_t* __restrict__ tab, Params P) {
+
+// The kernel's body.  C, the CTA's lanes, and S, the staging level (note
+// 7), are template arguments: every address of a staged row is then a
+// shift and an add, and every row group's address space is known where
+// it is read.  kWide (more than 32 reactions) selects the IO block that
+// decides reactions 32 at a time; up to 32 the block is one word of
+// bits, and the kernel (cycles_kernel) takes the parameters it took
+// before it held any reaction count: the wide block's code in the cycle
+// loop, and the wide kernel's scratch pointer and plan fields in its
+// parameters, each slowed the narrow populations' launches (PERF.md,
+// section 6)
+template <int C, int S, bool kWide>
+__device__ __forceinline__ void
+cycles_body(int32_t* __restrict__ tape, int32_t* __restrict__ off,
+            int32_t* __restrict__ ivec, float* __restrict__ fvec,
+            const int32_t* __restrict__ seeds,
+            const int32_t* __restrict__ tab,
+            int32_t* __restrict__ scratch, Params P) {
+  // which row groups live in shared memory at this level
+  constexpr bool kCnt = S < 1;     // the 4R reaction counters
+  constexpr bool kTape = S < 2;    // the tape words
+  constexpr bool kFlags = S < 3;   // the site-flag bitplanes, the reactions
   extern __shared__ __align__(16) int32_t smem[];
   const size_t N = (size_t)P.n_pad;
-  const int R = P.R, LW = P.LW;
+  const int R = P.R, LW = P.LW, RW = mask_words(R);
+  const int rx_ints = reaction_ints(R);
   int32_t* tile = smem;
   int* s_tab = smem + P.rows * C;
-  const int* s_nop = s_tab + T_NOP_DECODE;
+  // the reaction block, staged after the opcode tables or read in the
+  // table itself, and the nop decode, staged after the room of the
+  // reaction block (32 entries up to 32 reactions: a fixed offset)
+  const int rx_smem = kWide ? reaction_smem_ints(R) : RX * 32;
+  const int* rx = (kFlags ? s_tab : tab) + T_OPS;
+  int* s_nop = s_tab + T_OPS + (kFlags ? rx_smem : 0);
   // [0] the CTA's largest grant, [1] its pending-write bound, [2] tape row
   // groups written, [3] ivec row groups written (I_LABEL, I_STACK, I_DYN);
   // then two mbarriers -- the rows every cycle reads (tape, read label,
   // site flags) with the tables, and the late rows, the stacks and
   // reaction counters, which only some instructions touch -- then one
   // (trips, bound) slot per CTA of the cluster
-  int* s_red = s_tab + TAB_INTS + TAB_INSTS;
+  int* s_red = s_nop + TAB_INSTS;
   uint64_t* bar = reinterpret_cast<uint64_t*>(s_red + 4);
   uint64_t* bar_late = reinterpret_cast<uint64_t*>(s_red + 6);
   unsigned long long* s_slot =
       reinterpret_cast<unsigned long long*>(s_red + 8);
-  // tile rows: tape words, then ivec rows 38-67, then IV_EXEC_BM onwards
-  const int R_LBL = P.LP, R_STK = P.LP + MAX_LABEL;
-  const int R_EBM = P.LP + LBL_ROWS, R_CBM = R_EBM + LW, R_DYN = R_CBM + LW;
+  // staged rows: the tape words (kTape), ivec rows 38-67, then IV_EXEC_BM
+  // onwards: the bitplanes (kFlags) and the counters (kCnt)
+  const int R_LBL = kTape ? P.LP : 0, R_STK = R_LBL + MAX_LABEL;
+  const int R_EBM = R_LBL + LBL_ROWS, R_DYN = R_EBM + 2 * LW;
   const int t = threadIdx.x;
   const size_t c0 = (size_t)blockIdx.x * C;
   const unsigned rank = blockIdx.x % P.K;          // the CTA in its cluster
@@ -318,27 +381,34 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
   // the cluster barrier's first phase: this CTA has started (waited on
   // before any CTA writes into another's shared memory)
   cluster_arrive_relaxed();
-  // ---- stage the tile and the tables: one bulk copy per row, counted on
-  // the mbarrier of its kind
+  // ---- stage the staged rows and the tables: one bulk copy per row,
+  // counted on the mbarrier of its kind
   auto row_src = [&](int r) -> const int32_t* {
     return (r < R_LBL ? tape + (size_t)r * N
             : r < R_EBM ? ivec + (size_t)(IV_READ_LABEL + r - R_LBL) * N
                         : ivec + (size_t)(IV_EXEC_BM + r - R_EBM) * N) + c0;
   };
   if (t < 32) {
-    const int late_rows = 2 * MAX_LABEL + 4 * R;   // stacks, counters
+    const int late_rows = 2 * MAX_LABEL + (kCnt ? 4 * R : 0);
+    // the opcode tables with the reaction block where it is staged, and
+    // the nop decode
+    const uint32_t head_bytes = 4 * (T_OPS + (kFlags ? rx_ints : 0));
+    const uint32_t tab_bytes = head_bytes + 4 * TAB_INSTS;
     if (t == 0) {
-      mbar_expect_tx(bar, (uint32_t)((P.rows - late_rows) * C * 4
-                                     + TAB_BYTES));
+      mbar_expect_tx(bar, (uint32_t)((P.rows - late_rows) * C * 4)
+                              + tab_bytes);
       mbar_expect_tx(bar_late, (uint32_t)(late_rows * C * 4));
     }
     __syncwarp();
     for (int r = t; r < P.rows; r += 32) {
-      const bool late = (r >= R_STK && r < R_EBM) || r >= R_DYN;
+      const bool late = (r >= R_STK && r < R_EBM) || (kCnt && r >= R_DYN);
       bulk_load(tile + r * C, row_src(r), (uint32_t)(C * 4),
                 late ? bar_late : bar);
     }
-    if (t == 0) bulk_load(s_tab, tab, TAB_BYTES, bar);
+    if (t == 0) {
+      bulk_load(s_tab, tab, head_bytes, bar);
+      bulk_load(s_nop, tab + T_OPS + rx_ints, 4 * TAB_INSTS, bar);
+    }
   }
   const int o = t;                 // the organism of this thread
   const size_t lane = c0 + o;
@@ -346,6 +416,33 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
 #define IV(r) ivec[(size_t)(r) * N + lane]
 #define FV(r) fvec[(size_t)(r) * N + lane]
 #define T(r) tile[(r) * C + o]
+  // the row groups a plan may keep in device memory, read and written in
+  // place wherever they live: tape word w, bitplane words w, counter k
+  // (cur_task r, cur_reaction R + r, last_task 2R + r, exe_total 3R + r)
+  auto TW = [&](int w) -> int32_t& {
+    if constexpr (kTape) return T(w);
+    else return tape[(size_t)w * N + lane];
+  };
+  auto EBM = [&](int w) -> int32_t& {
+    if constexpr (kFlags) return T(R_EBM + w);
+    else return IV(IV_EXEC_BM + w);
+  };
+  auto CBM = [&](int w) -> int32_t& {
+    if constexpr (kFlags) return T(R_EBM + LW + w);
+    else return IV(P.iv_copied + w);
+  };
+  auto CNT = [&](int k) -> int32_t& {
+    if constexpr (kCnt) return T(R_DYN + k);
+    else return IV(P.iv_dyn + k);
+  };
+  auto tbyte = [&](int pos) -> uint8_t& {
+    if constexpr (kTape)
+      return reinterpret_cast<uint8_t*>(tile)[4 * ((pos >> 2) * C + o)
+                                              + (pos & 3)];
+    else
+      return reinterpret_cast<uint8_t*>(tape)[
+          4 * ((size_t)(pos >> 2) * N + lane) + (pos & 3)];
+  };
 
   // the organism's cycles: its grant, capped by the reference block's
   // trip count, which is its largest grant capped by num_steps and
@@ -382,14 +479,10 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
   float fitness = FV(FV_FITNESS), last_bonus = FV(FV_LAST_BONUS);
   float last_mb = FV(FV_LAST_MERIT_BASE);
 
-  uint8_t* const tb = reinterpret_cast<uint8_t*>(tile);
-  auto byte_at = [&](int pos) -> int {
-    return tb[4 * ((pos >> 2) * C + o) + (pos & 3)];
-  };
+  auto byte_at = [&](int pos) -> int { return tbyte(pos); };
   auto op_at = [&](int pos) -> int {
     return min(byte_at(pos) & 63, P.ni - 1);
   };
-
   mbar_wait(bar, 0);
   // the late rows: waited for where an instruction first touches them
   bool late_in = false;
@@ -611,7 +704,7 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
           unsigned D = 0;
           bool found = false;
           for (int w = 0; 4 * w < mlen && !found; ++w) {
-            const unsigned word = (unsigned)T(w);
+            const unsigned word = (unsigned)TW(w);
 #pragma unroll
             for (int b = 0; b < 4; ++b) {
               const int p = 4 * w + b;
@@ -637,12 +730,12 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         const int child_end = wp == 0 ? mlen : wp;
         const int child_size = child_end - parent_size;
         int exec_count = 0, copied_count = 0;
-        const bool ipx = (T(R_EBM + (ip >> 5)) >> (ip & 31)) & 1u;
+        const bool ipx = (EBM(ip >> 5) >> (ip & 31)) & 1u;
 #pragma unroll 1
         for (int w = 0; w < LW; ++w) {
-          exec_count += __popc((unsigned)T(R_EBM + w)
+          exec_count += __popc((unsigned)EBM(w)
                                & range_mask(w, 0, parent_size));
-          copied_count += __popc((unsigned)T(R_CBM + w)
+          copied_count += __popc((unsigned)CBM(w)
                                  & range_mask(w, parent_size, child_end));
         }
         if (!ipx && ip < parent_size) exec_count += 1;
@@ -698,31 +791,106 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
           // every requisite reads the counters as they stood at the
           // start of the cycle, so decide all reactions before counting
           need_late();
-          unsigned done = 0, paid = 0, had = 0;
-          for (int d = 0; d < R; ++d)
-            if (T(R_DYN + R + d) != 0) had |= 1u << d;
-          for (int r = 0; r < R; ++r) {
-            const int* rt = s_tab + T_REACTIONS * TAB_INSTS + r * RX;
-            if (!((rt[6 + (lid >> 5)] >> (lid & 31)) & 1)) continue;
-            done |= 1u << r;
-            const int tc = T(R_DYN + r);
-            if (tc >= rt[0] && tc < rt[1]
-                && ((unsigned)rt[4] & ~had) == 0
-                && ((unsigned)rt[5] & had) == 0)
-              paid |= 1u << r;
-          }
-          if (done) idirty |= I_DYN;
-          for (int r = 0; r < R; ++r) {
-            if (!((done >> r) & 1u)) continue;
-            T(R_DYN + r) += 1;
-            T(R_DYN + 3 * R + r) += 1;
-            if (!((paid >> r) & 1u)) continue;
-            T(R_DYN + R + r) += 1;
-            const int* rt = s_tab + T_REACTIONS * TAB_INSTS + r * RX;
-            const float v = __int_as_float(rt[3]);
-            if (rt[2] == 2) bonus = __fmul_rn(bonus, v);
-            else if (rt[2] == 1) { if (v != 0.0f) bonus = __fmul_rn(bonus, v); }
-            else add_sum = __fadd_rn(add_sum, v);
+          if constexpr (!kWide) {
+            unsigned done = 0, paid = 0, had = 0;
+            for (int d = 0; d < R; ++d)
+              if (CNT(R + d) != 0) had |= 1u << d;
+            for (int r = 0; r < R; ++r) {
+              const int* rt = rx + r * RX;
+              if (!((rt[6 + (lid >> 5)] >> (lid & 31)) & 1)) continue;
+              done |= 1u << r;
+              const int tc = CNT(r);
+              if (tc >= rt[0] && tc < rt[1]
+                  && ((unsigned)rt[4] & ~had) == 0
+                  && ((unsigned)rt[5] & had) == 0)
+                paid |= 1u << r;
+            }
+            if (done) idirty |= I_DYN;
+            for (int r = 0; r < R; ++r) {
+              if (!((done >> r) & 1u)) continue;
+              CNT(r) += 1;
+              CNT(3 * R + r) += 1;
+              if (!((paid >> r) & 1u)) continue;
+              CNT(R + r) += 1;
+              const int* rt = rx + r * RX;
+              const float v = __int_as_float(rt[3]);
+              if (rt[2] == 2) bonus = __fmul_rn(bonus, v);
+              else if (rt[2] == 1) {
+                if (v != 0.0f) bonus = __fmul_rn(bonus, v);
+              }
+              else add_sum = __fadd_rn(add_sum, v);
+            }
+          } else {
+            // reactions 32j..32j+31: word j of the paid bits, word 0 in
+            // a register, the rest in the scratch plane.  Does reaction
+            // r's logic-id mask hold `lid`; are its requisites met on the
+            // counters as they stand (the cycle's start: no counter moves
+            // before every reaction is decided), a mask word k's
+            // reactions read only where the word is not 0
+            auto performs = [&](int r) -> bool {
+              return (rx[r * RX + 6 + (lid >> 5)] >> (lid & 31)) & 1;
+            };
+            auto requisites_met = [&](int r) -> bool {
+              const int* more = rx + RX * R + 2 * (RW - 1) * r;
+#pragma unroll 1
+              for (int k = 0; k < RW; ++k) {
+                const unsigned req =
+                    (unsigned)(k == 0 ? rx[r * RX + 4] : more[k - 1]);
+                const unsigned noreq =
+                    (unsigned)(k == 0 ? rx[r * RX + 5] : more[RW + k - 2]);
+                if (!(req | noreq)) continue;
+                unsigned had = 0;
+                const int d_end = min(R, 32 * k + 32);
+#pragma unroll 1
+                for (int d = 32 * k; d < d_end; ++d)
+                  if (CNT(R + d) != 0) had |= 1u << (d & 31);
+                if ((req & ~had) || (noreq & had)) return false;
+              }
+              return true;
+            };
+            bool done = false;
+            unsigned paid0 = 0;
+#pragma unroll 1
+            for (int j = 0; j < RW; ++j) {
+              unsigned paid = 0;
+              const int r_end = min(R, 32 * j + 32);
+#pragma unroll 1
+              for (int r = 32 * j; r < r_end; ++r) {
+                if (!performs(r)) continue;
+                done = true;
+                const int tc = CNT(r);
+                if (tc >= rx[r * RX] && tc < rx[r * RX + 1]
+                    && requisites_met(r))
+                  paid |= 1u << (r & 31);
+              }
+              if (j == 0) paid0 = paid;
+              else scratch[(size_t)(j - 1) * N + lane] = (int32_t)paid;
+            }
+            if (done) idirty |= I_DYN;
+            // then count and reward, reaction by reaction in order: the
+            // bonus is a chain of float32 products and one sum, never
+            // reassociated
+#pragma unroll 1
+            for (int j = 0; j < RW; ++j) {
+              const unsigned paid = j == 0
+                  ? paid0 : (unsigned)scratch[(size_t)(j - 1) * N + lane];
+              const int r_end = min(R, 32 * j + 32);
+#pragma unroll 1
+              for (int r = 32 * j; r < r_end; ++r) {
+                if (!performs(r)) continue;
+                CNT(r) += 1;
+                CNT(3 * R + r) += 1;
+                if (!((paid >> (r & 31)) & 1u)) continue;
+                CNT(R + r) += 1;
+                const int* rt = rx + r * RX;
+                const float v = __int_as_float(rt[3]);
+                if (rt[2] == 2) bonus = __fmul_rn(bonus, v);
+                else if (rt[2] == 1) {
+                  if (v != 0.0f) bonus = __fmul_rn(bonus, v);
+                }
+                else add_sum = __fadd_rn(add_sum, v);
+              }
+            }
           }
         }
         cur_bonus = __fadd_rn(bonus, add_sum);
@@ -749,20 +917,20 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
     else if (set_head == HEAD_WRITE) h_wr = set_head_pos;
     else if (set_head == HEAD_FLOW) h_fl = set_head_pos;
     h_ip = eff ? ip_new : ip;
-    if (eff) T(R_EBM + (ip >> 5)) |= 1u << (ip & 31);
+    if (eff) EBM(ip >> 5) |= 1u << (ip & 31);
     if (has_mod || label_len > 0)
-      T(R_EBM + (next_pos >> 5)) |= 1u << (next_pos & 31);
+      EBM(next_pos >> 5) |= 1u << (next_pos & 31);
     if (copy_m) {
-      T(R_CBM + (wp >> 5)) |= 1u << (wp & 31);
-      tb[4 * ((wp >> 2) * C + o) + (wp & 3)] = (uint8_t)written;
+      CBM(wp >> 5) |= 1u << (wp & 31);
+      tbyte(wp) = (uint8_t)written;
       dirty |= 1u << ((wp >> 2) >> P.gshift);
     }
     if (alloc_m) {
 #pragma unroll 1
       for (int w = old_len >> 5; w <= (pz_e - 1) >> 5; ++w) {
         const unsigned m = range_mask(w, old_len, pz_e);
-        T(R_EBM + w) &= ~m;
-        T(R_CBM + w) &= ~m;
+        EBM(w) &= ~m;
+        CBM(w) &= ~m;
       }
       const int w_lo = old_len >> 2, w_hi = (pz_e - 1) >> 2;
 #pragma unroll 1
@@ -770,7 +938,7 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
         const int lo = max(old_len - 4 * w, 0), hi = min(pz_e - 4 * w, 4);
         const unsigned keep = (lo > 0 ? 0xFFFFFFFFu >> (32 - 8 * lo) : 0u)
                               | (hi < 4 ? 0xFFFFFFFFu << (8 * hi) : 0u);
-        T(w) &= keep;
+        TW(w) &= keep;
       }
       dirty |= (0xFFFFFFFFu >> (31 - (w_hi >> P.gshift)))
                & (0xFFFFFFFFu << (w_lo >> P.gshift));
@@ -788,12 +956,12 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
       flags &= ~FLAG_MAL;
       if (P.has_costs) { cost_wait = 0; ft_lo = ft_hi = 0; }
 #pragma unroll 1
-      for (int w = 0; w < LW; ++w) T(R_EBM + w) = T(R_CBM + w) = 0;
+      for (int w = 0; w < LW; ++w) EBM(w) = CBM(w) = 0;
 #pragma unroll 1
       for (int r = 0; r < R; ++r) {
-        T(R_DYN + 2 * R + r) = T(R_DYN + r);
-        T(R_DYN + r) = 0;
-        T(R_DYN + R + r) = 0;
+        CNT(2 * R + r) = CNT(r);
+        CNT(r) = 0;
+        CNT(R + r) = 0;
       }
       flags |= FLAG_DIVPEND | FLAG_NEWDIV;
       idirty |= I_STACK | I_DYN;
@@ -888,13 +1056,16 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
 #undef FV
 #undef T
 
-  // ---- the tile's rows, coalesced: the tape row groups and ivec row
-  // groups some lane of the CTA wrote, and the site-flag bitplanes
+  // ---- the staged rows, coalesced: the tape row groups and ivec row
+  // groups some lane of the CTA wrote, and the site-flag bitplanes (rows
+  // kept in device memory were written there in place)
   const unsigned dmask = (unsigned)s_red[2], imask = (unsigned)s_red[3];
+  if (kTape) {
 #pragma unroll 1
-  for (int w = 0; w < P.LP; ++w)
-    if ((dmask >> (w >> P.gshift)) & 1u)
-      tape[(size_t)w * N + c0 + t] = tile[w * C + t];
+    for (int w = 0; w < P.LP; ++w)
+      if ((dmask >> (w >> P.gshift)) & 1u)
+        tape[(size_t)w * N + c0 + t] = tile[w * C + t];
+  }
 #pragma unroll 1
   for (int r = R_LBL; r < P.rows; ++r) {
     const unsigned group = r < R_STK ? I_LABEL : r < R_EBM ? I_STACK
@@ -919,16 +1090,34 @@ cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
   ivec[(size_t)IV_PW_VAL * N + lane] = pw_val;
 }
 
-}  // namespace
+// up to 32 reactions: the parameters the kernel took before it held any
+// reaction count
+template <int C, int S>
+__global__ void __launch_bounds__(MAX_C)
+cycles_kernel(int32_t* __restrict__ tape, int32_t* __restrict__ off,
+              int32_t* __restrict__ ivec, float* __restrict__ fvec,
+              const int32_t* __restrict__ seeds,
+              const int32_t* __restrict__ tab, Params P) {
+  cycles_body<C, S, false>(tape, off, ivec, fvec, seeds, tab, nullptr, P);
+}
 
-// pi holds the 20 ints of csrc/cycles_simple.cu's interface, then the
-// CTA width C (ops/cycles.py::cta_lanes); `block` is the reference's B
-extern "C" int avida_cycles_launch(void* tape, void* off, void* ivec,
-                                   void* fvec, const void* seeds,
-                                   const void* tab, const int32_t* pi,
-                                   const float* pf, int block,
-                                   void* stream) {
-  Params P;
+// past 32 reactions: and the scratch plane of the paid words past the first
+template <int C, int S>
+__global__ void __launch_bounds__(MAX_C)
+cycles_kernel_wide(int32_t* __restrict__ tape, int32_t* __restrict__ off,
+                   int32_t* __restrict__ ivec, float* __restrict__ fvec,
+                   const int32_t* __restrict__ seeds,
+                   const int32_t* __restrict__ tab,
+                   int32_t* __restrict__ scratch, Params P) {
+  cycles_body<C, S, true>(tape, off, ivec, fvec, seeds, tab, scratch, P);
+}
+
+// The launch's Params, staging level and dynamic shared memory from the
+// ints of ops/cycles.py::_int_params (csrc/cycles_simple.cu's 20, then
+// the plan's CTA width C and staging level); -1 on a plan this source
+// cannot run
+int configure(const int32_t* pi, const float* pf, int block, Params& P,
+              int& stage, size_t& smem) {
   P.n_pad = pi[0]; P.LP = pi[1]; P.LW = pi[2]; P.L0 = pi[3]; P.ni = pi[4];
   P.R = pi[5]; P.iv_copied = pi[6]; P.iv_dyn = pi[7]; P.num_steps = pi[8];
   P.require_alloc = pi[9]; P.merit_method = pi[10];
@@ -936,43 +1125,148 @@ extern "C" int avida_cycles_launch(void* tape, void* off, void* ivec,
   P.min_genome_len = pi[14]; P.copy_mut_on = pi[15];
   P.has_costs = pi[16]; P.has_prob_fail = pi[17]; P.has_addl = pi[18];
   P.weighted_mut = pi[19];
-  P.copy_mut_prob = pf[0]; P.size_range = pf[1]; P.min_exe_lines = pf[2];
-  P.min_copied_lines = pf[3]; P.default_bonus = pf[4];
-  P.const_merit = pf[5]; P.size_range_inv = pf[6];
+  if (pf) {
+    P.copy_mut_prob = pf[0]; P.size_range = pf[1]; P.min_exe_lines = pf[2];
+    P.min_copied_lines = pf[3]; P.default_bonus = pf[4];
+    P.const_merit = pf[5]; P.size_range_inv = pf[6];
+  }
   P.C = pi[20];
+  stage = pi[21];
   if ((P.C != 32 && P.C != 64 && P.C != MAX_C) || block % P.C
-      || block / P.C > MAX_CLUSTER || P.n_pad % block || P.LW > MAX_LW
-      || P.R > MAX_R || P.iv_copied != IV_EXEC_BM + P.LW
+      || block / P.C > MAX_CLUSTER || P.n_pad % block || stage < 0
+      || stage > MAX_STAGE || P.ni > TAB_INSTS || P.R < 0
+      || P.iv_copied != IV_EXEC_BM + P.LW
       || P.iv_dyn != IV_EXEC_BM + 2 * P.LW)
     return -1;
   P.K = block / P.C;
-  P.rows = P.LP + LBL_ROWS + 2 * P.LW + 4 * P.R;
+  // ops/cycles.py: staged_rows, plan_smem_bytes
+  P.rows = LBL_ROWS + (stage < 2 ? P.LP : 0) + (stage < 3 ? 2 * P.LW : 0)
+           + (stage < 1 ? 4 * P.R : 0);
   P.gshift = 0;
   while ((P.LP - 1) >> P.gshift >= 32) ++P.gshift;
-  const size_t smem =
-      4 * ((size_t)P.rows * P.C + FIXED_INTS);
-  void (*kern)(int32_t*, int32_t*, int32_t*, float*, const int32_t*,
-               const int32_t*, Params) =
-      P.C == 128 ? cycles_kernel<128>
-                 : P.C == 64 ? cycles_kernel<64> : cycles_kernel<32>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
+  smem = 4 * ((size_t)P.rows * P.C + T_OPS + TAB_INSTS
+              + (stage < 3 ? reaction_smem_ints(P.R) : 0) + 24);
+  return smem > (size_t)SMEM_PER_CTA ? -1 : 0;
+}
+
+void launch_config(const Params& P, size_t smem, cudaStream_t stream,
+                   cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
+  cfg = {};
   cfg.gridDim = dim3(P.n_pad / P.C);
   cfg.blockDim = dim3(P.C);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cudaLaunchAttribute attr[1];
+  cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = P.K;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, (int32_t*)tape,
-                           (int32_t*)off, (int32_t*)ivec, (float*)fvec,
-                           (const int32_t*)seeds, (const int32_t*)tab, P);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+}
+
+// the kernel K<C, stage> of the plan, its shared memory set; `out` gets
+// cudaOccupancyMaxActiveClusters where given, else the launch runs
+template <template <int> class K, class... Args>
+int run(const Params& P, int stage, size_t smem, void* stream, int* out,
+        Args... args) {
+  const auto kern = P.C == 128 ? K<128>::at(stage)
+                    : P.C == 64 ? K<64>::at(stage) : K<32>::at(stage);
+  int err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  launch_config(P, smem, (cudaStream_t)stream, cfg, attr);
+  if (out) return (int)cudaOccupancyMaxActiveClusters(out, (const void*)kern,
+                                                      &cfg);
+  if constexpr (sizeof...(Args) == 0) {
+    return -1;
+  } else {
+    err = (int)cudaLaunchKernelEx(&cfg, kern, args...);
+    if (err != 0) return err;
+    return (int)cudaGetLastError();
+  }
+}
+
+template <int C>
+struct Narrow {
+  static auto at(int stage) {
+    return stage == 0 ? cycles_kernel<C, 0> : stage == 1 ? cycles_kernel<C, 1>
+           : stage == 2 ? cycles_kernel<C, 2> : cycles_kernel<C, 3>;
+  }
+};
+
+template <int C>
+struct Wide {
+  static auto at(int stage) {
+    return stage == 0 ? cycles_kernel_wide<C, 0>
+           : stage == 1 ? cycles_kernel_wide<C, 1>
+           : stage == 2 ? cycles_kernel_wide<C, 2> : cycles_kernel_wide<C, 3>;
+  }
+};
+
+// The launch of the plan in pi, or with `out` its occupancy query: the
+// kernels of up to 32 reactions (kWide false) or past 32; -1 for a
+// reaction count the other compilation holds
+template <bool kWide>
+int launch(void* tape, void* off, void* ivec, void* fvec, const void* seeds,
+           const void* tab, void* scratch, const int32_t* pi,
+           const float* pf, int block, void* stream, int* out) {
+  Params P;
+  int stage;
+  size_t smem;
+  const int err = configure(pi, pf, block, P, stage, smem);
+  if (err != 0) return err;
+  if ((mask_words(P.R) > 1) != kWide) return -1;
+  if constexpr (kWide) {
+    if (out) return run<Wide>(P, stage, smem, stream, out);
+    if (scratch == nullptr) return -1;
+    return run<Wide>(P, stage, smem, stream, nullptr, (int32_t*)tape,
+                     (int32_t*)off, (int32_t*)ivec, (float*)fvec,
+                     (const int32_t*)seeds, (const int32_t*)tab,
+                     (int32_t*)scratch, P);
+  } else {
+    if (out) return run<Narrow>(P, stage, smem, stream, out);
+    return run<Narrow>(P, stage, smem, stream, nullptr, (int32_t*)tape,
+                       (int32_t*)off, (int32_t*)ivec, (float*)fvec,
+                       (const int32_t*)seeds, (const int32_t*)tab, P);
+  }
+}
+
+}  // namespace
+
+// This source is compiled twice, in parallel (ops/cycles.py UNITS): with
+// AVIDA_CYCLES_WIDE 0 it holds the kernels of up to 32 reactions and the
+// entry points below, with AVIDA_CYCLES_WIDE 1 those past 32 reactions
+// and the same entry points suffixed _wide; the wrapper calls the pair
+// that holds its reaction count.  Two compilations build in 20.0 s where
+// one took 36.3 s (PERF.md, section 6), and the build is on the path of
+// chip_smoke.py's time limit.
+#if AVIDA_CYCLES_WIDE
+#define AVIDA_ENTRY(name) name##_wide
+#else
+#define AVIDA_ENTRY(name) name
+#endif
+
+// pi holds the 20 ints of csrc/cycles_simple.cu's interface, then the
+// plan's CTA width C and staging level (ops/cycles.py::cta_plan);
+// `block` is the reference's B; `scratch` is an int32 plane of
+// (R + 31) / 32 - 1 rows of n_pad lanes (unused, and may be null, at up
+// to 32 reactions)
+extern "C" int AVIDA_ENTRY(avida_cycles_launch)(
+    void* tape, void* off, void* ivec, void* fvec, const void* seeds,
+    const void* tab, void* scratch, const int32_t* pi, const float* pf,
+    int block, void* stream) {
+  return launch<AVIDA_CYCLES_WIDE != 0>(tape, off, ivec, fvec, seeds, tab,
+                                        scratch, pi, pf, block, stream,
+                                        nullptr);
+}
+
+// cudaOccupancyMaxActiveClusters of the plan in pi (as for
+// avida_cycles_launch, one block of lanes) into *out
+extern "C" int AVIDA_ENTRY(avida_cycles_clusters)(const int32_t* pi,
+                                                  int block, int* out) {
+  return launch<AVIDA_CYCLES_WIDE != 0>(nullptr, nullptr, nullptr, nullptr,
+                                        nullptr, nullptr, nullptr, pi,
+                                        nullptr, block, nullptr, out);
 }

@@ -25,10 +25,13 @@ launch must read tape_t, ivec and the phenotype rows of fvec (~97 MB at
 (counted per run by chip_smoke.py); its real cost is the per-lane cycle
 loop, which is integer work with data-dependent control flow and
 per-lane tape indexing.  The Hopper design (csrc/cycles.cu's note): one
-thread per organism; a CTA of `cta_lanes` lanes stages its tape tile,
+thread per organism; a CTA of `cta_plan` lanes stages its tape tile,
 site flags, stacks, read label and reaction counters in shared memory
-with bulk copies; the CTAs of one reference block form a cluster that
-reduces the block's maxima; h-search is a shift-and matcher.  The TPU's
+with bulk copies, and where a tall tape or many reactions do not fit,
+keeps the counters, then the tape, then the site flags and the reaction
+table in device memory (cta_plan's staging levels); the CTAs of one
+reference block form a cluster that reduces the block's maxima;
+h-search is a shift-and matcher.  The TPU's
 masked-sum traversals, row-tile skipping, label window and select chains
 (workarounds for missing per-lane gathers) are not carried over; the
 results stay bit-identical.
@@ -46,6 +49,7 @@ import ctypes
 import os
 import subprocess
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -112,9 +116,6 @@ FLAG_NEWDIV = 16       # divided during this launch (cleared by the flush)
 
 DEFAULT_BLOCK = 512
 CHUNK = 64
-# csrc/cycles.cu's capacity: tape words (32 sites each) and reactions
-MAX_LW = 32
-MAX_R = 32
 
 
 def unsupported_reason(params) -> str | None:
@@ -162,33 +163,30 @@ def use_kernel(params) -> bool:
     return ok
 
 
+def kernel_insts_reason(params) -> str | None:
+    """The kernel's one limit: at most 64 instructions (None = within it).
+    It is the reference kernel's own: its per-opcode lookups and
+    first-time-cost bits are two 32-bit words (pallas_cycles.py
+    _bitmask_lookup, :644-649) and a tape byte keeps 6 opcode bits, and
+    the reference refuses a 65th instruction when it builds the world
+    (core/state.py instset_tables), as this port does."""
+    if params.num_insts > TAB_INSTS:
+        return (f"the cycle kernel holds at most {TAB_INSTS} instructions, "
+                f"as the reference's does (6 opcode bits a tape byte, two "
+                f"32-bit words of per-opcode bits: avida_tpu/ops/"
+                f"pallas_cycles.py:250-290, :644-649); this set has "
+                f"{params.num_insts}")
+    return None
+
+
 def kernel_limit_reason(params, device_type: str) -> str | None:
-    """The CUDA kernel's own limits (csrc/cycles.cu: MAX_LW, MAX_R, the
-    64-slot opcode tables, a CTA width that fits shared memory), checked
-    before a run on a `device_type` device routed to the kernel (None =
-    within them).  The CPU's plain version has none of them."""
+    """What the CUDA kernel cannot run, checked before a run on a
+    `device_type` device routed to the kernel (None = it runs it): only
+    more than 64 instructions (kernel_insts_reason).  Any tape height and
+    any reaction count get a launch plan (cta_plan)."""
     if device_type != "cuda" or not use_kernel(params):
         return None
-    L = dims(params, 1, params.max_memory)[2]
-    R = params.num_reactions
-    hint = "; TPU_USE_PALLAS=2 runs this configuration on the micro-step " \
-        "engine"
-    if L > 32 * MAX_LW:
-        return (f"the CUDA cycle kernel holds a tape of at most "
-                f"{32 * MAX_LW} sites (TPU_MAX_MEMORY {params.max_memory} "
-                f"pads to {L}){hint}")
-    if R > MAX_R:
-        return (f"the CUDA cycle kernel holds at most {MAX_R} reactions "
-                f"(this environment has {R}){hint}")
-    if params.num_insts > TAB_INSTS:
-        return (f"the CUDA cycle kernel holds at most {TAB_INSTS} "
-                f"instructions (this set has {params.num_insts}){hint}")
-    B = dims(params, params.num_cells, params.max_memory)[0]
-    try:
-        cta_lanes(L, R, B)
-    except ValueError as e:
-        return f"the CUDA cycle kernel: {e}{hint}"
-    return None
+    return kernel_insts_reason(params)
 
 
 def has_costs(params) -> bool:
@@ -1206,11 +1204,20 @@ def _nvcc():
     return found
 
 
+# the compilations of the library, started together: csrc/cycles.cu
+# twice -- its kernels of up to 32 reactions, and under
+# AVIDA_CYCLES_WIDE those past 32 with entry points suffixed _wide (two
+# compilations build in 20.0 s where one took 36.3 s) -- and the first
+# port
+UNITS = ((0, ()), (0, ("-DAVIDA_CYCLES_WIDE=1",)), (1, ()))
+
+
 def source_digest() -> str:
     """Digest of both kernel sources and the compiler flags: names the
     library, so a change to either source rebuilds it."""
     import hashlib
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
+                       + repr(UNITS).encode())
     for src in SOURCES:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
@@ -1218,23 +1225,26 @@ def source_digest() -> str:
 
 
 def build() -> str:
-    """Compile both sources into _build/ (once per source version: one nvcc
-    per source, started together, then one link) and return the library
-    path.  ptxas's resource report is kept beside it (see resources)."""
+    """Compile the sources into _build/ (once per source version: one nvcc
+    per UNITS entry, started together, then one link) and return the
+    library path.  ptxas's resource report is kept beside it (see
+    resources)."""
     digest = source_digest()
     path = os.path.join(BUILD_DIR, f"libcycles-{digest}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{digest}.{os.getpid()}"
-    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
-            for s in SOURCES]
-    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+    units = [(SOURCES[k], flags) for k, flags in UNITS]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{n}.{tag}.o")
+            for n, (s, _) in enumerate(units)]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", o,
+                               s],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for s, o in zip(SOURCES, objs)]
+                              text=True) for (s, flags), o in zip(units, objs)]
     outs = [p.communicate() for p in procs]
     report = "".join(err + out for out, err in outs)
-    bad = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+    bad = [u for u, p in zip(units, procs) if p.returncode != 0]
     if bad:
         raise RuntimeError(f"nvcc failed on {bad}:\n{report}")
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -1254,17 +1264,21 @@ def build() -> str:
 def parse_ptxas(text: str) -> dict:
     """{kernel: {registers, stack_bytes, spill_store_bytes,
     spill_load_bytes, static_smem_bytes}} from `nvcc -Xptxas -v` output,
-    for the entry functions cycles_kernel<C> (one per CTA width) and
-    cycles_simple_kernel."""
+    for the entry functions cycles_kernel<C,S> and, past 32 reactions,
+    cycles_kernel_wide<C,S> (one per CTA width and staging level;
+    cycles_kernel<C> before the levels) and cycles_simple_kernel."""
     import re
     out, entry, props = {}, None, None
 
     def short(mangled):
-        m = re.search(r"cycles_simple_kernel|cycles_kernel(?:ILi(\d+)E)?",
-                      mangled)
+        m = re.search(r"cycles_simple_kernel|(cycles_kernel(?:_wide)?)"
+                      r"(?:I((?:L[ib]\d+E)+)E)?", mangled)
         if m is None:
             return None
-        return f"cycles_kernel<{m.group(1)}>" if m.group(1) else m.group(0)
+        if not m.group(2):
+            return m.group(0)
+        args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+        return f"{m.group(1)}<{args}>"
 
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -1305,55 +1319,21 @@ def _load():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            for fn in (lib.avida_cycles_launch,
-                       lib.avida_cycles_launch_simple):
-                fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int,
-                                                       ctypes.c_void_p]
+            # the Hopper kernel takes a scratch plane beside the first
+            # port's operands
+            for fn, n_ptr in ((lib.avida_cycles_launch, 9),
+                              (lib.avida_cycles_launch_wide, 9),
+                              (lib.avida_cycles_launch_simple, 8)):
+                fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int,
+                                                           ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            for fn in (lib.avida_cycles_clusters,
+                       lib.avida_cycles_clusters_wide):
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
-
-
-# ---- the Hopper kernel's launch geometry ----
-
-MAX_CTA = 128            # lanes (threads) of a CTA
-MAX_CLUSTER = 8          # CTAs of a cluster: the portable cluster size
-SMEM_PER_CTA = 232_448   # the most shared memory a CTA may use (227 KB)
-SMEM_PER_SM = 233_472    # an SM's shared memory (228 KB) ...
-SMEM_CTA_RESERVED = 1_024  # ... of which each resident CTA reserves 1 KB
-TILE_ROWS_IVEC = 30      # ivec rows 38-67: the read label and the stacks
-# the launch table (_build_tables: 1,088 ints), the reductions and the
-# two mbarriers (8) and the cluster's slots (16)
-FIXED_SMEM_INTS = 8 * 64 + 16 * 32 + 64 + 8 + 16
-
-
-def tile_rows(L, R):
-    """Lane-wide int32 rows the Hopper kernel stages in shared memory: the
-    tape words, the read label and stacks, both site-flag bitplanes and
-    the 4R reaction counters."""
-    return L // 4 + TILE_ROWS_IVEC + 2 * (L // 32) + 4 * R
-
-
-def cta_smem_bytes(L, R, C):
-    """Dynamic shared memory of one C-lane CTA (csrc/cycles.cu's layout:
-    the tile, the launch table, the reductions and the cluster's slots)."""
-    return 4 * (tile_rows(L, R) * C + FIXED_SMEM_INTS)
-
-
-def cta_lanes(L, R, B) -> int:
-    """The CTA width C of the Hopper kernel for tape height L, R reactions
-    and the reference's block B: the widest power of two C <= 128 that
-    divides B in at most 8 CTAs (one cluster) and lets two CTAs share an
-    SM; failing that, the widest one CTA can hold."""
-    cands = [c for c in (128, 64, 32) if c <= B and B // c <= MAX_CLUSTER]
-    for c in cands:
-        if 2 * (cta_smem_bytes(L, R, c) + SMEM_CTA_RESERVED) <= SMEM_PER_SM:
-            return c
-    for c in cands:
-        if cta_smem_bytes(L, R, c) <= SMEM_PER_CTA:
-            return c
-    raise ValueError(f"no CTA width fits tape height {L}, {R} reactions "
-                     f"and block {B} in shared memory")
 
 
 def params_cached(store: dict, params, device, build):
@@ -1380,24 +1360,61 @@ def kernel_tables(params, device) -> torch.Tensor:
                          lambda p, d: _build_tables(p).to(d))
 
 
-# opcode tables of the launch table, 64 slots each, in csrc/cycles.cu's
-# order (T_META ... T_NOP_MOD), then 16 ints per reaction for up to 32
-# reactions, then the nop decode (64 slots)
+# The launch table: eight opcode tables of 64 slots each, in
+# csrc/cycles.cu's order (T_META ... T_NOP_MOD); then RX ints per
+# reaction (min and max count, type, float32 value, the first word of its
+# requisite and of its no-requisite mask, the eight words of its logic-id
+# mask); then, past 32 reactions, the masks' further words, mask_words(R)
+# - 1 of each per reaction (reaction d at word d // 32, bit d % 32); the
+# reaction block padded to 4 ints; then the nop decode (64 slots).  Up to
+# 32 reactions the table is csrc/cycles_simple.cu's layout.
 TAB_INSTS = 64
 (T_META, T_COST, T_FT_COST, T_ADDL, T_PROB_FAIL, T_MUT_CDF, T_IS_NOP,
  T_NOP_MOD, T_REACTIONS) = range(9)
-T_NOP_DECODE = T_REACTIONS * TAB_INSTS + 16 * 32
+RX = 16                  # table ints per reaction entry
+# the opcode tables and the nop decode: staged at every level
+TABLE_HEAD_INTS = T_REACTIONS * TAB_INSTS + TAB_INSTS
+
+
+def mask_words(R):
+    """32-bit words of one reaction's requisite mask over R reactions."""
+    return (R + 31) // 32
+
+
+def reaction_ints(R):
+    """The reaction block's ints: R entries, then each reaction's further
+    mask words, padded to a multiple of 4 (16-byte bulk copies)."""
+    return (RX * R + 2 * R * (mask_words(R) - 1) + 3) & ~3
+
+
+def reaction_smem_ints(R):
+    """Shared memory the kernel keeps for the reaction block: never less
+    than 32 entries, the room the block had before it was sized by R, so
+    that every shape of up to 32 reactions keeps its plan."""
+    return max(reaction_ints(R), RX * 32)
+
+
+def nop_decode_at(R):
+    """Offset of the nop decode in the launch table for R reactions."""
+    return T_REACTIONS * TAB_INSTS + reaction_ints(R)
+
+
+def _mask_word(row, lo, R):
+    """Bits d - lo of the reactions d in [lo, lo + 32) set in `row`, as an
+    int32."""
+    word = sum(1 << (d - lo) for d in range(lo, min(lo + 32, R)) if row[d])
+    return word - (1 << 32) if word >= 2**31 else word
 
 
 def _build_tables(params) -> torch.Tensor:
-    """The opcode tables, then 16 ints per reaction, then the nop decode
-    (a nop's register, -1 for any other opcode slot); see csrc/cycles.cu.
-    prob_fail and the cumulative mutation weights are float32 bit
-    patterns: the reference compares its draws against them in float32."""
+    """The launch table (layout above).  prob_fail and the cumulative
+    mutation weights are float32 bit patterns: the reference compares its
+    draws against them in float32."""
     import struct
     R = params.num_reactions
     ni = params.num_insts
-    t = [0] * (T_NOP_DECODE + TAB_INSTS)
+    RW = mask_words(R)
+    t = [0] * (nop_decode_at(R) + TAB_INSTS)
 
     def put(table, vals):
         for k, v in enumerate(vals):
@@ -1413,36 +1430,190 @@ def _build_tables(params) -> torch.Tensor:
         put(T_MUT_CDF, (_f32_bits(x) for x in params.mut_cdf[:ni - 1]))
     put(T_IS_NOP, (bool(x) for x in params.is_nop))
     put(T_NOP_MOD, params.nop_mod)
+    masks = T_REACTIONS * TAB_INSTS + RX * R
     for r in range(R):
         v = float(params.proc_value[r])
         typ = int(params.proc_type[r])
         f = torch.tensor(2.0 ** v if typ == 2 else v, dtype=torch.float32)
-        base = T_REACTIONS * TAB_INSTS + 16 * r
+        base = T_REACTIONS * TAB_INSTS + RX * r
         t[base + 0] = max(min(int(params.min_task_count[r]), 2**31 - 1), 0)
         t[base + 1] = min(int(params.max_task_count[r]), 2**31 - 1)
         t[base + 2] = typ
         t[base + 3] = struct.unpack("<i", struct.pack("<f", float(f)))[0]
-        t[base + 4] = sum(1 << d for d in range(R)
-                          if params.req_reaction_mask[r][d])
-        t[base + 5] = sum(1 << d for d in range(R)
-                          if params.noreq_reaction_mask[r][d])
+        req, noreq = params.req_reaction_mask[r], params.noreq_reaction_mask[r]
+        t[base + 4] = _mask_word(req, 0, R)
+        t[base + 5] = _mask_word(noreq, 0, R)
         for w in range(8):
             word = sum(1 << b for b in range(32)
                        if params.task_logic_mask[r][w * 32 + b])
             t[base + 6 + w] = word - (1 << 32) if word >= 2**31 else word
+        more = masks + 2 * (RW - 1) * r
+        for k in range(1, RW):
+            t[more + k - 1] = _mask_word(req, 32 * k, R)
+            t[more + RW - 1 + k - 1] = _mask_word(noreq, 32 * k, R)
+    nop = nop_decode_at(R)
     for k in range(TAB_INSTS):
-        t[T_NOP_DECODE + k] = (int(params.nop_mod[k])
-                               if k < ni and params.is_nop[k] else -1)
+        t[nop + k] = (int(params.nop_mod[k])
+                      if k < ni and params.is_nop[k] else -1)
     return torch.tensor(t, dtype=torch.int32)
 
 
-def _launch_cuda(params, planes, seeds, num_steps, B, simple=False):
-    """Launch the Hopper kernel (csrc/cycles.cu) on the planes, or with
-    simple=True the first port (csrc/cycles_simple.cu), which only
-    chip_smoke.py's timing and checks launch."""
+# ---- the Hopper kernel's launch geometry ----
+
+MAX_CTA = 128            # lanes (threads) of a CTA
+MAX_CLUSTER = 8          # CTAs of a cluster: the portable cluster size
+SMEM_PER_CTA = 232_448   # the most shared memory a CTA may use (227 KB)
+SMEM_PER_SM = 233_472    # an SM's shared memory (228 KB) ...
+SMEM_CTA_RESERVED = 1_024  # ... of which each resident CTA reserves 1 KB
+TILE_ROWS_IVEC = 30      # ivec rows 38-67: the read label and the stacks
+# the reductions and the two mbarriers (8 ints), the cluster's slots (16)
+RED_SMEM_INTS = 8 + 16
+
+# What a CTA stages in shared memory, by level (csrc/cycles.cu's template
+# argument S): each level keeps one more row group in device memory,
+# read and written there in place.  Level 0 stages the whole tile; the
+# 4R reaction counters go first (touched only at IO and divide), then
+# the tape words, then the site-flag bitplanes with the reaction table.
+# The read label and the stacks, the opcode tables and the nop decode are
+# staged at every level.
+STAGE_GROUPS = (
+    ("tape", "label_stacks", "site_flags", "counters", "reaction_table"),
+    ("tape", "label_stacks", "site_flags", "reaction_table"),
+    ("label_stacks", "site_flags", "reaction_table"),
+    ("label_stacks",),
+)
+
+
+class CtaPlan(NamedTuple):
+    """The Hopper kernel's launch plan for one (L, R, B): CTA width,
+    staging level (STAGE_GROUPS), staged lane-wide rows, dynamic shared
+    memory of a CTA and the CTAs an SM holds (1 or 2)."""
+    C: int
+    stage: int
+    rows: int
+    smem_bytes: int
+    per_sm: int
+
+    def staged(self):
+        return STAGE_GROUPS[self.stage]
+
+    def as_dict(self):
+        return dict(self._asdict(), staged=list(self.staged()),
+                    in_device_memory=[g for g in STAGE_GROUPS[0]
+                                      if g not in self.staged()])
+
+
+def staged_rows(L, R, stage):
+    """Lane-wide int32 rows a CTA stages at `stage`: the tape words (levels
+    0-1), the read label and stacks, both site-flag bitplanes (0-2) and
+    the 4R reaction counters (0)."""
+    return (TILE_ROWS_IVEC + (L // 4 if stage < 2 else 0)
+            + (2 * (L // 32) if stage < 3 else 0) + (4 * R if stage < 1 else 0))
+
+
+def plan_smem_bytes(L, R, C, stage):
+    """Dynamic shared memory of one C-lane CTA at `stage` (csrc/cycles.cu's
+    layout: the staged rows, the launch table's staged part, the
+    reductions and mbarriers, the cluster's slots)."""
+    table = TABLE_HEAD_INTS + (reaction_smem_ints(R) if stage < 3 else 0)
+    return 4 * (staged_rows(L, R, stage) * C + table + RED_SMEM_INTS)
+
+
+def cta_plan(L, R, B, _force_stage=None) -> CtaPlan:
+    """The Hopper kernel's plan for tape height L, R reactions and the
+    reference's block B: the widest power of two C <= 128 that divides B
+    in at most 8 CTAs (one cluster), at a staging level that lets two
+    CTAs share an SM, else one.  A shape of up to 1024 sites and 32
+    reactions (the kernel's limits before the levels) takes the least
+    level that fits at all, which is 0, so it keeps the plan it had;
+    past those limits two CTAs an SM come first, at the least level that
+    allows them.  Level 3 stages 30 rows and the opcode tables, which
+    fit any C, so every shape has a plan.  `_force_stage` runs exactly
+    that level (chip_smoke.py holds each level's code on the same
+    planes; no path sets it)."""
+    cands = [c for c in (128, 64, 32) if c <= B and B // c <= MAX_CLUSTER]
+    if not cands:
+        raise ValueError(f"block {B} does not split into at most "
+                         f"{MAX_CLUSTER} CTAs of 32-128 lanes")
+    stages = (range(len(STAGE_GROUPS)) if _force_stage is None
+              else (_force_stage,))
+    if L <= 1024 and R <= 32:
+        order = [(s, k) for s in stages for k in (2, 1)]
+    else:
+        order = [(s, k) for k in (2, 1) for s in stages]
+    for stage, per_sm in order:
+        for c in cands:
+            smem = plan_smem_bytes(L, R, c, stage)
+            if per_sm * (smem + SMEM_CTA_RESERVED) <= SMEM_PER_SM \
+                    and smem <= SMEM_PER_CTA:
+                return CtaPlan(c, stage, staged_rows(L, R, stage), smem,
+                               per_sm)
+    raise ValueError(f"no CTA plan for tape height {L}, {R} reactions and "
+                     f"block {B}" + ("" if _force_stage is None
+                                     else f" at staging level {_force_stage}"))
+
+
+def simple_limit_reason(L, R):
+    """Why the first port (csrc/cycles_simple.cu, whose per-thread arrays
+    are sized for a 1024-site tape and 32 reactions) cannot launch a tape
+    height L with R reactions (None = it can).  Only chip_smoke.py times
+    it, and skips it past these limits."""
+    if L > 1024 or R > 32:
+        return (f"csrc/cycles_simple.cu holds at most 1024 sites and 32 "
+                f"reactions (L = {L}, R = {R})")
+    return None
+
+
+def _int_params(params, LP, n_pad, B, num_steps, plan):
+    """The kernels' int parameters: csrc/cycles_simple.cu's 20, then the
+    Hopper kernel's plan (CTA width, staging level)."""
+    NI, LW, IV_COPIED_BM, IV_DYN = layout(params, LP * 4)
+    return (ctypes.c_int32 * 22)(
+        n_pad, LP, LW, params.max_memory, params.num_insts,
+        params.num_reactions, IV_COPIED_BM, IV_DYN,
+        min(int(num_steps), 2**31 - 1), int(params.require_allocate),
+        int(params.base_merit_method), int(params.inherit_merit),
+        1 if params.generation_inc_method == 1 else 0,
+        int(params.divide_method), int(params.min_genome_len),
+        int(params.copy_mut_prob > 0), int(has_costs(params)),
+        int(bool(params.inst_prob_fail)),
+        int(bool(params.inst_addl_time_cost)),
+        int(not uniform_mutation(params)), plan.C, plan.stage)
+
+
+_CLUSTERS = {}     # (L, R, B, C, stage) -> clusters the card holds at once
+
+
+def max_active_clusters(params, L, B, plan) -> int:
+    """cudaOccupancyMaxActiveClusters of the Hopper kernel at `plan` (its
+    CTAs of B // plan.C each, plan.smem_bytes each): how many of the
+    launch's clusters the card runs at once.  0 means the cluster does
+    not fit the card and the launch raises.  Cached per shape."""
+    key = (L, params.num_reactions, B, plan.C, plan.stage)
+    if key not in _CLUSTERS:
+        pi = _int_params(params, L // 4, B, B, 1, plan)
+        out = ctypes.c_int(0)
+        lib = _load()
+        query = (lib.avida_cycles_clusters_wide
+                 if mask_words(params.num_reactions) > 1
+                 else lib.avida_cycles_clusters)
+        rc = query(pi, B, ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError(f"cycle kernel occupancy query failed (CUDA "
+                               f"error {rc})")
+        _CLUSTERS[key] = out.value
+    return _CLUSTERS[key]
+
+
+def _launch_cuda(params, planes, seeds, num_steps, B, simple=False,
+                 _force_stage=None):
+    """Launch the Hopper kernel (csrc/cycles.cu) on the planes at
+    cta_plan(L, R, B, _force_stage), or with simple=True the first port
+    (csrc/cycles_simple.cu), which only chip_smoke.py's timing and checks
+    launch."""
     tape_t, off_t, ivec, fvec = planes
     LP, n_pad = tape_t.shape
-    NI, LW, IV_COPIED_BM, IV_DYN = layout(params, LP * 4)
+    NI = layout(params, LP * 4)[0]
     R = params.num_reactions
     dev = tape_t.device
     for t, dt, shape in ((tape_t, torch.int32, (LP, n_pad)),
@@ -1455,27 +1626,23 @@ def _launch_cuda(params, planes, seeds, num_steps, B, simple=False):
             raise ValueError(f"cycle kernel operand: got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}, expected "
                              f"contiguous {dt} {shape} on {dev}")
-    if LW > MAX_LW or R > MAX_R or B > 512 or B % 32 \
-            or B < TAB_INSTS or n_pad % B or params.num_insts > TAB_INSTS:
-        raise ValueError("cycle kernel limits: tape <= 1024, <= 32 "
-                         "reactions, <= 64 instructions, block width a "
-                         "multiple of 32 in [64, 512]")
+    if B > 512 or B % 32 or B < TAB_INSTS or n_pad % B:
+        raise ValueError("cycle kernel: the block width must be a multiple "
+                         "of 32 in [64, 512] dividing the lanes")
+    reason = kernel_insts_reason(params)
+    if reason is not None:
+        raise ValueError(reason)
+    if simple and simple_limit_reason(LP * 4, R) is not None:
+        raise ValueError(simple_limit_reason(LP * 4, R))
     if tape_t.data_ptr() % 16 or ivec.data_ptr() % 16:
         raise ValueError("cycle kernel: tape_t and ivec must start on a "
                          "16-byte boundary (rows are bulk-copied)")
+    plan = cta_plan(LP * 4, R, B, _force_stage)
+    if not simple and max_active_clusters(params, LP * 4, B, plan) < 1:
+        raise RuntimeError(f"cycle kernel: no cluster of {B // plan.C} "
+                           f"CTAs at {plan} fits the card")
     tab = kernel_tables(params, dev)
-    pi = (ctypes.c_int32 * 21)(
-        n_pad, LP, LW, params.max_memory, params.num_insts,
-        R, IV_COPIED_BM, IV_DYN,
-        min(int(num_steps), 2**31 - 1), int(params.require_allocate),
-        int(params.base_merit_method), int(params.inherit_merit),
-        1 if params.generation_inc_method == 1 else 0,
-        int(params.divide_method), int(params.min_genome_len),
-        int(params.copy_mut_prob > 0), int(has_costs(params)),
-        int(bool(params.inst_prob_fail)),
-        int(bool(params.inst_addl_time_cost)),
-        int(not uniform_mutation(params)),
-        cta_lanes(LP * 4, R, B))
+    pi = _int_params(params, LP, n_pad, B, num_steps, plan)
     pf = (ctypes.c_float * 7)(
         params.copy_mut_prob, params.offspring_size_range,
         params.min_exe_lines, params.min_copied_lines, params.default_bonus,
@@ -1483,10 +1650,20 @@ def _launch_cuda(params, planes, seeds, num_steps, B, simple=False):
         prng.f32_reciprocal(params.offspring_size_range))
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _load()
-    fn = lib.avida_cycles_launch_simple if simple else lib.avida_cycles_launch
-    rc = fn(tape_t.data_ptr(), off_t.data_ptr(), ivec.data_ptr(),
-            fvec.data_ptr(), seeds.data_ptr(), tab.data_ptr(), pi, pf, B,
-            stream)
+    ptrs = (tape_t.data_ptr(), off_t.data_ptr(), ivec.data_ptr(),
+            fvec.data_ptr(), seeds.data_ptr(), tab.data_ptr())
+    if simple:
+        rc = lib.avida_cycles_launch_simple(*ptrs, pi, pf, B, stream)
+    else:
+        # the paid-reaction words past the first, one row each (the
+        # kernel keeps word 0 in a register)
+        RW = mask_words(R)
+        scratch = torch.empty((RW - 1, n_pad), dtype=torch.int32,
+                              device=dev) if RW > 1 else None
+        fn = (lib.avida_cycles_launch_wide if RW > 1
+              else lib.avida_cycles_launch)
+        rc = fn(*ptrs, 0 if scratch is None else scratch.data_ptr(), pi, pf,
+                B, stream)
     if rc != 0:
         raise RuntimeError(f"cycle kernel launch failed (CUDA error {rc})")
 
@@ -1502,16 +1679,19 @@ def cycles_simple(params, planes, seeds, num_steps, B):
     return planes
 
 
-def cycles(params, planes, seeds, num_steps, B):
+def cycles(params, planes, seeds, num_steps, B, _force_stage=None):
     """Run one update's cycles over the planes, in place; returns them.
 
     CUDA tensors launch the Hopper kernel (csrc/cycles.cu) or raise; CPU
     tensors take the plain version.  `seeds` holds one int32 seed per B-lane block
-    (block_seeds); `num_steps` is the static per-update step cap."""
+    (block_seeds); `num_steps` is the static per-update step cap.
+    `_force_stage` runs the kernel at that staging level in place of its
+    plan's (cta_plan; only chip_smoke.py's checks set it)."""
     global LAUNCHES
     check_supported(params)
     if planes[0].device.type == "cuda":
-        _launch_cuda(params, planes, seeds, num_steps, B)
+        _launch_cuda(params, planes, seeds, num_steps, B,
+                     _force_stage=_force_stage)
         LAUNCHES += 1
         return planes
     if planes[0].device.type != "cpu":

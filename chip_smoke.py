@@ -28,8 +28,9 @@ and checks that every update of each launched the Hopper kernel once:
 and the micro-step cycle engine (TPU_USE_PALLAS=2, and every
 configuration the kernel gate refuses), whose paths launch no kernel:
 
-  kernel_limits     a 1088-site tape and 33 reactions refused on the
-                    kernel route by name; TPU_USE_PALLAS=2 runs them
+  kernel_limits     a 1088-site tape and 33 reactions run on the kernel
+                    route (K1 once an update); 65 instructions refused at
+                    World construction, as the reference refuses them
   xla_path          the 320x320 world with TPU_USE_PALLAS=2 (trips an
                     update, ms a cycle, its phases timed, a profiler
                     trace of a few cycles: kernels, busy and idle share)
@@ -178,6 +179,27 @@ and the observability plane (ROADMAP item 15):
                     for line and every field equal, the merit anomaly
                     at update 3
 
+and the cycle kernel at any tape height and any reaction count (ROADMAP
+Queue 2, K1 capacity):
+
+  capacity_path     320x320, the logic-77 environment (logic-9, then the
+                    68 three-input logic tasks), TPU_MAX_MEMORY 2048,
+                    TPU_SYSTEMATICS=0, InjectAll and reseed_mixed: 8
+                    updates and on to the first births on the packed
+                    fused chunk, K1 once an update with rows in device
+                    memory (the plan's staging level, past 0); its first
+                    2 launches held against the plain version, the next
+                    one at every level that fits a CTA, then timed; the
+                    plan, births, reactions rewarded
+  capacity_stacked  a MultiWorld of 4 12x12 logic-77 worlds at
+                    TPU_MAX_MEMORY 2048 for 8 updates (K3b once an
+                    update), its next launch held against the plain
+                    version and the solo launches
+  capacity_cross_device  a 10x10 world of the reordered logic-77 (AND
+                    requires NOT, NAND no NOT, all past bit 32) at
+                    TPU_MAX_MEMORY 2048 on the card and on the CPU for 16
+                    updates: every field and .dat file equal
+
 and persistence (native checkpoints in the reference's format):
 
   persist_path      the 320x320 packed world saving every 10 updates
@@ -212,7 +234,9 @@ runs; small worlds and a small batch run on the card and on the CPU
 must end identical (the CPU halves run in worker processes that see no
 card, beside the card's phases: cpu_jobs); the geometry phase holds
 both kernels to the plain version at the launch shapes the paths do not
-reach (B = 128, 256, and L = 1024), and the size_range phase holds them
+reach (B = 128, 256, and L = 1024; past the first port's limits the
+Hopper kernel alone, at every staging level, at L = 1088 with 33
+reactions, L = 4096, and L = 2048 with 77), and the size_range phase holds them
 at OFFSPRING_SIZE_RANGE 1.1, where the divide's size limit rounds.
 Each phase prints one JSON line; the last line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that
@@ -303,12 +327,17 @@ REACTION EQU  equ  process:value=5.0:type=pow
 # ~(x & y) (NAND), ...
 TASK_GENOME = ["IO", "push", "pop", "nop-C", "nand", "IO", "nand", "IO",
                "nand", "IO", "swap", "IO", "inc", "IO"] + ["swap-stk"] * 6
+# NOT (IO reads x, CX = x, BX = ~x, IO outputs it and reads y), then AND:
+# BX = ~(y & x), CX = BX, BX = ~(CX & CX) = y & x, IO outputs it
+AND_GENOME = ["IO", "push", "pop", "nop-C", "nand", "IO", "nand", "push",
+              "pop", "nop-C", "nand", "IO"] + ["nop-A"] * 8
 
 
-def reseed_mixed(w):
+def reseed_mixed(w, tasks=(TASK_GENOME,)):
     """Reseed a freshly InjectAll-ed world: a third of the cells get a
-    task-performing program and a third random genomes of 30-89
-    instructions, so every instruction and reward path runs.  One pass:
+    task-performing program (the programs of `tasks` in turn) and a third
+    random genomes of 30-89 instructions, so every instruction and reward
+    path runs.  One pass:
     each reseeded cell's genome, tape, lengths, merit and age limit are
     written at once (every other field is already fresh; the cell inputs
     stay InjectAll's)."""
@@ -321,8 +350,9 @@ def reseed_mixed(w):
     st = w.state
     genome = st.genome.cpu().numpy().copy()
     glen = st.genome_len.cpu().numpy().copy()
-    task = [names.index(x) for x in TASK_GENOME]
+    progs = [[names.index(x) for x in t] for t in tasks]
     for c in range(1, n, 3):
+        task = progs[(c // 3) % len(progs)]
         genome[c] = 0
         genome[c, :len(task)] = task
         glen[c] = len(task)
@@ -340,6 +370,36 @@ def reseed_mixed(w):
                          genome_len=gl, mem_len=gl.clone(),
                          executed_size=gl.clone(), copied_size=gl.clone(),
                          merit=gl.to(torch.float32), max_executed=max_exec)
+
+
+# the stock logic-9 reactions (config/environment.py's
+# default_logic9_environment) and the 68 three-input logic tasks
+LOGIC9 = (("NOT", "not", 1.0), ("NAND", "nand", 1.0), ("AND", "and", 2.0),
+          ("ORN", "orn", 2.0), ("OR", "or", 3.0), ("ANDN", "andn", 3.0),
+          ("NOR", "nor", 4.0), ("XOR", "xor", 4.0), ("EQU", "equ", 5.0))
+# the reordered environment's requisites (logic-9 after the 68, so that
+# they sit past bit 32: NOT is reaction 68, word 2 of a mask)
+LOGIC77_REQUISITES = {"AND": "requisite:reaction=NOT:max_count=1",
+                      "NAND": "requisite:noreaction=NOT:max_count=1"}
+
+
+def logic77_env_text(logic9_first=True, n3=68):
+    """The logic-77 environment: logic-9 with its stock values, then the
+    68 logic_3* reactions (the first n3 of them), each
+    process:value=1.0:type=pow with requisite:max_count=1.
+    logic9_first=False puts the 68 first and gives AND a requisite on NOT
+    and NAND a no-requisite on NOT, at 77 reactions all in the masks'
+    third word."""
+    from avida_tpu_torch.config.environment import LOGIC_TASKS
+    l3 = [t for t in LOGIC_TASKS
+          if t.startswith("logic_3") and not t.endswith("_dup")][:n3]
+    nine = [f"REACTION {n} {t} process:value={v}:type=pow "
+            + ("requisite:max_count=1" if logic9_first
+               else LOGIC77_REQUISITES.get(n, "requisite:max_count=1"))
+            for n, t, v in LOGIC9]
+    l3 = [f"REACTION L3{t[7:]} {t} process:value=1.0:type=pow "
+          f"requisite:max_count=1" for t in l3]
+    return "\n".join(nine + l3 if logic9_first else l3 + nine) + "\n"
 
 
 # the heads opcodes with nop-A/B/C moved off 0-2 and every cost column
@@ -409,7 +469,8 @@ def dat_bodies(data_dir):
 
 def write_config_dir(cdir, env=False, instset=None):
     """A config directory: avida.cfg naming the instruction-set file (or
-    the built-in set), and the custom environment when asked for."""
+    the built-in set), and the custom environment (ENV_TEXT, or the text
+    `env`) when asked for."""
     os.makedirs(cdir)
     with open(os.path.join(cdir, "avida.cfg"), "w") as f:
         f.write("INST_SET instset.cfg\n" if instset else "INST_SET -\n")
@@ -418,7 +479,7 @@ def write_config_dir(cdir, env=False, instset=None):
             f.write(instset)
     if env:
         with open(os.path.join(cdir, "environment.cfg"), "w") as f:
-            f.write(ENV_TEXT)
+            f.write(ENV_TEXT if env is True else env)
     return cdir
 
 
@@ -543,11 +604,13 @@ def phase_main(side, updates, data_dir, device="cuda"):
     return w, res
 
 
-def phase_kernel(w, n_launch=3, time_it=True):
+def phase_kernel(w, n_launch=3, time_it=True, stages=False):
     """Hold the Hopper kernel and the first port against the plain version
     on full-width planes from the main path's evolved state, over
     consecutive launches.  Between launches the state advances through the
-    main path's own phases."""
+    main path's own phases.  With `stages`, the last checked launch's
+    inputs are also held at every staging level from the plan's own on,
+    and timed at the next launch's (hold_stages)."""
     import torch
     from avida_tpu_torch.ops import cycles, packed_chunk, update
     from avida_tpu_torch.utils import prng
@@ -574,11 +637,14 @@ def phase_kernel(w, n_launch=3, time_it=True):
         pc, budgets, _, executed0 = packed_chunk.schedule_phase(
             p, pc, ks[0], key, u + i)
         seeds = cycles.block_seeds(ks[1], n_pad, B)
-        kern, err, plain_ms = hold_both(
-            p, tuple(padded(t) for t in planes()), seeds, cap, B,
-            f"launch {i}")
+        base = tuple(padded(t) for t in planes())
+        kern, err, plain_ms = hold_both(p, base, seeds, cap, B,
+                                        f"launch {i}")
         worst = max(worst, err)
         times.append(plain_ms)
+        if stages and i == n_launch - 1:
+            # kern is word for word the plain version's result on base
+            held = hold_stages(p, base, seeds, cap, B, kern)
         for dst, src in zip(planes(), kern):
             dst.copy_(src[:, :n])
         pc, _ = packed_chunk.bank_phase(p, pc, budgets, executed0)
@@ -590,6 +656,8 @@ def phase_kernel(w, n_launch=3, time_it=True):
            "launches": None, "max_abs_err": worst, "match": True,
            "checked_launches": n_launch, "plain_ms": min(times),
            "library_ms": None}
+    if stages:
+        res["stages"] = held
     if not time_it:
         return res
 
@@ -599,35 +667,76 @@ def phase_kernel(w, n_launch=3, time_it=True):
     packed_chunk.schedule_phase(p, pc, ks[0], key, u + n_launch)
     seeds = cycles.block_seeds(ks[1], n_pad, B)
     base = tuple(padded(t) for t in planes())
+    for row in res.get("stages", ()):
+        row["ms"] = launch_ms(base, lambda work, s=row["stage"]: cycles.cycles(
+            p, work, seeds, cap, B, _force_stage=s))
     work = tuple(t.clone() for t in base)
     cycles.cycles(p, work, seeds, cap, B)
-    res.update(kernel_bound(base, work, seeds))
+    res.update(kernel_bound(p, base, work, seeds))
     res.update(paired_ms(p, base, seeds, cap, B))
     res["reached"] = res["bound_ms"] / res["ms"]
     return res
+
+
+def hold_stages(p, base, seeds, cap, B, want):
+    """The Hopper kernel at every staging level that fits this shape
+    (cycles.cta_plan's _force_stage: the same planes with more or fewer
+    row groups kept in device memory), each on a copy of `base` held word
+    for word against `want`, the plain version's planes on it: [{stage,
+    C, per_sm, smem_bytes, plan, max_abs_err}], `plan` true at the
+    plan's own level."""
+    from avida_tpu_torch.ops import cycles
+    L, R = 4 * base[0].shape[0], p.num_reactions
+    own = cycles.cta_plan(L, R, B)
+    out = []
+    for stage in range(4):
+        try:
+            plan = cycles.cta_plan(L, R, B, _force_stage=stage)
+        except ValueError:
+            continue                      # the level does not fit a CTA
+        kern = tuple(t.clone() for t in base)
+        cycles.cycles(p, kern, seeds, cap, B, _force_stage=stage)
+        out.append({"stage": stage, "C": plan.C, "per_sm": plan.per_sm,
+                    "smem_bytes": plan.smem_bytes, "plan": plan == own,
+                    "max_abs_err": compare_planes(kern, want,
+                                                  f"staging level {stage}")})
+    return out
+
+
+def simple_skipped(p, base):
+    """Why the first port cannot take these planes (None = it can): past
+    its tape height or reaction count, which only the Hopper kernel
+    holds."""
+    from avida_tpu_torch.ops import cycles
+    return cycles.simple_limit_reason(4 * base[0].shape[0], p.num_reactions)
 
 
 def hold_both(p, base, seeds, cap, B, where, launch=None):
     """The Hopper kernel (`launch(work)`, by default one `cycles.cycles`)
     and the first port, each on a copy of `base`, held word for word
     against the plain version on a third copy: (the Hopper kernel's
-    planes, max_abs_err, the plain version's host-clocked ms)."""
+    planes, max_abs_err, the plain version's host-clocked ms).  Past the
+    first port's limits (simple_skipped) it holds the Hopper kernel
+    alone."""
     from avida_tpu_torch.ops import cycles
     kern = tuple(t.clone() for t in base)
-    simple = tuple(t.clone() for t in base)
     plain = tuple(t.clone() for t in base)
     if launch is None:
         cycles.cycles(p, kern, seeds, cap, B)
     else:
         launch(kern)
-    cycles.cycles_simple(p, simple, seeds, cap, B)
+    simple = None
+    if simple_skipped(p, base) is None:
+        simple = tuple(t.clone() for t in base)
+        cycles.cycles_simple(p, simple, seeds, cap, B)
     _sync(base[0].device)
     t0 = time.perf_counter()
     cycles.cycles_reference(p, plain, seeds, cap, B)
     _sync(base[0].device)
     plain_ms = 1e3 * (time.perf_counter() - t0)
     worst = compare_planes(kern, plain, where)
-    compare_planes(simple, plain, f"{where} (first port)")
+    if simple is not None:
+        compare_planes(simple, plain, f"{where} (first port)")
     return kern, worst, plain_ms
 
 
@@ -636,11 +745,16 @@ def paired_ms(p, base, seeds, cap, B, launch=None):
     default one `cycles.cycles`) and of the first port on copies of
     `base`, taken in turns -- first port, Hopper, Hopper, first port --
     each turn the mean of 10 launches less the copy's own time:
-    {"ms", "simple_ms", "turns_ms"}."""
+    {"ms", "simple_ms", "turns_ms"}.  Past the first port's limits its
+    turns time the Hopper kernel again, and "simple_ms" is None beside
+    "simple_skipped", the reason."""
     from avida_tpu_torch.ops import cycles
     new = launch or (lambda work: cycles.cycles(p, work, seeds, cap, B))
+    skipped = simple_skipped(p, base)
 
     def simple(work):
+        if skipped is not None:
+            return new(work)
         cycles.cycles_simple(p, work, seeds, cap, B)
 
     work = tuple(t.clone() for t in base)
@@ -657,6 +771,9 @@ def paired_ms(p, base, seeds, cap, B, launch=None):
 
     copy = cuda_ms(copy_only, 10)
     turns = [cuda_ms(timed(f), 10) - copy for f in (simple, new, new, simple)]
+    if skipped is not None:
+        return {"ms": sum(turns) / 4, "simple_ms": None,
+                "simple_skipped": skipped, "turns_ms": turns}
     return {"ms": (turns[1] + turns[2]) / 2,
             "simple_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns}
 
@@ -677,26 +794,53 @@ def compare_planes(kern, plain, where):
     return worst
 
 
-def kernel_bound(inp, out, seeds, pad_lanes=0):
+def kernel_bound(p, inp, out, seeds):
     """The cycle kernel's byte bound for one launch on these inputs: the
-    planes it reads (tape_t, ivec, the phenotype rows of fvec) and the
-    seeds read once, and only the words this launch changed written
-    once (the planes are updated in place; off_t is written only for
-    lanes that divided, tape_t only at copied or allocated bytes).  Of
-    tape_t, each of `pad_lanes` lanes (a stacked launch's zero padding,
-    granted nothing) is counted at the one word it reads (its
-    pending-write value), not its whole column."""
+    words the launch needs read, each once, and the words it changed,
+    each written once (the planes are updated in place; off_t is written
+    only for lanes that divided).  What a lane needs read is what its
+    state and this launch's work reach:
+      - a lane granted cycles: its state rows (ivec below the site flags,
+        the phenotype rows of fvec), its tape words up to its memory
+        length (IV_MEM_LEN: the tape and the allocated room) and both
+        site-flag bitplanes as far, and its 4R reaction counters only if
+        it did IO or divided in this launch (an IO row, a counter or its
+        divide flag changed);
+      - a lane granted nothing (dead, a pad lane): its grant, its read
+        head and one tape word, its pending-write value.
+    The tape and bitplane words past a lane's memory, which the planes
+    hold out to the padded height L, are not needed and not counted."""
     import torch
     from avida_tpu_torch.ops import cycles
     tape_t, _, ivec, fvec = inp
-    tape_words = tape_t.numel() - (tape_t.shape[0] - 1) * pad_lanes
-    read = 4 * (tape_words + ivec.numel() + seeds.numel()
-                + (cycles.FV_LAST_MERIT_BASE + 1) * fvec.shape[1])
+    after = out[2]
+    LP, R = tape_t.shape[0], p.num_reactions
+    dyn = cycles.layout(p, 4 * LP)[3]
+    granted = ivec[cycles.IV_GRANTED] > 0
+    mem = ivec[cycles.IV_MEM_LEN].long().clamp(0, 4 * LP)
+    io = [cycles.IV_INPUT_PTR, cycles.IV_INPUT_BUF_N, cycles.IV_OUTPUT_BUF,
+          *range(cycles.IV_INPUT_BUF, cycles.IV_INPUT_BUF + 3)]
+    divided = ((after[cycles.IV_FLAGS] & ~ivec[cycles.IV_FLAGS]
+                & cycles.FLAG_NEWDIV) != 0)
+    touched = ((ivec[io] != after[io]).any(dim=0)
+               | (ivec[dyn:dyn + 4 * R] != after[dyn:dyn + 4 * R]).any(dim=0)
+               | divided)
+    per_lane = torch.where(
+        granted,
+        cycles.IV_EXEC_BM + (cycles.FV_LAST_MERIT_BASE + 1)
+        + ((mem + 3) // 4).clamp(min=1) + 2 * ((mem + 31) // 32)
+        + torch.where(touched, 4 * R, 0),
+        3)
+    read = 4 * (int(per_lane.sum()) + seeds.numel())
     changed = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
                   for a, b in zip(inp, out))
     return {"bound_ms": 1e3 * (read + 4 * changed) / HBM_BYTES_PER_S,
             "bound_by": "bytes", "bytes_read": read,
-            "bytes_written": 4 * changed}
+            "bytes_written": 4 * changed,
+            "lanes_granted": int(granted.sum()),
+            "lanes_with_io_or_divide": int((granted & touched).sum()),
+            "mean_memory_sites": float(mem[granted].float().mean())
+            if bool(granted.any()) else 0.0}
 
 
 def phase_breakdown(w, updates=5):
@@ -849,7 +993,7 @@ def phase_default_kernel(w, name="default_path"):
                                       f"the {name} launch")
     res = {"path": name, "max_abs_err": worst, "match": True,
            "lanes_permuted": True, "plain_ms": plain_ms}
-    res.update(kernel_bound(base, kern, seeds))
+    res.update(kernel_bound(p, base, kern, seeds))
     res.update(paired_ms(p, base, seeds, cap, B))
     res["reached"] = res["bound_ms"] / res["ms"]
     # the same organisms and budgets in cell order: what the permutation
@@ -1034,42 +1178,67 @@ def phase_costs_kernel(side, updates, tmp, device="cuda"):
     return res
 
 
-# (side, TPU_MAX_MEMORY): B = 128 (one CTA a cluster), B = 256 (a cluster
-# of two), and the largest tile, L = 1024 (C = 64, a cluster of eight)
-GEOMETRY_CASES = ((8, 384), (16, 384), (24, 1024))
+# (side, TPU_MAX_MEMORY, environment): B = 128 (one CTA a cluster), B =
+# 256 (a cluster of two), and the largest tile before tape heights past
+# 1024, L = 1024 (C = 64, a cluster of eight), on logic-9; then past the
+# old capacity: 33 reactions (the first 24 logic_3* of the reordered
+# logic-77, then logic-9: NOT at bit 24, AND's requisite in word 0) at
+# L = 1088, a 4096-site tape kept in device memory (logic-9), and the
+# reordered logic-77 with its requisites past bit 32 at L = 2048
+GEOMETRY_CASES = ((8, 384, None), (16, 384, None), (24, 1024, None),
+                  (8, 1088, (False, 24)), (24, 4096, None),
+                  (16, 2048, (False, 68)))
+GEOMETRY_SHAPES = [(128, 384, 1), (256, 384, 2), (512, 1024, 8),
+                   (128, 1088, 4), (512, 4096, 8), (256, 2048, 8)]
 
 
-def phase_geometry(tmp, updates=24, n_launch=3):
+def phase_geometry(tmp, updates=24, n_launch=2):
     """The Hopper kernel and the first port held word for word against the
     plain version at the launch geometries the 320x320 and 60x60 paths do
     not reach (GEOMETRY_CASES): each world runs the costs instruction set
     (COSTS_INSTSET) with mixed programs for `updates` updates on the card,
-    then `n_launch` consecutive launches are checked on its state."""
+    then `n_launch` consecutive launches are checked on its state.  Past
+    the old capacity (L > 1024 or R > 32) the first port is skipped (its
+    own limits), the task programs include the NOT/AND one, 1 launch is
+    checked and its inputs are held at every staging level from the
+    plan's own on (hold_stages)."""
     from avida_tpu_torch.ops import cycles
     cases = []
-    for side, mem in GEOMETRY_CASES:
-        cdir = write_config_dir(os.path.join(tmp, f"cfg_geom_{side}"),
-                                instset=COSTS_INSTSET)
-        w = make_world(side, os.path.join(tmp, f"geom_{side}"), "cuda",
+    for side, mem, env in GEOMETRY_CASES:
+        tag = f"{side}_{mem}"
+        cdir = write_config_dir(
+            os.path.join(tmp, f"cfg_geom_{tag}"),
+            env=env is not None and logic77_env_text(*env),
+            instset=COSTS_INSTSET)
+        w = make_world(side, os.path.join(tmp, f"geom_{tag}"), "cuda",
                        ["u begin InjectAll"], {"TPU_MAX_MEMORY": mem}, cdir)
         w.process_events()
-        reseed_mixed(w)
-        w.run(max_updates=updates)
-        kern = phase_kernel(w, n_launch=n_launch, time_it=False)
         p = w.params
         B, _, L = cycles.dims(p, p.num_cells, p.max_memory)
-        C = cycles.cta_lanes(L, p.num_reactions, B)
-        cases.append({"world": f"{side}x{side}", "B": B, "L": L, "C": C,
-                      "cluster": B // C,
-                      "smem_bytes": cycles.cta_smem_bytes(
-                          L, p.num_reactions, C),
-                      "checked_launches": n_launch,
-                      "max_abs_err": kern["max_abs_err"],
-                      "births": int(w._total_births),
-                      "live_organisms": w.num_organisms})
+        past = L > 1024 or p.num_reactions > 32
+        reseed_mixed(w, (TASK_GENOME, AND_GENOME) if past
+                     else (TASK_GENOME,))
+        w.run(max_updates=updates)
+        checked = 1 if past else n_launch
+        kern = phase_kernel(w, n_launch=checked, time_it=False, stages=past)
+        plan = cycles.cta_plan(L, p.num_reactions, B)
+        case = {"world": f"{side}x{side}", "B": B, "L": L,
+                "R": p.num_reactions, "C": plan.C, "cluster": B // plan.C,
+                "stage": plan.stage, "smem_bytes": plan.smem_bytes,
+                "per_sm": plan.per_sm, "checked_launches": checked,
+                "max_abs_err": kern["max_abs_err"],
+                "births": int(w._total_births),
+                "live_organisms": w.num_organisms}
+        if past:
+            case.update(
+                stages=kern["stages"],
+                first_port_skipped=cycles.simple_limit_reason(
+                    L, p.num_reactions))
+        cases.append(case)
     got = [(c["B"], c["L"], c["cluster"]) for c in cases]
-    if got != [(128, 384, 1), (256, 384, 2), (512, 1024, 8)] \
-            or any(c["births"] == 0 for c in cases):
+    if got != GEOMETRY_SHAPES or any(c["births"] == 0 for c in cases) \
+            or [[r["stage"] for r in c.get("stages", ())] for c in cases] \
+            != [[], [], [], [0, 1, 2, 3], [2, 3], [0, 1, 2, 3]]:
         raise AssertionError(f"geometry phase reached {cases}")
     return {"phase": "geometry", "match": True, "cases": cases}
 
@@ -1319,8 +1488,7 @@ def phase_mw_kernel(mw, name, time_it=True):
     beside the summed times of the W solo launches, and its bound."""
     from avida_tpu_torch.ops import cycles, update
     p = mw.params
-    n = p.num_cells
-    B, n_pad, _ = cycles.dims(p, n, p.max_memory)
+    B, n_pad, _ = cycles.dims(p, p.num_cells, p.max_memory)
     cap = update.static_cap(p)
     base, k_steps = mw_next_launch(mw)
     W = len(k_steps)
@@ -1344,7 +1512,7 @@ def phase_mw_kernel(mw, name, time_it=True):
     res = {"path": name, "max_abs_err": worst, "match": True,
            "worlds_equal_solo_launches": W, "lanes": base[0].shape[1],
            "blocks": base[0].shape[1] // B, "plain_ms": plain_ms}
-    res.update(kernel_bound(base, kern, seeds, pad_lanes=W * (n_pad - n)))
+    res.update(kernel_bound(p, base, kern, seeds))
     if time_it:
         res.update(paired_ms(p, base, seeds, cap, B, stacked))
         res["reached"] = res["bound_ms"] / res["ms"]
@@ -1887,36 +2055,240 @@ def phase_multiworld_fold(tmp, side, seeds, updates, smi, cpu=None):
 
 
 def phase_kernel_limits(tmp):
-    """On the card, the kernel route refuses what csrc/cycles.cu cannot
-    hold at World construction, naming the limit (a 1088-site tape, 33
-    reactions); TPU_USE_PALLAS=2 runs the same configurations."""
+    """On the card, the kernel route runs the configurations it refused
+    before the kernel took any tape height and reaction count (a
+    1088-site tape, 33 reactions): K1 once an update on the packed
+    engine; and a 65-instruction set is refused at World construction in
+    the reference's words (its tape bytes keep 6 opcode bits), as the
+    reference refuses it (tests/test_torch_kernel_capacity.py holds the
+    two refusals side by side on the CPU)."""
     from avida_tpu_torch.ops import cycles
     env33 = "".join(f"REACTION R{k} not process:value=1.0:type=pow\n"
                     for k in range(33))
     cdir = math_config_dir(os.path.join(tmp, "cfg_r33"), env33)
     cases = []
-    for name, extra, cfg, needle in (
-            ("tape_1088", {"TPU_MAX_MEMORY": 1088}, None, "1024 sites"),
-            ("reactions_33", {}, cdir, "32 reactions")):
-        try:
-            make_world(8, os.path.join(tmp, f"lim_{name}"), "cuda", [],
-                       extra, cfg)
-        except NotImplementedError as e:
-            if needle not in str(e) or "TPU_USE_PALLAS=2" not in str(e):
-                raise AssertionError(f"{name}: refusal does not name the "
-                                     f"limit: {e}")
-        else:
-            raise AssertionError(f"{name}: the kernel route was not refused")
-        w = make_world(8, os.path.join(tmp, f"lim2_{name}"), "cuda",
-                       ["u begin InjectAll"], dict(extra, TPU_USE_PALLAS=2),
-                       cfg)
+    for name, extra, cfg in (("tape_1088", {"TPU_MAX_MEMORY": 1088}, None),
+                             ("reactions_33", {}, cdir)):
+        w = make_world(8, os.path.join(tmp, f"lim_{name}"), "cuda",
+                       ["u begin InjectAll"], extra, cfg)
+        p = w.params
+        B, _, L = cycles.dims(p, p.num_cells, p.max_memory)
         cycles.reset_launches()
-        w.run(max_updates=1)
-        if cycles.LAUNCHES or w.num_organisms == 0:
-            raise AssertionError(f"{name}: the micro-step run failed")
-        cases.append({"case": name, "refused_with": needle,
-                      "micro_step_runs": True})
+        w.run(max_updates=2)
+        launches = cycles.LAUNCHES
+        rep = w.engine_report()
+        if launches != 2 or w.num_organisms == 0 \
+                or rep["engine"] != "packed":
+            raise AssertionError(f"{name}: the kernel route did not run it "
+                                 f"({launches} launches, {rep})")
+        cases.append({"case": name, "L": L, "R": p.num_reactions,
+                      "kernel_launches": launches,
+                      "plan": cycles.cta_plan(L, p.num_reactions, B)
+                      .as_dict()})
+    names = ("nop-A nop-B nop-C if-n-equ if-less if-label mov-head "
+             "jmp-head get-head set-flow shift-r shift-l inc dec push pop "
+             "swap-stk swap add sub nand h-copy h-alloc h-divide IO "
+             "h-search").split()
+    names += [names[k % len(names)] for k in range(65 - len(names))]
+    icdir = write_config_dir(os.path.join(tmp, "cfg_i65"), instset=(
+        "INSTSET heads65:hw_type=0\n"
+        + "".join(f"INST {n}\n" for n in names)))
+    try:
+        make_world(8, os.path.join(tmp, "lim_i65"), "cuda", [],
+                   {"TPU_USE_PALLAS": 1}, icdir)
+    except ValueError as e:
+        if "<= 64 instructions" not in str(e):
+            raise AssertionError(f"65 instructions: not the reference's "
+                                 f"refusal: {e}")
+        cases.append({"case": "instructions_65", "refused_with": str(e)})
+    else:
+        raise AssertionError("65 instructions: the world was built")
     return {"phase": "kernel_limits", "cases": cases}
+
+
+# ROADMAP Queue 2, K1 capacity: the slice's world -- logic-77 (logic-9,
+# then the 68 three-input logic tasks) at TPU_MAX_MEMORY 2048 on the
+# packed fused chunk, InjectAll and reseed_mixed -- and the checks past
+# the old 1024 sites and 32 reactions
+CAP_MEM = 2048
+CAP_UPDATES = 8             # capacity_path's depth (then to the first births)
+CAP_EVERY = 4               # its .dat files every 4 updates
+CAP_MW = (4, 12, 8)         # the stacked launch: members, side, updates
+CAP_CROSS = (10, 16, 4)     # capacity_cross_device: side, updates, prints
+
+
+def capacity_world(side, ddir, device, cdir, events=(), extra=None):
+    """A logic-77 world at TPU_MAX_MEMORY 2048 (the environment in
+    `cdir`), InjectAll-ed and reseeded with both task programs and random
+    genomes (reseed_mixed)."""
+    w = make_world(side, ddir, device, ["u begin InjectAll", *events],
+                   dict({"TPU_MAX_MEMORY": CAP_MEM}, **(extra or {})), cdir)
+    w.process_events()
+    reseed_mixed(w, (TASK_GENOME, AND_GENOME))
+    return w
+
+
+def rewarded_reactions(w):
+    """The reactions some living organism was rewarded for since its birth
+    (cur_reaction_count > 0)."""
+    st = w.state
+    hit = (st.cur_reaction_count > 0) & st.alive[:, None]
+    return hit.any(dim=0).nonzero()[:, 0].tolist()
+
+
+def phase_capacity_path(side, tmp, smi):
+    """The slice's path: a side x side logic-77 world at TPU_MAX_MEMORY
+    2048 (L = 2048, 77 reactions) with TPU_SYSTEMATICS=0, World.run for
+    CAP_UPDATES updates and on to the first births, one update at a time
+    with K1's launches counted (once an update on the packed fused
+    chunk); the plan of the launch (staging level, CTA width, clusters the
+    card holds), the planes' bytes, births, the distinct reactions
+    rewarded, tasks.dat's columns.  The kernel itself is held and timed
+    on its state by phase_kernel(stages=True)."""
+    import torch
+    from avida_tpu_torch.ops import cycles, packed_chunk
+    cdir = math_config_dir(os.path.join(tmp, "cfg_capacity"),
+                           logic77_env_text())
+    ddir = os.path.join(tmp, "capacity")
+    t0 = time.perf_counter()
+    w = capacity_world(side, ddir, "cuda", cdir,
+                       [f"u 0:{CAP_EVERY}:end {a}" for a in XLA_PRINTS])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    p = w.params
+    B, n_pad, L = cycles.dims(p, p.num_cells, p.max_memory)
+    plan = cycles.cta_plan(L, p.num_reactions, B)
+    cycles.reset_launches()
+    insts, wall = 0, 0.0
+    while w.update < CAP_UPDATES or int(w._total_births) == 0:
+        if w.update >= UNTIL_CAP:
+            raise AssertionError(f"capacity_path: no birth in {UNTIL_CAP} "
+                                 f"updates")
+        t0 = time.perf_counter()
+        insts += w.run(max_updates=w.update + 1)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+    launches = cycles.LAUNCHES
+    rewarded = rewarded_reactions(w)
+    pc = packed_chunk.pack_chunk(p, w.state)
+    plane_bytes = sum(t.numel() * t.element_size()
+                      for t in (pc.tape_t, pc.off_t, pc.ivec, pc.fvec))
+    del pc
+    with open(os.path.join(ddir, "tasks.dat")) as f:
+        rows = [ln.split() for ln in f if ln.strip()
+                and not ln.startswith("#")]
+    rep = w.engine_report()
+    res = {"phase": "capacity_path", "world": f"{side}x{side}", "L": L,
+           "R": p.num_reactions, "B": B, "n_pad": n_pad,
+           "plan": plan.as_dict(),
+           "clusters_at_once": cycles.max_active_clusters(p, L, B, plan),
+           "engine_report": rep, "updates": w.update,
+           "kernel_launches": launches, "insts": insts,
+           "org_inst_per_s": insts / wall,
+           "ms_per_update": 1e3 * wall / w.update, "wall_s": wall,
+           "build_s": build_s, "plane_bytes": plane_bytes,
+           "tape_plane_shape": [L // 4, n_pad],
+           "births_total": int(w._total_births),
+           "live_organisms": w.num_organisms,
+           "reactions_rewarded": len(rewarded),
+           "rewarded_past_32": [r for r in rewarded if r >= 32],
+           "tasks_dat_columns": len(rows[-1]) if rows else 0,
+           "nvidia_smi": smi}
+    ok = (launches == w.update and rep["engine"] == "packed"
+          and rep.get("sub_path") == "fused"
+          and (side != SIDE or plan.stage > 0)
+          and res["clusters_at_once"] > 0 and w.num_organisms > 0
+          and bool(torch.isfinite(w.state.merit).all())
+          and len(rewarded) > 0 and rows
+          and len(rows[-1]) == 1 + p.num_reactions)
+    if not ok:
+        raise AssertionError(f"capacity_path check failed: {res}")
+    return w, res
+
+
+def phase_capacity_stacked(tmp, smi):
+    """The stacked launch (K3b) past the old capacity: a MultiWorld of
+    CAP_MW's members, logic-77 at TPU_MAX_MEMORY 2048 (each reseeded as
+    capacity_world), on the stacked packed engine for CAP_MW's updates,
+    one stacked launch an update; then its next launch held against the
+    plain version and, world by world, against the solo launches, and
+    timed (phase_mw_kernel)."""
+    import torch
+    from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.parallel.multiworld import MultiWorld
+    W, side, updates = CAP_MW
+    cdir = math_config_dir(os.path.join(tmp, "cfg_capacity_mw"),
+                           logic77_env_text())
+    mw = MultiWorld([capacity_world(
+        side, os.path.join(tmp, f"capacity_mw_{k}"), "cuda", cdir,
+        extra={"RANDOM_SEED": 101 + k}) for k in range(W)])
+    torch.cuda.synchronize()
+    cycles.reset_launches()
+    t0 = time.perf_counter()
+    insts = mw.run(max_updates=updates)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, stacked = cycles.LAUNCHES, cycles.STACKED_LAUNCHES
+    res = {"phase": "capacity_stacked", "worlds": W,
+           "world": f"{side}x{side}", "L": CAP_MEM,
+           "R": mw.params.num_reactions, "engine": mw.engine,
+           "updates": mw.update, "kernel_launches": launches,
+           "stacked_launches": stacked, "insts": insts,
+           "ms_per_update": 1e3 * wall / updates,
+           "births_total": sum(int(w._total_births) for w in mw.worlds),
+           "live_organisms": sum(w.num_organisms for w in mw.worlds)}
+    if launches != updates or stacked != updates \
+            or mw.engine != "packed-stacked" or res["births_total"] == 0:
+        raise AssertionError(f"capacity_stacked check failed: {res}")
+    mwk = phase_mw_kernel(mw, "capacity_stacked")
+    n_pad = cycles.dims(mw.params, mw.params.num_cells, CAP_MEM)[1]
+    B = cycles.dims(mw.params, mw.params.num_cells, CAP_MEM)[0]
+    res["plan"] = cycles.cta_plan(CAP_MEM, mw.params.num_reactions,
+                                  B).as_dict()
+    res["lanes"] = W * n_pad
+    return res, dict(mwk, nvidia_smi=smi)
+
+
+def capacity_cross_side(tmp, dev):
+    """One device's half of capacity_cross_device: a CAP_CROSS world of
+    the reordered logic-77 (requisites past bit 32) at TPU_MAX_MEMORY
+    2048 on the packed engine, printing every few updates: (the state's
+    arrays, the .dat bodies, the engine, the reactions rewarded)."""
+    from avida_tpu_torch import convert
+    side, updates, every = CAP_CROSS
+    cdir = math_config_dir(os.path.join(tmp, f"cfg_capacity_x_{dev}"),
+                           logic77_env_text(logic9_first=False))
+    ddir = os.path.join(tmp, f"capacity_x_{dev}")
+    w = capacity_world(side, ddir, dev, cdir,
+                       [f"u 0:{every}:end {a}" for a in XLA_PRINTS])
+    w.run(max_updates=updates)
+    _sync(dev)
+    return (convert.state_to_arrays(w.state), dat_bodies(ddir),
+            w.engine_report()["engine"], rewarded_reactions(w))
+
+
+def phase_capacity_cross_device(tmp, cpu=None, device="cuda"):
+    """The capacity world on the card and on the CPU's plain version (the
+    `cpu` job of cpu_jobs, else inline): every state field and every .dat
+    file byte for byte after CAP_CROSS's updates, with births and with
+    rewards past bit 32 (NOT at 68, AND on its requisite at 70)."""
+    card = capacity_cross_side(tmp, device)
+    host = cpu_half(cpu, capacity_cross_side, cpu_root(tmp), "cpu")
+    (sa, da, ea, ra), (sb, db, eb, rb) = card, host
+    bad = [k for k in sa if sa[k] is not None
+           and sa[k].tobytes() != sb[k].tobytes()]
+    bad += [f for f in set(da) | set(db) if da.get(f) != db.get(f)]
+    births = int((sb["birth_update"] >= 0).sum())
+    side, updates, _ = CAP_CROSS
+    res = {"phase": "capacity_cross_device", "world": f"{side}x{side}",
+           "L": CAP_MEM, "updates": updates, "engine": sorted({ea, eb}),
+           "births": births, "rewarded": ra,
+           "dat_files_equal": sorted(da), "fields_equal": not bad}
+    if bad or births == 0 or ra != rb or not any(r >= 32 for r in ra) \
+            or len(da) != len(XLA_PRINTS):
+        raise AssertionError(f"capacity_cross_device: cuda vs cpu differ in "
+                             f"{bad}: {res}")
+    return res
 
 
 # TransSMT hardware and host-parasite coevolution (BASELINE config 4) on
@@ -4308,16 +4680,33 @@ def main() -> int:
         jobs["prints"] = pool.submit(print_side, ctmp, "cpu")
         jobs["analyze"] = pool.submit(analyze_side, ctmp, "cpu")
         jobs["trace_cross"] = pool.submit(trace_cross_side, ctmp, "cpu")
+        jobs["capacity_cross"] = pool.submit(capacity_cross_side, ctmp,
+                                             "cpu")
         emit(phase_geometry(tmp))
         emit(phase_size_range(tmp))
         w, main_res = phase_main(SIDE, UPDATES, os.path.join(tmp, "data"))
         emit(main_res)
         kern = phase_kernel(w)
-        emit(phase_breakdown(w))
+        emit(phase_breakdown(w, updates=3))
         # revert_path and packed_bits_path continue the evolved main path
         from avida_tpu_torch.core.state import clone_state
         main_end = (clone_state(w.state), w.key.clone(), w.update)
         del w
+        # slice 15: the cycle kernel at any tape height and reaction count
+        wcap, cap_res = phase_capacity_path(SIDE, tmp, smi)
+        emit(cap_res)
+        capk = phase_kernel(wcap, n_launch=2, stages=True)
+        if [r["stage"] for r in capk["stages"] if r["plan"]] \
+                != [cap_res["plan"]["stage"]]:
+            raise AssertionError(f"capacity_kernel: the plan's level "
+                                 f"{cap_res['plan']} was not held: "
+                                 f"{capk['stages']}")
+        emit(dict(capk, phase="capacity_kernel", plan=cap_res["plan"],
+                  nvidia_smi=smi))
+        del wcap
+        cap_mw_res, cap_mwk = phase_capacity_stacked(tmp, smi)
+        emit(cap_mw_res)
+        emit(dict(cap_mwk, phase="capacity_stacked_kernel"))
         wrev, revk, rev_res, jobs["revert"], rev_card = phase_revert_path(
             SIDE, tmp, smi, main_end, pool)
         del wrev
@@ -4326,7 +4715,7 @@ def main() -> int:
                                          os.path.join(tmp, "default"))
         emit(def_res)
         dkern = phase_default_kernel(wd)
-        emit(phase_default_breakdown(wd, def_res))
+        emit(phase_default_breakdown(wd, def_res, updates=2))
         del wd
         ws, sex_res = phase_default_path(
             SIDE, DEFAULT_UPDATES, os.path.join(tmp, "sex"),
@@ -4334,7 +4723,8 @@ def main() -> int:
             reason="divide-sex")
         emit(sex_res)
         skern = phase_default_kernel(ws, name="sex_path")
-        emit(phase_default_breakdown(ws, sex_res, name="sex_breakdown"))
+        emit(phase_default_breakdown(ws, sex_res, updates=2,
+                                     name="sex_breakdown"))
         del ws
         ckern = phase_costs_kernel(SIDE, COSTS_UPDATES, tmp)
         emit(dict(ckern, phase="costs_kernel"))
@@ -4361,7 +4751,8 @@ def main() -> int:
             emit(mw_res)
             mwk = phase_mw_kernel(mw, path)
             emit(dict(mwk, phase=f"{path}_kernel", nvidia_smi=smi))
-            emit(phase_mw_breakdown(mw, mw_res, f"{path}_breakdown"))
+            emit(phase_mw_breakdown(mw, mw_res, f"{path}_breakdown",
+                                    updates=1))
             if sysm:
                 mres, mw_resumed = phase_multiworld_persist(tmp, smi, mw,
                                                             mw_ck)
@@ -4430,6 +4821,7 @@ def main() -> int:
         telk = phase_kernel(wtel, n_launch=1)
         del wtel
         emit(phase_trace_cross_device(tmp, jobs["trace_cross"]))
+        emit(phase_capacity_cross_device(tmp, jobs["capacity_cross"]))
         # slice 12: the Test CPU and the analyze toolchain (their CPU
         # halves queued last, so they come last)
         emit(phase_testcpu_graph(rev_card, smi))
@@ -4455,18 +4847,22 @@ def main() -> int:
              launches=trace_res["kernel_launches"]),
         dict({k: telk[k] for k in timing}, path="telemetry_path",
              launches=tel_res["kernel_launches"]
-             + tel_res["profiled_kernel_launches"])]
+             + tel_res["profiled_kernel_launches"]),
+        dict({k: capk[k] for k in timing + ("simple_skipped", "stages")},
+             path="capacity_path", launches=cap_res["kernel_launches"],
+             plan=cap_res["plan"])]
     per_path += [dict({k: mwk[k] for k in ("path", "solo_ms_sum") + timing},
                       launches=mw_res["kernel_launches"], stacked=True)
-                 for mw_res, mwk in mw_runs]
+                 for mw_res, mwk in mw_runs
+                 + [(cap_mw_res, cap_mwk)]]
     emit({"phase": "kernel_paths", "nvidia_smi": smi, "paths": per_path})
     # the kernels line: K1 with its solo launches (the seven solo paths,
     # deme_path, dispersal_path, topology_path, packed_bits_path,
-    # revert_path, trace_path and telemetry_path included, and the resumed
-    # and scrubbed persistence runs),
+    # revert_path, trace_path, telemetry_path and capacity_path included,
+    # and the resumed and scrubbed persistence runs),
     # the worst error of all, times and bound at the sexual path; K3b,
-    # the stacked launch, with its launches over the two batch paths and
-    # the resumed batch, and
+    # the stacked launch, with its launches over the two batch paths, the
+    # resumed batch and capacity_stacked, and
     # its times and bound at the default batch path (multiworld_path).
     # Each launch is counted once, under the wrapper that made it.
     kern.update(launches=sum(q["launches"] for q in per_path
@@ -4480,8 +4876,9 @@ def main() -> int:
                "source": "avida_tpu_torch/csrc/cycles.cu",
                "replaces": "avida_tpu/ops/pallas_cycles.py:1729",
                "launches": sum(r["stacked_launches"] for r, _ in mw_runs)
-               + mw_resumed,
-               "max_abs_err": max(k["max_abs_err"] for _, k in mw_runs),
+               + mw_resumed + cap_mw_res["stacked_launches"],
+               "max_abs_err": max(k["max_abs_err"] for _, k in mw_runs
+                                  + [(cap_mw_res, cap_mwk)]),
                "library_ms": None,
                **{k: mwk[k] for k in ("ms", "simple_ms", "reached",
                                       "plain_ms", "bound_ms", "bound_by")}}

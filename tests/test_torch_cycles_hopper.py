@@ -17,42 +17,72 @@ from hypothesis import strategies as hst
 from avida_tpu_torch.models.heads import MAX_LABEL_SIZE
 from avida_tpu_torch.ops import cycles as tpc
 
-TAPE_HEIGHTS = tuple(range(tpc.CHUNK, 1025, tpc.CHUNK))
-REACTIONS = (0, 1, 9, 16, 32)
+TAPE_HEIGHTS = tuple(range(tpc.CHUNK, 4097, tpc.CHUNK))
+REACTIONS = (0, 1, 9, 16, 32, 33, 77)
 
 
 @pytest.mark.parametrize("B", [128, 256, 512])
 def test_cta_geometry_fits_the_card(B):
-    """For every tape height dims can give and up to 32 reactions: C
-    divides B into at most 8 CTAs (one portable cluster), the CTA's
-    shared memory fits 232,448 bytes, and two CTAs fit one SM's 228 KB
-    wherever L <= 512."""
+    """For every tape height dims can give up to 4096 sites and up to 77
+    reactions: C divides B into at most 8 CTAs (one portable cluster),
+    the CTA's shared memory fits 232,448 bytes, two CTAs fit one SM's
+    228 KB wherever the whole tile of L <= 512 is staged, and every shape
+    past 1024 sites or 32 reactions takes two CTAs an SM."""
     for L in TAPE_HEIGHTS:
         assert tpc.dims(None, 1, L)[2] == L
         for R in REACTIONS:
-            C = tpc.cta_lanes(L, R, B)
-            smem = tpc.cta_smem_bytes(L, R, C)
+            plan = tpc.cta_plan(L, R, B)
+            C, smem = plan.C, plan.smem_bytes
             assert C % 32 == 0 and C <= 128 and B % C == 0, (L, R, C)
             assert B // C <= 8, (L, R, C)
             assert smem <= 232_448, (L, R, C, smem)
-            if L <= 512:
+            if L <= 512 and R <= 32:
+                assert plan.stage == 0, (L, R, plan)
+                assert 2 * (smem + 1024) <= 233_472, (L, R, C, smem)
+            if L > 1024 or R > 32:
+                assert plan.per_sm == 2, (L, R, plan)
                 assert 2 * (smem + 1024) <= 233_472, (L, R, C, smem)
 
 
 def test_cta_geometry_of_the_paths():
     """The launches chip_smoke.py drives: 320x320 and 60x60 worlds (B =
     512, L = 384, logic-9's 9 reactions) take C = 128 in clusters of 4,
-    about 97 KB a CTA; the largest tile (L = 1024) takes C = 64 in a
-    cluster of 8; small worlds keep one reference block a CTA."""
+    about 97 KB a CTA; the largest tile before tape heights past 1024
+    (L = 1024) takes C = 64 in a cluster of 8; small worlds keep one
+    reference block a CTA -- all with the whole tile staged.  Past it,
+    at the least level that lets two CTAs share an SM: 320x320 at L =
+    2048 with logic-77 keeps its counters and tape in device memory (C =
+    128), as does L = 4096 (C = 64); the small logic-77 worlds keep only
+    their counters there (C = 32), and 1088 sites with 33 reactions at B
+    = 128 stage everything."""
     assert tpc.dims(None, 320 * 320, 384)[0] == 512
-    assert tpc.cta_lanes(384, 9, 512) == 128
-    assert 95_000 < tpc.cta_smem_bytes(384, 9, 128) < 101_000
-    assert tpc.cta_lanes(1024, 9, 512) == 64
-    assert tpc.cta_lanes(1024, 32, 512) == 64
-    assert tpc.cta_lanes(384, 9, 128) == 128
-    assert tpc.cta_lanes(384, 9, 256) == 128
+    assert tpc.cta_plan(384, 9, 512)[:2] == (128, 0)
+    assert 95_000 < tpc.cta_plan(384, 9, 512).smem_bytes < 101_000
+    assert tpc.cta_plan(1024, 9, 512)[:2] == (64, 0)
+    assert tpc.cta_plan(1024, 32, 512)[:2] == (64, 0)
+    assert tpc.cta_plan(384, 9, 128)[:2] == (128, 0)
+    assert tpc.cta_plan(384, 9, 256)[:2] == (128, 0)
     # rows: tape words, read label + stacks, two bitplanes, 4R counters
-    assert tpc.tile_rows(384, 9) == 96 + 30 + 24 + 36
+    assert tpc.staged_rows(384, 9, 0) == 96 + 30 + 24 + 36
+    assert tpc.cta_plan(2048, 77, 512)[:2] == (128, 2)
+    assert tpc.cta_plan(2048, 77, 512).per_sm == 2
+    assert tpc.cta_plan(2048, 77, 512).staged() == (
+        "label_stacks", "site_flags", "reaction_table")
+    assert tpc.cta_plan(4096, 9, 512)[:2] == (64, 2)
+    assert tpc.cta_plan(4096, 9, 512).per_sm == 2
+    assert tpc.cta_plan(1088, 33, 128)[:2] == (32, 0)
+    assert tpc.cta_plan(2048, 77, 256)[:2] == (32, 1)
+    assert tpc.cta_plan(2048, 77, 128)[:2] == (32, 1)
+    # a forced level (chip_smoke.py's checks): the widest C that fits
+    # it, two CTAs an SM where they fit, else one; none for a level too
+    # small
+    forced = tpc.cta_plan(2048, 77, 512, _force_stage=1)
+    assert (forced.C, forced.stage, forced.per_sm) == (64, 1, 1)
+    with pytest.raises(ValueError, match="staging level 0"):
+        tpc.cta_plan(2048, 77, 512, _force_stage=0)
+    # level 3 stages 30 rows: any tape, any reaction count has a plan
+    assert tpc.cta_plan(65536, 9, 512).stage == 3
+    assert tpc.cta_plan(64, 4000, 512).stage == 3
 
 
 def _codes(tape, cls_of_byte, L):
@@ -234,16 +264,19 @@ def test_simple_kernel_is_cuda_only():
 
 def test_launch_table_nop_decode():
     """The launch table ends in the nop decode the Hopper kernel stages
-    with it (a nop's register, -1 for any other opcode slot), after room
-    for 32 reactions: 1,088 ints, one bulk copy of 4,352 bytes."""
+    with it (a nop's register, -1 for any other opcode slot), after the
+    reaction block sized by R (logic-9: 9 entries of 16 ints, no further
+    mask words): 720 ints, one bulk copy of 2,880 bytes."""
     from avida_tpu_torch import convert
     from avida_tpu_torch.world import World
     p = World(cfg=convert.config_from_dict(dict(WORLD_X=4, WORLD_Y=4)),
               data_dir=None, device="cpu").params
     tab = tpc._build_tables(p)
-    assert tab.numel() == tpc.T_NOP_DECODE + tpc.TAB_INSTS == 1088
+    at = tpc.nop_decode_at(p.num_reactions)
+    assert at == 8 * 64 + 16 * 9
+    assert tab.numel() == at + tpc.TAB_INSTS == 720
     assert (4 * tab.numel()) % 16 == 0
-    decode = tab[tpc.T_NOP_DECODE:].tolist()
+    decode = tab[at:].tolist()
     for k in range(tpc.TAB_INSTS):
         want = (int(p.nop_mod[k]) if k < p.num_insts and p.is_nop[k]
                 else -1)

@@ -553,28 +553,29 @@ def test_multiworld_refuses_pools_and_demes_by_name():
 
 
 def test_kernel_limits_refused_by_name_on_cuda():
-    """On a CUDA device the kernel route refuses what csrc/cycles.cu cannot
-    hold -- a CHUNK-padded tape over 1024 sites, more than 32 reactions,
-    more than 64 instructions -- naming the limit and TPU_USE_PALLAS=2;
-    the CPU's plain version and the micro-step engine take them."""
+    """On a CUDA device the kernel route takes any tape height and any
+    reaction count -- a CHUNK-padded tape of 1088 sites, 33 reactions --
+    and refuses only more than 64 instructions, naming the reference
+    kernel's own limit; the CPU's plain version and the micro-step engine
+    refuse nothing here."""
     from avida_tpu_torch.ops import cycles
     from avida_tpu_torch.world import World
     w = World(cfg=_cfg(TPU_MAX_MEMORY=1088), device="cpu")
     p = w.params
     assert cycles.dims(p, p.num_cells, p.max_memory)[2] == 1088
-    reason = cycles.kernel_limit_reason(p, "cuda")
-    assert "1024 sites" in reason and "TPU_USE_PALLAS=2" in reason
+    assert cycles.kernel_limit_reason(p, "cuda") is None
     assert cycles.kernel_limit_reason(p, "cpu") is None
     assert cycles.kernel_limit_reason(p.replace(use_pallas=2), "cuda") is None
     w.device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="1024 sites"):
-        w._check_engine()
+    w._check_engine()
     q = World(cfg=_cfg(), device="cpu").params
     assert cycles.kernel_limit_reason(q, "cuda") is None
     r33 = q.replace(num_reactions=33)
-    assert "at most 32 reactions" in cycles.kernel_limit_reason(r33, "cuda")
+    assert cycles.kernel_limit_reason(r33, "cuda") is None
     big = q.replace(num_insts=65)
-    assert "64 instructions" in cycles.kernel_limit_reason(big, "cuda")
+    reason = cycles.kernel_limit_reason(big, "cuda")
+    assert "at most 64 instructions" in reason and "pallas_cycles" in reason
+    assert cycles.kernel_limit_reason(big, "cpu") is None
 
 
 @pytest.mark.parametrize("overrides", [
