@@ -1,7 +1,8 @@
 """Command line: `python -m avida_tpu_torch [-u N] [-s SEED] [-d DIR]
 [-c CONFIG_DIR] [-set NAME VALUE ...] [--device cuda|cpu]
 [--worlds SEEDS|MANIFEST] [-a [CKPT_DIR]] [--telemetry] [--profile-dir DIR]
-[--trace] [--status DIR [--max-age SEC]] [-v]`.
+[--trace] [--status DIR [--max-age SEC]] [-v]`, and
+`python -m avida_tpu_torch --supervise [--fault-plan SPECS] ARGS...`.
 
 Runs one world and writes its .dat files, with the reference's defaults
 (systematics on: the per-update engine; -set TPU_SYSTEMATICS 0 takes the
@@ -21,7 +22,14 @@ TPU_CKPT_DIR); an empty directory starts fresh.  With --worlds, --resume
 (no DIR) resumes every member from its own checkpoint dir, aligned on a
 common update.  Exit codes as the reference's: 66 no valid generation,
 65 an invariant audit failed, 67 a scrub found a divergence.
---serve-worlds is not ported and exits 2.
+--serve-worlds and --fleet are not ported and exit 2.
+
+Supervision: --supervise runs the rest of the command line as a child
+(`python -m avida_tpu_torch ARGS... --resume`) under the self-healing
+supervisor (service/supervisor.py): heartbeat watchdog, restart with
+backoff, the failure taxonomy and its rollbacks.  --fault-plan
+"SPEC/SPEC/..." hands boot i the i-th TPU_FAULT spec.  Dispatched before
+anything imports torch: the supervisor never loads it.
 
 Analysis: bare -a runs ANALYZE_FILE (analyze.cfg, in the config dir)
 through the analyze VM (analyze/analyzer.py) instead of an evolution
@@ -49,10 +57,7 @@ import os
 import sys
 import time
 
-# classified exit codes (the reference's avida_tpu/service/__init__.py)
-EXIT_AUDIT = 65      # StateInvariantError escaped the run
-EXIT_CKPT = 66       # no valid checkpoint generation on resume
-EXIT_SDC = 67        # StateDivergenceError: a scrub caught a divergence
+from avida_tpu_torch.service import EXIT_AUDIT, EXIT_CKPT, EXIT_SDC
 
 
 def _sync(device):
@@ -146,6 +151,17 @@ def _worlds_main(args, overrides) -> int:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    if "--supervise" in argv:
+        # dispatched before anything heavy is imported: the supervisor
+        # must never load torch (it has to outlive a wedged child runtime)
+        from avida_tpu_torch.service.supervisor import supervise_main
+        return supervise_main(argv)
+    if "--fleet" in argv:
+        print("[avida_tpu_torch] --fleet: the fleet orchestrator "
+              "(service/fleet.py) is not ported to avida_tpu_torch yet "
+              "(ROADMAP.md Queue 1 item 16b)", file=sys.stderr)
+        return 2
     p = argparse.ArgumentParser(prog="python -m avida_tpu_torch",
                                 description=__doc__.split("\n")[0])
     p.add_argument("-c", "--config-dir", default=None)
@@ -194,7 +210,7 @@ def main(argv=None) -> int:
     if args.serve_worlds is not None:
         print("[avida_tpu_torch] --serve-worlds: the serving batch "
               "(ServeBatch) is not ported to avida_tpu_torch yet "
-              "(ROADMAP.md Queue 1 item 16)", file=sys.stderr)
+              "(ROADMAP.md Queue 1 item 16c)", file=sys.stderr)
         return 2
     overrides = list(args.overrides)
     if args.seed is not None:
@@ -272,10 +288,12 @@ def main(argv=None) -> int:
     if w.preempted:
         print(f"[avida_tpu_torch] preempted at update {w.update}; "
               f"checkpoint saved", file=sys.stderr)
+    from avida_tpu_torch.ops import cycles
     print(json.dumps({"updates": w.update, "organisms": w.num_organisms,
                       "insts": insts, "wall_s": wall,
                       "device": str(w.device),
                       "engine": w.engine_report(),
+                      "kernel_launches": cycles.LAUNCHES,
                       "preempted": w.preempted}))
     return 0
 

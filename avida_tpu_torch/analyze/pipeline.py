@@ -23,7 +23,7 @@ answers them about native checkpoints (utils/checkpoint.py):
     fitness / task-acquisition table.
 
 Results go to `{"record": "analytics"}` lines in
-DATA_DIR/analysis/analytics.jsonl (observability/runlog.append_record,
+DATA_DIR/analysis/analytics.jsonl (observability/records.append_record,
 rotation-capped), to census.dat / knockout.dat / lineage.dat under
 DATA_DIR/analysis/, and to DATA_DIR/analytics.prom
 (observability/exporter.render_families).
@@ -56,7 +56,7 @@ ANALYSIS_DIR = "analysis"
 ANALYTICS_LOG = "analytics.jsonl"
 ANALYTICS_METRICS_FILE = "analytics.prom"
 
-# rotation cap for the analytics journal (runlog.append_record semantics)
+# rotation cap for the analytics journal (records.append_record semantics)
 ANALYTICS_LOG_MAX_BYTES = 16 << 20
 
 
@@ -526,7 +526,7 @@ class AnalyticsPipeline:
     def publish(self, summary: dict, durable: bool = True):
         """Route one summary through the observability spine."""
         from avida_tpu_torch.observability.exporter import write_metrics
-        from avida_tpu_torch.observability.runlog import append_record
+        from avida_tpu_torch.observability.records import append_record
 
         os.makedirs(self.analysis_dir, exist_ok=True)
         append_record(os.path.join(self.analysis_dir, ANALYTICS_LOG),

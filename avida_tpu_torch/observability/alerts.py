@@ -68,6 +68,7 @@ import os
 import time
 
 from avida_tpu_torch.observability import history
+from avida_tpu_torch.observability.records import append_record
 
 ALERTS_FILE = "alerts.jsonl"
 RULES_FILE = "alerts.json"
@@ -380,10 +381,8 @@ class AlertPlane:
         if rule.action:
             rec["action"] = rule.action
         try:
-            # durable append through the shared torch-free spelling of
-            # the runlog rotation discipline (history.append_line)
-            history.append_line(self.journal_path, rec,
-                                max_bytes=self.max_bytes, durable=True)
+            append_record(self.journal_path, rec,
+                          max_bytes=self.max_bytes, durable=True)
         except OSError:
             pass
 

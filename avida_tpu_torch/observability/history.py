@@ -16,7 +16,7 @@ JSONL ring beside the snapshot:
 
 Sample rows are `{"record": "sample", "time": T, "update": U, "v":
 {family-or-family{labels}: value, ...}}`.  The ring reuses
-runlog.append_record's rotation-pair discipline (live file + one `.1`
+records.append_record's rotation-pair discipline (live file + one `.1`
 aside, atomic rename at the byte cap) with NON-DURABLE appends, so the
 zero-sync dispatch pipeline is never fenced by an fsync; a crash can
 only tear the final line, which every reader here tolerates.
@@ -43,6 +43,8 @@ from __future__ import annotations
 import json
 import os
 import time
+
+from avida_tpu_torch.observability.records import append_record
 
 HIST_SUFFIX = ".hist.jsonl"
 DEFAULT_MAX_BYTES = 4 << 20
@@ -105,31 +107,6 @@ class HistoryKnobs:
                                       DEFAULT_MAX_BYTES)))
 
 
-def append_line(path: str, rec: dict, max_bytes: int = DEFAULT_MAX_BYTES,
-                durable: bool = False):
-    """THE torch-free spelling of runlog.append_record's rotation-pair
-    bounded append (importing runlog would pull torch into spectator
-    tooling): a file that would grow past `max_bytes` is first moved
-    aside to `<path>.1` (atomic rename, clobbering the previous aside)
-    and the record starts a fresh file.  Shared by the sample ring
-    below and the alert journal (observability/alerts.py) so the
-    rotation discipline lives once on the torch-free side."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    line = json.dumps(rec) + "\n"
-    if max_bytes:
-        try:
-            size = os.path.getsize(path)
-        except OSError:
-            size = 0
-        if size and size + len(line) > max_bytes:
-            os.replace(path, path + ".1")
-    with open(path, "a") as f:
-        f.write(line)
-        f.flush()
-        if durable:
-            os.fsync(f.fileno())
-
-
 class HistorySink:
     """Owns the ring beside one .prom path.  `publish(text)` is called
     by the exporter right after the snapshot rename with the exposition
@@ -159,14 +136,14 @@ class HistorySink:
 def append_sample(path: str, values: dict, now: float | None = None,
                   max_bytes: int = DEFAULT_MAX_BYTES):
     """Append one sample row to a ring, rotating at the byte cap (the
-    runlog.append_record rotation-pair discipline, non-durable: no
+    records.append_record rotation-pair discipline, non-durable: no
     fsync -- a torn final line is tolerated by read_samples)."""
     rec = {"record": "sample",
            "time": round(time.time() if now is None else now, 3)}
     if "avida_update" in values:
         rec["update"] = int(values["avida_update"])
     rec["v"] = values
-    append_line(path, rec, max_bytes=max_bytes, durable=False)
+    append_record(path, rec, max_bytes=max_bytes, durable=False)
 
 
 def read_samples(path: str, window_sec: float | None = None,

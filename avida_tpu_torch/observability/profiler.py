@@ -495,36 +495,21 @@ def _mean(total: float, n: int) -> float:
 def append_perf_record(data_dir: str, rec: dict):
     """One {"record":"perf"} JSONL line into DATA_DIR/perf.jsonl (the
     runlog rotation pair, non-durable appends)."""
-    from avida_tpu_torch.observability.history import append_line
+    from avida_tpu_torch.observability.records import append_record
 
     try:
-        append_line(os.path.join(data_dir, PERF_FILE), rec,
-                    max_bytes=_PERF_MAX_BYTES)
+        append_record(os.path.join(data_dir, PERF_FILE), rec,
+                      max_bytes=_PERF_MAX_BYTES, durable=False)
     except Exception:
         pass                    # attribution must never kill the run
 
 
 def read_perf_records(data_dir: str) -> list:
     """The perf records across the rotation pair, oldest first (torn
-    lines skipped; runlog.read_records without its torch import)."""
-    import json
-
-    out = []
-    path = os.path.join(data_dir, PERF_FILE)
-    for p in (path + ".1", path):
-        try:
-            f = open(p)
-        except OSError:
-            continue
-        with f:
-            for line in f:
-                try:
-                    rec = json.loads(line)
-                except json.JSONDecodeError:
-                    continue
-                if rec.get("record") == "perf":
-                    out.append(rec)
-    return out
+    lines skipped)."""
+    from avida_tpu_torch.observability.records import read_records
+    return [rec for rec in read_records(os.path.join(data_dir, PERF_FILE))
+            if rec.get("record") == "perf"]
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,8 @@ import torch
 from avida_tpu_torch.observability.counters import (budget_block,
                                                     budget_tail,
                                                     update_counters)
+from avida_tpu_torch.observability.records import (  # noqa: F401
+    append_record, read_records)
 from avida_tpu_torch.observability.staged import StagedUpdate
 from avida_tpu_torch.observability.timeline import Timeline
 from avida_tpu_torch.utils import prng
@@ -105,53 +107,6 @@ def trim_update_records(path: str, max_update: int):
         with open(tmp, "w") as f:
             f.writelines(kept)
         os.replace(tmp, path)
-
-
-def append_record(path: str, rec: dict, max_bytes: int | None = None,
-                  durable: bool = True):
-    """Crash-safe single-record append (the integrity plane's
-    {"record": "integrity"} lines): open, append one line, optionally
-    fsync, close -- a torn tail can only ever be the final line.  With
-    `max_bytes` set, a file that would grow past the cap is first moved
-    aside to `<path>.1` and the record starts a fresh file."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    line = json.dumps(rec) + "\n"
-    if max_bytes:
-        try:
-            size = os.path.getsize(path)
-        except OSError:
-            size = 0
-        if size and size + len(line) > max_bytes:
-            os.replace(path, path + ".1")
-    with open(path, "a") as f:
-        f.write(line)
-        f.flush()
-        if durable:
-            # durable=False is the hot-loop flavor (the integrity
-            # plane's per-chunk digest records): skip the per-record
-            # fsync -- a crash can only tear the final line, which
-            # every runlog reader already tolerates
-            os.fsync(f.fileno())
-
-
-def read_records(path: str) -> list:
-    """All JSON records across the rotation pair (`<path>.1` then
-    `<path>`), oldest first, torn/garbage lines skipped.  The journal
-    reader for replay-on-restart consumers (service/fleet.py) and the
-    ops tooling (scripts/fleet_tool.py)."""
-    out = []
-    for p in (path + ".1", path):
-        try:
-            f = open(p)
-        except OSError:
-            continue
-        with f:
-            for line in f:
-                try:
-                    out.append(json.loads(line))
-                except json.JSONDecodeError:
-                    continue            # torn tail from a crash
-    return out
 
 
 def emit_event(world, event: str, **fields):

@@ -1,0 +1,23 @@
+"""Run-service layer: the self-healing supervisor (supervisor.py) and its
+restart pacing (backoff.py).
+
+Counterpart of avida_tpu/service/.  Host-only: nothing in this package
+imports torch.  The supervisor is the process that must stay alive while
+the run process crashes, hangs or corrupts itself -- a wedged CUDA
+runtime in the child must not take the watchdog down with it -- so it
+watches entirely from outside: child exit codes, the metrics.prom
+heartbeat file and the checkpoint directory.
+
+Child exit codes (set by avida_tpu_torch/__main__.py so the supervisor
+can classify failures without parsing tracebacks):
+"""
+
+# sysexits-adjacent, chosen to be distinguishable from Python's generic
+# exit 1 and from signal deaths (negative returncodes)
+EXIT_AUDIT = 65      # StateInvariantError escaped World.run (EX_DATAERR)
+EXIT_CKPT = 66       # no valid checkpoint generation on resume (EX_NOINPUT)
+EXIT_SDC = 67        # StateDivergenceError: a scrub (shadow replay)
+#                      caught silent data corruption (utils/integrity.py)
+
+FAILURE_CLASSES = ("crash", "hang", "audit_violation", "corrupt_ckpt",
+                   "sdc", "preempt")

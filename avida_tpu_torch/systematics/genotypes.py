@@ -1,8 +1,9 @@
 """Live phylogeny: genotype dedup, parent links, depth, extinction.
 
 Counterpart of avida_tpu/systematics/genotypes.py (numpy only, copied so
-this package imports nothing of the reference).  Checkpoint snapshots are
-not ported yet.
+this package imports nothing of the reference).  Checkpoint snapshots
+(`to_snapshot` / `from_snapshot`) are the reference's systematics.json,
+written and read by utils/checkpoint.py.
 
 Host-side re-expression of the reference's systematics layer
 (Systematics::GenotypeArbiter, avida-core/source/systematics/

@@ -193,6 +193,11 @@ def counters() -> dict:
     return dict(_counters)
 
 
+def reset_for_tests():
+    for k in _counters:
+        _counters[k] = 0 if isinstance(_counters[k], int) else 0.0
+
+
 def prom_families() -> list:
     """The avida_integrity_* families, render_families shaped.  Empty
     when the integrity plane never ran, so digest-off processes publish
@@ -220,7 +225,7 @@ def append_integrity_record(data_dir: str, event: str,
     runlog flavor, a torn tail is tolerated by every reader).  Shared
     by the solo and multi-world run loops so the record shape has one
     spelling."""
-    from avida_tpu_torch.observability.runlog import append_record
+    from avida_tpu_torch.observability.records import append_record
     rec = {"record": "integrity", "event": event, **fields}
     try:
         append_record(os.path.join(data_dir, INTEGRITY_LOG), rec,

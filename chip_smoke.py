@@ -215,6 +215,13 @@ and persistence (native checkpoints in the reference's format):
                     generation off persist_path's chunk boundaries,
                     then --resume to 40, whose final arrays must be
                     persist_path's byte for byte
+  supervise_path    `python -m avida_tpu_torch --supervise --fault-plan
+                    sigkill@update=21` on persist_path's world to 40,
+                    saving every 10: boot 0 SIGKILLed past the save at
+                    20 (class crash), boot 1 resumed on the card on the
+                    kernel route (success); no boot degraded, the final
+                    arrays persist_path's byte for byte; each boot's
+                    wall, the time to recover, the updates replayed
   scrub_path        TPU_SCRUB_EVERY=1 for 10 updates: every chunk's
                     shadow replay (the same kernel on the same planes)
                     equal to the live chunk
@@ -232,7 +239,12 @@ functions; a batch's stacked launch is also held, world by world,
 against the solo launches, and two batch members against their solo
 runs; small worlds and a small batch run on the card and on the CPU
 must end identical (the CPU halves run in worker processes that see no
-card, beside the card's phases: cpu_jobs); the geometry phase holds
+card, beside the card's phases: cpu_jobs; the card halves, and three
+micro-step paths that launch no kernel, in one worker process on the
+card, card_jobs, whose updates wait out this process's timed windows;
+once every kernel is held and timed, the CLI children -- preempt_cli,
+supervise_path and the analyze runs -- take the card from two threads
+beside the remaining micro-step paths); the geometry phase holds
 both kernels to the plain version at the launch shapes the paths do not
 reach (B = 128, 256, and L = 1024; past the first port's limits the
 Hopper kernel alone, at every staging level, at L = 1088 with 33
@@ -278,6 +290,64 @@ def smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+CARD_GATE = None    # (quiet, lock): this process's hold on the card worker
+WORKER_GATE = None  # the same pair, as the card worker sees it
+GATE_HELD = [0]     # card_quiet blocks open in this process
+GATE_TIMED = [0]    # in the card worker: its own timed blocks open
+GATE_WAIT_S = 300.0
+
+
+@contextlib.contextmanager
+def card_quiet():
+    """While the block runs, the card worker (card_jobs) waits between two
+    of its world updates, so that a timed window of this process has the
+    card to itself: `quiet` stops the worker taking its next update,
+    `lock` waits out the one it is in (the worker synchronises the card
+    before it lets go).  Nested blocks hold it once; without a card
+    worker the block just runs.  In the worker itself the block is one
+    of its gated stretches (worker_hold), which lets no window in: its
+    own timed windows then keep out of this process's and this
+    process's out of them."""
+    if WORKER_GATE is not None:
+        GATE_TIMED[0] += 1
+        try:
+            with worker_hold():
+                yield
+        finally:
+            GATE_TIMED[0] -= 1
+        return
+    if CARD_GATE is None or GATE_HELD[0]:
+        GATE_HELD[0] += 1
+        try:
+            yield
+        finally:
+            GATE_HELD[0] -= 1
+        return
+    quiet, lock = CARD_GATE
+    quiet.set()
+    got = lock.acquire(timeout=GATE_WAIT_S)
+    GATE_HELD[0] += 1
+    try:
+        yield
+    finally:
+        GATE_HELD[0] -= 1
+        if got:
+            lock.release()
+        quiet.clear()
+
+
+def quiet_card(fn):
+    """fn run inside card_quiet()."""
+    import functools
+
+    @functools.wraps(fn)
+    def held(*args, **kw):
+        with card_quiet():
+            return fn(*args, **kw)
+    return held
+
+
+@quiet_card
 def cuda_ms(fn, reps):
     """Mean device time of fn() over `reps` runs (CUDA events)."""
     import torch
@@ -519,7 +589,7 @@ def cross_side(tmp, dev):
     return out
 
 
-def phase_cross_device(tmp, cpu=None, device="cuda"):
+def phase_cross_device(tmp, cpu=None, device="cuda", card_job=None):
     """Small worlds run on the card and on the CPU (the plain versions)
     must end in identical states (and, where they print, identical .dat
     bytes): the whole update path, kernel included, against its plain
@@ -528,8 +598,9 @@ def phase_cross_device(tmp, cpu=None, device="cuda"):
     and soup (BIRTH_METHOD 4 on a grid) worlds of the per-update engine.
     Each world runs in stretches of 4 updates; the sexual one must hold
     a waiting birth-chamber entry at some stretch boundary.  `cpu` is
-    the cpu_jobs job of cross_side's CPU half, else it runs here."""
-    card = cross_side(tmp, device)
+    the cpu_jobs job of cross_side's CPU half, `card_job` the card_jobs
+    job of its card half; else each runs here."""
+    card = card_half(card_job, cross_side, tmp, device)
     host = cpu_half(cpu, cross_side, cpu_root(tmp), "cpu")
     results = []
     for case, (sa, da, ea, na), (sb, db, eb, _) in zip(CROSS_CASES, card,
@@ -561,6 +632,7 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+@quiet_card
 def phase_main(side, updates, data_dir, device="cuda"):
     import torch
     from avida_tpu_torch.ops import cycles
@@ -604,6 +676,7 @@ def phase_main(side, updates, data_dir, device="cuda"):
     return w, res
 
 
+@quiet_card
 def phase_kernel(w, n_launch=3, time_it=True, stages=False):
     """Hold the Hopper kernel and the first port against the plain version
     on full-width planes from the main path's evolved state, over
@@ -678,6 +751,7 @@ def phase_kernel(w, n_launch=3, time_it=True, stages=False):
     return res
 
 
+@quiet_card
 def hold_stages(p, base, seeds, cap, B, want):
     """The Hopper kernel at every staging level that fits this shape
     (cycles.cta_plan's _force_stage: the same planes with more or fewer
@@ -711,6 +785,7 @@ def simple_skipped(p, base):
     return cycles.simple_limit_reason(4 * base[0].shape[0], p.num_reactions)
 
 
+@quiet_card
 def hold_both(p, base, seeds, cap, B, where, launch=None):
     """The Hopper kernel (`launch(work)`, by default one `cycles.cycles`)
     and the first port, each on a copy of `base`, held word for word
@@ -740,6 +815,7 @@ def hold_both(p, base, seeds, cap, B, where, launch=None):
     return kern, worst, plain_ms
 
 
+@quiet_card
 def paired_ms(p, base, seeds, cap, B, launch=None):
     """CUDA-event ms of one launch of the Hopper kernel (`launch(work)`, by
     default one `cycles.cycles`) and of the first port on copies of
@@ -843,6 +919,7 @@ def kernel_bound(p, inp, out, seeds):
             if bool(granted.any()) else 0.0}
 
 
+@quiet_card
 def phase_breakdown(w, updates=5):
     """Per-phase device-synchronised wall time of the packed update body
     (the main path's own phase functions, in update_step_packed's order)
@@ -882,6 +959,7 @@ def phase_breakdown(w, updates=5):
             "pack_ms": acc["pack"], "unpack_ms": acc["unpack"]}
 
 
+@quiet_card
 def phase_default_path(side, updates, data_dir, device="cuda",
                        name="default_path", extra=None,
                        reason="TPU_SYSTEMATICS=1"):
@@ -968,6 +1046,7 @@ def time_host_drain(w):
     return acc
 
 
+@quiet_card
 def phase_default_kernel(w, name="default_path"):
     """One per-update launch at a per-update path's evolved state, on the
     planes run_cycles builds there (lane-permuted by perm_phase): the
@@ -1012,6 +1091,7 @@ def kernel_ms(p, base, seeds, cap, B):
     return launch_ms(base, lambda work: cycles.cycles(p, work, seeds, cap, B))
 
 
+@quiet_card
 def launch_ms(base, launch):
     """CUDA-event time of launch(work) on copies `work` of `base`, the
     copy's own time subtracted."""
@@ -1075,6 +1155,7 @@ class timed_helpers:
             setattr(mod, fn_name, orig)
 
 
+@quiet_card
 def phase_default_breakdown(w, run, updates=3, name="default_breakdown"):
     """Per-phase device-synchronised wall time of the per-update engine's
     update (update_step's own phase functions, in its order, with
@@ -1192,7 +1273,7 @@ GEOMETRY_SHAPES = [(128, 384, 1), (256, 384, 2), (512, 1024, 8),
                    (128, 1088, 4), (512, 4096, 8), (256, 2048, 8)]
 
 
-def phase_geometry(tmp, updates=24, n_launch=2):
+def phase_geometry(tmp, updates=16, n_launch=2):
     """The Hopper kernel and the first port held word for word against the
     plain version at the launch geometries the 320x320 and 60x60 paths do
     not reach (GEOMETRY_CASES): each world runs the costs instruction set
@@ -1281,17 +1362,26 @@ def cpu_jobs(workers=CPU_WORKERS):
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(workers, multiprocessing.get_context("spawn"),
                                initializer=_cpu_worker_init)
+    stamp_submits(pool)
     try:
         yield pool
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
+CPU_WAITS = {}      # seconds the card's process waited on each CPU half
+
+
 def cpu_half(job, fn, *args):
     """The CPU half of a cross-device phase: its cpu_jobs job's result, or
-    without a job fn(*args), run here on one thread."""
+    without a job fn(*args), run here on one thread.  The time spent
+    waiting for a job adds to CPU_WAITS under fn's name."""
     if job is not None:
-        return job.result()
+        t0 = time.perf_counter()
+        out = job.result()
+        CPU_WAITS[fn.__name__] = (CPU_WAITS.get(fn.__name__, 0.0)
+                                  + time.perf_counter() - t0)
+        return out
     with one_thread():
         return fn(*args)
 
@@ -1300,6 +1390,214 @@ def cpu_root(tmp):
     """The directory the CPU halves write under: none of the card half's
     paths, whatever device the card half is given."""
     return os.path.join(tmp, "cpu_half")
+
+
+WORKER_OWNS = [False]   # the card worker holds the gate's lock
+
+
+def _worker_take():
+    """The card worker waits while the main process asks for quiet, then
+    takes the lock (waits past GATE_WAIT_S go on without it rather than
+    hang)."""
+    quiet, lock = WORKER_GATE
+    t0 = time.perf_counter()
+    while quiet.is_set() and time.perf_counter() - t0 < GATE_WAIT_S:
+        time.sleep(0.002)
+    WORKER_OWNS[0] = lock.acquire(timeout=GATE_WAIT_S)
+
+
+def _worker_give():
+    """The card worker synchronises the card, then lets the lock go."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    if WORKER_OWNS[0]:
+        WORKER_OWNS[0] = False
+        WORKER_GATE[1].release()
+
+
+@contextlib.contextmanager
+def worker_hold():
+    """In the card worker: the block runs between the main process's timed
+    windows (card_quiet), holding the lock, and synchronises the card
+    before it lets go.  Nested blocks hold it once; worker_yield lets a
+    window in from inside."""
+    if GATE_HELD[0]:
+        GATE_HELD[0] += 1
+        try:
+            yield
+        finally:
+            GATE_HELD[0] -= 1
+        return
+    _worker_take()
+    GATE_HELD[0] = 1
+    try:
+        yield
+    finally:
+        GATE_HELD[0] = 0
+        _worker_give()
+
+
+def worker_yield():
+    """Inside a worker_hold block, between two micro-step cycles: if the
+    main process asks for quiet, synchronise, let it in, take the lock
+    back after its window.  Not inside the worker's own timed blocks."""
+    if WORKER_GATE is None or not GATE_HELD[0] or GATE_TIMED[0] \
+            or not WORKER_GATE[0].is_set():
+        return
+    _worker_give()
+    _worker_take()
+
+
+def _gated(fn):
+    """fn run inside worker_hold()."""
+    import functools
+
+    @functools.wraps(fn)
+    def gated(*args, **kw):
+        with worker_hold():
+            return fn(*args, **kw)
+    return gated
+
+
+def _card_worker_init(gate):
+    """The card worker sees the card and runs torch on one intra-op
+    thread.  Each world update it runs (World.run_update / run_updates,
+    MultiWorld._scan) is gated behind the main process's timed windows
+    (worker_hold), and a micro-step update lets a window in between two
+    of its cycles (worker_yield, through update.cycle_step_fn)."""
+    global WORKER_GATE
+    import torch
+    torch.set_num_threads(1)
+    WORKER_GATE = gate
+    from avida_tpu_torch.ops import update
+    from avida_tpu_torch.parallel.multiworld import MultiWorld
+    from avida_tpu_torch.world import World
+    for cls, names in ((World, ("run_update", "run_updates")),
+                       (MultiWorld, ("_scan",))):
+        for n in names:
+            setattr(cls, n, _gated(getattr(cls, n)))
+    step_fn = update.cycle_step_fn
+
+    def yielding(params):
+        step, draw_keys = step_fn(params)
+
+        def cycle(*args, **kw):
+            worker_yield()
+            return step(*args, **kw)
+        return cycle, draw_keys
+    update.cycle_step_fn = yielding
+
+
+@contextlib.contextmanager
+def card_jobs():
+    """One worker process on the card for the card halves of the
+    cross-device phases and the micro-step paths that launch no kernel,
+    which then run beside this process's phases.  Its updates wait out
+    this process's timed windows (card_quiet), so the kernels' times and
+    the headline paths' walls are taken with the card to themselves.
+    Spawned after the build, so it finds the library built; leaving the
+    block cancels the jobs not yet started and waits for the rest."""
+    global CARD_GATE
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    ctx = multiprocessing.get_context("spawn")
+    gate = (ctx.Event(), ctx.Lock())
+    pool = ProcessPoolExecutor(1, ctx, initializer=_card_worker_init,
+                               initargs=(gate,))
+    stamp_submits(pool)
+    CARD_GATE = gate
+    try:
+        yield pool
+    finally:
+        gate[0].clear()
+        pool.shutdown(wait=True, cancel_futures=True)
+        CARD_GATE = None
+
+
+class Done:
+    """A finished job's result, in the shape of a future (for cpu_half and
+    card_half), that a worker can be handed."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def result(self):
+        return self.value
+
+
+def after(pool, jobs, fn, *args):
+    """A future of fn(*args, [Done(result) of each job]), submitted to
+    `pool` once every one of `jobs` is done."""
+    import threading
+    from concurrent.futures import Future
+    out, left, lock = Future(), [len(jobs)], threading.Lock()
+
+    def relay(g):
+        try:
+            out.set_result(g.result())
+        except BaseException as e:
+            out.set_exception(e)
+
+    def done(_):
+        with lock:
+            left[0] -= 1
+            if left[0]:
+                return
+        try:
+            g = pool.submit(fn, *args, [Done(j.result()) for j in jobs])
+        except BaseException as e:
+            out.set_exception(e)
+            return
+        g.add_done_callback(relay)
+
+    for j in jobs:
+        j.add_done_callback(done)
+    return stamped(out)
+
+
+CARD_WAITS = {}     # seconds this process waited on each card-worker job
+
+
+def card_half(job, fn, *args):
+    """A job of card_jobs (or of the children's threads): its result, or
+    without a job fn(*args), run here.  The time spent waiting adds to
+    CARD_WAITS under fn's name (or fn, a name)."""
+    if job is None:
+        return fn(*args)
+    key = getattr(fn, "__name__", fn)
+    t0 = time.perf_counter()
+    out = job.result()
+    CARD_WAITS[key] = CARD_WAITS.get(key, 0.0) + time.perf_counter() - t0
+    return out
+
+
+DONE_AT = {}        # id of a job: the script's seconds when it finished
+
+
+def stamped(job):
+    """job, its finishing time kept in DONE_AT (for done_at)."""
+    job.add_done_callback(
+        lambda f: DONE_AT.setdefault(id(f), time.perf_counter() - T0))
+    return job
+
+
+def stamp_submits(pool):
+    """Every job submitted to `pool` from here on is stamped."""
+    submit = pool.submit
+    pool.submit = lambda *args, **kw: stamped(submit(*args, **kw))
+    return pool
+
+
+def done_at(jobs):
+    """{name: the script's seconds when its job (the last of a list)
+    finished} for the stamped jobs of a {name: job or [jobs]} map."""
+    out = {}
+    for name, j in jobs.items():
+        ts = [DONE_AT.get(id(x)) for x in (j if isinstance(j, list) else [j])]
+        if ts and None not in ts:
+            out[name] = max(ts)
+    return out
 
 
 def phase_size_range(tmp):
@@ -1480,6 +1778,7 @@ def mw_next_launch(mw):
             [x[1][3] for x in pre])
 
 
+@quiet_card
 def phase_mw_kernel(mw, name, time_it=True):
     """One stacked launch on the batch's evolved planes held against the
     plain version on the same planes and seeds (max_abs_err; the first
@@ -1522,6 +1821,7 @@ def phase_mw_kernel(mw, name, time_it=True):
     return res
 
 
+@quiet_card
 def phase_mw_breakdown(mw, run, name, updates=2):
     """Per-phase device-synchronised wall time of one batched update (the
     engine's own phase functions, world by world, the launch once), on
@@ -1620,12 +1920,13 @@ def mw_cross_side(tmp, dev):
     return out
 
 
-def phase_mw_cross_device(tmp, cpu=None, device="cuda"):
+def phase_mw_cross_device(tmp, cpu=None, device="cuda", card_job=None):
     """A W = 3 batch of 8x8 worlds, 16 updates, on each engine, run on the
     card and on the CPU (the plain versions): every member must end in
     identical states and .dat bytes.  `cpu` is the cpu_jobs job of
-    mw_cross_side's CPU half, else it runs here."""
-    card = mw_cross_side(tmp, device)
+    mw_cross_side's CPU half, `card_job` the card_jobs job of its card
+    half; else each runs here."""
+    card = card_half(card_job, mw_cross_side, tmp, device)
     host = cpu_half(cpu, mw_cross_side, cpu_root(tmp), "cpu")
     results = []
     for (sa, da, ea), (sb, db, eb) in zip(card, host):
@@ -1684,6 +1985,7 @@ def math_config_dir(cdir, text=MATH_ENV_TEXT):
     return cdir
 
 
+@quiet_card
 def xla_breakdown(w, updates):
     """Per-phase device-synchronised wall ms of the per-update engine on
     the micro-step engine (update_step's phases in order) on the world's
@@ -1732,6 +2034,7 @@ def xla_breakdown(w, updates):
             "ms_per_cycle": acc["cycles"] / max(sum(trips), 1)}
 
 
+@quiet_card
 def xla_trace(w, n_cycles=5):
     """torch.profiler over n_cycles micro-step cycles of the world's next
     update (after one untraced warm-up cycle): CUDA kernels a cycle, the
@@ -1917,7 +2220,8 @@ def phase_engines_agree(side, updates, tmp):
 
 
 XLA_CROSS_SEEDS = (3, 11, 29)
-XLA_CROSS_UPDATES = 7
+# the batch's first births land in update 6 (14 on the CPU)
+XLA_CROSS_UPDATES = 6
 
 
 def xla_cross_side(tmp, dev, updates=XLA_CROSS_UPDATES):
@@ -1945,13 +2249,15 @@ def xla_cross_side(tmp, dev, updates=XLA_CROSS_UPDATES):
 
 
 def phase_xla_cross_device(tmp, cpu=None, device="cuda",
-                           updates=XLA_CROSS_UPDATES):
+                           updates=XLA_CROSS_UPDATES, card_job=None):
     """TPU_USE_PALLAS=2 on the card and on the CPU must end identical: a
     24x24 world with mutations on, mixed programs and the math
     environment, and a W = 3 batch of 8x8 worlds (the folded engine);
     states and .dat bytes.  `cpu` is the cpu_jobs job of xla_cross_side's
-    CPU half, else it runs here."""
-    sa, da, ma, mda, ea = xla_cross_side(tmp, device, updates)
+    CPU half, `card_job` the card_jobs job of its card half; else each
+    runs here."""
+    sa, da, ma, mda, ea = card_half(card_job, xla_cross_side, tmp, device,
+                                    updates)
     sb, db, mb, mdb, eb = cpu_half(cpu, xla_cross_side, cpu_root(tmp), "cpu",
                                    updates)
     bad = [k for k in sa if sa[k] is not None
@@ -2136,6 +2442,7 @@ def rewarded_reactions(w):
     return hit.any(dim=0).nonzero()[:, 0].tolist()
 
 
+@quiet_card
 def phase_capacity_path(side, tmp, smi):
     """The slice's path: a side x side logic-77 world at TPU_MAX_MEMORY
     2048 (L = 2048, 77 reactions) with TPU_SYSTEMATICS=0, World.run for
@@ -2267,12 +2574,14 @@ def capacity_cross_side(tmp, dev):
             w.engine_report()["engine"], rewarded_reactions(w))
 
 
-def phase_capacity_cross_device(tmp, cpu=None, device="cuda"):
+def phase_capacity_cross_device(tmp, cpu=None, device="cuda",
+                                card_job=None):
     """The capacity world on the card and on the CPU's plain version (the
-    `cpu` job of cpu_jobs, else inline): every state field and every .dat
-    file byte for byte after CAP_CROSS's updates, with births and with
-    rewards past bit 32 (NOT at 68, AND on its requisite at 70)."""
-    card = capacity_cross_side(tmp, device)
+    `cpu` job of cpu_jobs and the card half's `card_job` of card_jobs,
+    else inline): every state field and every .dat file byte for byte
+    after CAP_CROSS's updates, with births and with rewards past bit 32
+    (NOT at 68, AND on its requisite at 70)."""
+    card = card_half(card_job, capacity_cross_side, tmp, device)
     host = cpu_half(cpu, capacity_cross_side, cpu_root(tmp), "cpu")
     (sa, da, ea, ra), (sb, db, eb, rb) = card, host
     bad = [k for k in sa if sa[k] is not None
@@ -2392,7 +2701,9 @@ def plant_division(w):
     w.state = st.replace(tape=tape, smt_stacks=stacks)
 
 
-SMT_CROSS_UPDATES = 14
+# the first births and infections of the 10x10 world land by update 10
+# (45 and 19 on the CPU)
+SMT_CROSS_UPDATES = 10
 
 
 def smt_cross_side(tmp, dev, updates=SMT_CROSS_UPDATES):
@@ -2426,7 +2737,7 @@ def smt_cross_side(tmp, dev, updates=SMT_CROSS_UPDATES):
 
 
 def phase_smt_cross_device(tmp, cpu=None, device="cuda",
-                           updates=SMT_CROSS_UPDATES):
+                           updates=SMT_CROSS_UPDATES, card_job=None):
     """TransSMT on the card and on the CPU must end identical: the smt_path
     construction at 10x10 (the reference's TransSMT tests' world: 160
     sites, time slices of 100), INT_MIN and -1 planted under Val-Div and
@@ -2434,8 +2745,10 @@ def phase_smt_cross_device(tmp, cpu=None, device="cuda",
     INT_MIN % -1 = 0 on the BX stack, the same on both devices), then
     World.run: states and .dat bytes after every update, births and
     infections in the run.  `cpu` is the cpu_jobs job of smt_cross_side's
-    CPU half, else it runs here."""
-    ta, fa, ua, da, ia, ba, ca = smt_cross_side(tmp, device, updates)
+    CPU half, `card_job` the card_jobs job of its card half; else each
+    runs here."""
+    ta, fa, ua, da, ia, ba, ca = card_half(card_job, smt_cross_side, tmp,
+                                           device, updates)
     tb, fb, ub, db, ib, bb, cb = cpu_half(cpu, smt_cross_side, cpu_root(tmp),
                                           "cpu", updates)
     bad = [k for k in fa if fa[k] is not None
@@ -2458,7 +2771,8 @@ def phase_smt_cross_device(tmp, cpu=None, device="cuda",
 def phase_smt_fold(tmp, side, seeds, updates, smi, cpu=None):
     """16 TransSMT host-parasite worlds of 60x60 (the fleet's seeds) on the
     folded micro-step engine: MultiWorld.run, no launch; members 0 and 15
-    equal their solo runs on the CPU."""
+    equal their solo runs on the CPU; the batch's living parasites no
+    longer the injected count (births and infections ran)."""
     import torch
     from avida_tpu_torch.ops import cycles
     from avida_tpu_torch.parallel.multiworld import MultiWorld
@@ -2466,6 +2780,7 @@ def phase_smt_fold(tmp, side, seeds, updates, smi, cpu=None):
                                  os.path.join(tmp, f"smt_fold_{k:03d}"),
                                  "cuda")
                      for k, s in enumerate(seeds)])
+    para0 = sum(smt_counts(w.state)[1] for w in mw.worlds)
     torch.cuda.synchronize()
     cycles.reset_launches()
     t0 = time.perf_counter()
@@ -2484,10 +2799,12 @@ def phase_smt_fold(tmp, side, seeds, updates, smi, cpu=None):
            "ms_per_update": 1e3 * wall / updates, "wall_s": wall,
            "batch_trip_efficiency": mw.trip_efficiency(),
            "hosts": sum(c[0] for c in counts),
+           "parasites_start": para0,
            "parasites": sum(c[1] for c in counts),
            "members_equal_solo": checked, "nvidia_smi": smi}
     if launches or stacked or mw.engine != "per-update" \
-            or any(c[0] == 0 for c in counts):
+            or any(c[0] == 0 for c in counts) \
+            or res["parasites"] == para0:
         raise AssertionError(f"smt_fold check failed: {res}")
     return res
 
@@ -2507,8 +2824,10 @@ AGREE_UPDATES = 6              # engines_agree: the first divides land
 FOLD_UPDATES = 4               # the folded batch's depth
 # the TransSMT paths' depth: at time slices of 30 the first divides and
 # injections land from about update 16 (a 12x12 CPU run, seed 11; the
-# 320x320 world's first infections at 16); the batch stops at 17
-SMT_UPDATES, SMT_FOLD_UPDATES = 20, 17
+# 320x320 world's first infections at 16, so smt_path runs to 17 and
+# times 18); the folded batch stops at 17, past them (its parasite count
+# has left the injected one by then)
+SMT_UPDATES, SMT_FOLD_UPDATES = 17, 17
 
 
 # ---- persistence (native checkpoints, resume, preemption, the digest
@@ -2684,6 +3003,17 @@ def phase_persist_default(tmp, smi, updates=DEFAULT_UPDATES):
     return res
 
 
+def persist_cli_args(tmp, data_dir, ck):
+    """The command line of persist_path's world (its config directory,
+    seed 11, the packed engine, digests in the manifests, every
+    generation kept) for a `python -m avida_tpu_torch` child."""
+    return ["-c", os.path.join(tmp, "persist_cfg"), "-s", "11",
+            "-d", data_dir,
+            "-set", "WORLD_X", str(SIDE), "-set", "WORLD_Y", str(SIDE),
+            "-set", "TPU_SYSTEMATICS", "0", "-set", "TPU_CKPT_DIR", ck,
+            "-set", "TPU_CKPT_KEEP", "8", "-set", "TPU_STATE_DIGEST", "1"]
+
+
 def phase_preempt_cli(tmp, smi, persist_gen):
     """`python -m avida_tpu_torch` on persist_path's world as a child
     process, SIGTERM once its first auto-save (update 12) is on disk: it
@@ -2695,13 +3025,9 @@ def phase_preempt_cli(tmp, smi, persist_gen):
     whose arrays are byte for byte persist_path's at the same update."""
     import signal
     from avida_tpu_torch.utils import checkpoint as ckpt_mod
-    cdir = os.path.join(tmp, "persist_cfg")
     ck = os.path.join(tmp, "cli_ck")
-    base = [sys.executable, "-m", "avida_tpu_torch", "-c", cdir,
-            "-s", "11", "-d", os.path.join(tmp, "cli_d"),
-            "-set", "WORLD_X", str(SIDE), "-set", "WORLD_Y", str(SIDE),
-            "-set", "TPU_SYSTEMATICS", "0", "-set", "TPU_CKPT_DIR", ck,
-            "-set", "TPU_CKPT_KEEP", "8", "-set", "TPU_STATE_DIGEST", "1"]
+    base = [sys.executable, "-m", "avida_tpu_torch"] + persist_cli_args(
+        tmp, os.path.join(tmp, "cli_d"), ck)
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     # chunks of 2 updates (TPU_MAX_STRETCH 3) and the first save at 12:
@@ -2748,6 +3074,115 @@ def phase_preempt_cli(tmp, smi, persist_gen):
         res["stderr"] = (err.decode()[-1500:], res2.stderr.decode()[-1500:])
         raise AssertionError(f"preempt_cli check failed: {res}")
     return res
+
+
+SUPERVISE_KILL = 21     # supervise_path: the fault's update trigger
+
+
+def phase_supervise_path(tmp, smi, persist_gen):
+    """`python -m avida_tpu_torch --supervise --fault-plan
+    sigkill@update=21` on persist_path's world for PERSIST_UPDATES
+    updates, saving every 10: boot 0 SIGKILLs itself at the first chunk
+    boundary at or past update 21 (after the generation at 20 was
+    published), the supervisor classes the death `crash` and relaunches
+    with --resume; boot 1 resumes from the newest generation on the card
+    and runs to the end.  Checks: exit 0, two launches classed crash then
+    success, no crash that implicates the kernel, supervisor.prom's
+    counters, boot 1's report (cuda, the packed engine, K1 once an
+    update it ran), the final generation byte for byte persist_path's.
+    Times (host wall, the supervisor's and the child's clocks): each
+    boot, and the time to recover, from boot 0's last heartbeat
+    (published at the boundary it died at) to boot 1's first."""
+    from avida_tpu_torch.observability import history
+    from avida_tpu_torch.observability.exporter import read_metrics
+    from avida_tpu_torch.observability.records import read_records
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    d = os.path.join(tmp, "sup_d")
+    ck = os.path.join(tmp, "sup_ck")
+    argv = [sys.executable, "-m", "avida_tpu_torch", "--supervise",
+            "--fault-plan", f"sigkill@update={SUPERVISE_KILL}"] \
+        + persist_cli_args(tmp, d, ck) \
+        + ["-u", str(PERSIST_UPDATES), "-set", "TPU_CKPT_EVERY", "10",
+           "-set", "TPU_CKPT_FINAL", "1"]
+    # backoff under a second; a cold boot (torch, the CUDA context, the
+    # world, the resume) far inside the grace and watchdog windows
+    env = dict(os.environ, TPU_SUPERVISE_BACKOFF_BASE="0.05",
+               TPU_SUPERVISE_BACKOFF_CAP="0.2", TPU_SUPERVISE_POLL_SEC="0.05",
+               TPU_WATCHDOG_SEC="300", TPU_SUPERVISE_GRACE_SEC="600")
+    env.pop("TPU_FAULT", None)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, cwd=root, env=env, capture_output=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    recs = read_records(os.path.join(d, "supervisor.jsonl"))
+    launches = [r for r in recs if r["event"] == "launch"]
+    exits = [r for r in recs if r["event"] == "exit"]
+    prom = read_metrics(os.path.join(d, "supervisor.prom"))
+    log = open(os.path.join(d, "supervised.log")).read()
+    boot1 = log.split("--- supervisor boot 1 ---")[-1]
+    report = next((json.loads(line) for line in reversed(boot1.splitlines())
+                   if line.startswith('{"updates"')), {})
+    restored = [line for line in boot1.splitlines()
+                if "checkpoint_restored" in line]
+    resumed_at = int(restored[0].rsplit("update=", 1)[1]) if restored \
+        else None
+    # the heartbeat ring: boot 0's last row was published at the boundary
+    # it died at; boot 1's rows report its boundaries (each one chunk
+    # late), the first past the trigger being the boundary boot 0 died at
+    rows = history.read_samples(os.path.join(d, "metrics.hist.jsonl"))
+    t1 = launches[1]["time"] if len(launches) > 1 else float("inf")
+    before = [r for r in rows if r["time"] < t1]
+    after = [r for r in rows if r["time"] >= t1]
+    killed_at = min((r["update"] for r in after
+                     if r["update"] >= SUPERVISE_KILL), default=None)
+    final = os.path.join(ck, ckpt_mod.generation_name(PERSIST_UPDATES))
+    bad = (generation_arrays_equal(persist_gen, final)
+           if os.path.isdir(final) else ["no final generation"])
+    out = {"phase": "supervise_path", "nvidia_smi": smi,
+           "world": f"{SIDE}x{SIDE}", "exit_code": res.returncode,
+           "wall_s": wall, "boots": int(prom.get(
+               "avida_supervisor_boots_total", 0)),
+           "classes": [r["class"] for r in exits],
+           "exit_codes": [r["code"] for r in exits],
+           "pallas_suspect": [r["pallas_suspect"] for r in exits],
+           "kernel_crashes": prom.get(
+               "avida_supervisor_kernel_crashes_total"),
+           "failures": {k.split('"')[1]: v for k, v in prom.items()
+                        if k.startswith("avida_supervisor_failures_total")},
+           "boot_wall_s": [e["time"] - la["time"]
+                           for la, e in zip(launches, exits)],
+           "resumed_at": resumed_at, "killed_at": killed_at,
+           "updates_replayed": (killed_at - resumed_at
+                                if killed_at and resumed_at is not None
+                                else None),
+           "time_to_recover_s": (after[0]["time"] - before[-1]["time"]
+                                 if before and after else None),
+           "death_seen_after_s": (exits[0]["time"] - before[-1]["time"]
+                                  if before and exits else None),
+           "boot1_device": report.get("device"),
+           "boot1_engine": report.get("engine"),
+           "boot1_kernel_launches": report.get("kernel_launches"),
+           "final_equals_persist_path": not bad, "differs": bad}
+    ok = (res.returncode == 0 and out["boots"] == 2
+          and out["classes"] == ["crash", "success"]
+          and out["exit_codes"][0] == -9
+          and out["pallas_suspect"] == [False, False]
+          and out["kernel_crashes"] == 0
+          and out["failures"].get("crash") == 1
+          and sum(out["failures"].values()) == 1
+          and str(report.get("device", "")).startswith("cuda")
+          and (report.get("engine") or {}).get("engine") == "packed"
+          and resumed_at == 20 and killed_at is not None
+          and killed_at > resumed_at
+          and report.get("kernel_launches") == PERSIST_UPDATES - resumed_at
+          and report.get("updates") == PERSIST_UPDATES
+          and out["time_to_recover_s"] is not None and not bad)
+    if not ok:
+        out["stderr"] = res.stderr.decode()[-3000:]
+        out["log_tail"] = log[-3000:]
+        raise AssertionError(f"supervise_path check failed: {out}")
+    return out
 
 
 def phase_scrub_path(tmp, smi, updates=10):
@@ -2923,6 +3358,7 @@ DEMES = dict(NUM_DEMES=16, DEMES_USE_GERMLINE=1, DEMES_MIGRATION_RATE=0.01,
 DEME_UPDATES, DEME_REPLICATE_AT = 30, 24
 
 
+@quiet_card
 def pool_breakdown(w, updates):
     """Per-phase device-synchronised wall ms of update_step's phases in
     order (resources, schedule, lane permutation, the cycles on the routed
@@ -3165,15 +3601,16 @@ def pool_cross_side(tmp, dev):
     return out
 
 
-def phase_resources_cross_device(tmp, cpu=None, device="cuda"):
+def phase_resources_cross_device(tmp, cpu=None, device="cuda",
+                                 card_job=None):
     """Small worlds of the new paths run on the card and on the CPU (the
     plain versions) must end identical: a resource world on the
     micro-step engine (resource.dat included), a 4-deme world with
     germlines, migration, CompeteDemes and ReplicateDemes on the kernel
     route, a deme-pool world with a predicate-triggered replication.
-    `cpu` is the cpu_jobs job of pool_cross_side's CPU half, else it runs
-    here."""
-    card = pool_cross_side(tmp, device)
+    `cpu` is the cpu_jobs job of pool_cross_side's CPU half, `card_job`
+    the card_jobs job of its card half; else each runs here."""
+    card = card_half(card_job, pool_cross_side, tmp, device)
     host = cpu_half(cpu, pool_cross_side, cpu_root(tmp), "cpu")
     results = []
     for case, (sa, da, _), (sb, db, eb) in zip(POOL_CROSS_CASES, card, host):
@@ -3368,6 +3805,7 @@ def run_until_births(w, name):
     return insts, wall, cycles.LAUNCHES
 
 
+@quiet_card
 def update_breakdown(w, updates=1):
     """Per-phase wall ms of one update on the world's state and its own
     neighbor table: pool_breakdown on the kernel route, xla_breakdown on
@@ -3719,7 +4157,35 @@ def slice10_cpu_side(tmp, k):
     return warm, after, t1 - t0, time.perf_counter() - t1
 
 
-def phase_slice10_cross_device(tmp, cpu=None, device="cuda"):
+def slice10_card_side(tmp, k, cpu, device="cuda"):
+    """The card half of slice10_cross_device's case k: its world built on
+    `device` takes the CPU half's (`cpu`: [slice10_cpu_side's result, as
+    a job]) state, world key and update, then runs SLICE10_COMPARED
+    updates: (its state arrays after each, the seconds of those updates,
+    the engine, whether it is on the kernel route, the organisms)."""
+    import torch
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.ops import cycles
+    name, side, extra, events, kind = SLICE10_CROSS[k]
+    (warm, key, at), after, _, _ = cpu[0].result()
+    w = slice10_world(name, side, extra, events, kind,
+                      os.path.join(tmp, f"s10_{name}_{device}"), device,
+                      tmp, f"{name}_{device}")
+    w.state = convert.state_from_arrays(warm, device)
+    w.key = torch.from_numpy(key).to(device)
+    w.update = at
+    arrays, card_s = [], 0.0
+    for u in range(at + 1, at + len(after) + 1):
+        t0 = time.perf_counter()
+        w.run(max_updates=u)
+        _sync(device)
+        card_s += time.perf_counter() - t0
+        arrays.append(convert.state_to_arrays(w.state))
+    return (arrays, card_s, w.engine_report()["engine"],
+            cycles.use_kernel(w.params), w.num_organisms)
+
+
+def phase_slice10_cross_device(tmp, cpu=None, device="cuda", card=None):
     """Small worlds of the slice's paths, run on the card and on the CPU
     (the plain versions), must be identical field by field after every
     compared update: the clique, hex, random connected and scale-free
@@ -3730,32 +4196,24 @@ def phase_slice10_cross_device(tmp, cpu=None, device="cuda"):
     updates alone (to the first births); the card's world then takes the
     CPU's state, world key and update, and both run SLICE10_COMPARED
     updates.  `cpu` holds the cpu_jobs job of slice10_cpu_side for each
-    case, else they run here."""
-    import torch
-    from avida_tpu_torch import convert
-    from avida_tpu_torch.ops import cycles
+    case and `card` the card_jobs job of slice10_card_side, else they run
+    here."""
     results = []
     for k, (name, side, extra, events, kind) in enumerate(SLICE10_CROSS):
-        (warm, key, at), after, warm_s, cpu_s = cpu_half(
-            None if cpu is None else cpu[k], slice10_cpu_side,
-            cpu_root(tmp), k)
-        w = slice10_world(name, side, extra, events, kind,
-                          os.path.join(tmp, f"s10_{name}_{device}"), device,
-                          tmp, f"{name}_{device}")
-        w.state = convert.state_from_arrays(warm, device)
-        w.key = torch.from_numpy(key).to(device)
-        w.update = at
-        bad, births, card_s = [], 0, 0.0
-        for u, sb in zip(range(at + 1, at + SLICE10_COMPARED + 1), after):
-            t0 = time.perf_counter()
-            w.run(max_updates=u)
-            _sync(device)
-            card_s += time.perf_counter() - t0
-            sa = convert.state_to_arrays(w.state)
+        host = cpu_half(None if cpu is None else cpu[k], slice10_cpu_side,
+                        cpu_root(tmp), k)
+        (_, _, at), after, warm_s, cpu_s = host
+        arrays, card_s, engine, route, alive = card_half(
+            None if card is None else card[k], slice10_card_side, tmp, k,
+            [Done(host)], device)
+        bad, births = [], 0
+        for u, sa, sb in zip(range(at + 1, at + SLICE10_COMPARED + 1),
+                             arrays, after):
             bad += [(u, f) for f in sa if sa[f] is not None
                     and sa[f].tobytes() != sb[f].tobytes()]
             births += int((sa["birth_update"] == u - 1).sum())
-        if bad or births == 0 or len(after) != SLICE10_COMPARED:
+        if bad or births == 0 or len(after) != SLICE10_COMPARED \
+                or len(arrays) != SLICE10_COMPARED:
             raise AssertionError(f"slice10_cross_device {name}: card vs cpu "
                                  f"differ at (update, field) {bad[:8]} "
                                  f"(births {births})")
@@ -3765,9 +4223,8 @@ def phase_slice10_cross_device(tmp, cpu=None, device="cuda"):
                         "births_compared": births,
                         "warm_s_cpu": warm_s,
                         "compared_s": {"card": card_s, "cpu": cpu_s},
-                        "engine": w.engine_report()["engine"],
-                        "kernel_route": cycles.use_kernel(w.params),
-                        "alive": w.num_organisms})
+                        "engine": engine, "kernel_route": route,
+                        "alive": alive})
     return {"phase": "slice10_cross_device", "fields_equal": True,
             "compared": "every field after every compared update",
             "cases": results}
@@ -3926,14 +4383,17 @@ def exp_cross_side(tmp, dev, updates=EXP_CROSS_UPDATES):
     return arrays, counts, dat_bodies(w.data_dir), time.perf_counter() - t0
 
 
-def phase_experimental_cross_device(tmp, cpu=None, device="cuda"):
+def phase_experimental_cross_device(tmp, cpu=None, device="cuda",
+                                    card_job=None):
     """The 12x12 predator-prey world built and run on the card and on the
-    CPU (`cpu`: its cpu_jobs job): every field equal at the start and
-    after each of EXP_CROSS_UPDATES updates, the .dat files byte for
-    byte, with kills and moves inside the compared updates."""
+    CPU (`cpu`: its cpu_jobs job; `card_job`: the card half's card_jobs
+    job): every field equal at the start and after each of
+    EXP_CROSS_UPDATES updates, the .dat files byte for byte, with kills
+    and moves inside the compared updates."""
     a_cpu, c_cpu, d_cpu, s_cpu = cpu_half(cpu, exp_cross_side,
                                           cpu_root(tmp), "cpu")
-    a_dev, c_dev, d_dev, s_dev = exp_cross_side(tmp, device)
+    a_dev, c_dev, d_dev, s_dev = card_half(card_job, exp_cross_side, tmp,
+                                           device)
     bad = [(u, f) for u, (x, y) in enumerate(zip(a_dev, a_cpu)) for f in x
            if x[f] is not None and x[f].tobytes() != y[f].tobytes()]
     kills = sum(c.get("kills", 0) for c in c_dev)
@@ -4248,6 +4708,7 @@ def phase_revert_cpu(card, job=None):
     return res
 
 
+@quiet_card
 def phase_testcpu_graph(card, smi, time_mod=2):
     """The Test CPU's CUDA graph held against its plain form: one
     generation of revert_path's first child lanes (`card`) on the card,
@@ -4318,14 +4779,15 @@ def analyze_side(tmp, dev):
     return rc, secs, err, tree_bytes(out) if rc == 0 else {}
 
 
-def phase_analyze_cross_device(tmp, smi, cpu=None):
+def phase_analyze_cross_device(tmp, smi, cpu=None, card_job=None):
     """An analyze.cfg -- LOAD_SEQUENCE of the default ancestor,
     RECALCULATE, DETAIL, ANALYZE_KNOCKOUTS, TRACE -- through `python -m
     avida_tpu_torch -a` on the card and in a CPU worker (`cpu`): every
     output file byte for byte (date lines pinned), and the ancestor's
     record on the card the reference's golden one: gestation 389, merit
-    97, fitness 97/389."""
-    rc_d, s_d, err_d, f_d = analyze_side(tmp, "cuda")
+    97, fitness 97/389.  `card_job` is the card half's job, else it
+    runs here."""
+    rc_d, s_d, err_d, f_d = card_half(card_job, analyze_side, tmp, "cuda")
     rc_c, s_c, err_c, f_c = cpu_half(cpu, analyze_side, cpu_root(tmp),
                                      "cpu")
     row = []
@@ -4377,15 +4839,17 @@ def analytics_ckpt(tmp, mw_ck):
     return ck
 
 
-def phase_analytics_cli(tmp, smi, ck, cpu=None):
+def phase_analytics_cli(tmp, smi, ck, cpu=None, card_job=None):
     """`python -m avida_tpu_torch --analyze CKPT_DIR` on the card over
     multiworld_path member 0's generation at ANALYTICS_AT (a 60x60 world,
     systematics on: census, knockout sweeps of the dominant and
     threshold genotypes, the dominant lineage) and in a CPU worker
     (`cpu`): census.dat, knockout.dat, lineage.dat, analytics.prom and
     analysis/analytics.jsonl exist, and the tables are byte-equal and
-    the journal record equal apart from its wall-clock fields."""
-    rc_d, s_d, err_d, f_d = analytics_side(tmp, ck, "cuda")
+    the journal record equal apart from its wall-clock fields.
+    `card_job` is the card half's job, else it runs here."""
+    rc_d, s_d, err_d, f_d = card_half(card_job, analytics_side, tmp, ck,
+                                      "cuda")
     rc_c, s_c, err_c, f_c = cpu_half(cpu, analytics_side, cpu_root(tmp),
                                      ck, "cpu")
     tables = ("analysis/census.dat", "analysis/knockout.dat",
@@ -4618,12 +5082,14 @@ def trace_cross_side(tmp, dev):
             cycles.LAUNCHES)
 
 
-def phase_trace_cross_device(tmp, cpu=None, device="cuda"):
+def phase_trace_cross_device(tmp, cpu=None, device="cuda", card_job=None):
     """The traced, fault-injected world on the card and on the CPU (`cpu`:
-    its cpu_jobs job): the drained trace records equal line for line,
-    the merit anomaly at update 3, every state field equal."""
+    its cpu_jobs job; `card_job`: the card half's card_jobs job): the
+    drained trace records equal line for line, the merit anomaly at
+    update 3, every state field equal."""
     import torch
-    recs, arrays, launches = trace_cross_side(tmp, device)
+    recs, arrays, launches = card_half(card_job, trace_cross_side, tmp,
+                                       device)
     crecs, carrays, _ = cpu_half(cpu, trace_cross_side, cpu_root(tmp), "cpu")
     bad = [f for f in arrays if arrays[f] is not None
            and arrays[f].tobytes() != carrays[f].tobytes()]
@@ -4659,10 +5125,15 @@ def main() -> int:
           "library": os.path.relpath(lib), "flags": list(cycles.NVCC_FLAGS),
           "resources": cycles.resources()})
 
-    with tempfile.TemporaryDirectory() as tmp, cpu_jobs() as pool:
+    from concurrent.futures import ThreadPoolExecutor
+    with tempfile.TemporaryDirectory() as tmp, cpu_jobs() as pool, \
+            card_jobs() as card, ThreadPoolExecutor(2) as kids:
+        stamp_submits(kids)
         # the CPU halves of the cross-device phases run in the workers
         # beside the card's phases, queued in the order the phases need
-        # them
+        # them; the card halves and the micro-step paths (no kernel
+        # launch, nothing of theirs timed against the kernels) run in the
+        # card worker, between this process's timed windows
         ctmp = cpu_root(tmp)
         jobs = {key: pool.submit(fn, ctmp, "cpu") for key, fn in (
             ("cross", cross_side), ("mw_cross", mw_cross_side),
@@ -4682,6 +5153,36 @@ def main() -> int:
         jobs["trace_cross"] = pool.submit(trace_cross_side, ctmp, "cpu")
         jobs["capacity_cross"] = pool.submit(capacity_cross_side, ctmp,
                                              "cpu")
+        cards = {key: card.submit(fn, tmp, "cuda") for key, fn in (
+            ("cross", cross_side), ("mw_cross", mw_cross_side),
+            ("xla_cross", xla_cross_side), ("pool_cross", pool_cross_side),
+            ("smt_cross", smt_cross_side), ("exp_cross", exp_cross_side),
+            ("trace_cross", trace_cross_side),
+            ("capacity_cross", capacity_cross_side))}
+        moved = {
+            "xla_path": card.submit(phase_xla_path, SIDE, XLA_UPDATES,
+                                    os.path.join(tmp, "xla"), smi),
+            "math_path": card.submit(phase_math_path, SIDE, XLA_UPDATES,
+                                     tmp, smi),
+            "engines_agree": card.submit(phase_engines_agree, SIDE,
+                                         AGREE_UPDATES, tmp),
+            "multiworld_fold": after(card, jobs["heads_fold"],
+                                     phase_multiworld_fold, tmp, MW_SIDE,
+                                     MW_SEEDS, FOLD_UPDATES, smi),
+            "resource_path": card.submit(phase_resource_path, SIDE,
+                                         XLA_UPDATES, tmp, smi),
+            "deme_resource_path": card.submit(phase_deme_resource_path,
+                                              SIDE, XLA_UPDATES, tmp, smi),
+            "smt_path": card.submit(phase_smt_path, SIDE, SMT_UPDATES,
+                                    os.path.join(tmp, "smt"), smi),
+            "threads_path": card.submit(phase_threads_path, SIDE, tmp, smi),
+            "experimental_path": card.submit(phase_experimental_path, SIDE,
+                                             tmp, smi),
+            "smt_fold": after(card, jobs["smt_fold"], phase_smt_fold, tmp,
+                              MW_SIDE, MW_SEEDS, SMT_FOLD_UPDATES, smi)}
+        cards["slice10"] = [after(card, [job], slice10_card_side, tmp, k)
+                            for k, job in enumerate(jobs["slice10"])]
+        # every kernel path: held against the plain version and timed
         emit(phase_geometry(tmp))
         emit(phase_size_range(tmp))
         w, main_res = phase_main(SIDE, UPDATES, os.path.join(tmp, "data"))
@@ -4711,6 +5212,7 @@ def main() -> int:
             SIDE, tmp, smi, main_end, pool)
         del wrev
         emit(rev_res)
+        emit(phase_testcpu_graph(rev_card, smi))
         wd, def_res = phase_default_path(SIDE, DEFAULT_UPDATES,
                                          os.path.join(tmp, "default"))
         emit(def_res)
@@ -4728,20 +5230,6 @@ def main() -> int:
         del ws
         ckern = phase_costs_kernel(SIDE, COSTS_UPDATES, tmp)
         emit(dict(ckern, phase="costs_kernel"))
-        emit(phase_cross_device(tmp, jobs["cross"]))
-        emit(phase_mw_cross_device(tmp, jobs["mw_cross"]))
-        # persistence: each resumed run counts its own launches
-        pres, persist_gen = phase_persist_path(tmp, smi)
-        emit(pres)
-        dres = phase_persist_default(tmp, smi)
-        emit(dres)
-        emit(phase_preempt_cli(tmp, smi, persist_gen))
-        scrub_res, scrub_launches = phase_scrub_path(tmp, smi)
-        emit(scrub_res)
-        emit(phase_spop_path(tmp, smi, spop_file, jobs["spop"]))
-        persist_launches = (pres["kernel_launches_after_resume"]
-                            + dres["kernel_launches_after_resume"]
-                            + scrub_launches)
         mw_runs = []
         mw_ck = os.path.join(tmp, "mw_ck")
         for path, sysm in (("multiworld_path", 1), ("multiworld_packed", 0)):
@@ -4754,40 +5242,16 @@ def main() -> int:
             emit(phase_mw_breakdown(mw, mw_res, f"{path}_breakdown",
                                     updates=1))
             if sysm:
-                mres, mw_resumed = phase_multiworld_persist(tmp, smi, mw,
-                                                            mw_ck)
-                emit(mres)
+                mw_saved = mw     # multiworld_persist resumes its batch
                 ana_ck = analytics_ckpt(tmp, mw_ck)
                 jobs["analytics"] = pool.submit(analytics_side, ctmp,
                                                 ana_ck, "cpu")
             del mw
             mw_runs.append((mw_res, mwk))
-        # the micro-step engine (no kernel launch on its paths)
-        emit(phase_kernel_limits(tmp))
-        emit(phase_xla_path(SIDE, XLA_UPDATES, os.path.join(tmp, "xla"),
-                            smi))
-        emit(phase_math_path(SIDE, XLA_UPDATES, tmp, smi))
-        emit(phase_engines_agree(SIDE, AGREE_UPDATES, tmp))
-        emit(phase_xla_cross_device(tmp, jobs["xla_cross"]))
-        emit(phase_multiworld_fold(tmp, MW_SIDE, MW_SEEDS, FOLD_UPDATES,
-                                   smi, jobs["heads_fold"]))
-        # resource pools and demes
-        emit(phase_resource_path(SIDE, XLA_UPDATES, tmp, smi))
         wdeme, deme_res = phase_deme_path(SIDE, tmp, smi)
         emit(deme_res)
         demek = phase_default_kernel(wdeme, name="deme_path")
         del wdeme
-        emit(phase_deme_resource_path(SIDE, XLA_UPDATES, tmp, smi))
-        emit(phase_resources_cross_device(tmp, jobs["pool_cross"]))
-        # TransSMT hardware and host-parasite coevolution
-        emit(phase_smt_path(SIDE, SMT_UPDATES, os.path.join(tmp, "smt"),
-                            smi))
-        emit(phase_smt_cross_device(tmp, jobs["smt_cross"]))
-        emit(phase_smt_fold(tmp, MW_SIDE, MW_SEEDS, SMT_FOLD_UPDATES,
-                            smi, jobs["smt_fold"]))
-        # slice 10: dispersal, population control and topologies on the
-        # kernel route; mating types, energy and threads on the
-        # micro-step engine
         wdisp, disp_res = phase_dispersal_path(SIDE, tmp, smi)
         emit(disp_res)
         dispk = phase_default_kernel(wdisp, name="dispersal_path")
@@ -4796,15 +5260,6 @@ def main() -> int:
         emit(topo_res)
         topok = phase_default_kernel(whex, name="topology_path")
         del whex
-        emit(phase_mating_path(SIDE, tmp, smi))
-        emit(phase_energy_path(SIDE, tmp, smi))
-        emit(phase_threads_path(SIDE, tmp, smi))
-        emit(phase_slice10_cross_device(tmp, jobs["slice10"]))
-        # slice 11: experimental hardware on the micro-step engine, the
-        # print actions, the 5-bit genome plane on the packed engine
-        emit(phase_experimental_path(SIDE, tmp, smi))
-        emit(phase_experimental_cross_device(tmp, jobs["exp_cross"]))
-        emit(phase_print_actions(tmp, smi, jobs["prints"]))
         wbits, bits_res = phase_packed_bits_path(SIDE, tmp, smi, main_end)
         emit(bits_res)
         bitsk = phase_kernel(wbits, n_launch=2)
@@ -4820,14 +5275,71 @@ def main() -> int:
         emit(tel_res)
         telk = phase_kernel(wtel, n_launch=1)
         del wtel
-        emit(phase_trace_cross_device(tmp, jobs["trace_cross"]))
-        emit(phase_capacity_cross_device(tmp, jobs["capacity_cross"]))
-        # slice 12: the Test CPU and the analyze toolchain (their CPU
-        # halves queued last, so they come last)
-        emit(phase_testcpu_graph(rev_card, smi))
-        emit(phase_analyze_cross_device(tmp, smi, jobs["analyze"]))
-        emit(phase_analytics_cli(tmp, smi, ana_ck, jobs["analytics"]))
+        # every kernel is held and timed: from here the CLI children (the
+        # analyze and analytics runs, then the preempted and the
+        # supervised run) take the card from two threads beside this
+        # process's persistence phases and two micro-step paths
+        kid = {"analytics": kids.submit(analytics_side, tmp, ana_ck, "cuda"),
+               "analyze": kids.submit(analyze_side, tmp, "cuda")}
+        # persistence: each resumed run counts its own launches
+        pres, persist_gen = phase_persist_path(tmp, smi)
+        emit(pres)
+        kid["supervise"] = kids.submit(phase_supervise_path, tmp, smi,
+                                       persist_gen)
+        kid["preempt"] = kids.submit(phase_preempt_cli, tmp, smi,
+                                     persist_gen)
+        dres = phase_persist_default(tmp, smi)
+        emit(dres)
+        scrub_res, scrub_launches = phase_scrub_path(tmp, smi)
+        emit(scrub_res)
+        emit(phase_spop_path(tmp, smi, spop_file, jobs["spop"]))
+        persist_launches = (pres["kernel_launches_after_resume"]
+                            + dres["kernel_launches_after_resume"]
+                            + scrub_launches)
+        mres, mw_resumed = phase_multiworld_persist(tmp, smi, mw_saved,
+                                                    mw_ck)
+        del mw_saved
+        emit(mres)
+        emit(phase_kernel_limits(tmp))
+        emit(phase_print_actions(tmp, smi, jobs["prints"]))
+        # slice 10: mating types and energy on the micro-step engine
+        emit(phase_mating_path(SIDE, tmp, smi))
+        emit(phase_energy_path(SIDE, tmp, smi))
+        # what ran beside: the card worker's paths, every cross-device
+        # comparison, the children
+        for path, job in moved.items():
+            emit(card_half(job, path))
+        emit(phase_cross_device(tmp, jobs["cross"], card_job=cards["cross"]))
+        emit(phase_mw_cross_device(tmp, jobs["mw_cross"],
+                                   card_job=cards["mw_cross"]))
+        emit(phase_xla_cross_device(tmp, jobs["xla_cross"],
+                                    card_job=cards["xla_cross"]))
+        emit(phase_resources_cross_device(tmp, jobs["pool_cross"],
+                                          card_job=cards["pool_cross"]))
+        emit(phase_smt_cross_device(tmp, jobs["smt_cross"],
+                                    card_job=cards["smt_cross"]))
+        emit(phase_slice10_cross_device(tmp, jobs["slice10"],
+                                        card=cards["slice10"]))
+        emit(phase_experimental_cross_device(tmp, jobs["exp_cross"],
+                                             card_job=cards["exp_cross"]))
+        emit(phase_trace_cross_device(tmp, jobs["trace_cross"],
+                                      card_job=cards["trace_cross"]))
+        emit(phase_capacity_cross_device(tmp, jobs["capacity_cross"],
+                                         card_job=cards["capacity_cross"]))
+        emit(card_half(kid["preempt"], phase_preempt_cli))
+        emit(card_half(kid["supervise"], phase_supervise_path))
+        emit(phase_analyze_cross_device(tmp, smi, jobs["analyze"],
+                                        card_job=kid["analyze"]))
+        emit(phase_analytics_cli(tmp, smi, ana_ck, jobs["analytics"],
+                                 card_job=kid["analytics"]))
         emit(phase_revert_cpu(rev_card, jobs["revert"]))
+        emit({"phase": "cpu_waits", "seconds": dict(CPU_WAITS),
+              "total_s": sum(CPU_WAITS.values()),
+              "done_at": done_at(jobs)})
+        emit({"phase": "card_waits", "seconds": dict(CARD_WAITS),
+              "total_s": sum(CARD_WAITS.values()),
+              "done_at": done_at(dict(cards, **moved, **{
+                  f"kid_{k}": v for k, v in kid.items()}))})
     timing = ("max_abs_err", "ms", "simple_ms", "turns_ms", "reached",
               "plain_ms", "bound_ms", "bytes_read", "bytes_written")
     per_path = [

@@ -62,7 +62,14 @@ assert {"avida_tpu_torch.systematics",
         "avida_tpu_torch.analyze.testcpu",
         "avida_tpu_torch.analyze.trace",
         "avida_tpu_torch.analyze.analyzer",
-        "avida_tpu_torch.analyze.pipeline"} <= set(names), names
+        "avida_tpu_torch.analyze.pipeline",
+        "avida_tpu_torch.observability.records",
+        "avida_tpu_torch.service",
+        "avida_tpu_torch.service.backoff",
+        "avida_tpu_torch.service.supervisor",
+        "avida_tpu_torch.tools",
+        "avida_tpu_torch.tools.ckpt_tool",
+        "avida_tpu_torch.tools.metrics_tool"} <= set(names), names
 """
 
 # a checkpointed run and its resume end to end (a 4x4 world, 2 + 2

@@ -54,11 +54,27 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def metrics_run(tmp_path_factory):
+def _reset_process_counters():
+    """Zero the process-wide counters whose families ride every
+    heartbeat once non-zero: both packages' integrity and profiler
+    counters, and the reference's program-cache counters.  A test that
+    ran a digest, a profile or a cached compile earlier in the same
+    worker would otherwise add families to one package's file only."""
+    from avida_tpu.observability import profiler as rprofiler
+    from avida_tpu.utils import compilecache as rcompilecache
+    from avida_tpu.utils import integrity as rintegrity
+    from avida_tpu_torch.observability import profiler as tprofiler
+    from avida_tpu_torch.utils import integrity as tintegrity
+    for mod in (rintegrity, tintegrity, rprofiler, tprofiler,
+                rcompilecache):
+        mod.reset_for_tests()
+
+
+def _run_pair(tmp):
     """Both packages' worlds run 5 updates with TPU_METRICS=1 and the
-    clock pinned (the heartbeat timestamp and the ring rows read it)."""
-    tmp = tmp_path_factory.mktemp("metrics")
+    clock pinned (the heartbeat timestamp and the ring rows read it),
+    from zeroed process counters."""
+    _reset_process_counters()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(time, "time", lambda: PINNED)
         ref, port = _pair(tmp, VALS, ["u begin InjectAll"])
@@ -67,15 +83,41 @@ def metrics_run(tmp_path_factory):
     return tmp, ref, port
 
 
-@pytest.mark.parametrize("name", ["metrics.prom", "metrics.hist.jsonl"])
-def test_metrics_files_equal_reference(metrics_run, name):
-    """The final heartbeat and its history ring (one row per chunk
-    boundary publish), byte for byte."""
-    tmp, _, port = metrics_run
+@pytest.fixture(scope="module")
+def metrics_run(tmp_path_factory):
+    return _run_pair(tmp_path_factory.mktemp("metrics"))
+
+
+def _assert_files_equal(run, name):
+    tmp, _, port = run
     a = (tmp / "ref" / name).read_bytes()
     b = (tmp / "port" / name).read_bytes()
     assert a == b and b"avida_update" in b
     assert port.update == 5 and int(port._total_births) > 0
+
+
+@pytest.mark.parametrize("name", ["metrics.prom", "metrics.hist.jsonl"])
+def test_metrics_files_equal_reference(metrics_run, name):
+    """The final heartbeat and its history ring (one row per chunk
+    boundary publish), byte for byte."""
+    _assert_files_equal(metrics_run, name)
+
+
+def test_metrics_files_equal_reference_after_a_digest(tmp_path):
+    """The order fault of a shared test worker: a port world that
+    digested its state earlier in the process leaves avida_integrity_*
+    counters behind, and the next heartbeat of the port alone carried
+    them.  The pair run zeroes both packages' counters first."""
+    from avida_tpu_torch.utils import integrity as tintegrity
+    from avida_tpu_torch.world import World
+    w = World(overrides=[("WORLD_X", "4"), ("WORLD_Y", "4"),
+                         ("TPU_STATE_DIGEST", "1")],
+              data_dir=str(tmp_path / "digest"), device="cpu")
+    w.run(max_updates=2)
+    assert tintegrity.counters()["digest_ms"] > 0
+    run = _run_pair(tmp_path / "pair")
+    for name in ("metrics.prom", "metrics.hist.jsonl"):
+        _assert_files_equal(run, name)
 
 
 _STATUS = r"""
