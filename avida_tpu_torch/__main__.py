@@ -1,8 +1,9 @@
 """Command line: `python -m avida_tpu_torch [-u N] [-s SEED] [-d DIR]
 [-c CONFIG_DIR] [-set NAME VALUE ...] [--device cuda|cpu]
 [--worlds SEEDS|MANIFEST] [-a [CKPT_DIR]] [--telemetry] [--profile-dir DIR]
-[--trace] [--status DIR [--max-age SEC]] [-v]`, and
-`python -m avida_tpu_torch --supervise [--fault-plan SPECS] ARGS...`.
+[--trace] [--status DIR [--max-age SEC]] [-v]`,
+`python -m avida_tpu_torch --supervise [--fault-plan SPECS] ARGS...`, and
+`python -m avida_tpu_torch --fleet SPOOL [--max-jobs N] [--serve]`.
 
 Runs one world and writes its .dat files, with the reference's defaults
 (systematics on: the per-update engine; -set TPU_SYSTEMATICS 0 takes the
@@ -22,7 +23,7 @@ TPU_CKPT_DIR); an empty directory starts fresh.  With --worlds, --resume
 (no DIR) resumes every member from its own checkpoint dir, aligned on a
 common update.  Exit codes as the reference's: 66 no valid generation,
 65 an invariant audit failed, 67 a scrub found a divergence.
---serve-worlds and --fleet are not ported and exit 2.
+--serve-worlds (the serving batch) is not ported and exits 2.
 
 Supervision: --supervise runs the rest of the command line as a child
 (`python -m avida_tpu_torch ARGS... --resume`) under the self-healing
@@ -30,6 +31,15 @@ supervisor (service/supervisor.py): heartbeat watchdog, restart with
 backoff, the failure taxonomy and its rollbacks.  --fault-plan
 "SPEC/SPEC/..." hands boot i the i-th TPU_FAULT spec.  Dispatched before
 anything imports torch: the supervisor never loads it.
+
+Fleet: --fleet SPOOL drains a spool of job specs
+(`python -m avida_tpu_torch.tools.fleet_tool submit ...`) through up to
+--max-jobs concurrent supervised children (service/fleet.py: journal
+replay and orphan reaping, admission control, the crash-storm breaker,
+the static --worlds coalescer); --serve keeps it running on an empty
+spool.  Also dispatched before any torch import.  --dynamic and
+TPU_FLEET_DYNAMIC=1 (the streaming serve pool) are not ported and exit
+2.
 
 Analysis: bare -a runs ANALYZE_FILE (analyze.cfg, in the config dir)
 through the analyze VM (analyze/analyzer.py) instead of an evolution
@@ -46,7 +56,8 @@ TPU_PROFILE_UPDATES updates into DIR/trace.json; --trace (-set TPU_TRACE
 telemetry.jsonl, and the metrics.prom heartbeat).  --status DIR prints
 the last heartbeat of the run writing DIR/metrics.prom and exits (0
 present, 1 no metrics file, 2 older than --max-age SEC) without
-importing torch.
+importing torch; on a fleet spool (DIR/fleet.prom or DIR/fleet.jsonl)
+it prints the fleet's per-job summary instead.
 """
 
 from __future__ import annotations
@@ -139,6 +150,7 @@ def _worlds_main(args, overrides) -> int:
     _sync(mw.device)
     wall = time.perf_counter() - t0
     insts = [w._flush_exec() - s for w, s in zip(mw.worlds, start)]
+    from avida_tpu_torch.ops import cycles
     print(json.dumps({"engine": mw.engine,
                       "engine_report": mw.engine_report,
                       "worlds": mw.num_worlds, "names": mw.names,
@@ -146,6 +158,8 @@ def _worlds_main(args, overrides) -> int:
                       "organisms": [w.num_organisms for w in mw.worlds],
                       "insts": insts, "wall_s": wall,
                       "device": str(mw.device),
+                      "kernel_launches": cycles.LAUNCHES,
+                      "stacked_launches": cycles.STACKED_LAUNCHES,
                       "preempted": mw.preempted}))
     return 0
 
@@ -157,11 +171,15 @@ def main(argv=None) -> int:
         # must never load torch (it has to outlive a wedged child runtime)
         from avida_tpu_torch.service.supervisor import supervise_main
         return supervise_main(argv)
-    if "--fleet" in argv:
-        print("[avida_tpu_torch] --fleet: the fleet orchestrator "
-              "(service/fleet.py) is not ported to avida_tpu_torch yet "
-              "(ROADMAP.md Queue 1 item 16b)", file=sys.stderr)
+    if "--dynamic" in argv and "--fleet" not in argv:
+        print("[avida_tpu_torch] --dynamic: the streaming serve pool is "
+              "not ported to avida_tpu_torch yet (ROADMAP.md Queue 1 item "
+              "16c)", file=sys.stderr)
         return 2
+    if "--fleet" in argv:
+        # the orchestrator, like the supervisor, never loads torch
+        from avida_tpu_torch.service.fleet import fleet_main
+        return fleet_main(argv)
     p = argparse.ArgumentParser(prog="python -m avida_tpu_torch",
                                 description=__doc__.split("\n")[0])
     p.add_argument("-c", "--config-dir", default=None)
@@ -203,7 +221,13 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     if args.status is not None:
-        # read the metrics.prom heartbeat only: no World, no torch
+        # read the metrics.prom / fleet.prom heartbeat only: no World, no
+        # torch.  A fleet spool gets the per-job summary
+        if os.path.exists(os.path.join(args.status, "fleet.prom")) \
+                or os.path.exists(os.path.join(args.status,
+                                               "fleet.jsonl")):
+            from avida_tpu_torch.service.fleet import fleet_status_main
+            return fleet_status_main(args.status, max_age=args.max_age)
         from avida_tpu_torch.observability.exporter import status_main
         return status_main(args.status, max_age=args.max_age)
 

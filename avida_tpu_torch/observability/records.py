@@ -2,15 +2,16 @@
 
 The one spelling of the append discipline every run log of the port
 shares: the supervisor's supervisor.jsonl (service/supervisor.py), the
-integrity plane's integrity.jsonl, the analytics log, the history rings
-and the alert journal (observability/history.py), perf.jsonl.  A file
+fleet's fleet.jsonl (service/fleet.py), the integrity plane's
+integrity.jsonl, the analytics log, the history rings and the alert
+journal (observability/history.py), perf.jsonl.  A file
 that would grow past its byte cap is moved aside to `<path>.1` (one
 atomic rename, clobbering the previous aside) and the record starts a
 fresh file; readers take the pair oldest first and skip a torn final
 line.  Counterpart of `append_record` / `read_records` in
 avida_tpu/observability/runlog.py, kept in a module of its own so the
-processes that must never load torch -- the supervisor, the ops tools,
-`--status` -- can write and read run logs.
+processes that must never load torch -- the supervisor, the fleet
+orchestrator, the ops tools, `--status` -- can write and read run logs.
 """
 
 from __future__ import annotations

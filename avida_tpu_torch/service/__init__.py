@@ -1,12 +1,16 @@
 """Run-service layer: the self-healing supervisor (supervisor.py) and its
-restart pacing (backoff.py).
+restart pacing (backoff.py); the fleet orchestrator (fleet.py) that
+drains a spool of job specs through many supervisors, and the
+batchability classes its static `--worlds` coalescer keys on (serve.py;
+the streaming serve pool of the reference's serve.py is ROADMAP item
+16c).
 
 Counterpart of avida_tpu/service/.  Host-only: nothing in this package
-imports torch.  The supervisor is the process that must stay alive while
-the run process crashes, hangs or corrupts itself -- a wedged CUDA
-runtime in the child must not take the watchdog down with it -- so it
-watches entirely from outside: child exit codes, the metrics.prom
-heartbeat file and the checkpoint directory.
+imports torch.  The supervisor and the orchestrator are the processes
+that must stay alive while a run process crashes, hangs or corrupts
+itself -- a wedged CUDA runtime in a child must not take the watchdog
+down with it -- so they watch entirely from outside: child exit codes,
+the metrics.prom heartbeat file and the checkpoint directory.
 
 Child exit codes (set by avida_tpu_torch/__main__.py so the supervisor
 can classify failures without parsing tracebacks):

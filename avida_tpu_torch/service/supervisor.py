@@ -309,13 +309,15 @@ class Supervisor:
         # ---- poll() state machine ----
         # "idle" (next poll launches) -> "running" -> "backoff" -> ... ->
         # "done" (exit_rc 0) | "failed" (exit_rc 1).  The blocking run()
-        # is a thin sleep-between-polls wrapper; the reference's fleet
-        # orchestrator (ROADMAP item 16b, not ported yet) multiplexes
-        # many supervisors by calling poll() round-robin instead.
+        # is a thin sleep-between-polls wrapper; a fleet orchestrator
+        # (service/fleet.py) multiplexes many supervisors by calling
+        # poll() round-robin instead.
         self.state = "idle"
         self.exit_rc = None
         self._ctx = None                # _Boot while state == "running"
         self._backoff_until = 0.0
+        self.succeeded = False          # True only after a "done" record
+        self.last_outcome = None        # newest Outcome (a fleet reads it)
         self.runlog_path = os.path.join(self.data_dir, RUNLOG_FILE)
         self.metrics_path = os.path.join(self.data_dir,
                                          SUPERVISOR_METRICS_FILE)
@@ -680,6 +682,7 @@ class Supervisor:
                 "utf-8", "replace")[-STDERR_TAIL_RECORD_BYTES:].decode(
                 "utf-8", "replace")
         self.record("exit", **exit_fields)
+        self.last_outcome = out
         return out
 
     def _dispatch(self, out: Outcome):
@@ -691,6 +694,7 @@ class Supervisor:
         kernel."""
         if out.cls == "success":
             self.record("done", update=out.update)
+            self.succeeded = True
             self._terminal("done", 0)
             return
         if self._stop:

@@ -222,6 +222,18 @@ and persistence (native checkpoints in the reference's format):
                     kernel route (success); no boot degraded, the final
                     arrays persist_path's byte for byte; each boot's
                     wall, the time to recover, the updates replayed
+  fleet_path        `python -m avida_tpu_torch --fleet SPOOL --max-jobs
+                    2` on four jobs (fleet_tool submit): persist_path's
+                    world with and without sigkill@update=21, and two
+                    60x60 `"batch": true` worlds; the orchestrator
+                    SIGKILLed with both solo children alive (frozen at
+                    their generation at 10), a second one reaping the
+                    orphans, resuming each job from its newest
+                    generation, coalescing the batch into one --worlds
+                    child (K3b): every job done, at most 2 children
+                    live, no double spawn, no fleet-wide degradation,
+                    every final generation its uninterrupted run's;
+                    boots, queue waits, the fleet's time to recover
   scrub_path        TPU_SCRUB_EVERY=1 for 10 updates: every chunk's
                     shadow replay (the same kernel on the same planes)
                     equal to the live chunk
@@ -242,9 +254,9 @@ must end identical (the CPU halves run in worker processes that see no
 card, beside the card's phases: cpu_jobs; the card halves, and three
 micro-step paths that launch no kernel, in one worker process on the
 card, card_jobs, whose updates wait out this process's timed windows;
-once every kernel is held and timed, the CLI children -- preempt_cli,
-supervise_path and the analyze runs -- take the card from two threads
-beside the remaining micro-step paths); the geometry phase holds
+once every kernel is held and timed, the CLI children -- fleet_path,
+preempt_cli, supervise_path and the analyze runs -- take the card from
+three threads beside the remaining micro-step paths); the geometry phase holds
 both kernels to the plain version at the launch shapes the paths do not
 reach (B = 128, 256, and L = 1024; past the first port's limits the
 Hopper kernel alone, at every staging level, at L = 1088 with 33
@@ -261,6 +273,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -2838,11 +2851,12 @@ PERSIST_EVENTS = ["u begin InjectAll"] + [
     f"u 0:10:end {a}" for a in PRINTS[:4]]
 
 
-def persist_config_dir(tmp):
+def persist_config_dir(tmp, name="persist_cfg"):
     """The headline world's config directory for persist_path and the
-    preempt_cli child: avida.cfg with the built-in set, events.cfg with
-    PERSIST_EVENTS (the CLI reads its events from there)."""
-    cdir = write_config_dir(os.path.join(tmp, "persist_cfg"))
+    preempt_cli child (and, as fleet_cfg, for the fleet's batch worlds):
+    avida.cfg with the built-in set, events.cfg with PERSIST_EVENTS (the
+    CLI reads its events from there)."""
+    cdir = write_config_dir(os.path.join(tmp, name))
     with open(os.path.join(cdir, "events.cfg"), "w") as f:
         f.write("\n".join(PERSIST_EVENTS) + "\n")
     return cdir
@@ -3003,15 +3017,21 @@ def phase_persist_default(tmp, smi, updates=DEFAULT_UPDATES):
     return res
 
 
-def persist_cli_args(tmp, data_dir, ck):
+def persist_world_args(tmp):
     """The command line of persist_path's world (its config directory,
     seed 11, the packed engine, digests in the manifests, every
-    generation kept) for a `python -m avida_tpu_torch` child."""
+    generation kept) for a `python -m avida_tpu_torch` child, without
+    the data and checkpoint directories (a fleet appends its own)."""
     return ["-c", os.path.join(tmp, "persist_cfg"), "-s", "11",
-            "-d", data_dir,
             "-set", "WORLD_X", str(SIDE), "-set", "WORLD_Y", str(SIDE),
-            "-set", "TPU_SYSTEMATICS", "0", "-set", "TPU_CKPT_DIR", ck,
+            "-set", "TPU_SYSTEMATICS", "0",
             "-set", "TPU_CKPT_KEEP", "8", "-set", "TPU_STATE_DIGEST", "1"]
+
+
+def persist_cli_args(tmp, data_dir, ck):
+    """persist_world_args with DATA_DIR and TPU_CKPT_DIR."""
+    return persist_world_args(tmp) + ["-d", data_dir,
+                                      "-set", "TPU_CKPT_DIR", ck]
 
 
 def phase_preempt_cli(tmp, smi, persist_gen):
@@ -3121,8 +3141,7 @@ def phase_supervise_path(tmp, smi, persist_gen):
     prom = read_metrics(os.path.join(d, "supervisor.prom"))
     log = open(os.path.join(d, "supervised.log")).read()
     boot1 = log.split("--- supervisor boot 1 ---")[-1]
-    report = next((json.loads(line) for line in reversed(boot1.splitlines())
-                   if line.startswith('{"updates"')), {})
+    report = last_report(boot1, '{"updates"')
     restored = [line for line in boot1.splitlines()
                 if "checkpoint_restored" in line]
     resumed_at = int(restored[0].rsplit("update=", 1)[1]) if restored \
@@ -3182,6 +3201,355 @@ def phase_supervise_path(tmp, smi, persist_gen):
         out["stderr"] = res.stderr.decode()[-3000:]
         out["log_tail"] = log[-3000:]
         raise AssertionError(f"supervise_path check failed: {out}")
+    return out
+
+
+# ---- the fleet (ROADMAP item 16b) ----
+
+FLEET_BATCH = MW_SEEDS[:2]      # f-b0 and f-b1: two 60x60 batch members
+FLEET_BATCH_EVERY = 6           # their saves, at 6 and at MW_UPDATES
+FLEET_JOBS = ("f-kill", "f-clean", "f-b0", "f-b1")
+FLEET_SOLO = FLEET_JOBS[:2]
+
+
+def fleet_batch_args(tmp, seed):
+    """A batch member's command line: a 60x60 world of fleet_cfg (the
+    persist config, PERSIST_EVENTS), the packed engine, MW_UPDATES
+    updates, saves every FLEET_BATCH_EVERY and at the end."""
+    return ["-c", os.path.join(tmp, "fleet_cfg"), "-s", str(seed),
+            "-set", "WORLD_X", str(MW_SIDE), "-set", "WORLD_Y", str(MW_SIDE),
+            "-set", "TPU_SYSTEMATICS", "0", "-u", str(MW_UPDATES),
+            "-set", "TPU_CKPT_EVERY", str(FLEET_BATCH_EVERY),
+            "-set", "TPU_CKPT_FINAL", "1"]
+
+
+def fleet_refs(tmp, device="cuda"):
+    """The uninterrupted runs of fleet_path's batch members: one solo
+    World a seed, in fleet_batch_args' configuration, saving as the
+    child does.  Returns each final generation's path."""
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    out = []
+    for seed in FLEET_BATCH:
+        ck = os.path.join(tmp, f"fleet_ref_ck_{seed}")
+        w = make_world(MW_SIDE, os.path.join(tmp, f"fleet_ref_{seed}"),
+                       device, PERSIST_EVENTS,
+                       {"RANDOM_SEED": seed, "TPU_CKPT_DIR": ck,
+                        "TPU_CKPT_EVERY": FLEET_BATCH_EVERY,
+                        "TPU_CKPT_FINAL": 1},
+                       config_dir=os.path.join(tmp, "fleet_cfg"))
+        w.run(max_updates=MW_UPDATES)
+        out.append(os.path.join(ck, ckpt_mod.generation_name(MW_UPDATES)))
+    return out
+
+
+def fleet_env():
+    """The fleet's environment: supervise_path's fast supervisor knobs
+    (backoff under a second, cold boots far inside the grace and
+    watchdog windows) and a 0.1 s orchestrator poll."""
+    env = dict(os.environ, TPU_SUPERVISE_BACKOFF_BASE="0.05",
+               TPU_SUPERVISE_BACKOFF_CAP="0.2", TPU_SUPERVISE_POLL_SEC="0.05",
+               TPU_WATCHDOG_SEC="300", TPU_SUPERVISE_GRACE_SEC="600",
+               TPU_FLEET_POLL_SEC="0.1")
+    for k in ("TPU_FAULT", "TPU_FLEET_DYNAMIC"):
+        env.pop(k, None)
+    return env
+
+
+def fleet_boots(spool, name, fleet_recs):
+    """One job's children, oldest first: [start, end, how it ended] from
+    the fleet journal's spawn records and the job supervisor's exit
+    records; a child the second orchestrator reaped ends at its
+    orphan_killed record, one already gone at its job's replay_resume.
+    A spawn while a child of the job is still live is a double spawn."""
+    from avida_tpu_torch.observability.records import read_records
+    marks = [(r["time"], r["event"]) for r in fleet_recs
+             if r.get("job") == name
+             and r["event"] in ("spawn", "orphan_killed", "replay_resume")]
+    marks += [(r["time"], "exit:" + r["class"]) for r in read_records(
+        os.path.join(spool, name, "data", "supervisor.jsonl"))
+        if r["event"] == "exit"]
+    boots, live, double = [], None, []
+    for t, ev in sorted(marks):
+        if ev == "spawn":
+            if live is not None:
+                double.append(t)
+            live = t
+        elif live is not None:
+            boots.append([live, t, ev])
+            live = None
+    if live is not None:
+        boots.append([live, None, "live"])
+    return boots, double
+
+
+def most_live(intervals):
+    """The most intervals [start, end] open at one time."""
+    # at one instant an end is counted before a start
+    edges = sorted([(a, 1) for a, b in intervals]
+                   + [(b, -1) for a, b in intervals])
+    n = top = 0
+    for _, d in edges:
+        n += d
+        top = max(top, n)
+    return top
+
+
+def stop_fleet_children(spool):
+    """SIGKILL every child a fleet journaled under `spool` that still runs
+    (children live in their own sessions, so an orchestrator's death or a
+    timeout leaves them behind)."""
+    import signal
+    from avida_tpu_torch.observability.records import read_records
+    for r in read_records(os.path.join(spool, "fleet.jsonl")):
+        pid = r.get("pid") if r.get("event") == "spawn" else None
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if spool.encode() not in f.read():
+                    continue
+            os.killpg(pid, signal.SIGKILL)
+        except (OSError, TypeError):
+            pass
+
+
+def boot_sections(log):
+    """supervised.log cut at each boot's marker (both orchestrators' job
+    supervisors append to one file): the text of each boot in order."""
+    return re.split(r"--- supervisor boot \d+ ---", log)[1:]
+
+
+def last_report(text, head):
+    """The last JSON line of a child's log that starts with `head` (the
+    CLI's report), or {}."""
+    return next((json.loads(line) for line in reversed(text.splitlines())
+                 if line.startswith(head)), {})
+
+
+def phase_fleet_path(tmp, smi, persist_gen, refs_job):
+    """`python -m avida_tpu_torch --fleet SPOOL --max-jobs 2` on four jobs
+    submitted with the port's fleet_tool: f-kill (persist_path's world,
+    40 updates, saves every 10, `sigkill@update=21`), f-clean (the same,
+    no fault), and, once the first orchestrator is gone, f-b0 and f-b1
+    (`"batch": true`, 60x60, differing only in seed).  Each solo child is
+    frozen (SIGSTOP) once its generation at update 10 is published, so
+    both are alive when the orchestrator is SIGKILLed; a second
+    orchestrator on the same spool must reap both orphans before it
+    respawns their jobs, resume each from its newest generation,
+    coalesce the batch into one `--worlds` child (K3b) and drain the
+    spool with exit 0.  Checks: every job `done` in the journal and in
+    fleet.prom; at most 2 children live and never two of one job (the
+    journal's spawn records against the supervisors' exit records); a
+    `coalesce` of 2 worlds; no `xla_fallback`, the gauge 0; each final
+    report on `cuda`, packed, with its own K1 (solo) or K3b (batch)
+    launches; the final generations byte for byte persist_path's and the
+    batch members' solo runs'; `--status SPOOL` exit 0.  Times (host
+    wall): the phase, each boot, the queue waits, the time to recover
+    (the SIGKILL to the second orchestrator's first replay_resume and to
+    the first resumed child's first heartbeat)."""
+    import signal
+
+    from avida_tpu_torch.observability import history
+    from avida_tpu_torch.observability.exporter import read_metrics
+    from avida_tpu_torch.observability.records import read_records
+    from avida_tpu_torch.service.fleet import journal_states
+    from avida_tpu_torch.tools import fleet_tool
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    t_phase = time.perf_counter()
+    spool = os.path.realpath(os.path.join(tmp, "fleet"))
+    jp = os.path.join(spool, "fleet.jsonl")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = fleet_env()
+    solo = persist_world_args(tmp) + [
+        "-u", str(PERSIST_UPDATES), "-set", "TPU_CKPT_EVERY", "10",
+        "-set", "TPU_CKPT_FINAL", "1"]
+    queued = {}
+    fleet_tool.submit(spool, "f-kill", solo,
+                      fault_plan=[f"sigkill@update={SUPERVISE_KILL}"])
+    fleet_tool.submit(spool, "f-clean", solo)
+    queued.update({n: time.time() for n in FLEET_SOLO})
+
+    def gens(name):
+        return [ckpt_mod.generation_update(g) for g in
+                ckpt_mod.list_generations(os.path.join(spool, name, "ck"))]
+
+    cmd = [sys.executable, "-m", "avida_tpu_torch", "--fleet", spool,
+           "--max-jobs", "2"]
+    frozen = {}
+    log1 = open(os.path.join(tmp, "fleet_orch1.log"), "w")
+    orch = subprocess.Popen(cmd, cwd=root, env=env, stdout=log1,
+                            stderr=log1)
+    try:
+        deadline = time.time() + 300
+        while len(frozen) < len(FLEET_SOLO) and orch.poll() is None \
+                and time.time() < deadline:
+            pids = journal_states(jp)[1]
+            for name in FLEET_SOLO:
+                if name not in frozen and name in pids \
+                        and any(u >= 10 for u in gens(name)):
+                    os.killpg(pids[name], signal.SIGSTOP)
+                    frozen[name] = pids[name]
+            time.sleep(0.02)
+        if len(frozen) < len(FLEET_SOLO) or orch.poll() is not None:
+            raise AssertionError(
+                f"fleet_path: no kill window (frozen {frozen}, "
+                f"orchestrator exit {orch.poll()}): "
+                f"{open(log1.name).read()[-3000:]}")
+        t_kill = time.time()
+        orch.kill()
+        orch.wait()
+        newest = {n: max(gens(n)) for n in FLEET_SOLO}
+        # the batch arrives while no orchestrator runs: it waits on disk
+        for name, seed in zip(FLEET_JOBS[2:], FLEET_BATCH):
+            fleet_tool.submit(spool, name, fleet_batch_args(tmp, seed),
+                              batch=True)
+            queued[name] = time.time()
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                             timeout=600)
+        orch2_wall = time.perf_counter() - t0
+        status = subprocess.run(
+            [sys.executable, "-m", "avida_tpu_torch", "--status", spool],
+            cwd=root, env=env, capture_output=True, timeout=120)
+    finally:
+        log1.close()
+        if orch.poll() is None:
+            orch.kill()
+            orch.wait()
+        stop_fleet_children(spool)
+    refs = refs_job.result()
+    recs = [r for r in read_records(jp) if r.get("record") == "fleet"]
+    events = [(r["event"], r.get("job")) for r in recs]
+    states = journal_states(jp)[0]
+    prom = read_metrics(os.path.join(spool, "fleet.prom"))
+    # every child's lifetime, the concurrency bound, double spawns
+    boots, doubles, lives = {}, {}, []
+    for name in FLEET_JOBS:
+        b, d = fleet_boots(spool, name, recs)
+        boots[name], doubles[name] = b, d
+        lives += [(s, e if e is not None else float("inf")) for s, e, _ in b]
+    first2 = next(r["time"] for r in recs if r["event"] == "replay_resume")
+    admits = {r["job"]: r["time"] for r in recs if r["event"] == "admit"}
+    spawns = [(r["time"], r["job"]) for r in recs if r["event"] == "spawn"]
+    queue_wait = {}
+    for name in FLEET_JOBS:
+        start = admits.get(name) if name in FLEET_JOBS[2:] else \
+            min(t for t, j in spawns if j == name)
+        queue_wait[name] = start - queued[name]
+    for name in FLEET_SOLO:
+        resumed = next(r["time"] for r in recs
+                       if r["event"] == "replay_resume"
+                       and r["job"] == name)
+        queue_wait[name + "_after_replay"] = min(
+            t for t, j in spawns if j == name and t > resumed) - resumed
+    # the first heartbeat of a resumed child: its ring's first row after
+    # the second orchestrator spawned it
+    beats = []
+    for name in FLEET_SOLO:
+        t_sp = min(t for t, j in spawns if j == name and t > first2)
+        rows = history.read_samples(os.path.join(
+            spool, name, "data", "metrics.hist.jsonl"))
+        beats += [r["time"] for r in rows if r["time"] > t_sp][:1]
+    # the reaper journals orphan_killed, kills the group and waits for
+    # the pid to go before the job's replay_resume
+    reaped = [(r["job"], r["time"]) for r in recs
+              if r["event"] == "orphan_killed"]
+    resumed_at = {r["job"]: r["time"] for r in recs
+                  if r["event"] == "replay_resume"}
+    restart = [r["time"] for r in recs if r["event"] == "fleet_start"]
+    reports, bad = {}, {}
+    for name in FLEET_SOLO + FLEET_JOBS[2:3]:
+        log = open(os.path.join(spool, name, "data",
+                                "supervised.log")).read()
+        secs = boot_sections(log)
+        n1 = sum(1 for s, _, _ in boots[name] if s < t_kill)
+        first = secs[n1] if len(secs) > n1 else ""
+        restored = re.findall(r"checkpoint_restored.*?update=(\d+)",
+                              secs[-1] if secs else "")
+        reports[name] = dict(
+            last_report(secs[-1] if secs else "",
+                        '{"updates"' if name in FLEET_SOLO
+                        else '{"engine"'),
+            resumed_at=int(restored[0]) if restored else None,
+            first_resume=(re.findall(r"checkpoint_restored.*?update=(\d+)",
+                                     first) or [None])[0],
+            boots=len(secs))
+    for name in FLEET_SOLO:
+        final = os.path.join(spool, name, "ck",
+                             ckpt_mod.generation_name(PERSIST_UPDATES))
+        bad[name] = (generation_arrays_equal(persist_gen, final)
+                     if os.path.isdir(final) else ["no final generation"])
+    for name, ref in zip(FLEET_JOBS[2:], refs):
+        final = os.path.join(spool, name, "ck",
+                             ckpt_mod.generation_name(MW_UPDATES))
+        bad[name] = (generation_arrays_equal(ref, final)
+                     if os.path.isdir(final) else ["no final generation"])
+    coal = [r for r in recs if r["event"] == "coalesce"]
+    out = {"phase": "fleet_path", "nvidia_smi": smi,
+           "world": f"{SIDE}x{SIDE} solo, 2 x {MW_SIDE}x{MW_SIDE} batch",
+           "exit_code": res.returncode, "status_exit_code":
+           status.returncode, "states": states,
+           "done_gauge": prom.get('avida_fleet_jobs{state="done"}'),
+           "xla_fallback_gauge": prom.get("avida_fleet_xla_fallback"),
+           "most_live_children": most_live(lives),
+           "double_spawns": {k: v for k, v in doubles.items() if v},
+           "coalesce": [{k: r.get(k) for k in ("job", "members", "worlds")}
+                        for r in coal],
+           "frozen_at_update": newest,
+           "orphans_killed": [j for j, _ in reaped],
+           "boots": {n: [[round(s - t_kill, 3),
+                          None if e is None else round(e - t_kill, 3), how]
+                         for s, e, how in b] for n, b in boots.items()},
+           "boot_wall_s": {n: [e - s for s, e, _ in b if e is not None]
+                           for n, b in boots.items() if b},
+           "queue_wait_s": queue_wait,
+           "recover_to_replay_s": first2 - t_kill,
+           "recover_to_heartbeat_s": (min(beats) - t_kill if beats
+                                      else None),
+           "orchestrator_restart_s": restart[-1] - t_kill,
+           "orphan_reap_s": {j: resumed_at[j] - t for j, t in reaped
+                             if j in resumed_at},
+           "orchestrator2_wall_s": orch2_wall,
+           "reports": {n: {k: r.get(k) for k in (
+               "device", "engine", "engine_report", "updates",
+               "kernel_launches", "stacked_launches", "resumed_at",
+               "first_resume", "boots")} for n, r in reports.items()},
+           "finals_equal": {n: not v for n, v in bad.items()},
+           "differs": {n: v for n, v in bad.items() if v},
+           "wall_s": time.perf_counter() - t_phase}
+    k1 = [reports[n] for n in FLEET_SOLO]
+    kb = reports["f-b0"]
+    ok = (res.returncode == 0 and status.returncode == 0
+          and states == {n: "done" for n in FLEET_JOBS}
+          and out["done_gauge"] == 4 and out["xla_fallback_gauge"] == 0
+          and not any(e == "xla_fallback" for e, _ in events)
+          and out["most_live_children"] <= 2
+          and not out["double_spawns"]
+          and [c["worlds"] for c in out["coalesce"]] == [2]
+          and out["coalesce"][0]["members"] == ["f-b1"]
+          and sorted(out["orphans_killed"]) == sorted(FLEET_SOLO)
+          and all((events.index(("orphan_killed", n))
+                   < max(i for i, e in enumerate(events)
+                         if e == ("spawn", n))) for n in FLEET_SOLO)
+          and all(str(r.get("first_resume")) == str(newest[n])
+                  for n, r in zip(FLEET_SOLO, k1))
+          and all(str(r.get("device", "")).startswith("cuda")
+                  and (r.get("engine") or {}).get("engine") == "packed"
+                  and r.get("resumed_at") is not None
+                  and r.get("kernel_launches")
+                  == PERSIST_UPDATES - r["resumed_at"]
+                  and r.get("updates") == PERSIST_UPDATES for r in k1)
+          and str(kb.get("device", "")).startswith("cuda")
+          and kb.get("engine") == "packed-stacked"
+          and (kb.get("engine_report") or {}).get("engine") == "packed"
+          and kb.get("stacked_launches") == MW_UPDATES
+          and kb.get("kernel_launches") == MW_UPDATES
+          and kb.get("updates") == MW_UPDATES
+          and out["recover_to_heartbeat_s"] is not None
+          and not out["differs"])
+    if not ok:
+        out["stderr"] = res.stderr.decode()[-3000:]
+        out["status"] = status.stdout.decode()[-1500:]
+        out["journal"] = events
+        raise AssertionError(f"fleet_path check failed: {out}")
     return out
 
 
@@ -5127,7 +5495,7 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
     with tempfile.TemporaryDirectory() as tmp, cpu_jobs() as pool, \
-            card_jobs() as card, ThreadPoolExecutor(2) as kids:
+            card_jobs() as card, ThreadPoolExecutor(3) as kids:
         stamp_submits(kids)
         # the CPU halves of the cross-device phases run in the workers
         # beside the card's phases, queued in the order the phases need
@@ -5153,12 +5521,15 @@ def main() -> int:
         jobs["trace_cross"] = pool.submit(trace_cross_side, ctmp, "cpu")
         jobs["capacity_cross"] = pool.submit(capacity_cross_side, ctmp,
                                              "cpu")
-        cards = {key: card.submit(fn, tmp, "cuda") for key, fn in (
+        # fleet_path's uninterrupted batch members, first in the worker
+        persist_config_dir(tmp, "fleet_cfg")
+        cards = {"fleet_refs": card.submit(fleet_refs, tmp)}
+        cards.update({key: card.submit(fn, tmp, "cuda") for key, fn in (
             ("cross", cross_side), ("mw_cross", mw_cross_side),
             ("xla_cross", xla_cross_side), ("pool_cross", pool_cross_side),
             ("smt_cross", smt_cross_side), ("exp_cross", exp_cross_side),
             ("trace_cross", trace_cross_side),
-            ("capacity_cross", capacity_cross_side))}
+            ("capacity_cross", capacity_cross_side))})
         moved = {
             "xla_path": card.submit(phase_xla_path, SIDE, XLA_UPDATES,
                                     os.path.join(tmp, "xla"), smi),
@@ -5276,14 +5647,16 @@ def main() -> int:
         telk = phase_kernel(wtel, n_launch=1)
         del wtel
         # every kernel is held and timed: from here the CLI children (the
-        # analyze and analytics runs, then the preempted and the
-        # supervised run) take the card from two threads beside this
-        # process's persistence phases and two micro-step paths
+        # analyze and analytics runs, then the fleet, the preempted and
+        # the supervised run) take the card from three threads beside
+        # this process's persistence phases and two micro-step paths
         kid = {"analytics": kids.submit(analytics_side, tmp, ana_ck, "cuda"),
                "analyze": kids.submit(analyze_side, tmp, "cuda")}
         # persistence: each resumed run counts its own launches
         pres, persist_gen = phase_persist_path(tmp, smi)
         emit(pres)
+        kid["fleet"] = kids.submit(phase_fleet_path, tmp, smi, persist_gen,
+                                   cards["fleet_refs"])
         kid["supervise"] = kids.submit(phase_supervise_path, tmp, smi,
                                        persist_gen)
         kid["preempt"] = kids.submit(phase_preempt_cli, tmp, smi,
@@ -5328,6 +5701,7 @@ def main() -> int:
                                          card_job=cards["capacity_cross"]))
         emit(card_half(kid["preempt"], phase_preempt_cli))
         emit(card_half(kid["supervise"], phase_supervise_path))
+        emit(card_half(kid["fleet"], phase_fleet_path))
         emit(phase_analyze_cross_device(tmp, smi, jobs["analyze"],
                                         card_job=kid["analyze"]))
         emit(phase_analytics_cli(tmp, smi, ana_ck, jobs["analytics"],

@@ -69,7 +69,11 @@ assert {"avida_tpu_torch.systematics",
         "avida_tpu_torch.service.supervisor",
         "avida_tpu_torch.tools",
         "avida_tpu_torch.tools.ckpt_tool",
-        "avida_tpu_torch.tools.metrics_tool"} <= set(names), names
+        "avida_tpu_torch.tools.metrics_tool",
+        "avida_tpu_torch.service.fleet",
+        "avida_tpu_torch.service.serve",
+        "avida_tpu_torch.tools.fleet_tool",
+        "avida_tpu_torch.utils.churntrace"} <= set(names), names
 """
 
 # a checkpointed run and its resume end to end (a 4x4 world, 2 + 2

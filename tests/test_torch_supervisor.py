@@ -481,6 +481,10 @@ def _collect(root, sup, spawned, rc):
                          "returncode": p.returncode})
     return _norm({
         "rc": rc, "state": sup.state,
+        # what a fleet orchestrator reads of its jobs' supervisors
+        "succeeded": sup.succeeded,
+        "last_outcome": (None if sup.last_outcome is None
+                         else vars(sup.last_outcome)),
         "counts": [sup.boots, sup.restarts, dict(sup.failures),
                    sup.watchdog_kills, sup.rollbacks, sup.ckpt_fallbacks, sup.policy.failures,
                    sup.policy.budget_left()],
@@ -918,8 +922,14 @@ def test_config_from_env_equals_reference():
 _NO_TORCH = r"""
 import sys
 import avida_tpu_torch.service.supervisor
+import avida_tpu_torch.service.fleet
+import avida_tpu_torch.service.serve
 import avida_tpu_torch.tools.ckpt_tool
+import avida_tpu_torch.tools.fleet_tool
 import avida_tpu_torch.tools.metrics_tool
+import avida_tpu_torch.utils.churntrace
+from avida_tpu_torch.service.fleet import spec_seed_and_batch_key
+spec_seed_and_batch_key({"argv": ["-u", "4", "-s", "7"]})
 bad = sorted(m for m in sys.modules
              if m in ("torch", "jax", "avida_tpu")
              or m.startswith(("torch.", "jax.", "avida_tpu.")))
@@ -980,10 +990,29 @@ def test_supervise_cli_runs_without_torch(tmp_path):
     assert "--- supervisor boot 0 ---" in log
 
 
-def test_fleet_refused_and_fault_plan_needs_argument(tmp_path, capsys):
+def test_fleet_refused_and_fault_plan_needs_argument(tmp_path, capsys,
+                                                     monkeypatch):
+    """The fleet's argument checks, equal to the reference's fleet_main
+    (a spool, an integer --max-jobs, nothing unknown); the streaming
+    serve pool (--dynamic, TPU_FLEET_DYNAMIC=1) refused by name; and
+    --supervise's own checks."""
+    from avida_tpu.service.fleet import fleet_main as ref_fleet_main
+
     from avida_tpu_torch.__main__ import main
-    assert main(["--fleet", str(tmp_path)]) == 2
-    assert "item 16b" in capsys.readouterr().err
+    monkeypatch.delenv("TPU_FLEET_DYNAMIC", raising=False)
+    spool = str(tmp_path / "spool")
+    for argv in (["--fleet"], ["--fleet", spool, "--max-jobs", "x"],
+                 ["--fleet", spool, "--bogus"]):
+        assert main(argv) == ref_fleet_main(argv) == 2
+    assert not os.path.exists(spool)
+    capsys.readouterr()
+    for argv in (["--fleet", spool, "--dynamic"], ["--dynamic"]):
+        assert main(argv) == 2
+        assert "item 16c" in capsys.readouterr().err
+    monkeypatch.setenv("TPU_FLEET_DYNAMIC", "1")
+    assert main(["--fleet", spool]) == 2
+    assert "item 16c" in capsys.readouterr().err
+    monkeypatch.delenv("TPU_FLEET_DYNAMIC")
     assert main(["--supervise", "-d", str(tmp_path), "--fault-plan"]) == 2
     assert main(["--supervise", "-d", str(tmp_path)]) == 2
     assert "TPU_CKPT_DIR" in capsys.readouterr().err
