@@ -1,9 +1,10 @@
 """Command line: `python -m avida_tpu_torch [-u N] [-s SEED] [-d DIR]
 [-c CONFIG_DIR] [-set NAME VALUE ...] [--device cuda|cpu]
-[--worlds SEEDS|MANIFEST] [-a [CKPT_DIR]] [--telemetry] [--profile-dir DIR]
-[--trace] [--status DIR [--max-age SEC]] [-v]`,
-`python -m avida_tpu_torch --supervise [--fault-plan SPECS] ARGS...`, and
-`python -m avida_tpu_torch --fleet SPOOL [--max-jobs N] [--serve]`.
+[--worlds SEEDS|MANIFEST] [--serve-worlds CONTROL] [-a [CKPT_DIR]]
+[--telemetry] [--profile-dir DIR] [--trace] [--status DIR [--max-age SEC]]
+[-v]`, `python -m avida_tpu_torch --supervise [--fault-plan SPECS]
+ARGS...`, and `python -m avida_tpu_torch --fleet SPOOL [--max-jobs N]
+[--serve] [--dynamic]`.
 
 Runs one world and writes its .dat files, with the reference's defaults
 (systematics on: the per-update engine; -set TPU_SYSTEMATICS 0 takes the
@@ -23,7 +24,15 @@ TPU_CKPT_DIR); an empty directory starts fresh.  With --worlds, --resume
 (no DIR) resumes every member from its own checkpoint dir, aligned on a
 common update.  Exit codes as the reference's: 66 no valid generation,
 65 an invariant audit failed, 67 a scrub found a divergence.
---serve-worlds (the serving batch) is not ported and exits 2.
+
+Serving: --serve-worlds CONTROL runs a serving batch
+(parallel/multiworld.ServeBatch): CONTROL is a JSON control file
+({"width": W, "shutdown": false, "members": [{"name", "seed",
+"data_dir", "ckpt_dir", "max_updates"}]}) whose members are admitted
+into ghost slots and retired at checkpoint boundaries, each resuming
+from its own checkpoint dir when it has one; status in DATA_DIR
+/serve.json.  An unreadable control or a width below 1 exits 2, as
+does a class the batch refuses.
 
 Supervision: --supervise runs the rest of the command line as a child
 (`python -m avida_tpu_torch ARGS... --resume`) under the self-healing
@@ -37,9 +46,9 @@ Fleet: --fleet SPOOL drains a spool of job specs
 --max-jobs concurrent supervised children (service/fleet.py: journal
 replay and orphan reaping, admission control, the crash-storm breaker,
 the static --worlds coalescer); --serve keeps it running on an empty
-spool.  Also dispatched before any torch import.  --dynamic and
-TPU_FLEET_DYNAMIC=1 (the streaming serve pool) are not ported and exit
-2.
+spool; --dynamic (or TPU_FLEET_DYNAMIC=1) routes `"batch": true` specs
+into warm --serve-worlds class children (service/serve.ServePool).  Also
+dispatched before any torch import.
 
 Analysis: bare -a runs ANALYZE_FILE (analyze.cfg, in the config dir)
 through the analyze VM (analyze/analyzer.py) instead of an evolution
@@ -164,6 +173,67 @@ def _worlds_main(args, overrides) -> int:
     return 0
 
 
+def _serve_main(args, overrides) -> int:
+    """--serve-worlds: the serving child (parallel/multiworld.ServeBatch).
+    The control file names the padded width and the desired membership;
+    the fleet's serve pool (service/serve.py) rewrites it to promote and
+    demote tenants at checkpoint boundaries.  `--resume` is accepted and
+    implicit: admission resumes any member whose checkpoint dir holds
+    generations, so one command line both starts and restarts a serve
+    child bit for bit."""
+    from avida_tpu_torch.parallel.multiworld import ServeBatch
+    from avida_tpu_torch.utils.audit import StateInvariantError
+    from avida_tpu_torch.utils.integrity import StateDivergenceError
+
+    control = args.serve_worlds
+    try:
+        with open(control) as f:
+            width = int(json.load(f).get("width", 0))
+    except (OSError, ValueError, AttributeError) as e:
+        print(f"[avida_tpu_torch] --serve-worlds: unreadable control file "
+              f"{control!r} ({e})", file=sys.stderr)
+        return 2
+    if width < 1:
+        print(f"[avida_tpu_torch] --serve-worlds: {control!r} needs a "
+              f"positive integer 'width'", file=sys.stderr)
+        return 2
+    data_dir = args.data_dir or os.path.dirname(control) or "data"
+    try:
+        sb = ServeBatch(width, control, data_dir,
+                        config_dir=args.config_dir, overrides=overrides,
+                        device=args.device)
+    except (ValueError, NotImplementedError) as e:
+        print(f"[avida_tpu_torch] --serve-worlds refused: {e}",
+              file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    try:
+        sb.serve()
+    except StateDivergenceError as e:
+        # batch-wide divergence (a GHOST slot changed): every tenant is
+        # suspect -- per-tenant corruption never lands here (the serve
+        # loop demotes that tenant alone)
+        print(f"[avida_tpu_torch] {e}", file=sys.stderr)
+        return EXIT_SDC
+    except StateInvariantError as e:
+        print(f"[avida_tpu_torch] {e}", file=sys.stderr)
+        return EXIT_AUDIT
+    _sync(sb.device)
+    if sb.preempted:
+        print(f"[avida_tpu_torch] preempted; {sb.num_live} live tenant "
+              f"checkpoints saved", file=sys.stderr)
+    from avida_tpu_torch.ops import cycles
+    print(json.dumps({"served": sb.admissions, "retired": sb.retirements,
+                      "boundaries": sb.boundaries, "width": sb.width,
+                      "wall_s": time.perf_counter() - t0,
+                      "device": str(sb.device),
+                      "kernel_launches": cycles.LAUNCHES,
+                      "stacked_launches": cycles.STACKED_LAUNCHES,
+                      "builds": cycles.BUILDS,
+                      "preempted": sb.preempted}))
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
     if "--supervise" in argv:
@@ -171,11 +241,6 @@ def main(argv=None) -> int:
         # must never load torch (it has to outlive a wedged child runtime)
         from avida_tpu_torch.service.supervisor import supervise_main
         return supervise_main(argv)
-    if "--dynamic" in argv and "--fleet" not in argv:
-        print("[avida_tpu_torch] --dynamic: the streaming serve pool is "
-              "not ported to avida_tpu_torch yet (ROADMAP.md Queue 1 item "
-              "16c)", file=sys.stderr)
-        return 2
     if "--fleet" in argv:
         # the orchestrator, like the supervisor, never loads torch
         from avida_tpu_torch.service.fleet import fleet_main
@@ -198,7 +263,8 @@ def main(argv=None) -> int:
                    help="continue from the newest valid checkpoint under "
                         "DIR (default TPU_CKPT_DIR); empty: start fresh")
     p.add_argument("--serve-worlds", default=None, metavar="CONTROL",
-                   help="not ported (the serving batch)")
+                   help="serve a dynamic-membership batch from a control "
+                        "file")
     p.add_argument("-a", "--analyze", nargs="?", const=True, default=None,
                    metavar="CKPT_DIR",
                    help="bare: run ANALYZE_FILE through the analyze VM; "
@@ -231,11 +297,6 @@ def main(argv=None) -> int:
         from avida_tpu_torch.observability.exporter import status_main
         return status_main(args.status, max_age=args.max_age)
 
-    if args.serve_worlds is not None:
-        print("[avida_tpu_torch] --serve-worlds: the serving batch "
-              "(ServeBatch) is not ported to avida_tpu_torch yet "
-              "(ROADMAP.md Queue 1 item 16c)", file=sys.stderr)
-        return 2
     overrides = list(args.overrides)
     if args.seed is not None:
         overrides.append(("RANDOM_SEED", str(args.seed)))
@@ -261,6 +322,8 @@ def main(argv=None) -> int:
         return cli_main(args.analyze, config_dir=args.config_dir,
                         overrides=overrides, data_dir=args.data_dir,
                         verbose=args.verbose, device=args.device)
+    if args.serve_worlds is not None:
+        return _serve_main(args, overrides)
     if args.worlds is not None:
         return _worlds_main(args, overrides)
 

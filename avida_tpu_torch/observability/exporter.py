@@ -19,9 +19,9 @@ scalars by reference at boundary N, read them at boundary N+1 when that
 chunk has finished), the same deferral the systematics newborn drain
 and the flight-recorder drain use; only the exit heartbeat syncs.
 
-The reference's avida_compile_cache_* families have no counterpart (no
-program cache is ported, ROADMAP item 16), and ServeExporter waits for
-ServeBatch (item 14).
+ServeExporter is a serving batch's heartbeat (parallel/multiworld.
+ServeBatch).  The reference's avida_compile_cache_* families have no
+counterpart (no program cache is ported, ROADMAP item 16d).
 """
 
 from __future__ import annotations
@@ -626,3 +626,110 @@ class MultiWorldExporter:
              "masked behind faster tenants",
              {f'world="{n}"': v for n, v in zip(snap["names"], lag)}),
         ]
+
+
+class ServeExporter:
+    """Heartbeat for a ServeBatch (parallel/multiworld.ServeBatch, the
+    streaming serve layer).
+
+    Publishes the same two files as MultiWorldExporter -- metrics.prom
+    (the batch aggregate: the supervisor's watchdog and --status read a
+    serve child exactly like a solo run, and an idle class keeps its
+    watchdog fed through it) and multiworld.prom (per-world
+    {world="tenant"} rows for the LIVE slots) -- plus the serve families:
+    padded width, live and ghost slot counts, admission / retirement /
+    boundary counters and the build count (`avida_serve_compiles_total`,
+    the reference's family name: this process's nvcc builds of the cycle
+    library).  Publishes are synchronous: the serve loop exports at
+    checkpoint boundaries and idle ticks, where the batch is already
+    host-synced."""
+
+    _PER_WORLD = ("avida_update", "avida_organisms", "avida_births_total",
+                  "avida_generation_avg", "avida_insts_total")
+
+    def __init__(self, sb, path: str | None = None):
+        self.sb = sb
+        base = path or sb.data_dir
+        self.path = os.path.join(base, METRICS_FILE)
+        self.worlds_path = os.path.join(base, MULTIWORLD_METRICS_FILE)
+        cfg = _owner_cfg(sb)
+        self.hist = history.HistorySink(self.path, cfg=cfg)
+        self.worlds_hist = history.HistorySink(self.worlds_path, cfg=cfg)
+
+    def export(self, sb=None, durable: bool = False):
+        from avida_tpu_torch.ops import cycles
+        sb = sb or self.sb
+        live = sb._live()
+        rows = {}
+        for i, w in live:
+            organisms = (int(_host(w._prev_alive))
+                         if w._prev_alive is not None
+                         else (int(_host(w.state.alive).sum())
+                               if w.state is not None else 0))
+            rows[sb.names[i]] = {
+                "avida_update": int(w.update),
+                "avida_organisms": organisms,
+                "avida_births_total": int(_host(w._total_births)),
+                "avida_generation_avg": round(
+                    float(_host(w._last_ave_gen)), 4),
+                "avida_insts_total": int(w._flush_exec()),
+            }
+        agg = {
+            "avida_update": max([r["avida_update"] for r in rows.values()],
+                                default=0),
+            "avida_organisms": sum(r["avida_organisms"]
+                                   for r in rows.values()),
+            "avida_births_total": sum(r["avida_births_total"]
+                                      for r in rows.values()),
+            "avida_insts_total": sum(r["avida_insts_total"]
+                                     for r in rows.values()),
+            "avida_preempted": int(bool(sb.preempted or sb._preempt)),
+            "avida_heartbeat_timestamp_seconds": round(time.time(), 3),
+        }
+        fams = [(name, *_HELP[name], value)
+                for name, value in agg.items()]
+        serve_fams = [
+            ("avida_serve_width", "gauge",
+             "padded batch width of this serving class", sb.width),
+            ("avida_serve_live_worlds", "gauge",
+             "slots occupied by live tenants", sb.num_live),
+            ("avida_serve_ghost_slots", "gauge",
+             "inert ghost slots holding the batch's shape",
+             sb.num_ghosts),
+            ("avida_serve_admissions_total", "counter",
+             "tenants promoted into this batch", sb.admissions),
+            ("avida_serve_retirements_total", "counter",
+             "tenants retired from this batch (done/demoted)",
+             sb.retirements),
+            ("avida_serve_boundaries_total", "counter",
+             "checkpoint boundaries crossed (the promotion grid)",
+             sb.boundaries),
+            ("avida_serve_compiles_total", "counter",
+             "nvcc builds of the cycle library run by this process "
+             "(flat after warm-up: no admission waits on a build)",
+             cycles.BUILDS),
+        ] + integrity.prom_families() + profiler.prom_families()
+        per_fams = [(name, *_HELP[name],
+                     {f'world="{n}"': r[name] for n, r in rows.items()})
+                    for name in self._PER_WORLD if rows]
+        snap = {"names": [sb.names[i] for i, _ in live],
+                "trips": (None if sb._trips is None else
+                          _host(sb._trips)[[i for i, _ in live]]),
+                "leader_trips": sb._leader_trips,
+                "trips_updates": sb._trips_updates}
+        occ = MultiWorldExporter._occupancy_families(snap)
+        try:
+            text = render_families(fams + serve_fams)
+            write_metrics(self.path, text, durable=durable)
+            self.hist.publish(text)
+            fams2 = [("avida_multiworld_size", "gauge",
+                      "live tenants in this serving batch", sb.num_live)]
+            fams2 += per_fams + serve_fams + occ
+            fams2.append(("avida_heartbeat_timestamp_seconds",
+                          *_HELP["avida_heartbeat_timestamp_seconds"],
+                          round(time.time(), 3)))
+            wtext = render_families(fams2)
+            write_metrics(self.worlds_path, wtext, durable=durable)
+            self.worlds_hist.publish(wtext)
+        except OSError:
+            pass                    # metrics must never kill serving

@@ -1185,6 +1185,9 @@ _lib = None
 _lib_lock = threading.Lock()
 LAUNCHES = 0           # kernel launches since import (see reset_launches)
 STACKED_LAUNCHES = 0   # of them, stacked multi-world launches
+BUILDS = 0             # library builds (nvcc runs) in this process: the
+#                        port's counterpart of the reference's program
+#                        traces (a serve child's `compiles`)
 
 
 def reset_launches():
@@ -1229,10 +1232,12 @@ def build() -> str:
     per UNITS entry, started together, then one link) and return the
     library path.  ptxas's resource report is kept beside it (see
     resources)."""
+    global BUILDS
     digest = source_digest()
     path = os.path.join(BUILD_DIR, f"libcycles-{digest}.so")
     if os.path.exists(path):
         return path
+    BUILDS += 1
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{digest}.{os.getpid()}"
     units = [(SOURCES[k], flags) for k, flags in UNITS]

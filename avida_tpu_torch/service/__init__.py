@@ -1,9 +1,9 @@
 """Run-service layer: the self-healing supervisor (supervisor.py) and its
 restart pacing (backoff.py); the fleet orchestrator (fleet.py) that
-drains a spool of job specs through many supervisors, and the
-batchability classes its static `--worlds` coalescer keys on (serve.py;
-the streaming serve pool of the reference's serve.py is ROADMAP item
-16c).
+drains a spool of job specs through many supervisors, and the streaming
+serve layer (serve.py): the batchability classes its `--worlds`
+coalescer keys on and the warm `--serve-worlds` class pool of
+`--fleet --dynamic`.
 
 Counterpart of avida_tpu/service/.  Host-only: nothing in this package
 imports torch.  The supervisor and the orchestrator are the processes

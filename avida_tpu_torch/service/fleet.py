@@ -87,8 +87,10 @@ Departures from the reference, each deliberate:
     `xla_fallback` record is written, a reference journal's is read
     and ignored, and `avida_fleet_xla_fallback` stays in fleet.prom at
     0 so the metric families match the reference's.
-  * no streaming serve pool: `--dynamic` and TPU_FLEET_DYNAMIC=1 (warm
-    `--serve-worlds` classes, ROADMAP item 16c) are refused.
+  * the streaming serve pool (`--dynamic` / TPU_FLEET_DYNAMIC=1,
+    service/serve.ServePool) is the reference's, with the breaker rule
+    above: a storm of `sdc` demotions its class children report opens
+    the breaker and pauses admissions, and degrades nothing.
   * the journal is written through the torch-free
     observability/records.py.
 """
@@ -196,7 +198,8 @@ class FleetConfig:
                  drain_sec: float = 600.0, serve: bool = False,
                  journal_max_bytes: int = 64 << 20,
                  max_batch: int = 16, dynamic: bool = False,
-                 tenant_max: int = 0, queue_max: int = 0):
+                 tenant_max: int = 0, queue_max: int = 0,
+                 serve_min_width: int = 2):
         self.max_jobs = max(int(max_jobs), 1)
         self.poll_sec = float(poll_sec)
         self.breaker_k = int(breaker_k)
@@ -210,9 +213,9 @@ class FleetConfig:
         # resource bounding max_jobs exists for -- wider groups split
         # into multiple batches
         self.max_batch = max(int(max_batch), 2)
-        # the reference's streaming serve layer (--dynamic /
-        # TPU_FLEET_DYNAMIC): ROADMAP item 16c, not ported -- fleet_main
-        # refuses it, and the orchestrator never builds a serve pool
+        # the streaming serve layer (service/serve.py): batchable specs
+        # route into warm ghost-padded --serve-worlds children instead
+        # of the static coalescer
         self.dynamic = bool(dynamic)
         # per-tenant admission quota (0 = unlimited): max concurrent
         # running/batched jobs per spec "tenant" label
@@ -221,6 +224,9 @@ class FleetConfig:
         # sit queued, the spool scanner stops ingesting new specs --
         # they wait on disk, unscanned, until the queue drains
         self.queue_max = max(int(queue_max), 0)
+        # smallest serve-class width: even a lone arrival gets one
+        # ghost slot of instant-admission capacity
+        self.serve_min_width = max(int(serve_min_width), 1)
 
     @classmethod
     def from_env(cls, env) -> "FleetConfig":
@@ -237,6 +243,7 @@ class FleetConfig:
             dynamic=bool(int(f("TPU_FLEET_DYNAMIC", 0))),
             tenant_max=int(f("TPU_FLEET_TENANT_MAX", 0)),
             queue_max=int(f("TPU_FLEET_QUEUE_MAX", 0)),
+            serve_min_width=int(f("TPU_SERVE_MIN_WIDTH", 2)),
         )
 
 
@@ -316,6 +323,7 @@ class Job:
         #                                 (None = rescan; reset whenever
         #                                 the job re-enters the queue)
         self._batch_key = None          # cached (seed, static key)
+        self._serve_sig = None          # cached serve-class signature
         self.spool_src = None           # where the queued spec file
         #                                 lives (spool root, or a
         #                                 shard-* subdir)
@@ -479,6 +487,12 @@ class FleetOrchestrator:
         self._recovered = False
         self._shard_cursor = 0
         self._replay()
+        # the streaming serve layer (--dynamic / TPU_FLEET_DYNAMIC):
+        # batchable specs route into warm ghost-padded serve children
+        self.serve_pool = None
+        if self.cfg.dynamic:
+            from avida_tpu_torch.service.serve import ServePool
+            self.serve_pool = ServePool(self)
 
     # ---- journal ----
 
@@ -682,9 +696,10 @@ class FleetOrchestrator:
                      moved_to=os.path.basename(dst))
 
     def _admit(self, now: float):
-        """Admission control: batch placement first (the static
-        coalescer: a batch serves W tenants on one slot), then fill the
-        remaining slots from the queue, unless the circuit breaker holds
+        """Admission control: batch placement first (serve-pool routing
+        under --dynamic, else the static coalescer -- either way a
+        batch serves W tenants on one slot), then fill the remaining
+        slots from the queue, unless the circuit breaker holds
         admissions.  Per-tenant quotas (TPU_FLEET_TENANT_MAX) hold a
         tenant's overflow in the queue without blocking others."""
         self.admissions_paused = self.breaker.is_open(now)
@@ -693,33 +708,90 @@ class FleetOrchestrator:
         running = sum(1 for j in self.jobs.values()
                       if j.state == "running")
         tenants = self._tenant_load() if self.cfg.tenant_max else None
-        for members in self._form_batches():
-            if running >= self.cfg.max_jobs:
-                break
-            if tenants is not None:
-                # the quota covers batched riders too: over-quota
-                # members stay queued; a batch needs >= 2 in-quota
-                # members to still be a batch this tick
-                members = [(j, s) for j, s in members
-                           if not self._over_quota(j, tenants)]
-                if len(members) < 2:
-                    continue
-            if self._start_batch(members):
-                running += 1
-                for j, _ in members:
-                    if j.state in ("running", "batched"):
-                        self._tenant_note(tenants, j)
+        if self.serve_pool is not None:
+            running = self._admit_serve(running, tenants)
+        else:
+            for members in self._form_batches():
+                if running >= self.cfg.max_jobs:
+                    break
+                if tenants is not None:
+                    # the quota covers batched riders too: over-quota
+                    # members stay queued; a batch needs >= 2 in-quota
+                    # members to still be a batch this tick
+                    members = [(j, s) for j, s in members
+                               if not self._over_quota(j, tenants)]
+                    if len(members) < 2:
+                        continue
+                if self._start_batch(members):
+                    running += 1
+                    for j, _ in members:
+                        if j.state in ("running", "batched"):
+                            self._tenant_note(tenants, j)
         for name in sorted(self.jobs):
             if running >= self.cfg.max_jobs:
                 break
             job = self.jobs[name]
             if job.state != "queued":
                 continue
+            if self.serve_pool is not None and job._serve_sig is not None:
+                # a serve-eligible spec the pool could not place THIS
+                # tick (class full / no free slot): it waits for a
+                # ghost slot or the next class spawn -- starting it
+                # solo here would pay the child start the serve layer
+                # exists to remove
+                continue
             if self._over_quota(job, tenants):
                 continue
             if self._start(job):
                 running += 1
                 self._tenant_note(tenants, job)
+
+    # ---- the streaming serve layer (service/serve.py) ----
+
+    def _admit_serve(self, running: int, tenants) -> int:
+        """Serve-pool admission: warm-class placements (cache hits)
+        cost NO admission slot -- the class child is already running --
+        while each cold class spawn costs one.  Ineligible batch specs
+        fall back to the ordinary solo queue with the reason
+        journaled."""
+        from avida_tpu_torch.service.serve import (
+            SpecArgv, batch_ineligible_reason)
+        pool = self.serve_pool
+        groups: dict = {}
+        for name in sorted(self.jobs):
+            job = self.jobs[name]
+            if job.state != "queued":
+                continue
+            spec = self._load_spec(job)
+            if spec is None or not spec.get("batch"):
+                continue
+            if spec.get("fault_plan"):
+                self._batch_fallback(job, "fault_plan is per-process")
+                continue
+            reason = batch_ineligible_reason(spec)
+            if reason is not None:
+                self._batch_fallback(job, reason)
+                continue
+            if SpecArgv(spec.get("argv")).effective_seed is None:
+                self._batch_fallback(job, "no explicit seed in argv")
+                continue
+            if self._over_quota(job, tenants):
+                continue
+            if pool.offer(job, spec):
+                self._tenant_note(tenants, job)
+                continue
+            if job.state != "queued":
+                continue                # quarantined by a failed place
+            groups.setdefault(job._serve_sig, []).append((job, spec))
+        for sig in sorted(groups):
+            if running >= self.cfg.max_jobs:
+                break
+            if pool.spawn_class(groups[sig]):
+                running += 1
+                for job, _ in groups[sig]:
+                    if job.state == "batched":
+                        self._tenant_note(tenants, job)
+        return running
 
     # ---- per-tenant quotas ----
 
@@ -936,8 +1008,8 @@ class FleetOrchestrator:
                                        else "drain"))
 
     def _child_env(self, spec) -> dict:
-        """The environment every child (solo or --worlds batch) is
-        spawned with: base env + per-spec overrides, and the reference's
+        """The environment every child (solo, --worlds batch, serve
+        class) is spawned with: base env + per-spec overrides, and the reference's
         ONE spool-level persistent program cache unless the operator or
         the spec routed it elsewhere."""
         env = dict(self._base_env)
@@ -1063,6 +1135,12 @@ class FleetOrchestrator:
             self.journal("cancelled", job=name)
             return
         if job.state == "batched":
+            if self.serve_pool is not None \
+                    and self.serve_pool.cancel(job):
+                # serve member: demoted alone -- the class child
+                # retires it with a final checkpoint at the next
+                # boundary while its classmates keep running
+                return
             # a static-batch rider has no child of its own: preempt the
             # whole batch gracefully -- this member lands `cancelled`,
             # its peers requeue from their per-world checkpoints
@@ -1196,6 +1274,18 @@ class FleetOrchestrator:
             history.hist_path(self.metrics_path), tail_bytes=256 << 10)}
         self.alerts.observe(samples, now)
 
+    def note_external_failure(self, cls: str, job: Job):
+        """Count one classified failure detected OUTSIDE a job
+        supervisor -- a serve child's in-process `sdc` demotion
+        (parallel/multiworld.ServeBatch) reports through its status
+        file, not an exit code -- into the fleet aggregates and the
+        circuit breaker, so an SDC storm (a sick device corrupting one
+        tenant after another) pauses admissions like any crash storm;
+        it degrades nothing (see the departures above)."""
+        self.failures[cls] = self.failures.get(cls, 0) + 1
+        if self.breaker.note_failure(cls, self._clock()):
+            self._open_breaker(cls, job)
+
     def _open_breaker(self, cls: str, job: Job | None):
         """Journal the storm; admissions stay paused while it lasts
         (_admit reads the breaker).  A kernel-implicated storm (the
@@ -1218,6 +1308,11 @@ class FleetOrchestrator:
         if closed is not None:
             self.journal("breaker_close", failure_class=closed)
         self._eval_alerts(now)
+        if self.serve_pool is not None:
+            # settle member outcomes BEFORE admission: a member the
+            # child finished must journal `done` before the admit pass
+            # could mistake its freed slot for capacity twice
+            self.serve_pool.poll()
         self._admit(now)
         for job in [j for j in self.jobs.values()
                     if j.state == "running" and j.sup is not None]:
@@ -1259,6 +1354,8 @@ class FleetOrchestrator:
              "unix time of the last orchestrator export",
              round(time.time(), 3)),
         ]
+        if self.serve_pool is not None:
+            fams += self.serve_pool.gauges()
         if self.alerts is not None:
             fams += self.alerts.families()
         try:
@@ -1539,8 +1636,9 @@ def format_fleet_status(spool: str, now: float | None = None) -> str:
                       f"depth {d['depth']} tasks {d['tasks_held']}")
         serve_json = os.path.join(spool, name, "data", "serve.json")
         if os.path.exists(serve_json):
-            # a reference serve-class child (item 16c in the port):
-            # width/ghost occupancy + compile count from its status file
+            # a serve-class child: width/ghost occupancy + compile
+            # count from its status file (parallel/multiworld.ServeBatch;
+            # the port's child counts its nvcc builds there)
             try:
                 with open(serve_json) as f:
                     sj = json.load(f)
@@ -1619,12 +1717,9 @@ def fleet_main(argv: list) -> int:
     if "--serve" in argv:
         cfg.serve = True
         argv.remove("--serve")
-    if "--dynamic" in argv or cfg.dynamic:
-        print("[fleet] --dynamic / TPU_FLEET_DYNAMIC=1: the streaming "
-              "serve pool (--serve-worlds classes) is not ported to "
-              "avida_tpu_torch yet (ROADMAP.md Queue 1 item 16c)",
-              file=sys.stderr)
-        return 2
+    if "--dynamic" in argv:
+        cfg.dynamic = True
+        argv.remove("--dynamic")
     if argv:
         print(f"unrecognized --fleet arguments: {argv}", file=sys.stderr)
         return 2

@@ -234,6 +234,22 @@ and persistence (native checkpoints in the reference's format):
                     live, no double spawn, no fleet-wide degradation,
                     every final generation its uninterrupted run's;
                     boots, queue waits, the fleet's time to recover
+  serve_batch       parallel/multiworld.ServeBatch at W = 16 (60x60,
+                    packed, K3b once per batched update): 12 tenants,
+                    two riders promoted into ghost slots at boundary 1,
+                    one tenant demoted at boundary 2; every tenant's
+                    state, .dat files and last generation its solo
+                    run's, the demoted one's generation resumed solo to
+                    its solo run's end, every ghost slot the template
+                    after every chunk, no nvcc build after the warm-up;
+                    ms/update beside multiworld_packed's, the promotion
+                    latency
+  serve_cli         `python -m avida_tpu_torch --fleet SPOOL --dynamic
+                    --max-jobs 2` serving CHURN_r10.trace (six 60x60
+                    arrivals, one cancel): warm hits and cold misses,
+                    the cancelled tenant demoted alone, every other
+                    one's final generation its solo run's; queue waits
+                    of hits against misses, each class child's K3b
   scrub_path        TPU_SCRUB_EVERY=1 for 10 updates: every chunk's
                     shadow replay (the same kernel on the same planes)
                     equal to the live chunk
@@ -255,8 +271,10 @@ card, beside the card's phases: cpu_jobs; the card halves, and three
 micro-step paths that launch no kernel, in one worker process on the
 card, card_jobs, whose updates wait out this process's timed windows;
 once every kernel is held and timed, the CLI children -- fleet_path,
-preempt_cli, supervise_path and the analyze runs -- take the card from
-three threads beside the remaining micro-step paths); the geometry phase holds
+serve_cli, serve_batch's solo runs, preempt_cli, supervise_path and the
+analyze runs -- take the card from five threads beside the remaining
+micro-step paths); the
+geometry phase holds
 both kernels to the plain version at the launch shapes the paths do not
 reach (B = 128, 256, and L = 1024; past the first port's limits the
 Hopper kernel alone, at every staging level, at L = 1088 with 33
@@ -3553,6 +3571,552 @@ def phase_fleet_path(tmp, smi, persist_gen, refs_job):
     return out
 
 
+# ---- slice 18: the serving batch (ServeBatch, --serve-worlds, the
+# fleet's --dynamic pool) ----
+
+SERVE_SEEDS = MW_SEEDS[:12]            # live from the start: 101-112
+SERVE_RIDERS = MW_SEEDS[12:14]         # 113, 114: promoted at boundary 1
+SERVE_DEMOTED = 105                    # demoted at boundary 2
+SERVE_EVERY = 4                        # boundaries (and saves, prints)
+SERVE_EVENTS = ["u begin InjectAll"] + [
+    f"u 0:{SERVE_EVERY}:end {a}" for a in PRINTS[:4]]
+
+
+def serve_world(seed, tmp, tag, device, ck=True):
+    """A serve_batch tenant (or its solo run): a stock 60x60 world of the
+    batch paths (BASELINE config 1) on the packed engine, printing and
+    saving every SERVE_EVERY updates."""
+    name = f"{tag}_{seed}"
+    extra = {"RANDOM_SEED": seed, "TPU_CKPT_EVERY": SERVE_EVERY,
+             "TPU_CKPT_FINAL": 1}
+    if ck:
+        extra["TPU_CKPT_DIR"] = os.path.join(tmp, name + "_ck")
+    return make_world(MW_SIDE, os.path.join(tmp, name), device,
+                      SERVE_EVENTS, extra)
+
+
+def serve_refs(tmp, device="cuda"):
+    """The uninterrupted solo runs of serve_batch's 14 tenants, MW_UPDATES
+    updates each: {seed: (data dir, checkpoint dir)}."""
+    out = {}
+    for seed in SERVE_SEEDS + SERVE_RIDERS:
+        w = serve_world(seed, tmp, "serve_ref", device)
+        w.run(max_updates=MW_UPDATES)
+        out[seed] = (w.data_dir, w._ckpt_base())
+    return out
+
+
+def serve_refs_child(tmp):
+    """serve_refs in a child process on the card, beside the other CLI
+    children (its solo worlds then keep this process free)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-c", "import json, sys, chip_smoke; "
+         "print(json.dumps(chip_smoke.serve_refs(sys.argv[1])))", tmp],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"serve_refs child exited {res.returncode}: "
+                           f"{res.stderr[-2000:]}")
+    refs = json.loads(res.stdout.strip().splitlines()[-1])
+    return {int(k): tuple(v) for k, v in refs.items()}
+
+
+def generation_files_equal(a, b):
+    """Files that differ between two generations, byte for byte, the
+    manifest apart from its saved_at."""
+    fa, fb = sorted(os.listdir(a)), sorted(os.listdir(b))
+    if fa != fb:
+        return ["file set"]
+    bad = []
+    for f in fa:
+        with open(os.path.join(a, f), "rb") as x, \
+                open(os.path.join(b, f), "rb") as y:
+            ba, bb = x.read(), y.read()
+        if f == "manifest.json":
+            ja, jb = json.loads(ba), json.loads(bb)
+            ja.pop("saved_at", None)
+            jb.pop("saved_at", None)
+            if ja != jb:
+                bad.append(f)
+        elif ba != bb:
+            bad.append(f)
+    return bad
+
+
+@quiet_card
+def phase_serve_kernel(p, bst, keys, u0):
+    """One stacked launch on a serve batch's planes (live tenants at their
+    own updates beside all-dead ghost slots), held against the plain
+    version on the same planes and seeds."""
+    from avida_tpu_torch.ops import cycles, packed_chunk, update
+    from avida_tpu_torch.utils import prng
+    B, n_pad, _ = cycles.dims(p, p.num_cells, p.max_memory)
+    ks = [prng.split(prng.fold_in(k, u), 3) for k, u in zip(keys, u0)]
+    pw = packed_chunk.pack_worlds(p, bst)
+    packed_chunk.schedule_phase_worlds(p, pw, [k[0] for k in ks])
+    base = packed_chunk.pad_worlds((pw.tape_t, pw.off_t, pw.ivec, pw.fvec),
+                                   n_pad)
+    wseeds = cycles.world_seed_bases([k[1] for k in ks])
+    seeds = cycles.stacked_block_seeds(wseeds, n_pad, B)
+    cap = update.static_cap(p)
+
+    def stacked(work):
+        cycles.run_packed_stacked(p, work, wseeds, cap, B)
+
+    _, worst, plain_ms = hold_both(p, base, seeds, cap, B,
+                                   "the serve batch's stacked launch",
+                                   stacked)
+    return {"max_abs_err": worst, "plain_ms": plain_ms,
+            "lanes": base[0].shape[1]}
+
+
+def phase_serve_batch(tmp, smi, mw_packed):
+    """parallel/multiworld.ServeBatch in this process at the batch paths'
+    full width: W = 16 stock 60x60 worlds on the packed engine (one
+    stacked launch, K3b, per batched update), 12 tenants (seeds 101-112)
+    live from the start, riders 113 and 114 written into the control
+    during the first chunk and promoted into ghost slots at boundary 1,
+    tenant 105 dropped from the control then and demoted at boundary 2;
+    every tenant runs MW_UPDATES updates.  Checks: each tenant's final
+    state field by field, its .dat files and its last generation byte
+    for byte against its solo run on the card (serve_refs); the demoted
+    tenant's generation resumed solo to its solo run's final state;
+    every ghost slot equal to the template after every chunk; one K3b
+    launch per batched update, the all-ghost warm-up's included; no nvcc
+    build after the warm-up.  Reports ms/update and org-inst/s of the
+    chunks (and ms/update with the boundaries' saves and admissions)
+    beside multiworld_packed's, the promotion latency (the control
+    write to the dispatch of the riders' first chunk, and to its end),
+    each rider's update at admission, and one stacked launch on the
+    batch's planes held against the plain version."""
+    import shutil
+
+    import torch
+    from avida_tpu_torch import convert
+    from avida_tpu_torch.core.state import clone_state, state_field_names
+    from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.parallel.multiworld import ServeBatch
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    root = os.path.join(tmp, "serve_batch")
+    os.makedirs(root)
+    ctl = os.path.join(root, "control.json")
+
+    def entry(seed):
+        return {"name": f"s{seed}", "seed": seed,
+                "data_dir": os.path.join(root, f"s{seed}"),
+                "ckpt_dir": os.path.join(root, f"s{seed}_ck"),
+                "max_updates": MW_UPDATES}
+
+    def write(seeds, shutdown=False):
+        with open(ctl + ".tmp", "w") as f:
+            json.dump({"width": len(MW_SEEDS), "shutdown": shutdown,
+                       "members": [entry(s) for s in seeds]}, f)
+        os.replace(ctl + ".tmp", ctl)
+
+    tenants = {}
+
+    def factory(e):
+        if e["name"] == "__ghost__":
+            return serve_world(0, root, "ghost", "cuda", ck=False)
+        w = make_world(MW_SIDE, e["data_dir"], "cuda", SERVE_EVENTS,
+                       {"RANDOM_SEED": e["seed"],
+                        "TPU_CKPT_DIR": e["ckpt_dir"],
+                        "TPU_CKPT_EVERY": SERVE_EVERY, "TPU_CKPT_FINAL": 1})
+        tenants[e["seed"]] = w
+        return w
+
+    write(SERVE_SEEDS)
+    sb = ServeBatch(len(MW_SEEDS), ctl, root, world_factory=factory)
+    everyone = SERVE_SEEDS + SERVE_RIDERS
+    final = [s for s in everyone if s != SERVE_DEMOTED]
+    marks = {"check_s": 0.0, "chunks": [], "ghost_checks": 0, "bad": []}
+    admitted = {}
+    admit = sb.admit
+
+    def admit_noted(e):
+        ok = admit(e)
+        if ok:
+            admitted[e["seed"]] = int(tenants[e["seed"]].update)
+        return ok
+    sb.admit = admit_noted
+    scan = sb._scan
+
+    def scan_checked(k):
+        live = {sb.names[i] for i, _ in sb._live()}
+        t0 = time.perf_counter()
+        scan(k)
+        _sync("cuda")
+        t1 = time.perf_counter()
+        marks["chunks"].append((t0, t1, k, live))
+        if live == {f"s{s}" for s in SERVE_SEEDS} and "write" not in marks:
+            # the riders arrive during the first chunk: the boundary-1
+            # reconcile promotes them
+            write(SERVE_SEEDS + SERVE_RIDERS)
+            marks["write"] = time.perf_counter()
+        g = sb._ghost_state
+        for i, w in enumerate(sb.slots):
+            if w is None:
+                same = all(getattr(g, f) is None or torch.equal(
+                    getattr(sb.bstate, f)[i], getattr(g, f))
+                    for f in state_field_names())
+                marks["ghost_checks"] += 1
+                if not same:
+                    marks["bad"].append(f"ghost slot {i} after a chunk "
+                                        f"of {k}")
+        marks["check_s"] += time.perf_counter() - t1
+    sb._scan = scan_checked
+    captured = {}
+
+    def hook(s):
+        if s.boundaries == 1:
+            write([x for x in everyone if x != SERVE_DEMOTED])
+        if s.boundaries == 2 and "bst" not in captured:
+            t0 = time.perf_counter()
+            s._stack()
+            captured.update(
+                bst=clone_state(s.bstate), keys=s._run_keys.clone(),
+                u0=[0 if w is None else int(w.update) for w in s.slots])
+            marks["check_s"] += time.perf_counter() - t0
+    sb._boundary_hook = hook
+
+    def idle(sec):
+        if not sb._live() and all(sb.finished.get(f"s{x}", {}).get("state")
+                                  == "done" for x in final):
+            write(final, shutdown=True)
+        time.sleep(0.01)
+    sb._sleep = idle
+    _sync("cuda")
+    cycles.reset_launches()
+    builds0 = cycles.BUILDS
+    t0 = time.perf_counter()
+    sb.serve()
+    _sync("cuda")
+    wall = time.perf_counter() - t0
+    launches, stacked = cycles.LAUNCHES, cycles.STACKED_LAUNCHES
+    builds_after = cycles.BUILDS - builds0
+    chunks = marks["chunks"]
+    warm = [c for c in chunks if not c[3]]
+    live_chunks = [c for c in chunks if c[3]]
+    live_updates = sum(c[2] for c in live_chunks)
+    live_wall = (live_chunks[-1][1] - live_chunks[0][0]) if live_chunks \
+        else 0.0
+    chunk_wall = sum(c[1] - c[0] for c in live_chunks)
+    rider_names = {f"s{s}" for s in SERVE_RIDERS}
+    first_rider = next(c for c in chunks if rider_names <= c[3])
+    insts = sum(w._flush_exec() for w in tenants.values())
+    kern = phase_serve_kernel(sb.params, captured["bst"], captured["keys"],
+                              captured["u0"])
+    del captured
+
+    def finish(refs):
+        """The checks against the solo runs (serve_refs: {seed: (data
+        dir, checkpoint dir)}), once they are made; the phase's line."""
+        # each tenant against its solo run
+        bad = list(marks["bad"])
+        for seed in final:
+            w = tenants[seed]
+            ref_dir, ref_ck = refs[seed]
+            gens = ckpt_mod.list_generations(w._ckpt_base())
+            last = os.path.join(ref_ck, ckpt_mod.generation_name(MW_UPDATES))
+            if not gens or ckpt_mod.generation_update(gens[-1]) != MW_UPDATES:
+                bad.append(f"s{seed}: no generation at {MW_UPDATES}")
+                continue
+            diff = generation_files_equal(last, gens[-1])
+            if diff:
+                bad.append(f"s{seed}: generation {diff}")
+            arrays = ckpt_mod.read_generation(last)[1]
+            mine = convert.state_to_arrays(w.state)
+            for f, v in mine.items():
+                r = arrays.get(f"state.{f}")
+                if (v is None) != (r is None) or (
+                        v is not None and v.tobytes() != r.tobytes()):
+                    bad.append(f"s{seed}: state field {f}")
+            if dat_bodies(w.data_dir) != dat_bodies(ref_dir):
+                bad.append(f"s{seed}: .dat files")
+        # the demoted tenant: its generation at 8 resumed solo to the end
+        dem = tenants[SERVE_DEMOTED]
+        dem_gens = [ckpt_mod.generation_update(g) for g in
+                    ckpt_mod.list_generations(dem._ckpt_base())]
+        ref_dir, ref_ck = refs[SERVE_DEMOTED]
+        ck = os.path.join(root, "demoted_resume_ck")
+        shutil.copytree(dem._ckpt_base(), ck)
+        wr = make_world(MW_SIDE, os.path.join(root, "demoted_resumed"), "cuda",
+                        SERVE_EVENTS, {"RANDOM_SEED": SERVE_DEMOTED,
+                                       "TPU_CKPT_DIR": ck,
+                                       "TPU_CKPT_EVERY": SERVE_EVERY,
+                                       "TPU_CKPT_FINAL": 1})
+        at = wr.resume()
+        wr.run(max_updates=MW_UPDATES)
+        last = os.path.join(ref_ck, ckpt_mod.generation_name(MW_UPDATES))
+        resumed_bad = generation_arrays_equal(
+            last, os.path.join(ck, ckpt_mod.generation_name(MW_UPDATES)))
+        dem_at = os.path.join(ref_ck,
+                              ckpt_mod.generation_name(2 * SERVE_EVERY))
+        handoff_bad = generation_files_equal(
+            dem_at, os.path.join(dem._ckpt_base(),
+                                 ckpt_mod.generation_name(2 * SERVE_EVERY)))
+        st = json.load(open(os.path.join(root, "serve.json")))
+        res = {"phase": "serve_batch", "nvidia_smi": smi,
+               "world": f"{len(MW_SEEDS)} x {MW_SIDE}x{MW_SIDE} slots",
+               "engine": "packed-stacked" if cycles.use_kernel(sb.params)
+               else "off the kernel route",
+               "tenants": len(everyone), "demoted": f"s{SERVE_DEMOTED}",
+               "admissions": sb.admissions, "retirements": sb.retirements,
+               "boundaries": sb.boundaries,
+               "finished": {n: r.get("state") for n, r in
+                            sorted(st["finished"].items())},
+               "warmup_updates": sum(c[2] for c in warm),
+               "live_updates": live_updates,
+               "kernel_launches": launches, "stacked_launches": stacked,
+               "nvcc_builds_after_warmup": builds_after,
+               "serve_json_compiles": st["compiles"],
+               "riders_update_at_admission": {f"s{s}": admitted.get(s)
+                                              for s in SERVE_RIDERS},
+               "promotion_latency_s": first_rider[0] - marks["write"],
+               "promotion_to_first_chunk_end_s":
+                   first_rider[1] - marks["write"],
+               "insts": insts, "wall_s": wall, "check_s": marks["check_s"],
+               "ms_per_update": 1e3 * chunk_wall / max(live_updates, 1),
+               "ms_per_update_with_boundaries":
+                   1e3 * live_wall / max(live_updates, 1),
+               "org_inst_per_s": insts / chunk_wall,
+               "multiworld_packed_ms_per_update": mw_packed["ms_per_update"],
+               "multiworld_packed_org_inst_per_s": mw_packed["org_inst_per_s"],
+               "ghost_slot_checks": marks["ghost_checks"],
+               "demoted_generations": dem_gens, "demoted_resumed_at": at,
+               "tenants_equal_solo": len(final) if not bad else None,
+               "kernel": kern, "differs": bad + [
+                   f"demoted resume {resumed_bad}"] * bool(resumed_bad) + [
+                   f"demoted handoff {handoff_bad}"] * bool(handoff_bad)}
+        ok = (not res["differs"] and sb.admissions == len(everyone)
+              and sb.retirements == len(everyone)
+              and res["finished"] == {f"s{s}": "done" for s in sorted(final)}
+              and stacked == launches == sum(c[2] for c in chunks)
+              and res["nvcc_builds_after_warmup"] == 0
+              and all(v == 0 for v in
+                      res["riders_update_at_admission"].values())
+              and res["ghost_slot_checks"] > 0
+              and kern["max_abs_err"] == 0.0
+              and dem_gens[-1] == 2 * SERVE_EVERY and at == 2 * SERVE_EVERY)
+        if not ok:
+            raise AssertionError(f"serve_batch check failed: {res}")
+        return res
+    return finish
+
+
+SERVE_CLI_UPDATES = 16        # the trace's 40, cut
+SERVE_CLI_SPEED = 1.0         # the trace's own pace
+
+
+def serve_cli_trace():
+    from avida_tpu_torch.utils import churntrace
+    return churntrace.parse_trace(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "CHURN_r10.trace"))
+
+
+def serve_cli_args(tmp, seed):
+    """A churn tenant's command line: a 60x60 world of fleet_cfg (the
+    persist config, PERSIST_EVENTS) with the trace's seed, the packed
+    engine, SERVE_CLI_UPDATES updates, saves every SERVE_EVERY and its
+    own heartbeat."""
+    return ["-c", os.path.join(tmp, "fleet_cfg"), "-s", str(seed),
+            "-set", "WORLD_X", str(MW_SIDE), "-set", "WORLD_Y", str(MW_SIDE),
+            "-set", "TPU_SYSTEMATICS", "0", "-u", str(SERVE_CLI_UPDATES),
+            "-set", "TPU_CKPT_EVERY", str(SERVE_EVERY),
+            "-set", "TPU_METRICS", "1"]
+
+
+def serve_cli_refs(tmp, device="cuda"):
+    """The uninterrupted solo runs of serve_cli's tenants, in
+    serve_cli_args' configuration, saving at the end too (the solo
+    planner's chunks need not end on a multiple of SERVE_EVERY): {job:
+    final generation path}."""
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    out = {}
+    for ev in serve_cli_trace():
+        if ev.kind != "submit":
+            continue
+        seed = int(ev.args["seed"])
+        ck = os.path.join(tmp, f"serve_cli_ref_ck_{ev.job}")
+        w = make_world(MW_SIDE, os.path.join(tmp, f"serve_cli_ref_{ev.job}"),
+                       device, PERSIST_EVENTS,
+                       {"RANDOM_SEED": seed, "TPU_CKPT_DIR": ck,
+                        "TPU_CKPT_EVERY": SERVE_EVERY, "TPU_METRICS": 1,
+                        "TPU_CKPT_FINAL": 1},
+                       config_dir=os.path.join(tmp, "fleet_cfg"))
+        w.run(max_updates=SERVE_CLI_UPDATES)
+        out[ev.job] = os.path.join(
+            ck, ckpt_mod.generation_name(SERVE_CLI_UPDATES))
+    return out
+
+
+def phase_serve_cli(tmp, smi, refs_job):
+    """`python -m avida_tpu_torch --fleet SPOOL --dynamic --max-jobs 2`
+    serving the committed churn trace CHURN_r10.trace (six arrivals, one
+    cancel) replayed at its own pace by utils/churntrace.replay: each
+    arrival a `"batch": true` 60x60 tenant (serve_cli_args), routed by
+    the serve pool into a warm `--serve-worlds` class child (a hit) or a
+    newly spawned one (a miss).  The cancel is held past its trace time
+    until its tenant rides a live class (serve.json shows it past its
+    first boundary), so it demotes a running tenant whatever the
+    children's start takes.  Checks: exit 0; every other tenant done,
+    the cancelled one `cancel_requested` then `cancelled` with nobody
+    else requeued or cancelled; at least one miss and one hit in
+    fleet.prom; every done tenant's final generation byte for byte its
+    solo run's (serve_cli_refs, made in the card worker); each class
+    child on `cuda` with K3b launches and no nvcc build after its
+    warm-up (serve.json `compiles` flat).  Times (host wall): the
+    phase, the queue wait of hits and misses (submission to placement,
+    and to the tenant's first heartbeat)."""
+    from avida_tpu_torch.observability import history
+    from avida_tpu_torch.observability.exporter import read_metrics
+    from avida_tpu_torch.observability.records import read_records
+    from avida_tpu_torch.service.fleet import journal_states
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    from avida_tpu_torch.utils import churntrace
+    t_phase = time.perf_counter()
+    spool = os.path.realpath(os.path.join(tmp, "serve_cli"))
+    os.makedirs(spool)
+    jp = os.path.join(spool, "fleet.jsonl")
+    root = os.path.dirname(os.path.abspath(__file__))
+    events = serve_cli_trace()
+    submits = [e for e in events if e.kind == "submit"]
+    cancel = next(e for e in events if e.kind == "cancel")
+    log = open(os.path.join(tmp, "serve_cli_orch.log"), "w")
+    procs = []
+
+    def start(ev):
+        # the orchestrator comes up with the first arrival (on an empty
+        # spool it would drain and exit at once)
+        if not procs:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "avida_tpu_torch", "--fleet", spool,
+                 "--dynamic", "--max-jobs", "2"], cwd=root,
+                env=fleet_env(), stdout=log, stderr=log))
+
+    def riding(job):
+        """The update the tenant's class last reported for it, or None."""
+        leader = next((r.get("leader") for r in reversed(read_records(jp))
+                       if r.get("event") == "coalesced"
+                       and r.get("job") == job), None)
+        if leader is None:
+            return None
+        try:
+            with open(os.path.join(spool, leader, "data",
+                                   "serve.json")) as f:
+                m = json.load(f).get("members", {}).get(job)
+        except (OSError, ValueError):
+            return None
+        return None if m is None else m.get("update")
+
+    try:
+        t0 = time.time()
+        submitted = churntrace.replay(
+            spool, submits, lambda ev: serve_cli_args(tmp, ev.args["seed"]),
+            speed=SERVE_CLI_SPEED, on_event=start)
+        orch = procs[0]
+        deadline = time.time() + 600
+        while time.time() < deadline and orch.poll() is None and (
+                time.time() < t0 + cancel.t * SERVE_CLI_SPEED
+                or not (riding(cancel.job) or 0) >= SERVE_EVERY):
+            time.sleep(0.05)
+        t_cancel = time.time()
+        cancelled_at = riding(cancel.job)
+        churntrace.replay(spool, [churntrace.ChurnEvent(
+            0.0, "cancel", {"job": cancel.job}, cancel.text)], None)
+        orch.wait(timeout=900)
+        status = subprocess.run(
+            [sys.executable, "-m", "avida_tpu_torch", "--status", spool],
+            cwd=root, env=fleet_env(), capture_output=True, timeout=120)
+    finally:
+        log.close()
+        for orch in procs:
+            if orch.poll() is None:
+                orch.kill()
+                orch.wait()
+        stop_fleet_children(spool)
+    refs = refs_job.result()
+    recs = [r for r in read_records(jp) if r.get("record") == "fleet"]
+    events_ = [(r["event"], r.get("job")) for r in recs]
+    states = journal_states(jp)[0]
+    prom = read_metrics(os.path.join(spool, "fleet.prom"))
+    placed = {r["job"]: (r["time"], r.get("cache"), r.get("leader"))
+              for r in recs if r["event"] == "coalesced"}
+    leaders = sorted(n for n in states if n.startswith("serve-"))
+    waits = {"hit": {}, "miss": {}}
+    for job, (t, cache, _) in placed.items():
+        rows = history.read_samples(os.path.join(
+            spool, job, "data", "metrics.hist.jsonl"))
+        beat = next((r["time"] for r in rows
+                     if r["time"] > submitted[job]), None)
+        waits[cache][job] = {
+            "to_placement_s": t - submitted[job],
+            "to_first_heartbeat_s": (None if beat is None
+                                     else beat - submitted[job])}
+    children, bad = {}, {}
+    for name in leaders:
+        text = open(os.path.join(spool, name, "data",
+                                 "supervised.log")).read()
+        rep = last_report(text, '{"served"')
+        warm = re.findall(r"warm: (\d+) nvcc build", text)
+        sj = json.load(open(os.path.join(spool, name, "data",
+                                         "serve.json")))
+        children[name] = {k: rep.get(k) for k in (
+            "device", "served", "retired", "boundaries", "width",
+            "kernel_launches", "stacked_launches", "builds", "wall_s")}
+        children[name].update(warm_builds=[int(x) for x in warm],
+                              serve_json_compiles=sj.get("compiles"))
+    done = [s.job for s in submits if s.job != cancel.job]
+    for job in done:
+        final = os.path.join(spool, job, "ck",
+                             ckpt_mod.generation_name(SERVE_CLI_UPDATES))
+        bad[job] = (generation_arrays_equal(refs[job], final)
+                    if os.path.isdir(final) else ["no final generation"])
+    classmates = [j for j, (_, _, ld) in placed.items()
+                  if ld == placed.get(cancel.job, (0, 0, None))[2]
+                  and j != cancel.job]
+    out = {"phase": "serve_cli", "nvidia_smi": smi,
+           "world": f"{MW_SIDE}x{MW_SIDE} tenants, "
+                    f"{SERVE_CLI_UPDATES} updates",
+           "exit_code": orch.returncode, "status_exit_code":
+           status.returncode, "states": states,
+           "cache_hits": prom.get("avida_fleet_serve_cache_hits_total"),
+           "cache_misses": prom.get("avida_fleet_serve_cache_misses_total"),
+           "promotions": prom.get("avida_fleet_serve_promotions_total"),
+           "demotions": prom.get("avida_fleet_serve_demotions_total"),
+           "placements": {j: {"cache": c, "class": ld}
+                          for j, (_, c, ld) in sorted(placed.items())},
+           "cancel_held_s": t_cancel - (t0 + cancel.t * SERVE_CLI_SPEED),
+           "cancelled_at_update": cancelled_at,
+           "cancelled_classmates": classmates,
+           "queue_wait_s": waits, "children": children,
+           "finals_equal": {n: not v for n, v in bad.items()},
+           "differs": {n: v for n, v in bad.items() if v},
+           "wall_s": time.perf_counter() - t_phase}
+    ok = (orch.returncode == 0 and status.returncode == 0
+          and all(states.get(j) == "done" for j in done)
+          and states.get(cancel.job) == "cancelled"
+          and all(states[n] == "done" for n in leaders)
+          and ("cancel_requested", cancel.job) in events_
+          and not any(e in ("requeued", "sdc") for e, _ in events_)
+          and [e for e, j in events_ if e == "cancelled"] == ["cancelled"]
+          and (out["cache_hits"] or 0) >= 1
+          and (out["cache_misses"] or 0) >= 1
+          and out["demotions"] == 1 and cancelled_at is not None
+          and all(str(c["device"] or "").startswith("cuda")
+                  and (c["stacked_launches"] or 0) > 0
+                  and c["warm_builds"] and c["warm_builds"][-1]
+                  == c["serve_json_compiles"] == c["builds"]
+                  for c in children.values())
+          and not out["differs"])
+    if not ok:
+        out["journal"] = events_
+        out["status"] = status.stdout.decode()[-1500:]
+        out["log"] = open(log.name).read()[-3000:]
+        raise AssertionError(f"serve_cli check failed: {out}")
+    return out
+
+
 def phase_scrub_path(tmp, smi, updates=10):
     """TPU_SCRUB_EVERY=1 on the headline world: every chunk is replayed
     from its retained pre-chunk state by the same kernel and the digests
@@ -5495,7 +6059,7 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
     with tempfile.TemporaryDirectory() as tmp, cpu_jobs() as pool, \
-            card_jobs() as card, ThreadPoolExecutor(3) as kids:
+            card_jobs() as card, ThreadPoolExecutor(5) as kids:
         stamp_submits(kids)
         # the CPU halves of the cross-device phases run in the workers
         # beside the card's phases, queued in the order the phases need
@@ -5523,7 +6087,8 @@ def main() -> int:
                                              "cpu")
         # fleet_path's uninterrupted batch members, first in the worker
         persist_config_dir(tmp, "fleet_cfg")
-        cards = {"fleet_refs": card.submit(fleet_refs, tmp)}
+        cards = {"fleet_refs": card.submit(fleet_refs, tmp),
+                 "serve_cli_refs": card.submit(serve_cli_refs, tmp)}
         cards.update({key: card.submit(fn, tmp, "cuda") for key, fn in (
             ("cross", cross_side), ("mw_cross", mw_cross_side),
             ("xla_cross", xla_cross_side), ("pool_cross", pool_cross_side),
@@ -5619,6 +6184,11 @@ def main() -> int:
                                                 ana_ck, "cpu")
             del mw
             mw_runs.append((mw_res, mwk))
+        # slice 18: the serving batch at the batch paths' width, beside
+        # multiworld_packed's numbers
+        # (its tenants are held to their solo runs, made by a CLI child
+        # beside the others: serve_batch_done below)
+        serve_batch_done = phase_serve_batch(tmp, smi, mw_runs[1][0])
         wdeme, deme_res = phase_deme_path(SIDE, tmp, smi)
         emit(deme_res)
         demek = phase_default_kernel(wdeme, name="deme_path")
@@ -5647,11 +6217,15 @@ def main() -> int:
         telk = phase_kernel(wtel, n_launch=1)
         del wtel
         # every kernel is held and timed: from here the CLI children (the
-        # analyze and analytics runs, then the fleet, the preempted and
-        # the supervised run) take the card from three threads beside
-        # this process's persistence phases and two micro-step paths
+        # analyze and analytics runs, the serving fleet and serve_batch's
+        # solo runs, then the fleet, the preempted and the supervised
+        # run) take the card from five threads beside this process's
+        # persistence phases and two micro-step paths
         kid = {"analytics": kids.submit(analytics_side, tmp, ana_ck, "cuda"),
-               "analyze": kids.submit(analyze_side, tmp, "cuda")}
+               "analyze": kids.submit(analyze_side, tmp, "cuda"),
+               "serve_cli": kids.submit(phase_serve_cli, tmp, smi,
+                                        cards["serve_cli_refs"]),
+               "serve_refs": kids.submit(serve_refs_child, tmp)}
         # persistence: each resumed run counts its own launches
         pres, persist_gen = phase_persist_path(tmp, smi)
         emit(pres)
@@ -5675,6 +6249,9 @@ def main() -> int:
         emit(mres)
         emit(phase_kernel_limits(tmp))
         emit(phase_print_actions(tmp, smi, jobs["prints"]))
+        serve_res = serve_batch_done(card_half(kid["serve_refs"],
+                                               serve_refs_child))
+        emit(serve_res)
         # slice 10: mating types and energy on the micro-step engine
         emit(phase_mating_path(SIDE, tmp, smi))
         emit(phase_energy_path(SIDE, tmp, smi))
@@ -5702,6 +6279,7 @@ def main() -> int:
         emit(card_half(kid["preempt"], phase_preempt_cli))
         emit(card_half(kid["supervise"], phase_supervise_path))
         emit(card_half(kid["fleet"], phase_fleet_path))
+        emit(card_half(kid["serve_cli"], phase_serve_cli))
         emit(phase_analyze_cross_device(tmp, smi, jobs["analyze"],
                                         card_job=kid["analyze"]))
         emit(phase_analytics_cli(tmp, smi, ana_ck, jobs["analytics"],
@@ -5748,7 +6326,7 @@ def main() -> int:
     # and the resumed and scrubbed persistence runs),
     # the worst error of all, times and bound at the sexual path; K3b,
     # the stacked launch, with its launches over the two batch paths, the
-    # resumed batch and capacity_stacked, and
+    # resumed batch, capacity_stacked and serve_batch, and
     # its times and bound at the default batch path (multiworld_path).
     # Each launch is counted once, under the wrapper that made it.
     kern.update(launches=sum(q["launches"] for q in per_path
@@ -5762,9 +6340,11 @@ def main() -> int:
                "source": "avida_tpu_torch/csrc/cycles.cu",
                "replaces": "avida_tpu/ops/pallas_cycles.py:1729",
                "launches": sum(r["stacked_launches"] for r, _ in mw_runs)
-               + mw_resumed + cap_mw_res["stacked_launches"],
-               "max_abs_err": max(k["max_abs_err"] for _, k in mw_runs
-                                  + [(cap_mw_res, cap_mwk)]),
+               + mw_resumed + cap_mw_res["stacked_launches"]
+               + serve_res["stacked_launches"],
+               "max_abs_err": max([k["max_abs_err"] for _, k in mw_runs
+                                   + [(cap_mw_res, cap_mwk)]]
+                                  + [serve_res["kernel"]["max_abs_err"]]),
                "library_ms": None,
                **{k: mwk[k] for k in ("ms", "simple_ms", "reached",
                                       "plain_ms", "bound_ms", "bound_by")}}

@@ -1139,8 +1139,7 @@ def test_reference_degraded_spool_read_but_not_acted_on(
 
 def test_config_from_env_equals_reference():
     """FleetConfig.from_env reads the reference's knobs to the same
-    values; the serve pool's TPU_SERVE_MIN_WIDTH (item 16c) is the
-    reference's alone."""
+    values, the serve pool's TPU_SERVE_MIN_WIDTH included."""
     env = {"TPU_FLEET_MAX_JOBS": "5", "TPU_FLEET_POLL_SEC": "0.1",
            "TPU_FLEET_BREAKER_K": "4", "TPU_FLEET_BREAKER_SEC": "9",
            "TPU_FLEET_DRAIN_SEC": "7", "TPU_RUNLOG_MAX_BYTES": "4096",
@@ -1149,7 +1148,6 @@ def test_config_from_env_equals_reference():
            "TPU_SERVE_MIN_WIDTH": "0"}
     for e in ({}, env, {"TPU_FLEET_MAX_JOBS": "0"}):
         ref = vars(rfleet.FleetConfig.from_env(e))
-        ref.pop("serve_min_width")
         assert vars(tfleet.FleetConfig.from_env(e)) == ref
 
 

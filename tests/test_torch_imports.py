@@ -1,6 +1,7 @@
 """avida_tpu_torch stands alone: no JAX, nothing of avida_tpu, no silent
 CPU fallback, and configurations outside the port fail loudly."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -140,6 +141,44 @@ def test_worlds_cli_imports_no_jax_and_no_reference(tmp_path):
     assert res.returncode == 0, res.stdout + res.stderr
     assert '"worlds": 2' in res.stdout
     assert sorted(os.listdir(tmp_path / "data")) == ["w000", "w001"]
+
+
+# the serving layer: its three classes import without jax or avida_tpu,
+# and a --serve-worlds child serves one 4x4 tenant two updates (W = 2,
+# the control asking for shutdown once it is done)
+_SERVE_CLI = r"""
+import json, sys
+from avida_tpu_torch.observability.exporter import ServeExporter
+from avida_tpu_torch.parallel.multiworld import ServeBatch
+from avida_tpu_torch.service.serve import ServePool
+from avida_tpu_torch.__main__ import main
+d = sys.argv[1]
+with open(d + "/ctl.json", "w") as f:
+    json.dump({"width": 2, "shutdown": True, "members": [
+        {"name": "t", "seed": 3, "data_dir": d + "/t", "ckpt_dir": d + "/ck",
+         "max_updates": 2}]}, f)
+rc = main(["--serve-worlds", d + "/ctl.json", "-set", "WORLD_X", "4",
+           "-set", "WORLD_Y", "4", "-set", "TPU_CKPT_EVERY", "2",
+           "-set", "TPU_METRICS", "1", "--device", "cpu", "-d", d + "/batch"])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "flax"))
+             or m == "avida_tpu" or m.startswith("avida_tpu."))
+assert rc == 0, rc
+assert not bad, bad
+"""
+
+
+def test_serve_cli_imports_no_jax_and_no_reference(tmp_path):
+    """ServePool, ServeBatch and ServeExporter import, and a serve child
+    runs, with no jax and nothing of avida_tpu in sys.modules."""
+    res = subprocess.run([sys.executable, "-c", _SERVE_CLI, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    with open(tmp_path / "batch" / "serve.json") as f:
+        st = json.load(f)
+    assert st["finished"]["t"]["state"] == "done" and st["ghosts"] == 2
+    assert (tmp_path / "batch" / "multiworld.prom").exists()
 
 
 def test_xla_engine_cli_imports_no_jax_and_no_reference(tmp_path):

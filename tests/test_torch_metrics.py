@@ -169,7 +169,8 @@ def test_multiworld_heartbeat_and_member_refusals(tmp_path):
     """A two-world batch with TPU_METRICS=1 publishes metrics.prom (the
     batch aggregates) and multiworld.prom (a row per world); members
     with a flight recorder or a fault plan are refused with the
-    reference's reason, and --serve-worlds still exits 2."""
+    reference's reason, and --serve-worlds with no control file exits
+    2."""
     from avida_tpu_torch.__main__ import main
     from avida_tpu_torch.parallel.multiworld import MultiWorld
     mw = MultiWorld.from_seeds([1, 2], overrides=[

@@ -420,7 +420,8 @@ def _cli(argv):
 def test_worlds_cli_seed_list_and_manifest(tmp_path):
     """`--worlds 5,6` writes DATA_DIR/w000 and w001, and w000's .dat files
     equal the solo CLI run with seed 5; a manifest names its own dirs; a
-    refused batch, --resume DIR with --worlds and --serve-worlds exit 2;
+    refused batch, --resume DIR with --worlds and --serve-worlds given a
+    worlds manifest for its control exit 2;
     --resume over empty checkpoint dirs starts fresh."""
     common = ["-u", "4", "-set", "WORLD_X", "6", "-set", "WORLD_Y", "6",
               "-set", "TPU_SYSTEMATICS", "0", "--device", "cpu"]

@@ -994,7 +994,8 @@ def test_fleet_refused_and_fault_plan_needs_argument(tmp_path, capsys,
                                                      monkeypatch):
     """The fleet's argument checks, equal to the reference's fleet_main
     (a spool, an integer --max-jobs, nothing unknown); the streaming
-    serve pool (--dynamic, TPU_FLEET_DYNAMIC=1) refused by name; and
+    serve pool (--dynamic, TPU_FLEET_DYNAMIC=1) runs as the reference's
+    does, and a bare --dynamic is the parser's usage error in both; and
     --supervise's own checks."""
     from avida_tpu.service.fleet import fleet_main as ref_fleet_main
 
@@ -1006,13 +1007,22 @@ def test_fleet_refused_and_fault_plan_needs_argument(tmp_path, capsys,
         assert main(argv) == ref_fleet_main(argv) == 2
     assert not os.path.exists(spool)
     capsys.readouterr()
-    for argv in (["--fleet", spool, "--dynamic"], ["--dynamic"]):
-        assert main(argv) == 2
-        assert "item 16c" in capsys.readouterr().err
-    monkeypatch.setenv("TPU_FLEET_DYNAMIC", "1")
-    assert main(["--fleet", spool]) == 2
-    assert "item 16c" in capsys.readouterr().err
+    from avida_tpu.__main__ import main as ref_main
+    codes = []
+    for m in (main, ref_main):
+        with pytest.raises(SystemExit) as e:
+            m(["--dynamic"])
+        codes.append(e.value.code)
+    assert codes == [2, 2]
+    for k, argv in enumerate((["--fleet", "{}", "--dynamic"],
+                              ["--fleet", "{}"])):
+        if k:
+            monkeypatch.setenv("TPU_FLEET_DYNAMIC", "1")
+        runs = [[a.format(tmp_path / f"dyn{k}{who}") for a in argv]
+                for who in ("port", "ref")]
+        assert main(runs[0]) == ref_fleet_main(runs[1]) == 0
     monkeypatch.delenv("TPU_FLEET_DYNAMIC")
+    assert "item 16c" not in capsys.readouterr().err
     assert main(["--supervise", "-d", str(tmp_path), "--fault-plan"]) == 2
     assert main(["--supervise", "-d", str(tmp_path)]) == 2
     assert "TPU_CKPT_DIR" in capsys.readouterr().err
