@@ -223,6 +223,7 @@ def _serve_main(args, overrides) -> int:
         print(f"[avida_tpu_torch] preempted; {sb.num_live} live tenant "
               f"checkpoints saved", file=sys.stderr)
     from avida_tpu_torch.ops import cycles
+    from avida_tpu_torch.utils import compilecache
     print(json.dumps({"served": sb.admissions, "retired": sb.retirements,
                       "boundaries": sb.boundaries, "width": sb.width,
                       "wall_s": time.perf_counter() - t0,
@@ -230,6 +231,8 @@ def _serve_main(args, overrides) -> int:
                       "kernel_launches": cycles.LAUNCHES,
                       "stacked_launches": cycles.STACKED_LAUNCHES,
                       "builds": cycles.BUILDS,
+                      "cache_hits": compilecache.cache_load_count(),
+                      "cache_misses": compilecache.cache_miss_count(),
                       "preempted": sb.preempted}))
     return 0
 

@@ -278,22 +278,21 @@ class AvidaConfig:
     # Default off pending device-scale soak.  Program-affecting and
     # STATIC, like TPU_PACKED_FUSED.
     TPU_PACKED_BITS: int = 0
-    # Persistent AOT program cache (utils/compilecache.py): 1 = the
-    # engine's compiled scan programs (update_scan / multiworld_scan)
-    # are AOT-serialized into an on-disk store and deserialized in
-    # milliseconds by later processes with the same static config --
-    # a cold-spawned serve/fleet child skips the ~25-40s compile
-    # window.  0 is a HARD kill switch (the env var TPU_COMPILE_CACHE=0
-    # kills it too); entries are CRC-manifested and any toolchain or
-    # code drift falls back loudly to a fresh trace.  This is NOT
-    # JAX_COMPILATION_CACHE_DIR (which corrupts resumed runs on this
-    # toolchain -- README "Known landmines"): it is avida-tpu's own
-    # store with its own integrity checks.
+    # Persistent program cache (utils/compilecache.py): 1 = the cycle
+    # library that nvcc builds (ops/cycles.py) is published into a
+    # CRC-manifested on-disk store and loaded in milliseconds by later
+    # processes -- a cold-spawned serve/fleet child skips the nvcc
+    # build.  A corrupt entry, or one built by another toolchain or
+    # source version, is journaled and rebuilt, never loaded.  0 is a
+    # HARD kill switch (the env var TPU_COMPILE_CACHE=0 kills it too):
+    # every process builds privately.  One decision per process: the
+    # first world that reaches the kernel decides with its config.
     TPU_COMPILE_CACHE: int = 1
     # Cache root directory ("-" = resolve from the TPU_COMPILE_CACHE_DIR
-    # env var, else ~/.cache/avida_tpu/compile).  The fleet orchestrator
-    # points children at SPOOL/compile-cache so one class child's
-    # compile warms every sibling.
+    # env var, else avida_tpu_torch/_build); entries live under its
+    # kernels-torch/ subdirectory.  The fleet orchestrator points
+    # children at SPOOL/compile-cache so one child's build warms every
+    # sibling.
     TPU_COMPILE_CACHE_DIR: str = "-"
     # Runtime telemetry (avida_tpu/observability/): 1 = phase-fenced
     # staged updates, device counters and a telemetry.jsonl run log in

@@ -13,11 +13,14 @@ Counterpart of avida_tpu/observability/:
   harness.py  -- the phase and end-to-end measurers
   tracer.py   -- `FlightRecorder`: the host drain of the device-side
                  event ring (TPU_TRACE=1) into {"record": "trace"} lines
+  events.py   -- its event codes (no imports: trace_tool reads them)
   exporter.py -- `MetricsExporter`: the atomic metrics.prom heartbeat +
                  `python -m avida_tpu_torch --status DIR`
   history.py  -- the .hist.jsonl time-series rings beside each .prom
   alerts.py   -- the alert rules over those rings
   profiler.py -- `ChunkProfiler`: per-chunk attribution (TPU_PROFILE)
+  perfread.py -- the torch-free readers perf_tool needs: metrics.prom,
+                 perf.jsonl, bench artifacts and their provenance
 
 Everything is opt-in (TPU_TELEMETRY=1 / `--telemetry`, TPU_TRACE,
 TPU_METRICS, TPU_PROFILE); with all of them off nothing here runs and no
@@ -33,7 +36,7 @@ _EXPORTS = {
     "TelemetryRecorder": "runlog", "TelemetryWriter": "runlog",
     "StagedUpdate": "staged",
     "Timeline": "timeline",
-    "EVENT_CODES": "tracer", "FlightRecorder": "tracer",
+    "EVENT_CODES": "events", "FlightRecorder": "tracer",
 }
 
 __all__ = sorted(_EXPORTS)

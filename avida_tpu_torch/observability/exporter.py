@@ -20,8 +20,9 @@ chunk has finished), the same deferral the systematics newborn drain
 and the flight-recorder drain use; only the exit heartbeat syncs.
 
 ServeExporter is a serving batch's heartbeat (parallel/multiworld.
-ServeBatch).  The reference's avida_compile_cache_* families have no
-counterpart (no program cache is ported, ROADMAP item 16d).
+ServeBatch).  Both heartbeats carry the program cache's
+avida_compile_cache_* families (utils/compilecache.py) once the process
+touched the store, as the reference's do.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import time
 import numpy as np
 
 from avida_tpu_torch.observability import history, profiler
-from avida_tpu_torch.utils import integrity
+from avida_tpu_torch.utils import compilecache, integrity
 
 METRICS_FILE = "metrics.prom"
 MULTIWORLD_METRICS_FILE = "multiworld.prom"
@@ -145,6 +146,7 @@ def _render(values: dict, trace) -> str:
             ("avida_trace_code_total", *_HELP["avida_trace_code_total"],
              {f'code="{code}"': count
               for code, count in trace[2].items()}))
+    families += compilecache.prom_families()
     families += integrity.prom_families()
     families += profiler.prom_families()
     return render_families(families)
@@ -198,9 +200,9 @@ def format_status(metrics: dict, now: float | None = None,
             f"{int(metrics.get('avida_trace_dropped_total', 0))} dropped")
     if "avida_compile_cache_hits_total" in metrics \
             or "avida_compile_cache_misses_total" in metrics:
-        # persistent AOT program cache (utils/compilecache.py): how
-        # this process got its compiled programs -- deserialized (hits)
-        # vs freshly traced (misses) -- and what each side cost
+        # persistent program cache (utils/compilecache.py): how this
+        # process got its cycle library -- loaded from a verified entry
+        # (hits) or built by nvcc (misses) -- and what each side cost
         lines.append(
             f"cache       "
             f"{int(metrics.get('avida_compile_cache_hits_total', 0))} "
@@ -708,7 +710,8 @@ class ServeExporter:
              "nvcc builds of the cycle library run by this process "
              "(flat after warm-up: no admission waits on a build)",
              cycles.BUILDS),
-        ] + integrity.prom_families() + profiler.prom_families()
+        ] + compilecache.prom_families() + integrity.prom_families() \
+            + profiler.prom_families()
         per_fams = [(name, *_HELP[name],
                      {f'world="{n}"': r[name] for n, r in rows.items()})
                     for name in self._PER_WORLD if rows]

@@ -20,7 +20,10 @@ families, the perf record's "programs" key), this package compiles no
 programs: those keys are left out, and the CUDA events' chunk times
 ("chunk_device_ms", avida_perf_chunk_device_ms) and the allocator's
 counters ("device_memory", avida_perf_device_*_bytes) take their place.
-The bench provenance helpers wait for the port's bench (ROADMAP item 8).
+The readers of what it writes (perf.jsonl, metrics.prom) and of bench
+artifacts are in perfread.py, which tools/perf_tool.py loads without
+torch; the bench provenance writer waits for the port's bench (ROADMAP
+item 8).
 
 Everything lands in the observability grammars: `avida_perf_*`
 families on the metrics exporter (empty when off), {"record": "perf"}
@@ -34,7 +37,9 @@ from __future__ import annotations
 import os
 import time
 
-PERF_FILE = "perf.jsonl"
+from avida_tpu_torch.observability.perfread import (  # noqa: F401
+    PERF_FILE, read_perf_records)
+
 PROFILES_DIR = "profiles"
 _PERF_MAX_BYTES = 16 << 20
 
@@ -502,14 +507,6 @@ def append_perf_record(data_dir: str, rec: dict):
                       max_bytes=_PERF_MAX_BYTES, durable=False)
     except Exception:
         pass                    # attribution must never kill the run
-
-
-def read_perf_records(data_dir: str) -> list:
-    """The perf records across the rotation pair, oldest first (torn
-    lines skipped)."""
-    from avida_tpu_torch.observability.records import read_records
-    return [rec for rec in read_records(os.path.join(data_dir, PERF_FILE))
-            if rec.get("record") == "perf"]
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,7 @@ record).  The recorder never forces an early host sync.
 Drained events land in the existing runlog (telemetry.jsonl) as one
 {"record": "trace", "update": u, "events": [[cell, code, payload], ...]}
 line per update -- trimmed on resume by runlog.trim_update_records
-exactly like per-update telemetry records.  scripts/trace_tool.py
+exactly like per-update telemetry records.  tools/trace_tool.py
 converts the runlog to a Chrome/Perfetto trace.json and back.
 
 Counterpart of avida_tpu/observability/tracer.py; the snapshot copies
@@ -45,31 +45,11 @@ import numpy as np
 import torch
 
 from avida_tpu_torch.core.state import TRACE_RING_FIELDS as _RING_FIELDS
-
-EV_BIRTH = 1
-EV_DEATH = 2
-EV_TASK_FIRST = 3
-EV_SCHED_STALL = 4
-EV_ANOM_MERIT = 5
-EV_ANOM_HEAD = 6
-EV_REVERT = 7
-EV_STERILIZE = 8
-
-EVENT_CODES = {
-    EV_BIRTH: "birth",
-    EV_DEATH: "death",
-    EV_TASK_FIRST: "task_first",
-    EV_SCHED_STALL: "sched_stall",
-    EV_ANOM_MERIT: "anom_merit",
-    EV_ANOM_HEAD: "anom_head",
-    EV_REVERT: "revert",
-    EV_STERILIZE: "sterilize",
-}
-
-# highest code the DEVICE ring can contain: EV_REVERT/EV_STERILIZE are
-# host-side merges (FlightRecorder.record_host) that never enter tr_code
-# -- the auditor bounds live ring entries by this, not max(EVENT_CODES)
-DEVICE_MAX_CODE = EV_ANOM_HEAD
+# the codes live in a torch-free module, which tools/trace_tool.py reads
+# from an operator's shell
+from avida_tpu_torch.observability.events import (  # noqa: F401
+    DEVICE_MAX_CODE, EV_ANOM_HEAD, EV_ANOM_MERIT, EV_BIRTH, EV_DEATH,
+    EV_REVERT, EV_SCHED_STALL, EV_STERILIZE, EV_TASK_FIRST, EVENT_CODES)
 
 
 def ring_order(count: int, cap: int) -> np.ndarray:

@@ -49,6 +49,7 @@ import ctypes
 import os
 import subprocess
 import threading
+import time
 from typing import NamedTuple
 
 import torch
@@ -61,7 +62,7 @@ from avida_tpu_torch.models.heads import (
     SEM_INC, SEM_IO, SEM_JMP_HEAD, SEM_MOV_HEAD, SEM_NAND, SEM_POP, SEM_PUSH,
     SEM_SET_FLOW, SEM_SHIFT_L, SEM_SHIFT_R, SEM_SUB, SEM_SWAP, SEM_SWAP_STK,
 )
-from avida_tpu_torch.utils import prng
+from avida_tpu_torch.utils import compilecache, prng
 
 # ---- ivec row layout (the reference's, pallas_cycles.py:104-156) ----
 IV_MEM_LEN = 0
@@ -1176,13 +1177,15 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 # built into one library
 SOURCES = tuple(os.path.join(_CSRC, f) for f in ("cycles.cu",
                                                   "cycles_simple.cu"))
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                         "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+ARCH = "sm_90a"          # the target of NVCC_FLAGS
 _lib = None
+_lib_path = None       # the library _lib was loaded from
 _lib_lock = threading.Lock()
+CACHE_ACTION = None    # how _lib was found: "hit", "miss", "rebuilt",
+#                        "store_failed" or "off" (utils/compilecache.py)
 LAUNCHES = 0           # kernel launches since import (see reset_launches)
 STACKED_LAUNCHES = 0   # of them, stacked multi-world launches
 BUILDS = 0             # library builds (nvcc runs) in this process: the
@@ -1216,8 +1219,9 @@ UNITS = ((0, ()), (0, ("-DAVIDA_CYCLES_WIDE=1",)), (1, ()))
 
 
 def source_digest() -> str:
-    """Digest of both kernel sources and the compiler flags: names the
-    library, so a change to either source rebuilds it."""
+    """Digest of both kernel sources, the compiler flags and the units:
+    the key of the library's cache entry (utils/compilecache.py), so a
+    change to either source rebuilds it."""
     import hashlib
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode()
                        + repr(UNITS).encode())
@@ -1227,21 +1231,16 @@ def source_digest() -> str:
     return h.hexdigest()[:12]
 
 
-def build() -> str:
-    """Compile the sources into _build/ (once per source version: one nvcc
-    per UNITS entry, started together, then one link) and return the
-    library path.  ptxas's resource report is kept beside it (see
-    resources)."""
+def _compile(out_dir: str) -> str:
+    """Compile the sources into out_dir/libcycles.so (one nvcc per UNITS
+    entry, started together, then one link), with ptxas's resource
+    report beside it as ptxas.txt (see resources).  Returns the library
+    path; raises when nvcc fails."""
     global BUILDS
-    digest = source_digest()
-    path = os.path.join(BUILD_DIR, f"libcycles-{digest}.so")
-    if os.path.exists(path):
-        return path
     BUILDS += 1
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tag = f"{digest}.{os.getpid()}"
+    os.makedirs(out_dir, exist_ok=True)
     units = [(SOURCES[k], flags) for k, flags in UNITS]
-    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{n}.{tag}.o")
+    objs = [os.path.join(out_dir, f"{os.path.basename(s)}.{n}.o")
             for n, (s, _) in enumerate(units)]
     procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *flags, "-c", "-o", o,
                                s],
@@ -1252,18 +1251,172 @@ def build() -> str:
     bad = [u for u, p in zip(units, procs) if p.returncode != 0]
     if bad:
         raise RuntimeError(f"nvcc failed on {bad}:\n{report}")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs],
+    path = os.path.join(out_dir, compilecache.LIB_FILE)
+    res = subprocess.run([_nvcc(), "-shared", "-o", path, *objs],
                          capture_output=True, text=True)
     for o in objs:
         os.remove(o)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                            f"{res.stderr}")
-    with open(path[:-3] + ".ptxas.txt", "w") as f:
+    with open(os.path.join(out_dir, compilecache.PTXAS_FILE), "w") as f:
         f.write(report)
-    os.replace(tmp, path)
     return path
+
+
+def nvcc_release() -> str | None:
+    """The release line of `nvcc --version` ("release 12.8, V12.8.93"),
+    or None when no nvcc is on the path."""
+    try:
+        nvcc = _nvcc()
+    except RuntimeError:
+        return None
+    import re
+    out = subprocess.run([nvcc, "--version"], capture_output=True,
+                         text=True).stdout
+    m = re.search(r"release [^\n]*", out)
+    return m.group(0).strip() if m else out.strip()
+
+
+def device_arch() -> str | None:
+    """The arch the current card runs: ARCH on a compute capability 9.0
+    card, sm_XY elsewhere, None without a card."""
+    if not torch.cuda.is_available():
+        return None
+    major, minor = torch.cuda.get_device_capability()
+    return ARCH if (major, minor) == (9, 0) else f"sm_{major}{minor}"
+
+
+def toolchain() -> dict:
+    """This process's toolchain fields (utils/compilecache.
+    TOOLCHAIN_FIELDS), which an entry must match to be loaded; a fresh
+    build records them with NVCC_FLAGS' target as its arch."""
+    return {"nvcc": nvcc_release(),
+            "arch": device_arch(),
+            "flags": list(NVCC_FLAGS),
+            "units": [[k, list(flags)] for k, flags in UNITS],
+            "code": source_digest()}
+
+
+def _private_dir() -> str:
+    """A temporary directory of this process's own, removed at exit."""
+    import atexit
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="avida-cycles-")
+    atexit.register(shutil.rmtree, d, True)
+    return d
+
+
+def _bind(path: str):
+    """ctypes-load the library at `path` and declare its entry points."""
+    lib = ctypes.CDLL(path)
+    # the Hopper kernel takes a scratch plane beside the first port's
+    # operands
+    for fn, n_ptr in ((lib.avida_cycles_launch, 9),
+                      (lib.avida_cycles_launch_wide, 9),
+                      (lib.avida_cycles_launch_simple, 8)):
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int,
+                                                   ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.avida_cycles_clusters, lib.avida_cycles_clusters_wide):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _open(cfg, log):
+    """(path, library) through the program cache (utils/compilecache.py).
+
+    Hit: verify the entry's CRCs, then its toolchain, then load it.  Miss,
+    or a corrupt or stale entry (counted as an error and journaled): build
+    into a private directory, publish the entry, load the published
+    library; when the root cannot be written, journal store_failed and
+    load the private build.  Cache off: build privately, read and store
+    nothing.  A failed build or load raises."""
+    global CACHE_ACTION
+    cc = compilecache
+    if not cc.enabled(cfg):
+        CACHE_ACTION = "off"
+        path = _compile(_private_dir())
+        return path, _bind(path)
+    root = cc.cache_dir(cfg)
+    key = source_digest()
+    t0 = time.monotonic()
+    current = toolchain()
+    failed = None
+    try:
+        entry = cc.load_entry(root, key, current)
+    except cc.CompileCacheMiss:
+        entry = None
+    except cc.CompileCacheStale as e:
+        entry, failed = None, ("stale", e)
+    except cc.CompileCacheError as e:
+        entry, failed = None, ("corrupt", e)
+    if entry is not None:
+        path = os.path.join(entry, cc.LIB_FILE)
+        lib = _bind(path)
+        ms = (time.monotonic() - t0) * 1000.0
+        cc.record("hits")
+        cc.record("load_ms", ms)
+        cc.note(log, action="load", tag="cycles", key=key, ms=round(ms, 1))
+        CACHE_ACTION = "hit"
+        return path, lib
+    if failed is not None:
+        cc.record("errors")
+        cc.note(log, action=failed[0], tag="cycles", key=key,
+                error=str(failed[1]))
+    t0 = time.monotonic()
+    built = _compile(_private_dir())
+    ms = (time.monotonic() - t0) * 1000.0
+    cc.record("misses")
+    cc.record("compile_ms", ms)
+    cc.note(log, action="compile", tag="cycles", key=key, ms=round(ms, 1))
+    t0 = time.monotonic()
+    try:
+        files = {}
+        for name in (cc.LIB_FILE, cc.PTXAS_FILE):
+            with open(os.path.join(os.path.dirname(built), name), "rb") as f:
+                files[name] = f.read()
+        entry = cc.write_entry(root, key, files,
+                               dict(current, arch=ARCH, tag="cycles",
+                                    compile_ms=round(ms, 1)))
+    except Exception as e:
+        # an unwritable root: the run goes on from the private build
+        cc.record("errors")
+        cc.note(log, action="store_failed", tag="cycles", key=key,
+                error=str(e))
+        CACHE_ACTION = "store_failed"
+        return built, _bind(built)
+    cc.record("store_ms", (time.monotonic() - t0) * 1000.0)
+    cc.note(log, action="store", tag="cycles", key=key,
+            bytes=len(files[cc.LIB_FILE]))
+    CACHE_ACTION = "miss" if failed is None else "rebuilt"
+    path = os.path.join(entry, cc.LIB_FILE)
+    return path, _bind(path)
+
+
+def load(cfg=None, log=None):
+    """The cycle library of this process, loaded once (_open).  One
+    decision per process: the first World, MultiWorld or ServeBatch
+    that reaches the kernel decides with its `cfg` (TPU_COMPILE_CACHE,
+    TPU_COMPILE_CACHE_DIR) and journals through its `log`; later callers,
+    whatever their cfg, reuse what is loaded.  A launch that comes first
+    (chip_smoke.py, a Test CPU outside a World) decides from the
+    environment."""
+    global _lib, _lib_path
+    with _lib_lock:
+        if _lib is None:
+            _lib_path, _lib = _open(cfg, log)
+    return _lib
+
+
+def build(cfg=None, log=None) -> str:
+    """The path of the loaded cycle library (load): a verified cache
+    entry's libcycles.so, or with the cache off or its root unwritable a
+    private build's."""
+    load(cfg, log)
+    return _lib_path
 
 
 def parse_ptxas(text: str) -> dict:
@@ -1314,31 +1467,11 @@ def parse_ptxas(text: str) -> dict:
 
 
 def resources() -> dict:
-    """The built kernels' resources as ptxas reported them (build first)."""
-    with open(build()[:-3] + ".ptxas.txt") as f:
+    """The built kernels' resources as ptxas reported them (the ptxas.txt
+    beside the loaded library)."""
+    path = os.path.join(os.path.dirname(build()), compilecache.PTXAS_FILE)
+    with open(path) as f:
         return parse_ptxas(f.read())
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            # the Hopper kernel takes a scratch plane beside the first
-            # port's operands
-            for fn, n_ptr in ((lib.avida_cycles_launch, 9),
-                              (lib.avida_cycles_launch_wide, 9),
-                              (lib.avida_cycles_launch_simple, 8)):
-                fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int,
-                                                           ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            for fn in (lib.avida_cycles_clusters,
-                       lib.avida_cycles_clusters_wide):
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
 
 
 def params_cached(store: dict, params, device, build):
@@ -1598,7 +1731,7 @@ def max_active_clusters(params, L, B, plan) -> int:
     if key not in _CLUSTERS:
         pi = _int_params(params, L // 4, B, B, 1, plan)
         out = ctypes.c_int(0)
-        lib = _load()
+        lib = load()
         query = (lib.avida_cycles_clusters_wide
                  if mask_words(params.num_reactions) > 1
                  else lib.avida_cycles_clusters)
@@ -1654,7 +1787,7 @@ def _launch_cuda(params, planes, seeds, num_steps, B, simple=False,
         float(params.base_const_merit),
         prng.f32_reciprocal(params.offspring_size_range))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _load()
+    lib = load()
     ptrs = (tape_t.data_ptr(), off_t.data_ptr(), ivec.data_ptr(),
             fvec.data_ptr(), seeds.data_ptr(), tab.data_ptr())
     if simple:

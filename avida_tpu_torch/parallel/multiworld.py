@@ -62,7 +62,7 @@ from avida_tpu_torch.core.state import (clone_state, stack_states,
 from avida_tpu_torch.ops import cycles
 from avida_tpu_torch.ops import resources as res_ops
 from avida_tpu_torch.ops.update import update_scan_batched
-from avida_tpu_torch.utils import integrity, prng
+from avida_tpu_torch.utils import compilecache, integrity, prng
 from avida_tpu_torch.world import World
 
 
@@ -350,6 +350,9 @@ class MultiWorld:
         accumulator updates per world (each world's avida-time increment
         summed in the solo order) and its integrity boundary."""
         pre = None
+        # the library through the program cache, journaled in the lead
+        # member's run log (World._load_kernel)
+        self.worlds[0]._load_kernel()
         if self.profiler is not None:
             self.profiler.chunk_begin(k)
         if self._scrub_every > 0:
@@ -859,6 +862,13 @@ class ServeBatch:
     def _log(self, msg: str):
         print(f"[serve] {msg}", file=sys.stderr)
 
+    def _compile_cache_log(self, **fields):
+        """compile_cache journal shim for the serve child's library load
+        (stderr through runlog.emit_event: no member owns the batch-wide
+        library, so no telemetry writer)."""
+        from avida_tpu_torch.observability.runlog import emit_event
+        emit_event(None, "compile_cache", **fields)
+
     def _read_control(self):
         try:
             with open(self.control_path) as f:
@@ -1060,6 +1070,10 @@ class ServeBatch:
         its OWN update counter (the u0 vector), ghosts run zero-trip
         identities in their slots."""
         u0 = [0 if w is None else int(w.update) for w in self.slots]
+        if cycles._lib is None and self.device.type == "cuda" \
+                and cycles.use_kernel(self.params):
+            # the library through the program cache (cycles.load)
+            cycles.load(self.cfg, self._compile_cache_log)
         if self.profiler is not None:
             self.profiler.chunk_begin(k)
         pre = None
@@ -1214,10 +1228,10 @@ class ServeBatch:
             "retirements": self.retirements,
             # the reference's program traces and cache loads: the port
             # builds one library for every chunk length, so `compiles`
-            # counts this process's nvcc builds and no persistent
-            # program cache is loaded from (ROADMAP item 16d)
+            # counts this process's nvcc builds and `cache_loads` its
+            # loads from the persistent program cache
             "compiles": cycles.BUILDS,
-            "cache_loads": 0,
+            "cache_loads": compilecache.cache_load_count(),
             "preempted": bool(self.preempted or self._preempt),
             "shutdown": self._shutdown,
             "members": members,
@@ -1272,8 +1286,9 @@ class ServeBatch:
                 for k in sizes:
                     self._scan(k)
                 self._sync_worlds()
-                self._log(f"warm: {cycles.BUILDS} nvcc build(s) in this "
-                          f"process")
+                self._log(f"warm: {cycles.BUILDS} nvcc build(s), "
+                          f"{compilecache.cache_load_count()} loaded from "
+                          f"the persistent compile cache")
             self._reconcile()
             self._publish(idle=not self._live())
             while not self._exit and not self._preempt:

@@ -1014,8 +1014,6 @@ class FleetOrchestrator:
         the spec routed it elsewhere."""
         env = dict(self._base_env)
         env.update(spec.get("env") or {})
-        # inert in the port: no child reads TPU_COMPILE_CACHE_DIR until
-        # the persistent program cache is ported (ROADMAP item 16d)
         env.setdefault("TPU_COMPILE_CACHE_DIR",
                        os.path.join(self.spool, "compile-cache"))
         return env
@@ -1603,10 +1601,9 @@ def format_fleet_status(spool: str, now: float | None = None) -> str:
         if runm is not None and (
                 "avida_compile_cache_hits_total" in runm
                 or "avida_compile_cache_misses_total" in runm):
-            # persistent-compile-cache column (the reference's
-            # utils/compilecache.py families in a child's heartbeat;
-            # the port's children publish none until ROADMAP item 16d):
-            # hits/misses and the milliseconds spent deserializing
+            # persistent-compile-cache column (utils/compilecache.py's
+            # families in a child's heartbeat): hits/misses and the
+            # milliseconds spent verifying and loading the library
             extra += (
                 "  cache "
                 f"{int(runm.get('avida_compile_cache_hits_total', 0))}h/"

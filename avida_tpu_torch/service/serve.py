@@ -55,7 +55,7 @@ NONSTATIC_VARS = frozenset((
     "TPU_SERVE_POLL_SEC", "TPU_SERVE_WARM",
     # the persistent program cache changes neither the update program's
     # semantics nor the trajectory (the reference's
-    # utils/compilecache.py; ROADMAP item 16d in the port) -- cache
+    # utils/compilecache.py, and the port's) -- cache
     # knobs must not split a batchability class
     "TPU_COMPILE_CACHE", "TPU_COMPILE_CACHE_DIR",
     # the integrity plane (digests + sampled shadow replay) is host-side

@@ -340,6 +340,7 @@ class World:
         already) and the fault plan (TPU_FAULT).  None of them changes
         the trajectory."""
         cfg = self.cfg
+        self._kernel_checked = False     # _load_kernel ran
         self.telemetry = None
         if int(cfg.get("TPU_TELEMETRY", 0)):
             from avida_tpu_torch.observability.runlog import \
@@ -924,6 +925,7 @@ class World:
         on every TPU_SCRUB_EVERY-th chunk, its shadow replay) follows."""
         if self.state is None:
             raise RuntimeError("no population injected")
+        self._load_kernel()
         if self.profiler is not None:
             self.profiler.chunk_begin(k)
         pre = None
@@ -1052,6 +1054,7 @@ class World:
         recorder and an update record lands in telemetry.jsonl."""
         tel = self.telemetry
         if tel is not None:
+            self._load_kernel()
             executed = tel.update(self)
             if self._revert_on:
                 with tel.timeline.phase("host_revert"):
@@ -1339,6 +1342,30 @@ class World:
     def _ckpt_base(self) -> str | None:
         d = str(self.cfg.get("TPU_CKPT_DIR", "-") or "-")
         return None if d in ("-", "") else d
+
+    def _load_kernel(self):
+        """Before this world's first update on the card's kernel route:
+        load the cycle library through the program cache with this
+        world's config, journaling through _compile_cache_log (cycles.
+        load: one decision per process, later worlds reuse it).  Under
+        telemetry the run log is opened first, so the events land in
+        telemetry.jsonl."""
+        if self._kernel_checked:
+            return
+        self._kernel_checked = True
+        if self.device.type != "cuda" or not cycles.use_kernel(self.params):
+            return
+        if self.telemetry is not None:
+            self.telemetry._ensure()
+        cycles.load(self.cfg, self._compile_cache_log)
+
+    def _compile_cache_log(self, **fields):
+        """Journal one program-cache action as a {"record": "event",
+        "event": "compile_cache"} runlog line: load / compile / store are
+        the warmth evidence; corrupt / stale / store_failed the loud
+        invalidation trail (utils/compilecache.py)."""
+        from avida_tpu_torch.observability.runlog import emit_event
+        emit_event(self, "compile_cache", **fields)
 
     def _install_preempt_handlers(self):
         """SIGTERM/SIGINT set a flag that run() checks at chunk

@@ -249,7 +249,19 @@ and persistence (native checkpoints in the reference's format):
                     arrivals, one cancel): warm hits and cold misses,
                     the cancelled tenant demoted alone, every other
                     one's final generation its solo run's; queue waits
-                    of hits against misses, each class child's K3b
+                    of hits against misses, each class child's K3b; the
+                    spool's program cache: the first class children
+                    build, a class child of a second orchestrator on the
+                    drained spool loads the entry (no build)
+  cache_path        the program cache, five fresh children of a 12x12
+                    K1-route world on one root: a miss (one nvcc build,
+                    an entry that verifies), a hit (no build), a flipped
+                    byte in the entry's library (corrupt, rebuilt), a
+                    rewritten nvcc release (stale, rebuilt) and
+                    TPU_COMPILE_CACHE=0 (the entry untouched, no cache
+                    family), every output byte for byte the miss's;
+                    cache_tool --verify 0, then 1 after the flip; build
+                    s, load ms, a hit child's start against a miss's
   scrub_path        TPU_SCRUB_EVERY=1 for 10 updates: every chunk's
                     shadow replay (the same kernel on the same planes)
                     equal to the live chunk
@@ -271,9 +283,9 @@ card, beside the card's phases: cpu_jobs; the card halves, and three
 micro-step paths that launch no kernel, in one worker process on the
 card, card_jobs, whose updates wait out this process's timed windows;
 once every kernel is held and timed, the CLI children -- fleet_path,
-serve_cli, serve_batch's solo runs, preempt_cli, supervise_path and the
-analyze runs -- take the card from five threads beside the remaining
-micro-step paths); the
+serve_cli, serve_batch's solo runs, preempt_cli, supervise_path, the
+analyze runs and cache_path -- take the card from six threads beside the
+remaining micro-step paths); the
 geometry phase holds
 both kernels to the plain version at the launch shapes the paths do not
 reach (B = 128, 256, and L = 1024; past the first port's limits the
@@ -3359,7 +3371,11 @@ def phase_fleet_path(tmp, smi, persist_gen, refs_job):
     `coalesce` of 2 worlds; no `xla_fallback`, the gauge 0; each final
     report on `cuda`, packed, with its own K1 (solo) or K3b (batch)
     launches; the final generations byte for byte persist_path's and the
-    batch members' solo runs'; `--status SPOOL` exit 0.  Times (host
+    batch members' solo runs'; `--status SPOOL` exit 0; the spool's
+    program cache (SPOOL/compile-cache) live: every boot builds or loads
+    the library once, the first boots build (a miss), later boots load
+    (at least one hit), nothing corrupt or stale, and the store verifies
+    (cache_tool --verify).  Times (host
     wall): the phase, each boot, the queue waits, the time to recover
     (the SIGKILL to the second orchestrator's first replay_resume and to
     the first resumed child's first heartbeat)."""
@@ -3473,11 +3489,14 @@ def phase_fleet_path(tmp, smi, persist_gen, refs_job):
     resumed_at = {r["job"]: r["time"] for r in recs
                   if r["event"] == "replay_resume"}
     restart = [r["time"] for r in recs if r["event"] == "fleet_start"]
-    reports, bad = {}, {}
+    reports, bad, cache = {}, {}, {}
     for name in FLEET_SOLO + FLEET_JOBS[2:3]:
         log = open(os.path.join(spool, name, "data",
                                 "supervised.log")).read()
         secs = boot_sections(log)
+        # each boot's program-cache actions (its compile_cache events)
+        cache[name] = [re.findall(r"compile_cache: action=(\w+)", sec)
+                       for sec in secs]
         n1 = sum(1 for s, _, _ in boots[name] if s < t_kill)
         first = secs[n1] if len(secs) > n1 else ""
         restored = re.findall(r"checkpoint_restored.*?update=(\d+)",
@@ -3530,43 +3549,58 @@ def phase_fleet_path(tmp, smi, persist_gen, refs_job):
                "device", "engine", "engine_report", "updates",
                "kernel_launches", "stacked_launches", "resumed_at",
                "first_resume", "boots")} for n, r in reports.items()},
+           "program_cache": cache,
+           "cache_verify_rc": cache_tool_rc(os.path.join(spool,
+                                                         "compile-cache")),
            "finals_equal": {n: not v for n, v in bad.items()},
            "differs": {n: v for n, v in bad.items() if v},
            "wall_s": time.perf_counter() - t_phase}
     k1 = [reports[n] for n in FLEET_SOLO]
+    actions = [a for boots_ in cache.values() for b in boots_ for a in b]
     kb = reports["f-b0"]
-    ok = (res.returncode == 0 and status.returncode == 0
-          and states == {n: "done" for n in FLEET_JOBS}
-          and out["done_gauge"] == 4 and out["xla_fallback_gauge"] == 0
-          and not any(e == "xla_fallback" for e, _ in events)
-          and out["most_live_children"] <= 2
-          and not out["double_spawns"]
-          and [c["worlds"] for c in out["coalesce"]] == [2]
-          and out["coalesce"][0]["members"] == ["f-b1"]
-          and sorted(out["orphans_killed"]) == sorted(FLEET_SOLO)
-          and all((events.index(("orphan_killed", n))
-                   < max(i for i, e in enumerate(events)
-                         if e == ("spawn", n))) for n in FLEET_SOLO)
-          and all(str(r.get("first_resume")) == str(newest[n])
-                  for n, r in zip(FLEET_SOLO, k1))
-          and all(str(r.get("device", "")).startswith("cuda")
-                  and (r.get("engine") or {}).get("engine") == "packed"
-                  and r.get("resumed_at") is not None
-                  and r.get("kernel_launches")
-                  == PERSIST_UPDATES - r["resumed_at"]
-                  and r.get("updates") == PERSIST_UPDATES for r in k1)
-          and str(kb.get("device", "")).startswith("cuda")
-          and kb.get("engine") == "packed-stacked"
-          and (kb.get("engine_report") or {}).get("engine") == "packed"
-          and kb.get("stacked_launches") == MW_UPDATES
-          and kb.get("kernel_launches") == MW_UPDATES
-          and kb.get("updates") == MW_UPDATES
-          and out["recover_to_heartbeat_s"] is not None
-          and not out["differs"])
-    if not ok:
+    # named, so that a failure names what failed at the end of its message
+    checks = {
+        "exit_codes": res.returncode == 0 and status.returncode == 0,
+        "all_done": states == {n: "done" for n in FLEET_JOBS}
+        and out["done_gauge"] == 4,
+        "no_xla_fallback": out["xla_fallback_gauge"] == 0
+        and not any(e == "xla_fallback" for e, _ in events),
+        "at_most_2_live": out["most_live_children"] <= 2,
+        "no_double_spawn": not out["double_spawns"],
+        "coalesce": [c["worlds"] for c in out["coalesce"]] == [2]
+        and out["coalesce"][0]["members"] == ["f-b1"],
+        "orphans_reaped": sorted(out["orphans_killed"]) == sorted(FLEET_SOLO)
+        and all((events.index(("orphan_killed", n))
+                 < max(i for i, e in enumerate(events)
+                       if e == ("spawn", n))) for n in FLEET_SOLO),
+        "resumed_from_newest": all(str(r.get("first_resume")) == str(newest[n])
+                                   for n, r in zip(FLEET_SOLO, k1)),
+        "solo_reports": all(
+            str(r.get("device", "")).startswith("cuda")
+            and (r.get("engine") or {}).get("engine") == "packed"
+            and r.get("resumed_at") is not None
+            and r.get("kernel_launches") == PERSIST_UPDATES - r["resumed_at"]
+            and r.get("updates") == PERSIST_UPDATES for r in k1),
+        "batch_report": str(kb.get("device", "")).startswith("cuda")
+        and kb.get("engine") == "packed-stacked"
+        and (kb.get("engine_report") or {}).get("engine") == "packed"
+        and kb.get("stacked_launches") == MW_UPDATES
+        and kb.get("kernel_launches") == MW_UPDATES
+        and kb.get("updates") == MW_UPDATES,
+        "heartbeat_after_recovery": out["recover_to_heartbeat_s"] is not None,
+        "one_library_a_boot": all(
+            len([a for a in b if a in ("load", "compile")]) <= 1
+            for boots_ in cache.values() for b in boots_),
+        "cache_miss_then_hit": "load" in actions and "compile" in actions
+        and set(actions) <= {"load", "compile", "store"},
+        "cache_verifies": out["cache_verify_rc"] == 0,
+        "finals_equal": not out["differs"]}
+    if not all(checks.values()):
         out["stderr"] = res.stderr.decode()[-3000:]
         out["status"] = status.stdout.decode()[-1500:]
         out["journal"] = events
+        out["program_cache"] = out.pop("program_cache")
+        out["failed_checks"] = [k for k, v in checks.items() if not v]
         raise AssertionError(f"fleet_path check failed: {out}")
     return out
 
@@ -3906,6 +3940,7 @@ def phase_serve_batch(tmp, smi, mw_packed):
 
 SERVE_CLI_UPDATES = 16        # the trace's 40, cut
 SERVE_CLI_SPEED = 1.0         # the trace's own pace
+SERVE_CLI_LATE = "t-late"     # the second orchestrator's tenant
 
 
 def serve_cli_trace():
@@ -3965,13 +4000,20 @@ def phase_serve_cli(tmp, smi, refs_job):
     fleet.prom; every done tenant's final generation byte for byte its
     solo run's (serve_cli_refs, made in the card worker); each class
     child on `cuda` with K3b launches and no nvcc build after its
-    warm-up (serve.json `compiles` flat).  Times (host wall): the
+    warm-up (serve.json `compiles` flat).  The spool's program cache
+    (SPOOL/compile-cache, the fleet's default) is live: the first class
+    children find it empty and build; once the first orchestrator has
+    drained, a second one on the same spool serves one late tenant (t000's
+    seed and arguments) from a class child it starts cold, which loads
+    the published library (serve.json `cache_loads` 1, `compiles` 0).
+    Each class child builds once or loads once.  Times (host wall): the
     phase, the queue wait of hits and misses (submission to placement,
-    and to the tenant's first heartbeat)."""
+    and to the tenant's first heartbeat), the late tenant's."""
     from avida_tpu_torch.observability import history
     from avida_tpu_torch.observability.exporter import read_metrics
     from avida_tpu_torch.observability.records import read_records
     from avida_tpu_torch.service.fleet import journal_states
+    from avida_tpu_torch.tools import fleet_tool
     from avida_tpu_torch.utils import checkpoint as ckpt_mod
     from avida_tpu_torch.utils import churntrace
     t_phase = time.perf_counter()
@@ -4025,6 +4067,18 @@ def phase_serve_cli(tmp, smi, refs_job):
         churntrace.replay(spool, [churntrace.ChurnEvent(
             0.0, "cancel", {"job": cancel.job}, cancel.text)], None)
         orch.wait(timeout=900)
+        # the first orchestrator's counters (the second rewrites the file)
+        prom = read_metrics(os.path.join(spool, "fleet.prom"))
+        # a second orchestrator on the drained spool: a class child
+        # started cold beside a warm store
+        seed0 = submits[0].args["seed"]
+        fleet_tool.submit(spool, SERVE_CLI_LATE,
+                          serve_cli_args(tmp, seed0), batch=True)
+        submitted[SERVE_CLI_LATE] = time.time()
+        late = subprocess.run(
+            [sys.executable, "-m", "avida_tpu_torch", "--fleet", spool,
+             "--dynamic", "--max-jobs", "2"], cwd=root, env=fleet_env(),
+            capture_output=True, timeout=600)
         status = subprocess.run(
             [sys.executable, "-m", "avida_tpu_torch", "--status", spool],
             cwd=root, env=fleet_env(), capture_output=True, timeout=120)
@@ -4035,11 +4089,11 @@ def phase_serve_cli(tmp, smi, refs_job):
                 orch.kill()
                 orch.wait()
         stop_fleet_children(spool)
-    refs = refs_job.result()
+    refs = dict(refs_job.result())
+    refs[SERVE_CLI_LATE] = refs[submits[0].job]
     recs = [r for r in read_records(jp) if r.get("record") == "fleet"]
     events_ = [(r["event"], r.get("job")) for r in recs]
     states = journal_states(jp)[0]
-    prom = read_metrics(os.path.join(spool, "fleet.prom"))
     placed = {r["job"]: (r["time"], r.get("cache"), r.get("leader"))
               for r in recs if r["event"] == "coalesced"}
     leaders = sorted(n for n in states if n.startswith("serve-"))
@@ -4065,8 +4119,13 @@ def phase_serve_cli(tmp, smi, refs_job):
             "device", "served", "retired", "boundaries", "width",
             "kernel_launches", "stacked_launches", "builds", "wall_s")}
         children[name].update(warm_builds=[int(x) for x in warm],
-                              serve_json_compiles=sj.get("compiles"))
-    done = [s.job for s in submits if s.job != cancel.job]
+                              serve_json_compiles=sj.get("compiles"),
+                              serve_json_cache_loads=sj.get("cache_loads"),
+                              cache_hits=rep.get("cache_hits"),
+                              cache_misses=rep.get("cache_misses"))
+    late_class = placed.get(SERVE_CLI_LATE, (0, 0, None))[2]
+    done = [s.job for s in submits if s.job != cancel.job] + [
+        SERVE_CLI_LATE]
     for job in done:
         final = os.path.join(spool, job, "ck",
                              ckpt_mod.generation_name(SERVE_CLI_UPDATES))
@@ -4078,8 +4137,8 @@ def phase_serve_cli(tmp, smi, refs_job):
     out = {"phase": "serve_cli", "nvidia_smi": smi,
            "world": f"{MW_SIDE}x{MW_SIDE} tenants, "
                     f"{SERVE_CLI_UPDATES} updates",
-           "exit_code": orch.returncode, "status_exit_code":
-           status.returncode, "states": states,
+           "exit_code": orch.returncode, "late_exit_code": late.returncode,
+           "status_exit_code": status.returncode, "states": states,
            "cache_hits": prom.get("avida_fleet_serve_cache_hits_total"),
            "cache_misses": prom.get("avida_fleet_serve_cache_misses_total"),
            "promotions": prom.get("avida_fleet_serve_promotions_total"),
@@ -4090,30 +4149,228 @@ def phase_serve_cli(tmp, smi, refs_job):
            "cancelled_at_update": cancelled_at,
            "cancelled_classmates": classmates,
            "queue_wait_s": waits, "children": children,
+           "late_class": late_class,
+           "program_cache": {n: {"builds": c["builds"],
+                                 "cache_loads": c["serve_json_cache_loads"]}
+                             for n, c in children.items()},
            "finals_equal": {n: not v for n, v in bad.items()},
            "differs": {n: v for n, v in bad.items() if v},
            "wall_s": time.perf_counter() - t_phase}
-    ok = (orch.returncode == 0 and status.returncode == 0
-          and all(states.get(j) == "done" for j in done)
-          and states.get(cancel.job) == "cancelled"
-          and all(states[n] == "done" for n in leaders)
-          and ("cancel_requested", cancel.job) in events_
-          and not any(e in ("requeued", "sdc") for e, _ in events_)
-          and [e for e, j in events_ if e == "cancelled"] == ["cancelled"]
-          and (out["cache_hits"] or 0) >= 1
-          and (out["cache_misses"] or 0) >= 1
-          and out["demotions"] == 1 and cancelled_at is not None
-          and all(str(c["device"] or "").startswith("cuda")
-                  and (c["stacked_launches"] or 0) > 0
-                  and c["warm_builds"] and c["warm_builds"][-1]
-                  == c["serve_json_compiles"] == c["builds"]
-                  for c in children.values())
-          and not out["differs"])
-    if not ok:
+    # named, so that a failure names what failed at the end of its message
+    checks = {
+        "exit_codes": orch.returncode == 0 and status.returncode == 0
+        and late.returncode == 0,
+        "states": all(states.get(j) == "done" for j in done)
+        and states.get(cancel.job) == "cancelled"
+        and all(states[n] == "done" for n in leaders),
+        "journal": ("cancel_requested", cancel.job) in events_
+        and not any(e in ("requeued", "sdc") for e, _ in events_)
+        and [e for e, j in events_ if e == "cancelled"] == ["cancelled"],
+        "cache_hit_and_miss": (out["cache_hits"] or 0) >= 1
+        and (out["cache_misses"] or 0) >= 1,
+        "one_demotion": out["demotions"] == 1 and cancelled_at is not None,
+        "children": all(
+            str(c["device"] or "").startswith("cuda")
+            and (c["stacked_launches"] or 0) > 0
+            and c["warm_builds"] and c["warm_builds"][-1]
+            == c["serve_json_compiles"] == c["builds"]
+            and (c["builds"], c["serve_json_cache_loads"]) in ((1, 0), (0, 1))
+            and c["cache_hits"] == c["serve_json_cache_loads"]
+            for c in children.values()),
+        "late_class_loads": late_class in children
+        and out["program_cache"][late_class] == {"builds": 0,
+                                                 "cache_loads": 1},
+        "finals_equal": not out["differs"]}
+    if not all(checks.values()):
         out["journal"] = events_
         out["status"] = status.stdout.decode()[-1500:]
         out["log"] = open(log.name).read()[-3000:]
+        out["late_stderr"] = late.stderr.decode()[-1500:]
+        out["program_cache"] = out.pop("program_cache")
+        out["failed_checks"] = [k for k, v in checks.items() if not v]
         raise AssertionError(f"serve_cli check failed: {out}")
+    return out
+
+
+# ---- slice 19: the program cache (utils/compilecache.py) ----
+
+CACHE_SIDE, CACHE_UPDATES = 12, 4      # cache_path's drill world
+CACHE_EVENTS = ["u begin InjectAll"] + [f"u 0:1:end {a}" for a in PRINTS[:4]]
+
+
+def cache_drill(tmp, root, tag, env_extra=None):
+    """One cache_path drill: a fresh `python -m avida_tpu_torch` child
+    (date line pinned) of the drill world -- CACHE_SIDE square, the
+    K1 route, CACHE_UPDATES updates, telemetry and TPU_METRICS on, a
+    final generation -- with its program cache at `root`.  Returns what
+    it did: exit code, report, the cache families of its metrics.prom,
+    its compile_cache events in telemetry.jsonl, the seconds from its
+    start to its first heartbeat, and its outputs (.dat bytes, final
+    generation)."""
+    from avida_tpu_torch.observability import history
+    from avida_tpu_torch.observability.exporter import read_metrics
+    data = os.path.join(tmp, f"cache_{tag}")
+    ck = os.path.join(tmp, f"cache_{tag}_ck")
+    args = ["-c", os.path.join(tmp, "cache_cfg"), "-s", "11",
+            "-set", "WORLD_X", str(CACHE_SIDE), "-set", "WORLD_Y",
+            str(CACHE_SIDE), "-set", "TPU_SYSTEMATICS", "0",
+            "-u", str(CACHE_UPDATES), "--telemetry",
+            "-set", "TPU_METRICS", "1", "-set", "TPU_COMPILE_CACHE_DIR", root,
+            "-set", "TPU_CKPT_DIR", ck, "-set", "TPU_CKPT_FINAL", "1",
+            "-d", data]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("TPU_COMPILE_CACHE", "TPU_COMPILE_CACHE_DIR")}
+    env.update(env_extra or {})
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-c", PINNED_MAIN] + args,
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.time() - t0
+    rep = last_report(res.stdout, '{"updates"')
+    prom = read_metrics(os.path.join(data, "metrics.prom")) or {}
+    fams = {k[len("avida_compile_cache_"):]: v for k, v in prom.items()
+            if k.startswith("avida_compile_cache_")}
+    events = [r for r in run_records(data, kinds=("event",))
+              if r.get("event") == "compile_cache"]
+    rows = history.read_samples(os.path.join(data, "metrics.hist.jsonl"))
+    dats = {f: open(os.path.join(data, f), "rb").read()
+            for f in sorted(os.listdir(data)) if f.endswith(".dat")}
+    from avida_tpu_torch.utils import checkpoint as ckpt_mod
+    return {"rc": res.returncode, "wall_s": wall,
+            "report": {k: rep.get(k) for k in ("updates", "organisms",
+                                              "insts", "device",
+                                              "kernel_launches")},
+            "cache": fams, "actions": [e.get("action") for e in events],
+            "errors": [e.get("error") for e in events if e.get("error")],
+            "build_s": (fams["compile_ms_total"] / 1000.0
+                        if fams.get("compile_ms_total") else None),
+            "load_ms": fams.get("load_ms_total") if fams.get(
+                "hits_total") else None,
+            "first_heartbeat_s": (rows[0]["time"] - t0 if rows else None),
+            "dats": dats,
+            "final": os.path.join(ck, ckpt_mod.generation_name(
+                CACHE_UPDATES)),
+            "stderr": res.stderr[-1500:]}
+
+
+def cache_tool_rc(root):
+    """`python -m avida_tpu_torch.tools.cache_tool ROOT --verify`'s exit
+    code (the CRC sweep, no torch)."""
+    return subprocess.run(
+        [sys.executable, "-m", "avida_tpu_torch.tools.cache_tool", root,
+         "--verify"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, timeout=120).returncode
+
+
+def phase_cache_path(tmp, smi):
+    """The program cache, five drills, each a fresh child process on a
+    fresh root (the library is loaded once a process): (1) a miss, one
+    nvcc build and an entry that verifies; (2) a hit, no build, output
+    byte for byte drill 1's; (3) one byte of the entry's libcycles.so
+    flipped: a `corrupt` event in telemetry.jsonl, errors 1, a rebuild,
+    an entry that verifies again, the same output; (4) the manifest's
+    nvcc release rewritten: `stale`, a rebuild, the same output; (5)
+    TPU_COMPILE_CACHE=0: the entry untouched (mtime and CRC), no
+    avida_compile_cache_* family, the same output.  cache_tool --verify
+    exits 0 after drill 2 and 1 after the flip.  Prints each drill's
+    build s, load ms and seconds to its first heartbeat, and a hit
+    child's start beside a miss child's."""
+    import zlib
+
+    from avida_tpu_torch.utils import compilecache as cc
+    from avida_tpu_torch.ops import cycles
+    t_phase = time.perf_counter()
+    cdir = write_config_dir(os.path.join(tmp, "cache_cfg"))
+    with open(os.path.join(cdir, "events.cfg"), "w") as f:
+        f.write("\n".join(CACHE_EVENTS) + "\n")
+    root = os.path.join(tmp, "cache_root")
+    entry = cc.entry_path(root, cycles.source_digest())
+    lib = os.path.join(entry, cc.LIB_FILE)
+    mpath = os.path.join(entry, cc.MANIFEST)
+
+    def entry_state():
+        with open(lib, "rb") as f:
+            crc = zlib.crc32(f.read())
+        return os.path.getmtime(entry), crc
+
+    drills, rcs = {}, {}
+    drills["miss"] = cache_drill(tmp, root, "miss")
+    drills["hit"] = cache_drill(tmp, root, "hit")
+    rcs["after_hit"] = cache_tool_rc(root)
+    with open(lib, "r+b") as f:
+        f.seek(4096)
+        b = f.read(1)
+        f.seek(4096)
+        f.write(bytes([b[0] ^ 0x01]))
+    rcs["after_flip"] = cache_tool_rc(root)
+    drills["corrupt"] = cache_drill(tmp, root, "corrupt")
+    rcs["after_rebuild"] = cache_tool_rc(root)
+    with open(mpath) as f:
+        m = json.load(f)
+    release = m["nvcc"]
+    m["nvcc"] = "release 0.0, V0.0.0"
+    with open(mpath, "w") as f:
+        json.dump(m, f)
+    drills["stale"] = cache_drill(tmp, root, "stale")
+    with open(mpath) as f:
+        nvcc_after = json.load(f)["nvcc"]
+    before = entry_state()
+    drills["off"] = cache_drill(tmp, root, "off", {"TPU_COMPILE_CACHE": "0"})
+    after = entry_state()
+    ref = drills["miss"]
+    differs = {}
+    for name, d in drills.items():
+        bad = [] if name == "miss" else (
+            generation_arrays_equal(ref["final"], d["final"])
+            if os.path.isdir(d["final"]) else ["no final generation"])
+        if d["dats"] != ref["dats"] or not d["dats"]:
+            bad.append(".dat files")
+        if d["report"] != ref["report"]:
+            bad.append("report")
+        if bad:
+            differs[name] = bad
+    want = {"miss": (["compile", "store"], (0, 1, 0)),
+            "hit": (["load"], (1, 0, 0)),
+            "corrupt": (["corrupt", "compile", "store"], (0, 1, 1)),
+            "stale": (["stale", "compile", "store"], (0, 1, 1)),
+            "off": ([], None)}
+    got = {n: (d["actions"], None if not d["cache"] else tuple(
+        int(d["cache"].get(k, -1)) for k in ("hits_total", "misses_total",
+                                             "errors_total")))
+           for n, d in drills.items()}
+    out = {"phase": "cache_path", "nvidia_smi": smi,
+           "world": f"{CACHE_SIDE}x{CACHE_SIDE}, {CACHE_UPDATES} updates, "
+                    f"telemetry",
+           "entry": os.path.relpath(entry, tmp),
+           "drills": {n: {k: d[k] for k in (
+               "rc", "wall_s", "build_s", "load_ms", "first_heartbeat_s",
+               "actions", "cache", "report")} for n, d in drills.items()},
+           "errors": {n: d["errors"] for n, d in drills.items()
+                      if d["errors"]},
+           "cache_tool_verify_rc": rcs,
+           "stale_release": release, "release_after_rebuild": nvcc_after,
+           "off_left_entry": before == after,
+           "hit_start_s": drills["hit"]["first_heartbeat_s"],
+           "miss_start_s": drills["miss"]["first_heartbeat_s"],
+           "start_saved_s": (None if None in (
+               drills["hit"]["first_heartbeat_s"],
+               drills["miss"]["first_heartbeat_s"]) else
+               drills["miss"]["first_heartbeat_s"]
+               - drills["hit"]["first_heartbeat_s"]),
+           "differs": differs,
+           "wall_s": time.perf_counter() - t_phase}
+    ok = (all(d["rc"] == 0 and str(d["report"]["device"]).startswith("cuda")
+              and (d["report"]["kernel_launches"] or 0) > 0
+              for d in drills.values())
+          and got == want
+          and rcs == {"after_hit": 0, "after_flip": 1, "after_rebuild": 0}
+          and nvcc_after == release and before == after
+          and not differs)
+    if not ok:
+        out["got"] = got
+        out["stderr"] = {n: d["stderr"] for n, d in drills.items()}
+        raise AssertionError(f"cache_path check failed: {out}")
     return out
 
 
@@ -6053,13 +6310,18 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.perf_counter()
     lib = cycles.build()
+    # through the program cache at its default root: a hit when an entry
+    # of these sources verifies, else a build that publishes one (the
+    # CLI children below then load it)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "cache": cycles.CACHE_ACTION,
+          "entry": os.path.relpath(os.path.dirname(lib)),
           "library": os.path.relpath(lib), "flags": list(cycles.NVCC_FLAGS),
           "resources": cycles.resources()})
 
     from concurrent.futures import ThreadPoolExecutor
     with tempfile.TemporaryDirectory() as tmp, cpu_jobs() as pool, \
-            card_jobs() as card, ThreadPoolExecutor(5) as kids:
+            card_jobs() as card, ThreadPoolExecutor(6) as kids:
         stamp_submits(kids)
         # the CPU halves of the cross-device phases run in the workers
         # beside the card's phases, queued in the order the phases need
@@ -6217,11 +6479,13 @@ def main() -> int:
         telk = phase_kernel(wtel, n_launch=1)
         del wtel
         # every kernel is held and timed: from here the CLI children (the
-        # analyze and analytics runs, the serving fleet and serve_batch's
-        # solo runs, then the fleet, the preempted and the supervised
-        # run) take the card from five threads beside this process's
-        # persistence phases and two micro-step paths
-        kid = {"analytics": kids.submit(analytics_side, tmp, ana_ck, "cuda"),
+        # program cache's drills, the analyze and analytics runs, the
+        # serving fleet and serve_batch's solo runs, then the fleet, the
+        # preempted and the supervised run) take the card from six
+        # threads beside this process's persistence phases and two
+        # micro-step paths
+        kid = {"cache_path": kids.submit(phase_cache_path, tmp, smi),
+               "analytics": kids.submit(analytics_side, tmp, ana_ck, "cuda"),
                "analyze": kids.submit(analyze_side, tmp, "cuda"),
                "serve_cli": kids.submit(phase_serve_cli, tmp, smi,
                                         cards["serve_cli_refs"]),
@@ -6280,6 +6544,7 @@ def main() -> int:
         emit(card_half(kid["supervise"], phase_supervise_path))
         emit(card_half(kid["fleet"], phase_fleet_path))
         emit(card_half(kid["serve_cli"], phase_serve_cli))
+        emit(card_half(kid["cache_path"], phase_cache_path))
         emit(phase_analyze_cross_device(tmp, smi, jobs["analyze"],
                                         card_job=kid["analyze"]))
         emit(phase_analytics_cli(tmp, smi, ana_ck, jobs["analytics"],

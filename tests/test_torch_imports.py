@@ -74,7 +74,14 @@ assert {"avida_tpu_torch.systematics",
         "avida_tpu_torch.service.fleet",
         "avida_tpu_torch.service.serve",
         "avida_tpu_torch.tools.fleet_tool",
-        "avida_tpu_torch.utils.churntrace"} <= set(names), names
+        "avida_tpu_torch.utils.churntrace",
+        "avida_tpu_torch.utils.compilecache",
+        "avida_tpu_torch.observability.events",
+        "avida_tpu_torch.observability.perfread",
+        "avida_tpu_torch.tools.cache_tool",
+        "avida_tpu_torch.tools.trace_tool",
+        "avida_tpu_torch.tools.perf_tool",
+        "avida_tpu_torch.tools.analyze_tool"} <= set(names), names
 """
 
 # a checkpointed run and its resume end to end (a 4x4 world, 2 + 2

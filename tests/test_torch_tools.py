@@ -4,7 +4,8 @@ directories the port wrote (a torn manifest, a corrupted leaf, a digest
 that no longer recomputes, `.bad-*` / `.tmp-*` / `.old-*` debris), and
 `avida_tpu_torch.tools.metrics_tool` and scripts/metrics_tool.py on the
 history rings of a port run and of a supervised run; neither port tool
-loading torch.
+loading torch, nor cache_tool and perf_tool run beside them
+(test_torch_run_tools.py holds those to the reference).
 
 Inputs: a 4x4 port world (RANDOM_SEED 3, systematics on, TPU_STATE_DIGEST
 1) saving every 2 updates to 8, keeping every generation; its
@@ -242,6 +243,15 @@ try:
     runpy.run_module("avida_tpu_torch.tools.ckpt_tool", run_name="__main__")
 except SystemExit as e:
     assert e.code == 0, e.code
+for argv in (["cache_tool", {ck!r}, "--prune", "--all"],
+             ["perf_tool", "diff", "BENCH_r01.json", "BENCH_r02.json",
+              "--force"]):
+    sys.argv = argv
+    try:
+        runpy.run_module("avida_tpu_torch.tools." + argv[0],
+                         run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, (argv, e.code)
 print("TORCH", "torch" in sys.modules)
 """
 
